@@ -1,0 +1,40 @@
+"""Architecture registry of the port.
+
+Each module defines ``config() -> ModelConfig`` with the same numbers as
+the reference's module of the same name.  This slice of the port carries
+the dense-family configs; the other families come with their slices
+(ROADMAP.md queue 1, models off the main path).
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.config import ModelConfig
+
+_ARCH_MODULES = {
+    "tinyllama-1.1b": "tinyllama_1_1b",
+    # the paper's own evaluation model
+    "paper-llama2-7b": "paper_llama2_7b",
+}
+
+_cache: Dict[str, ModelConfig] = {}
+
+
+def get_config(name: str) -> ModelConfig:
+    """The ``ModelConfig`` of arch ``name``; raises ``KeyError`` for an
+    arch this slice of the port does not carry."""
+    if name not in _cache:
+        if name not in _ARCH_MODULES:
+            raise KeyError(
+                f"unknown arch {name!r} for the port; ported so far: "
+                f"{sorted(_ARCH_MODULES)}")
+        mod = importlib.import_module(
+            f"repro_torch.configs.{_ARCH_MODULES[name]}")
+        _cache[name] = mod.config()
+    return _cache[name]
+
+
+def list_archs() -> List[str]:
+    """Arch ids the port carries."""
+    return list(_ARCH_MODULES)

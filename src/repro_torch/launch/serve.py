@@ -1,0 +1,145 @@
+"""Serving CLI of the port: calibrate, compress with KQ-SVD, serve requests.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+      --method kqsvd --requests 8
+
+The flags are the reference CLI's (``python -m repro.launch.serve``).
+This slice serves the dense-slot cache with exact-length prefill; a flag
+that asks for a path it does not have yet (paged pages, chunked prefill,
+token budget, shards, quantized pages, split-KV, preemption and its
+priorities, prefix sharing, audits, chaos) stops the run with an error
+naming it.  Runs on the CUDA device unless ``--device`` says otherwise.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.config import CompressionConfig, ServeConfig
+from repro_torch.configs import get_config
+from repro_torch.core.calibration import calibrate_model
+from repro_torch.core.compressed import cache_footprint
+from repro_torch.data import calibration_batches
+from repro_torch.models import build_model
+from repro_torch.serving import Request, ServingEngine
+
+# flags of the reference CLI whose paths later slices bring (priority
+# only orders preemption there); refused when given
+_NOT_PORTED = (
+    "paged", "page-size", "n-pages", "shards", "cache-quant",
+    "decode-splits", "prefill-chunk", "prefill-buckets",
+    "max-batched-tokens", "admission", "preempt-mode", "watermark-high",
+    "watermark-low", "admit-window", "share-prefix",
+    "prefix-index-capacity", "priority", "audit", "chaos-seed",
+    "chaos-rate",
+)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The reference CLI's flags plus ``--device``."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--method", default="kqsvd",
+                    choices=["none", "ksvd", "eigen", "kqsvd"])
+    ap.add_argument("--epsilon", type=float, default=0.1)
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16,
+                    help="max prompt length; requests draw mixed lengths "
+                         "in [4, prompt-len] (continuous batching)")
+    ap.add_argument("--max-new-tokens", type=int, default=16)
+    ap.add_argument("--decode-chunk", type=int, default=8,
+                    help="tokens per fused decode chunk (one host sync)")
+    ap.add_argument("--calib-seqs", type=int, default=8)
+    ap.add_argument("--calib-len", type=int, default=64)
+    ap.add_argument("--shared-frac", type=float, default=0.0,
+                    help="fraction of each prompt drawn from one common "
+                         "prefix")
+    ap.add_argument("--deadline-steps", type=int, default=0,
+                    help="per-request total step budget; 0 = unbounded")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the "
+                         "plain PyTorch versions of the kernels)")
+    for flag in _NOT_PORTED:
+        ap.add_argument("--" + flag, nargs="?", const=True, default=None,
+                        help="not ported yet")
+    args = ap.parse_args(argv)
+    asked = ["--" + f for f in _NOT_PORTED
+             if getattr(args, f.replace("-", "_")) is not None]
+    if asked:
+        ap.error(f"{', '.join(asked)}: not ported yet (this slice serves "
+                 f"the dense-slot cache; see ROADMAP.md queue 1)")
+    return args
+
+
+def main(argv=None) -> None:
+    """Calibrate + compress an arch, then drain a synthetic request batch
+    through the serving engine and print the outcome."""
+    args = parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = build_model(cfg, args.device)
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(0)
+    params = model.init(gen)
+
+    proj = None
+    if args.method != "none":
+        calib = calibration_batches(cfg.vocab_size, args.calib_seqs,
+                                    args.calib_len, batch=4)
+        ccfg = CompressionConfig(method=args.method, epsilon=args.epsilon)
+        proj = calibrate_model(model, params, calib, ccfg)
+        fp = cache_footprint(cfg.n_kv_heads, cfg.d_head, proj.rank_k,
+                             proj.rank_v)
+        print(f"calibrated {args.method}: ranks k={proj.ranks_k} "
+              f"v={proj.ranks_v}; cache ratio {fp.ratio:.3f}")
+
+    T = args.prompt_len + args.max_new_tokens + 8
+    sc = ServeConfig(max_seq_len=T, max_batch=8,
+                     decode_chunk=args.decode_chunk)
+    eng = ServingEngine(cfg, params, sc, projections=proj,
+                        device=model.device)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(min(4, args.prompt_len), args.prompt_len + 1,
+                        args.requests)
+    common = rng.integers(0, cfg.vocab_size,
+                          max(int(lens.max()), 1)).astype(np.int32)
+
+    def mk_prompt(i):
+        n = int(lens[i])
+        n_common = min(int(round(args.shared_frac * n)), n - 1)
+        tail = rng.integers(0, cfg.vocab_size, n - n_common)
+        return np.concatenate([common[:n_common], tail.astype(np.int32)])
+
+    reqs = [Request(rid=i, prompt=mk_prompt(i),
+                    max_new_tokens=args.max_new_tokens,
+                    deadline_steps=args.deadline_steps or None)
+            for i in range(args.requests)]
+    t0 = time.perf_counter()
+    eng.generate(reqs)
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        note = "  [truncated]" if r.truncated else ""
+        if r.failed:
+            note = (f"  [failed: {r.error.kind} @ step {r.error.step}"
+                    + (f" — {r.error.detail}" if r.error.detail else "")
+                    + "]")
+        print(f"req {r.rid} (prompt {len(r.prompt):3d}): "
+              f"{r.out_tokens}{note}")
+    print(f"capacity gain vs full cache: {eng.capacity_gain():.2f}x")
+    if eng.n_failed:
+        kinds = ", ".join(f"{k}={n}" for k, n in eng.error_counts.items()
+                          if n)
+        print(f"failures: {eng.n_failed} ({kinds})")
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    print(f"device {model.device}: {n_tok} tokens in {wall:.3f} s "
+          f"(prefill {eng.prefill_seconds:.3f} s, decode "
+          f"{eng.decode_seconds:.3f} s over {eng.n_decode_steps} steps)")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,157 @@
+"""The language model: embed -> blocks -> norm -> head, in PyTorch.
+
+Torch counterpart of ``repro.models.model.LM`` for the dense family.
+Parameters are a plain dict of tensors on the model's device:
+
+    {"embed": (V, D), "final_norm": (D,), "lm_head": (D, V),
+     "layers": [layer dict, ...]}            (see ``blocks``)
+
+which is the reference's pytree with its stacked ``steps`` unstacked into
+a list (``repro_torch.bridge`` converts one into the other).  Caches and
+runtime projections are lists with one dict per layer.
+
+Public entry points:
+    init(gen)                                   -> params
+    prefill(params, batch, max_len, proj)       -> (logits, cache)
+    decode_step(params, cache, tokens, pos, proj) -> (logits, cache)
+        (pos: per-sequence (B,) positions; scalars broadcast; the cache
+        is updated in place and returned)
+    calibrate(params, tokens)                   -> per-layer host captures
+    group_output_weights(params)                -> stacked W^O per kv group
+
+The model runs on ``torch.device("cuda")`` unless it is given another
+device; with no device and no GPU it raises.  Logits are float32.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.blocks import apply_layer, init_layer, step_layout
+from repro_torch.models.layers import dtype_of, init_rms, rms_norm
+
+
+class LM:
+    """The language model: layer stack + embed/head, with prefill, decode
+    and calibration entry points."""
+
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = dtype_of(cfg.dtype)
+        step_layout(cfg)            # raises for families not ported yet
+        self.attn_layers = list(range(cfg.n_layers))
+
+    # -- init ---------------------------------------------------------------
+
+    def init(self, gen: torch.Generator) -> Dict[str, Any]:
+        """Init all parameters from ``gen``; the draws happen on the
+        generator's device and the tensors land on the model's."""
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+        embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                            device=gen.device) * 0.02
+        params: Dict[str, Any] = {
+            "embed": embed.to(device=dev, dtype=dt),
+            "final_norm": init_rms(cfg.d_model, dt, dev),
+        }
+        if not cfg.tie_embeddings:
+            head = torch.randn((cfg.d_model, cfg.vocab_size), generator=gen,
+                               device=gen.device) / np.sqrt(cfg.d_model)
+            params["lm_head"] = head.to(device=dev, dtype=dt)
+        params["layers"] = [init_layer(gen, cfg, i, dt, dev)
+                            for i in range(cfg.n_layers)]
+        return params
+
+    # -- embedding / head ----------------------------------------------------
+
+    def _tokens(self, batch) -> torch.Tensor:
+        tokens = batch["tokens"] if isinstance(batch, dict) else batch
+        return torch.as_tensor(tokens, device=self.device).long()
+
+    def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
+        head = (params["embed"].T if self.cfg.tie_embeddings
+                else params["lm_head"])
+        return x.float() @ head.float()
+
+    def _run_stack(self, params, x, mode, cache=None, pos=None, proj=None,
+                   max_len: int = 0):
+        caches, captures = [], []
+        for i, lp in enumerate(params["layers"]):
+            x, nc, caps = apply_layer(
+                lp, x, self.cfg, mode,
+                cache[i] if cache is not None else None, pos,
+                proj[i] if proj is not None else None, max_len)
+            caches.append(nc)
+            if caps is not None:
+                captures.append(caps)
+        return x, caches, captures
+
+    # -- public entry points -------------------------------------------------
+
+    def prefill(self, params, batch, max_len: int, proj=None):
+        """Full-prompt prefill: last-token logits (B, 1, V) + a populated
+        cache of length ``max_len``."""
+        x = params["embed"][self._tokens(batch)]
+        x, cache, _ = self._run_stack(params, x, "prefill", proj=proj,
+                                      max_len=max_len)
+        x = rms_norm(x[:, -1:], params["final_norm"], self.cfg.rms_eps)
+        return self._logits(params, x), cache
+
+    def decode_step(self, params, cache, tokens, pos, proj=None):
+        """tokens: (B, 1); pos: (B,) index of each new token (a scalar
+        broadcasts).  Returns logits (B, 1, V) and ``cache``, updated in
+        place."""
+        tokens = self._tokens(tokens)
+        pos = attn_mod.batched_positions(pos, tokens.shape[0], self.device)
+        x = params["embed"][tokens]
+        x, cache, _ = self._run_stack(params, x, "decode", cache=cache,
+                                      pos=pos, proj=proj)
+        x = rms_norm(x, params["final_norm"], self.cfg.rms_eps)
+        return self._logits(params, x), cache
+
+    def calibrate(self, params, tokens) -> List[Dict[str, np.ndarray]]:
+        """Per-layer post-RoPE captures ``{"k", "q", "v"}`` as host float32
+        numpy arrays (``GramAccumulator.update`` takes host arrays)."""
+        x = params["embed"][self._tokens(tokens)]
+        _, _, captures = self._run_stack(params, x, "calibrate")
+        return [{name: t.detach().float().cpu().numpy()
+                 for name, t in cap.items()} for cap in captures]
+
+    def group_output_weights(self, params) -> List[np.ndarray]:
+        """Stacked per-group output weights for the value-path solve."""
+        return [attn_mod.group_output_weights(lp["attn"], self.cfg)
+                for lp in params["layers"]]
+
+    # -- caches & projections ------------------------------------------------
+
+    def init_cache(self, batch: int, max_len: int,
+                   ranks: Tuple[int, int] = (0, 0), dtype=None
+                   ) -> List[Dict[str, torch.Tensor]]:
+        """Empty dense decode cache, one dict per layer."""
+        return [attn_mod.make_attn_cache(self.cfg, batch, max_len, ranks,
+                                         dtype or self.dtype, self.device)
+                for _ in self.attn_layers]
+
+    def projections_pytree(self, mp, dtype=None
+                           ) -> List[Dict[str, torch.Tensor]]:
+        """Solved ``ModelProjections`` -> runtime projections: one dict of
+        ``a_k``/``b_q``[/``a_v``/``c_v``] tensors per layer."""
+        dtype = dtype or self.dtype
+        arrays = {"a_k": mp.a_k, "b_q": mp.b_q}
+        if mp.a_v is not None:
+            arrays["a_v"] = mp.a_v
+            arrays["c_v"] = mp.c_v
+        return [{k: torch.as_tensor(np.asarray(v[i]), dtype=dtype,
+                                    device=self.device)
+                 for k, v in arrays.items()}
+                for i in range(len(self.attn_layers))]
+
+
+def build_model(cfg: ModelConfig, device: DeviceLike = None) -> LM:
+    """An ``LM`` for ``cfg`` on ``device`` (default: CUDA)."""
+    return LM(cfg, device)

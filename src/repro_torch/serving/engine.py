@@ -1,0 +1,454 @@
+"""Continuous-batching serving engine over the dense-slot cache.
+
+Torch counterpart of the dense path of ``repro.serving.engine``
+(``ServeConfig.paged=False``, exact-length prefill), on one CUDA device:
+
+* the batched cache is allocated once, one ``max_seq_len`` lane per
+  slot; ``step()`` admits pending requests into free slots (each
+  prefilled alone at its exact prompt length and copied into its slot),
+  runs one fused decode chunk over the live slots and harvests finished
+  ones, then refills the freed slots in the same step;
+* a decode chunk is ``decode_chunk`` iterations of sampling, EOS /
+  ``max_new_tokens`` / truncation masking and per-slot positions, all on
+  the device; the host syncs once per chunk, when it reads back the
+  sampled tokens, the masks and a finiteness flag per slot.  The host
+  knows from the same read-back how many of the chunk's iterations can
+  still have a live slot, and runs the model only for those (the
+  reference's ``lax.cond`` skip, decided without a sync);
+* every sequence carries its own position, and with KQ-SVD projections
+  the decode attention runs in the K3 kernel over the compressed cache.
+
+Failure semantics follow the reference: a request fails with a
+structured ``RequestError`` (deadlines, ``cancel``, non-finite logits)
+and the rest of the batch keeps serving; a ``stall_steps`` watchdog
+raises ``EngineStalledError`` instead of spinning.  Serving features of
+later slices (paged pages, chunked prefill, token budget, shards,
+quantized pages, audits, fault injection) raise ``NotImplementedError``
+at construction.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig, ServeConfig
+from repro_torch.core.calibration import ModelProjections
+from repro_torch.core.compressed import cache_footprint
+from repro_torch.device import DeviceLike
+from repro_torch.models.model import build_model
+
+# the structured failure taxonomy: every terminal non-success outcome of
+# a request is exactly one of these
+ERROR_KINDS = ("oversize", "deadline", "pool_exhausted", "swap_failed",
+               "numerics", "cancelled")
+
+# ServeConfig features that belong to later slices of the port, with the
+# ROADMAP.md queue-1 item that brings each
+_LATER = (
+    ("paged", lambda sc: sc.paged, "item 5 (paged store)"),
+    ("chunked_prefill", lambda sc: sc.chunked_prefill,
+     "item 5 (chunked prefill)"),
+    ("max_num_batched_tokens", lambda sc: sc.max_num_batched_tokens > 0,
+     "item 6 (token-budget scheduler)"),
+    ("audit", lambda sc: sc.audit, "item 6 (invariant audits)"),
+    ("chaos_seed", lambda sc: sc.chaos_seed is not None,
+     "item 6 (fault injection)"),
+    ("cache_quant", lambda sc: sc.cache_quant != "none",
+     "item 8 (page layouts)"),
+    ("shards", lambda sc: sc.shards > 1, "item 12 (sharded engine)"),
+)
+
+
+@dataclasses.dataclass
+class RequestError:
+    """Why a request terminally failed (``Request.error``); ``kind`` is
+    one of ``ERROR_KINDS``."""
+    kind: str
+    detail: str = ""
+    step: int = -1                     # engine step of the failure
+
+    def __post_init__(self) -> None:
+        if self.kind not in ERROR_KINDS:
+            raise ValueError(f"unknown error kind {self.kind!r} "
+                             f"(known: {ERROR_KINDS})")
+
+
+class EngineStalledError(RuntimeError):
+    """``step()`` made no scheduling progress for ``stall_steps``
+    consecutive iterations; carries a scheduler-state dump."""
+
+    def __init__(self, n_steps: int, dump: str):
+        self.n_steps = n_steps
+        self.dump = dump
+        super().__init__(
+            f"engine made no scheduling progress for {n_steps} "
+            f"consecutive steps (no new tokens, no completions)\n{dump}")
+
+
+@dataclasses.dataclass(eq=False)
+class Request:
+    """One generation request, mutated in place as it is served:
+    ``out_tokens`` accumulates generated ids; afterwards ``done`` holds
+    (optionally ``truncated``), or ``failed`` with ``error`` set."""
+    rid: int
+    prompt: np.ndarray                 # (S,) int32
+    max_new_tokens: int = 16
+    deadline_steps: Optional[int] = None
+    ttft_deadline_steps: Optional[int] = None
+    out_tokens: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    truncated: bool = False            # hit max_seq_len before max_new_tokens
+    error: Optional[RequestError] = None
+
+    @property
+    def failed(self) -> bool:
+        """Terminal failure of any kind (``error`` holds the cause)."""
+        return self.error is not None
+
+
+def sample_token(logits: torch.Tensor, temperature: float,
+                 gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Next-token ids (B,) from (B, V) logits: greedy argmax at
+    ``temperature <= 0``, else a temperature-scaled categorical draw from
+    ``gen``."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=gen)[:, 0]
+
+
+class ServingEngine:
+    """Continuous-batching serving engine over dense slots (see the
+    module docstring).
+
+    ``start(requests)`` allocates the cache and slot state, ``step()``
+    advances one scheduling iteration, ``generate`` is the
+    start-and-drain loop and ``cancel(rid)`` unwinds one request.
+    Counters: ``n_completed``, ``n_failed``, ``error_counts``,
+    ``n_decode_steps`` (model decode steps run), ``n_prefill_tokens`` and
+    the wall seconds spent in prefill (``prefill_seconds``, which ends
+    each admission with a device sync) and in decode chunks
+    (``decode_seconds``)."""
+
+    def __init__(self, cfg: ModelConfig, params, sc: ServeConfig,
+                 projections: Optional[ModelProjections] = None,
+                 device: DeviceLike = None):
+        later = [f"{name} (ROADMAP.md queue 1 {item})"
+                 for name, asks, item in _LATER if asks(sc)]
+        if later:
+            raise NotImplementedError(
+                "this slice of the port serves the dense-slot cache only; "
+                "not yet ported: " + ", ".join(later))
+        self.cfg = cfg
+        self.sc = sc
+        self.model = build_model(cfg, device)
+        self.device = self.model.device
+        if params["embed"].device != self.device:
+            raise ValueError(f"params live on {params['embed'].device}, "
+                             f"the engine on {self.device}")
+        self.params = params
+        self.proj = (self.model.projections_pytree(projections)
+                     if projections is not None else None)
+        self.ranks = ((projections.rank_k, projections.rank_v)
+                      if projections is not None else (0, 0))
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(sc.seed)
+        self._started = False
+
+    # -- capacity accounting --------------------------------------------------
+
+    def capacity_gain(self) -> float:
+        """How many x more sequences fit in the same cache memory."""
+        if self.ranks[0] == 0:
+            return 1.0
+        fp = cache_footprint(self.cfg.n_kv_heads, self.cfg.d_head,
+                             *self.ranks)
+        return 1.0 / fp.ratio
+
+    # -- serving ------------------------------------------------------------
+
+    def start(self, requests: List[Request]) -> None:
+        """Allocate the dense cache and per-slot state for ``requests``;
+        ``step()`` then serves them."""
+        sc = self.sc
+        B, T = sc.max_batch, sc.max_seq_len
+        for r in requests:
+            if len(r.prompt) > T:
+                raise ValueError(f"request {r.rid}: prompt length "
+                                 f"{len(r.prompt)} exceeds max_seq_len {T}")
+        self._pending: List[Request] = list(requests)
+        self._all_requests: List[Request] = list(requests)
+        self._cache = self.model.init_cache(B, T, self.ranks)
+        self._step_count = 0
+        self._no_progress = 0
+        self._progress = False
+        self.n_completed = 0
+        self.n_failed = 0
+        self.error_counts: Dict[str, int] = {k: 0 for k in ERROR_KINDS}
+        self.n_decode_steps = 0
+        self.n_prefill_tokens = 0
+        self.prefill_seconds = 0.0
+        self.decode_seconds = 0.0
+        # per-slot decode state: host arrays between chunks, device
+        # tensors inside one; next-token logits stay on the device
+        self._logits = torch.zeros((B, self.cfg.vocab_size),
+                                   dtype=torch.float32, device=self.device)
+        self._pos = np.zeros(B, np.int64)
+        self._emitted = np.zeros(B, np.int64)
+        self._max_new = np.zeros(B, np.int64)
+        self._done = np.ones(B, bool)
+        self._trunc = np.zeros(B, bool)
+        self._slot_req: List[Optional[Request]] = [None] * B
+        self._slot_prompt: List[Optional[np.ndarray]] = [None] * B
+        self._started = True
+
+    def _busy(self) -> bool:
+        return bool(self._pending
+                    or any(r is not None for r in self._slot_req))
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- failure semantics --------------------------------------------------
+
+    def _fail_request(self, r: Request, kind: str, detail: str = "") -> None:
+        """Terminally fail ``r`` and unwind it from the pending queue or
+        its slot; the rest of the batch is untouched."""
+        r.error = RequestError(kind=kind, detail=detail,
+                               step=self._step_count)
+        r.done = True
+        self.n_failed += 1
+        self.error_counts[kind] += 1
+        self._progress = True
+        self._pending = [p for p in self._pending if p is not r]
+        for b in range(self.sc.max_batch):
+            if self._slot_req[b] is r:
+                self._release(b)
+                self._done[b] = True
+                break
+
+    def cancel(self, rid: int, detail: str = "cancelled by caller") -> bool:
+        """Cancel request ``rid`` whether pending or decoding.  Returns
+        whether a live request was cancelled."""
+        if not self._started:
+            raise RuntimeError("call start(requests) first")
+        for r in self._all_requests:
+            if r.rid == rid and not r.done:
+                self._fail_request(r, "cancelled", detail)
+                return True
+        return False
+
+    def _check_deadlines(self) -> None:
+        """Fail requests whose step budget ran out (TTFT: no first token
+        yet; total: not done), counted in engine steps since start()."""
+        now = self._step_count
+        for r in self._all_requests:
+            if r.done:
+                continue
+            ttft = r.ttft_deadline_steps
+            if ttft is not None and not r.out_tokens and now > ttft:
+                self._fail_request(
+                    r, "deadline",
+                    f"no first token after {ttft} steps (TTFT budget)")
+            elif r.deadline_steps is not None and now > r.deadline_steps:
+                self._fail_request(
+                    r, "deadline",
+                    f"incomplete after {r.deadline_steps} steps "
+                    f"({len(r.out_tokens)}/{r.max_new_tokens} tokens)")
+
+    def _dump(self) -> str:
+        lines = [f"step={self._step_count} "
+                 f"pending={[r.rid for r in self._pending]}"]
+        for b, r in enumerate(self._slot_req):
+            if r is not None:
+                lines.append(f"slot {b}: rid={r.rid} pos={self._pos[b]} "
+                             f"done={bool(self._done[b])}")
+        return "\n".join("    " + ln for ln in lines)
+
+    # -- admission ------------------------------------------------------------
+
+    def _next_admissible(self) -> Optional[Request]:
+        """Pop the first pending request with tokens left to generate;
+        requests with none are resolved (done) on the way."""
+        while self._pending:
+            r = self._pending.pop(0)
+            if r.max_new_tokens - len(r.out_tokens) > 0:
+                return r
+            r.done = True
+        return None
+
+    def _admit(self) -> int:
+        """Fill free slots from the pending queue: prefill each request
+        alone at its exact length and copy its cache into the slot.
+        Returns how many requests were admitted."""
+        t0 = time.perf_counter()
+        n = 0
+        for b in range(self.sc.max_batch):
+            if self._slot_req[b] is not None:
+                continue
+            r = self._next_admissible()
+            if r is None:
+                break
+            prompt = np.concatenate([np.asarray(r.prompt, np.int32),
+                                     np.asarray(r.out_tokens, np.int32)])
+            self._slot_req[b] = r
+            self._slot_prompt[b] = prompt
+            plogits, slot_cache = self.model.prefill(
+                self.params, prompt[None], self.sc.max_seq_len,
+                proj=self.proj)
+            for layer, small in zip(self._cache, slot_cache):
+                for name, t in small.items():
+                    layer[name][b].copy_(t[0])
+            self._activate(b, r, plogits[0, -1])
+            self.n_prefill_tokens += len(prompt)
+            n += 1
+        if n:
+            self._sync()
+            self.prefill_seconds += time.perf_counter() - t0
+        return n
+
+    def _activate(self, b: int, r: Request, last_logits) -> None:
+        """Arm slot ``b`` for decode once its prompt cache is in place."""
+        self._logits[b] = last_logits
+        self._pos[b] = len(self._slot_prompt[b])
+        self._emitted[b] = 0
+        self._max_new[b] = r.max_new_tokens - len(r.out_tokens)
+        self._done[b] = False
+        self._trunc[b] = False
+
+    def _release(self, b: int) -> None:
+        self._slot_req[b] = None
+        self._slot_prompt[b] = None
+
+    # -- decode ---------------------------------------------------------------
+
+    def _decode_chunk(self, live: np.ndarray):
+        """``decode_chunk`` iterations on the device; one read-back.
+
+        Returns host arrays: tokens and emit masks (N, B) and a per-slot
+        flag of finite next-token logits; positions, counts and the
+        done/truncated masks are written back to the host state."""
+        sc = self.sc
+        T, N, eos = sc.max_seq_len, sc.decode_chunk, sc.eos_token
+        dev = self.device
+        # iterations after which some slot is still active: a slot with
+        # r tokens left at position p stays active after iteration i iff
+        # i < min(r - 1, T - p) (EOS can only end it sooner)
+        act = live & ~self._done
+        n_model = int(np.minimum(self._max_new - self._emitted - 1,
+                                 T - self._pos)[act].max(initial=0))
+        n_model = max(0, min(N, n_model))
+        state = torch.as_tensor(np.stack([
+            self._pos, self._emitted, self._max_new, self._done,
+            self._trunc]).astype(np.int64), device=dev)   # one copy in
+        pos, emitted, max_new = state[0], state[1], state[2]
+        done, trunc = state[3].bool(), state[4].bool()
+        logits = self._logits
+        toks, emits = [], []
+        for i in range(N):
+            nxt = sample_token(logits, sc.temperature, self.gen)      # (B,)
+            emit = ~done
+            toks.append(torch.where(emit, nxt, torch.zeros_like(nxt)))
+            emits.append(emit)
+            emitted = emitted + emit.long()
+            done = done | (emitted >= max_new)
+            if eos is not None:
+                done = done | (emit & (nxt == eos))
+            # the sampled token was emitted but there is no cache slot
+            # left to decode from it: surface truncation, stop the slot
+            full = ~done & (pos >= T)
+            trunc = trunc | full
+            done = done | full
+            if i < n_model:
+                # finished slots decode a harmless write into their own,
+                # soon released, lane
+                lg, self._cache = self.model.decode_step(
+                    self.params, self._cache, nxt[:, None],
+                    pos.clamp(max=T - 1), proj=self.proj)
+                logits = lg[:, 0]
+                self.n_decode_steps += 1
+            pos = torch.where(done, pos, pos + 1)
+        self._logits = logits
+        finite = torch.isfinite(logits).all(dim=-1)
+        B = sc.max_batch
+        host = torch.cat([torch.stack(toks).reshape(-1),
+                          torch.stack(emits).reshape(-1).long(),
+                          pos, emitted, done.long(), trunc.long(),
+                          finite.long()]).cpu().numpy()
+        nb = N * B
+        toks_np = host[:nb].reshape(N, B)
+        emits_np = host[nb:2 * nb].reshape(N, B).astype(bool)
+        rest = host[2 * nb:].reshape(5, B)
+        self._pos, self._emitted = rest[0].copy(), rest[1].copy()
+        self._done, self._trunc = rest[2].astype(bool), rest[3].astype(bool)
+        return toks_np, emits_np, rest[4].astype(bool)
+
+    def _harvest(self, live: np.ndarray, toks_np: np.ndarray,
+                 emits_np: np.ndarray, finite: np.ndarray) -> bool:
+        """Append one chunk's emitted tokens to their requests,
+        quarantine slots with non-finite logits, release finished slots.
+        Returns whether any slot was freed."""
+        if self.sc.guard_numerics:
+            for b in np.nonzero(live & ~finite)[0]:
+                emits_np[:, b] = False      # drawn from garbage: dropped
+                self._fail_request(self._slot_req[b], "numerics",
+                                   "non-finite next-token logits")
+                live[b] = False
+        if emits_np[:, live].any():
+            self._progress = True
+        freed = False
+        for b in np.nonzero(live)[0]:
+            r = self._slot_req[b]
+            r.out_tokens.extend(int(t) for t, e in zip(toks_np[:, b],
+                                                       emits_np[:, b]) if e)
+            if self._done[b]:
+                r.done = True
+                r.truncated = bool(self._trunc[b])
+                self._release(b)
+                self.n_completed += 1
+                freed = True
+        return freed
+
+    def step(self) -> bool:
+        """One scheduling iteration: admit, one fused decode chunk,
+        harvest, then refill freed slots in the same step.  Deadlines are
+        checked first and the no-progress watchdog after.  Returns
+        whether work remains."""
+        if not self._started:
+            raise RuntimeError("call start(requests) first")
+        self._step_count += 1
+        self._progress = False
+        self._check_deadlines()
+        busy = self._step_inner()
+        if busy and not self._progress:
+            self._no_progress += 1
+            if (self.sc.stall_steps
+                    and self._no_progress >= self.sc.stall_steps):
+                raise EngineStalledError(self._no_progress, self._dump())
+        else:
+            self._no_progress = 0
+        return busy
+
+    def _step_inner(self) -> bool:
+        self._admit()
+        live = np.array([r is not None for r in self._slot_req])
+        if not live.any():
+            return self._busy()
+        t0 = time.perf_counter()
+        toks_np, emits_np, finite = self._decode_chunk(live)
+        self.decode_seconds += time.perf_counter() - t0
+        if self._harvest(live, toks_np, emits_np, finite) and self._pending:
+            self._admit()
+        return self._busy()
+
+    def generate(self, requests: List[Request]) -> List[Request]:
+        """Serve a list of requests to completion (continuous batching)."""
+        self.start(requests)
+        while self.step():
+            pass
+        return requests
