@@ -7,26 +7,45 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each of which stops the run with a non-zero exit when it fails:
 
-1. device   the card's name and power limit; TF32 is switched off for
-            float32 matrix products and convolutions (full float32, so
-            the card agrees with the CPU to float32 rounding);
-2. build    every CUDA kernel source of the port, one ``nvcc`` each;
-3. serve    the main path at full width: tinyllama-1.1b (22 layers, bf16,
-            seeded random weights), KQ-SVD calibration and closed-form
-            solve, then the dense-slot ``ServingEngine`` serving 16
-            requests of 32..512 prompt tokens and 32 new tokens each on 8
-            slots.  The kernels' launch counts are zeroed just before and
-            read just after: K3 must have run once per layer per decode
-            step;
-4. kernels  each kernel against its plain PyTorch version on the card at
-            the main path's shapes (the calibrated ranks), in bf16 and
-            float32, at the reference kernel tests' tolerances; its time
-            (CUDA events, L2 flushed before every launch) beside the
-            plain version's, one PyTorch library call's for the same
-            function and the bound the card's bytes or flops allow;
-5. parity   the port on the card against the port on the CPU (plain
-            versions) at reduced size in float32, same seeded weights:
-            identical greedy tokens, logits within 2e-4.
+1.  device   the card's name and power limit; TF32 is switched off for
+             float32 matrix products and convolutions (full float32, so
+             the card agrees with the CPU to float32 rounding);
+2.  build    every CUDA kernel source of the port, one ``nvcc`` each, all
+             started together;
+3.  serve    the dense main path at full width: tinyllama-1.1b (22 layers,
+             bf16, seeded random weights), KQ-SVD calibration and
+             closed-form solve, then the dense-slot ``ServingEngine``
+             serving 16 requests of 32..512 prompt tokens and 32 new
+             tokens each on 8 slots.  The kernels' launch counts are zeroed
+             just before and read just after: K3 must have run once per
+             layer per decode step;
+3b. profile  one dense decode step (8 slots at position 512);
+3c. paged    the paged main path at full width, same model and
+             projections: the paged ``ServingEngine`` with chunked prefill
+             (pages of 16 tokens, a pool of 256 pages, half of 8 x 1024,
+             chunks of 256) serving 16 requests of 32..1000 prompt tokens
+             and 32 new tokens each.  Counts zeroed just before and read
+             just after: K1 once per layer per decode step, K2 once per
+             layer per prefill chunk, K3 never; every request done and
+             the pool whole again.  The tokens' agreement with the dense
+             engine on the same requests is printed, not asserted: chunked
+             prefill attends over the compressed cache, exact prefill over
+             the full one;
+3d. profile  one paged decode step (8 slots at position 512);
+4.  kernels  each kernel against its plain PyTorch version on the card at
+             the main paths' shapes (the calibrated ranks) and, for K1 and
+             K2, on edge cases (page sizes 4, 16, 64; lengths 1, ps-1, ps,
+             ps+1, 1023; shuffled block tables; chunks at position 0,
+             mid-page and with bucket padding), in bf16 and float32, at the
+             reference kernel tests' tolerances and within two bf16 ulps;
+             its time (CUDA events, L2 flushed before every launch) beside
+             the plain version's, one PyTorch library call's for the same
+             function and the bound the card's bytes or flops allow;
+5.  parity   the port on the card against the port on the CPU (plain
+             versions) at reduced size in float32, same seeded weights:
+             dense and paged chunked engines give identical greedy tokens;
+             prefill, ``LM.prefill_chunk`` and dense and paged
+             ``decode_step`` logits agree within 2e-4.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
@@ -51,6 +70,7 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py:15-17
 # kernel and plain version read the same inputs and both accumulate in
 # float32, so in bfloat16 they also agree to two ulps of the output
 ULPS_BF16 = 8e-3
+SOURCES = ("kq_decode", "kq_paged")
 
 
 @contextlib.contextmanager
@@ -89,42 +109,154 @@ def cuda_time_ms(fn, flush, reps: int = 100) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
-def profile_decode(model, params, proj, ranks, dev, steps: int = 5):
+def check_close(label: str, dt_name: str, out, ref) -> float:
+    """Hold a kernel's output to its plain version's: the reference
+    tolerance, and in bf16 two ulps.  Returns the max abs error."""
+    import torch
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    tol = TOL[dt_name]
+    worst = float(err.max())
+    assert bool((err <= tol + tol * ref.float().abs()).all()), \
+        f"{label} {dt_name} disagrees: max |err| {worst}"
+    if dt_name == "bfloat16":
+        assert bool((err <= 1e-4 + ULPS_BF16 * ref.float().abs()).all()), \
+            f"{label} bfloat16 beyond two ulps of the plain version: " \
+            f"max |err| {worst}"
+    return worst
+
+
+def measure(row: dict, label: str, dt_name: str, kernel, plain, library,
+            flush, nbytes: int, flops: int) -> None:
+    """Check ``kernel()`` against ``plain()`` (and the library call
+    against ``plain()``, at ten times the tolerance), time all three and
+    write the numbers into ``row``: bf16, the main paths' type, under the
+    plain keys, float32 with a ``_float32`` suffix."""
+    ref = plain()
+    err = check_close(label, dt_name, kernel(), ref)
+    lib_err = float((library().float() - ref.float()).abs().max())
+    assert lib_err <= 10 * TOL[dt_name], \
+        f"{label} library yardstick disagrees: {lib_err}"
+    times = {"ms": cuda_time_ms(kernel, flush),
+             "plain_ms": cuda_time_ms(plain, flush),
+             "library_ms": cuda_time_ms(library, flush)}
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / PEAK_FLOPS[dt_name]
+    bound = {"bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(f"{label} {dt_name}: max |err| {err:.3g} (tol {TOL[dt_name]}); "
+          f"kernel {times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, "
+          f"library {times['library_ms']:.4f} ms, bound "
+          f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}: {nbytes} "
+          f"bytes, {flops} flops)")
+    if dt_name == "bfloat16":
+        row.update(times, **bound, max_abs_err=err)
+    else:
+        row.update({f"{k}_float32": v for k, v in times.items()},
+                   bound_ms_float32=bound["bound_ms"],
+                   max_abs_err_float32=err)
+
+
+def paged_inputs(g, dev, dt, B, H, Hkv, ps, n_pages, Rk, Rv, S=None):
+    """Random pools of ``1 + B * n_pages`` pages, a block table of
+    shuffled physical pages (page 0, the garbage page, never used) and
+    queries, (B,H,Rk) for decode or (B,H,S,Rk) for a chunk."""
+    import torch
+    P = 1 + B * n_pages
+    kp = torch.randn(P, Hkv, ps, Rk, generator=g, device=dev).to(dt)
+    vp = torch.randn(P, Hkv, ps, Rv, generator=g, device=dev).to(dt)
+    btab = (torch.randperm(P - 1, generator=g, device=dev) + 1).reshape(
+        B, n_pages).to(torch.int32)
+    shape = (B, H, Rk) if S is None else (B, H, S, Rk)
+    q = torch.randn(*shape, generator=g, device=dev).to(dt)
+    return q, kp, vp, btab
+
+
+def profile_decode(model, params, proj, ranks, dev, paged: bool,
+                   steps: int = 5):
     """Where a full-width decode step's time goes: host wall per step
     (synced), device busy time per step from ``torch.profiler`` (sum of
-    kernel times), the idle share, and the kernels that take the most."""
+    kernel times), the idle share, and the kernels that take the most.
+    Paged: the 8 slots' 1024 tokens in pages of 16 at shuffled physical
+    ids."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    B, T = 8, 1024
-    cache = model.init_cache(B, T, ranks)
+    B, T, ps = 8, 1024, 16
+    btab = None
+    if paged:
+        cache = model.init_paged_cache(1 + B * T // ps, ps, ranks)
+        btab = (torch.randperm(B * T // ps, device=dev) + 1).reshape(
+            B, T // ps).to(torch.int32)
+    else:
+        cache = model.init_cache(B, T, ranks)
     toks = torch.randint(0, model.cfg.vocab_size, (B, 1), device=dev)
     pos = torch.full((B,), 512, dtype=torch.int64, device=dev)
+
+    def step():
+        model.decode_step(params, cache, toks, pos, proj=proj,
+                          block_table=btab)
+
     for _ in range(3):
-        model.decode_step(params, cache, toks, pos, proj=proj)
+        step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        model.decode_step(params, cache, toks, pos, proj=proj)
+        step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / steps * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            model.decode_step(params, cache, toks, pos, proj=proj)
+            step()
         torch.cuda.synchronize()
     rows = [(e.key, e.device_time_total / 1e3 / steps, e.count // steps)
             for e in prof.key_averages() if e.device_time_total > 0
             and getattr(e, "device_type", None)
             == torch.autograd.DeviceType.CUDA]
     busy = sum(r[1] for r in rows)
-    print(f"decode step, synced host wall: {wall:.3f} ms; device busy "
-          f"{busy:.3f} ms ({len(rows)} kernel kinds, "
+    kind = "paged" if paged else "dense"
+    print(f"{kind} decode step, synced host wall: {wall:.3f} ms; device "
+          f"busy {busy:.3f} ms ({len(rows)} kernel kinds, "
           f"{sum(r[2] for r in rows)} launches); idle share "
           f"{1 - busy / wall:.3f}" if busy else
-          f"decode step, synced host wall: {wall:.3f} ms; the profiler "
-          f"saw no device time")
+          f"{kind} decode step, synced host wall: {wall:.3f} ms; the "
+          f"profiler saw no device time")
     for name, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
-        print(f"  {ms:8.4f} ms/step  {n:5d} launches/step  {name[:90]}")
+        share = f"  ({ms / busy:.3f} of busy)" if busy else ""
+        print(f"  {ms:8.4f} ms/step  {n:5d} launches/step  {name[:80]}"
+              f"{share}")
+
+
+def ptxas_summary(log: str) -> list:
+    """``nvcc -Xptxas -v`` condensed: registers and spilled bytes for each
+    instantiation of the kernel, as ``type/rows/cols: regs+spill``."""
+    import re
+    out, key = [], None
+    for line in log.splitlines():
+        m = re.search(r"attend_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+                      line)
+        if m:
+            key = ("f32" if m.group(1) == "f" else "bf16") + \
+                f"/{m.group(2)}/{m.group(3)}"
+        elif key and "spill stores" in line:
+            spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+        elif key and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{key}: {regs}+{spill}")
+            key = None
+    return out
+
+
+def serve_report(label: str, eng, reqs, wall: float) -> None:
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    print(f"{label}: served {len(reqs)} requests (prompts "
+          f"{min(len(r.prompt) for r in reqs)}.."
+          f"{max(len(r.prompt) for r in reqs)}), {n_tok} tokens in "
+          f"{wall:.3f} s: {n_tok / wall:.1f} tokens/s; prefill "
+          f"{eng.prefill_seconds:.3f} s ({eng.n_prefill_tokens} tokens), "
+          f"decode {eng.decode_seconds:.3f} s over {eng.n_decode_steps} "
+          f"steps ({1e3 * eng.decode_seconds / eng.n_decode_steps:.2f} "
+          f"ms/step)")
 
 
 def main() -> int:
@@ -142,10 +274,20 @@ def main() -> int:
     from repro_torch.data import calibration_batches
     from repro_torch.device import tree_to
     from repro_torch.kernels import build
-    from repro_torch.kernels.kq_decode import (kq_decode_attention,
-                                               kq_decode_attention_ref)
+    from repro_torch.kernels.kq_decode import (
+        kq_decode_attention, kq_decode_attention_ref,
+        kq_decode_paged_attention, kq_decode_paged_attention_ref,
+        kq_prefill_paged_attention, kq_prefill_paged_attention_ref)
     from repro_torch.models import build_model
-    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving import Request, ServingEngine, gather_pages
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    wrappers = (kq_decode_attention, kq_decode_paged_attention,
+                kq_prefill_paged_attention)
+
+    def zero_counts():
+        for w in wrappers:
+            w.launches = 0
 
     with phase("1 device"):
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -161,18 +303,15 @@ def main() -> int:
 
     with phase("2 build"):
         t0 = time.perf_counter()
-        log = build.build("kq_decode")
-        print(f"built kq_decode in {time.perf_counter() - t0:.1f} s into "
-              f"{build.BUILD_DIR}")
-        for line in log.splitlines():       # registers / spills per kernel
-            if "Compiling entry" in line or "registers" in line \
-                    or "spill" in line:
-                print(f"  {line.split(':', 1)[-1].strip()}")
+        logs = build.build_all(SOURCES)
+        print(f"built {', '.join(SOURCES)} in parallel in "
+              f"{time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}")
+        for name, log in logs.items():      # registers / spills per kernel
+            print(f"  {name}: " + "; ".join(ptxas_summary(log)))
 
-    # -- 3: the main path ---------------------------------------------------
-    with phase("3 serve tinyllama-1.1b, full width, KQ-SVD"):
+    # -- 3: the dense main path ---------------------------------------------
+    with phase("3 serve tinyllama-1.1b, full width, KQ-SVD, dense slots"):
         cfg = get_config("tinyllama-1.1b")
-        kq_decode_attention.launches = 0
         model = build_model(cfg)
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
@@ -193,114 +332,243 @@ def main() -> int:
                         .astype(np.int32), max_new_tokens=32)
                 for i, L in enumerate(lens)]
         torch.cuda.reset_peak_memory_stats()
+        zero_counts()
         t0 = time.perf_counter()
         eng.generate(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = kq_decode_attention.launches
-        n_tok = sum(len(r.out_tokens) for r in reqs)
+        k3_launches = kq_decode_attention.launches
         bad = [r.rid for r in reqs if r.failed or r.truncated or not r.done
                or len(r.out_tokens) != 32]
         assert not bad, f"requests not served in full: {bad}"
         assert eng.n_decode_steps > 0
-        assert launches == cfg.n_layers * eng.n_decode_steps, (
-            launches, eng.n_decode_steps)
+        assert k3_launches == cfg.n_layers * eng.n_decode_steps, (
+            k3_launches, eng.n_decode_steps)
+        assert kq_decode_paged_attention.launches == 0
+        assert kq_prefill_paged_attention.launches == 0
         probe, _ = model.prefill(params, reqs[0].prompt[None], 64,
                                  proj=eng.proj)
         assert probe.shape == (1, 1, cfg.vocab_size)
         assert bool(torch.isfinite(probe).all()), "non-finite logits"
-        print(f"served {len(reqs)} requests (prompts {int(lens.min())}.."
-              f"{int(lens.max())}), {n_tok} tokens in {wall:.3f} s: "
-              f"{n_tok / wall:.1f} tokens/s; prefill {eng.prefill_seconds:.3f}"
-              f" s ({eng.n_prefill_tokens} tokens), decode "
-              f"{eng.decode_seconds:.3f} s over {eng.n_decode_steps} steps "
-              f"({1e3 * eng.decode_seconds / eng.n_decode_steps:.2f} ms/step)"
-              f"; capacity gain {eng.capacity_gain():.2f}x; K3 launches "
-              f"{launches} = {cfg.n_layers} x {eng.n_decode_steps}; peak "
-              f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-              f" GiB")
+        serve_report("dense", eng, reqs, wall)
+        print(f"capacity gain {eng.capacity_gain():.2f}x; K3 launches "
+              f"{k3_launches} = {cfg.n_layers} x {eng.n_decode_steps}; "
+              f"peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         print(f"req 0 tokens: {reqs[0].out_tokens}")
         rk, rv = mp.rank_k, mp.rank_v
+        proj = eng.proj
 
-    with phase("3b profile one decode step (8 slots at position 512)"):
-        profile_decode(model, params, eng.proj, (rk, rv), dev)
-        del eng, params, model
+    with phase("3b profile one dense decode step (8 slots at position 512)"):
+        profile_decode(model, params, proj, (rk, rv), dev, paged=False)
+
+    # -- 3c: the paged main path --------------------------------------------
+    with phase("3c serve tinyllama-1.1b, full width, KQ-SVD, paged + "
+               "chunked prefill"):
+        psc = ServeConfig(max_seq_len=1024, max_batch=8, paged=True,
+                          page_size=16, n_pages=256, chunked_prefill=True,
+                          prefill_chunk=256, decode_chunk=8)
+        peng = ServingEngine(cfg, params, psc, projections=mp)
+        rng = np.random.default_rng(1)
+        plens = np.concatenate([[32, 1000], rng.integers(32, 1001, 14)])
+        prompts = [rng.integers(0, cfg.vocab_size, int(L)).astype(np.int32)
+                   for L in plens]
+        preqs = [Request(rid=i, prompt=p, max_new_tokens=32)
+                 for i, p in enumerate(prompts)]
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        peng.generate(preqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1_launches = kq_decode_paged_attention.launches
+        k2_launches = kq_prefill_paged_attention.launches
+        k3_paged = kq_decode_attention.launches
+        bad = [r.rid for r in preqs if r.failed or not r.done
+               or len(r.out_tokens) != min(32, 1024 - len(r.prompt) + 1)]
+        assert not bad, f"requests not served in full: {bad}"
+        assert peng.pool.free_count == peng.pool.n_pages, \
+            (peng.pool.free_count, peng.pool.n_pages)
+        assert peng.peak_used_pages <= 256, peng.peak_used_pages
+        assert k1_launches == cfg.n_layers * peng.n_decode_steps, (
+            k1_launches, peng.n_decode_steps)
+        assert k2_launches == cfg.n_layers * peng.n_prefill_chunks, (
+            k2_launches, peng.n_prefill_chunks)
+        assert k3_paged == 0, k3_paged
+        assert peng.prefill_chunk_shapes <= set(psc.buckets)
+        serve_report("paged", peng, preqs, wall)
+        print(f"pool {psc.total_pages} pages of {psc.page_size}: peak "
+              f"{peng.peak_used_pages} used, {peng.pool.free_count} free "
+              f"after the drain; {peng.n_prefill_chunks} prefill chunks at "
+              f"buckets {sorted(peng.prefill_chunk_shapes)}; K1 launches "
+              f"{k1_launches} = {cfg.n_layers} x {peng.n_decode_steps}, K2 "
+              f"{k2_launches} = {cfg.n_layers} x {peng.n_prefill_chunks}, "
+              f"K3 {k3_paged}; truncated "
+              f"{[r.rid for r in preqs if r.truncated]}; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        # the same requests through the dense engine (exact prefill over
+        # the full cache): printed, not asserted
+        dreqs = [Request(rid=i, prompt=p, max_new_tokens=32)
+                 for i, p in enumerate(prompts)]
+        ServingEngine(cfg, params, sc, projections=mp).generate(dreqs)
+        same = sum(a == b for r, d in zip(preqs, dreqs)
+                   for a, b in zip(r.out_tokens, d.out_tokens))
+        total = sum(len(r.out_tokens) for r in preqs)
+        first = sum(r.out_tokens[:1] == d.out_tokens[:1]
+                    for r, d in zip(preqs, dreqs))
+        print(f"agreement with the dense engine on the same requests: "
+              f"{same}/{total} tokens at equal places, first token "
+              f"{first}/{len(preqs)} (they differ by design at calibrated "
+              f"ranks)")
+
+    with phase("3d profile one paged decode step (8 slots at position "
+               "512)"):
+        profile_decode(model, params, proj, (rk, rv), dev, paged=True)
+        del eng, peng, params, model
 
     # -- 4: each kernel against its plain version ------------------------
     with phase("4 kernels against their plain versions"):
-        B, H, Hkv, T = 8, cfg.n_heads, cfg.n_kv_heads, 1024
-        lengths = torch.tensor([1, 31, 32, 33, 500, 777, 1023, 1024],
-                               dtype=torch.int32, device=dev)
+        H, Hkv, m = cfg.n_heads, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
         scale = 1.0 / cfg.d_head ** 0.5
         flush_buf = torch.empty(64 * 2**20, dtype=torch.int8, device=dev)
         flush = flush_buf.zero_
-        row = {"name": "kq_decode (K3)", "route": "cuda",
-               "source": "src/repro_torch/kernels/csrc/kq_decode.cu",
-               "replaces": "src/repro/kernels/kq_decode/kq_decode.py:53",
-               "launches": launches,
-               "shape": {"B": B, "H": H, "Hkv": Hkv, "T": T, "Rk": rk,
-                         "Rv": rv, "lengths": lengths.tolist()}}
         g = torch.Generator(device=dev)
         g.manual_seed(1)
+
+        # K3 at the dense main path's shapes
+        B, T = 8, 1024
+        lengths = torch.tensor([1, 31, 32, 33, 500, 777, 1023, 1024],
+                               dtype=torch.int32, device=dev)
+        k3 = {"name": "kq_decode (K3)", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/kq_decode.cu "
+                        "(body: csrc/kq_attend.cuh)",
+              "replaces": "src/repro/kernels/kq_decode/kq_decode.py:53",
+              "launches": k3_launches,
+              "shape": {"B": B, "H": H, "Hkv": Hkv, "T": T, "Rk": rk,
+                        "Rv": rv, "lengths": lengths.tolist()}}
+        live = int(lengths.sum())
+        mask = (torch.arange(T, device=dev)[None, :]
+                < lengths[:, None])[:, None, None, :]
         for dt_name in ("bfloat16", "float32"):
             dt = getattr(torch, dt_name)
             qc = torch.randn(B, H, rk, generator=g, device=dev).to(dt)
             kc = torch.randn(B, Hkv, T, rk, generator=g, device=dev).to(dt)
             vc = torch.randn(B, Hkv, T, rv, generator=g, device=dev).to(dt)
-            out = kq_decode_attention(qc, kc, vc, lengths, scale=scale)
-            ref = kq_decode_attention_ref(qc, kc, vc, lengths, scale=scale)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs()
-            tol = TOL[dt_name]
-            ok = bool((err <= tol + tol * ref.float().abs()).all())
-            row[f"max_abs_err_{dt_name}"] = float(err.max())
-            assert ok, f"K3 {dt_name} disagrees: max |err| {float(err.max())}"
-            if dt_name == "bfloat16":
-                assert bool((err <= 1e-4 + ULPS_BF16 * ref.float().abs())
-                            .all()), f"K3 bfloat16 beyond two ulps of the " \
-                    f"plain version: max |err| {float(err.max())}"
-            # the yardstick: one library call over the expanded groups
-            m = H // Hkv
             kx = kc.repeat_interleave(m, dim=1)
             vx = vc.repeat_interleave(m, dim=1)
-            mask = (torch.arange(T, device=dev)[None, :]
-                    < lengths[:, None])[:, None, None, :]
-            q4 = qc[:, :, None, :]
-            lib = torch.nn.functional.scaled_dot_product_attention(
-                q4, kx, vx, attn_mask=mask, scale=scale)[:, :, 0]
-            assert float((lib.float() - ref.float()).abs().max()) <= \
-                10 * tol, "library yardstick disagrees"
-            times = {
-                "ms": cuda_time_ms(lambda: kq_decode_attention(
-                    qc, kc, vc, lengths, scale=scale), flush),
-                "plain_ms": cuda_time_ms(lambda: kq_decode_attention_ref(
-                    qc, kc, vc, lengths, scale=scale), flush),
-                "library_ms": cuda_time_ms(
-                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                        q4, kx, vx, attn_mask=mask, scale=scale), flush)}
-            live = int(lengths.sum())
             isz = qc.element_size()
-            nbytes = (live * Hkv * (rk + rv) * isz + B * H * (rk + rv) * isz
-                      + B * 4)
-            flops = 2 * live * H * (rk + rv)
-            t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-            t_ops = 1e3 * flops / PEAK_FLOPS[dt_name]
-            bound = {"bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops
-                     else "operations"}
-            print(f"K3 {dt_name}: max |err| {float(err.max()):.3g} (tol "
-                  f"{tol}); kernel {times['ms']:.4f} ms, plain "
-                  f"{times['plain_ms']:.4f} ms, library "
-                  f"{times['library_ms']:.4f} ms, bound "
-                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
-                  f"{nbytes} bytes, {flops} flops)")
-            if dt_name == "bfloat16":         # the main path's type
-                row.update(times, kernel_ms=times["ms"], **bound,
-                           max_abs_err=float(err.max()))
-            else:
-                row.update({f"{k}_float32": v for k, v in times.items()},
-                           bound_ms_float32=bound["bound_ms"])
-        kernels = [row]
+            measure(k3, "K3", dt_name,
+                    lambda: kq_decode_attention(qc, kc, vc, lengths,
+                                                scale=scale),
+                    lambda: kq_decode_attention_ref(qc, kc, vc, lengths,
+                                                    scale=scale),
+                    lambda: sdpa(qc[:, :, None], kx, vx, attn_mask=mask,
+                                 scale=scale)[:, :, 0],
+                    flush,
+                    live * Hkv * (rk + rv) * isz + B * H * (rk + rv) * isz
+                    + B * 4, 2 * live * H * (rk + rv))
+
+        # K1 at the paged main path's decode shapes: pages of 16
+        ps, n_pages = 16, T // 16
+        k1 = {"name": "kq_decode_paged (K1)", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/kq_paged.cu "
+                        "(body: csrc/kq_attend.cuh)",
+              "replaces": "src/repro/kernels/kq_decode/paged.py:63",
+              "launches": k1_launches,
+              "shape": {"B": B, "H": H, "Hkv": Hkv, "page_size": ps,
+                        "n_pages": n_pages, "Rk": rk, "Rv": rv,
+                        "lengths": lengths.tolist()}}
+        pages_used = int(((lengths + ps - 1) // ps).sum())
+        for dt_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dt_name)
+            qc, kp, vp, btab = paged_inputs(g, dev, dt, B, H, Hkv, ps,
+                                            n_pages, rk, rv)
+            kx = gather_pages(kp, btab).repeat_interleave(m, dim=1)
+            vx = gather_pages(vp, btab).repeat_interleave(m, dim=1)
+            isz = qc.element_size()
+            measure(k1, "K1", dt_name,
+                    lambda: kq_decode_paged_attention(qc, kp, vp, lengths,
+                                                      btab, scale=scale),
+                    lambda: kq_decode_paged_attention_ref(
+                        qc, kp, vp, lengths, btab, scale=scale),
+                    lambda: sdpa(qc[:, :, None], kx, vx, attn_mask=mask,
+                                 scale=scale)[:, :, 0],
+                    flush,
+                    live * Hkv * (rk + rv) * isz + B * H * (rk + rv) * isz
+                    + B * 4 + pages_used * 4, 2 * live * H * (rk + rv))
+
+        # K2 at the paged main path's prefill shape: the last chunk of a
+        # 1000-token prompt, 232 real tokens in a 256 bucket
+        S, pos0_v, n_valid = 256, 768, 232
+        k2 = {"name": "kq_prefill_paged (K2)", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/kq_paged.cu "
+                        "(body: csrc/kq_attend.cuh)",
+              "replaces": "src/repro/kernels/kq_decode/paged.py:292",
+              "launches": k2_launches,
+              "shape": {"B": 1, "H": H, "Hkv": Hkv, "S": S,
+                        "page_size": ps, "n_pages": n_pages, "Rk": rk,
+                        "Rv": rv, "pos0": pos0_v, "n_valid": n_valid}}
+        plen = torch.tensor([pos0_v + n_valid], dtype=torch.int32,
+                            device=dev)
+        pos0 = torch.tensor([pos0_v], dtype=torch.int32, device=dev)
+        qpos = pos0_v + torch.arange(S, device=dev)
+        t = torch.arange(T, device=dev)
+        cmask = ((t[None, :] <= qpos[:, None])
+                 & (t[None, :] < int(plen)))[None, None]       # (1,1,S,T)
+        seen = torch.minimum(qpos + 1, plen.long())            # keys per row
+        for dt_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dt_name)
+            qc, kp, vp, btab = paged_inputs(g, dev, dt, 1, H, Hkv, ps,
+                                            n_pages, rk, rv, S=S)
+            kx = gather_pages(kp, btab).repeat_interleave(m, dim=1)
+            vx = gather_pages(vp, btab).repeat_interleave(m, dim=1)
+            isz = qc.element_size()
+            measure(k2, "K2", dt_name,
+                    lambda: kq_prefill_paged_attention(
+                        qc, kp, vp, plen, pos0, btab, scale=scale),
+                    lambda: kq_prefill_paged_attention_ref(
+                        qc, kp, vp, plen, pos0, btab, scale=scale),
+                    lambda: sdpa(qc, kx, vx, attn_mask=cmask, scale=scale),
+                    flush,
+                    int(plen) * Hkv * (rk + rv) * isz
+                    + H * S * (rk + rv) * isz + 8
+                    + -(-int(plen) // ps) * 4,
+                    2 * int(seen.sum()) * H * (rk + rv))
+
+        # K1 and K2 edge cases: page sizes, page-boundary lengths, chunk
+        # starts at 0 and mid-page, bucket padding; both types
+        n_cases = 0
+        for dt_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dt_name)
+            for eps in (4, 16, 64):
+                npg = T // eps
+                el = torch.tensor([1, eps - 1, eps, eps + 1, 1023],
+                                  dtype=torch.int32, device=dev)
+                qc, kp, vp, btab = paged_inputs(g, dev, dt, 5, H, Hkv, eps,
+                                                npg, rk, rv)
+                check_close(f"K1 ps={eps}", dt_name,
+                            kq_decode_paged_attention(qc, kp, vp, el, btab,
+                                                      scale=scale),
+                            kq_decode_paged_attention_ref(
+                                qc, kp, vp, el, btab, scale=scale))
+                # chunks of 64: at 0, mid-page with 24 padding rows, and
+                # one ending at 1023 with one padding row
+                p0 = torch.tensor([0, 3 * eps + eps // 2, 960],
+                                  dtype=torch.int32, device=dev)
+                nv = torch.tensor([64, 40, 63], dtype=torch.int32,
+                                  device=dev)
+                qc, kp, vp, btab = paged_inputs(g, dev, dt, 3, H, Hkv, eps,
+                                                npg, rk, rv, S=64)
+                check_close(f"K2 ps={eps}", dt_name,
+                            kq_prefill_paged_attention(
+                                qc, kp, vp, p0 + nv, p0, btab, scale=scale),
+                            kq_prefill_paged_attention_ref(
+                                qc, kp, vp, p0 + nv, p0, btab, scale=scale))
+                n_cases += 2
+        print(f"K1 and K2 edge cases: {n_cases} held to tolerance and two "
+              f"bf16 ulps (page sizes 4, 16, 64; lengths 1, ps-1, ps, "
+              f"ps+1, 1023; chunks at 0, mid-page, padded)")
+        kernels = [k1, k2, k3]
 
     # -- 5: the port on the card against the port on the CPU ---------------
     with phase("5 card against CPU, reduced tinyllama-1.1b, float32"):
@@ -313,40 +581,74 @@ def main() -> int:
             cpu_model, p_cpu,
             calibration_batches(rcfg.vocab_size, 8, 32, batch=4),
             CompressionConfig(method="kqsvd", epsilon=0.1))
-        before = kq_decode_attention.launches
+        zero_counts()
         toks = np.random.default_rng(1).integers(0, rcfg.vocab_size, (2, 20))
-        worst = 0.0
+        rps, rpages = 4, 8
+        btab_np = np.random.default_rng(2).permutation(
+            np.arange(1, 1 + 2 * rpages)).reshape(2, rpages).astype(np.int32)
         outs = []
         for m_, p_ in ((cpu_model, p_cpu), (gpu_model, p_gpu)):
-            proj = m_.projections_pytree(rmp)
-            lg, cache = m_.prefill(p_, toks[:, :16], 24, proj=proj)
+            rproj = m_.projections_pytree(rmp)
+            lg, cache = m_.prefill(p_, toks[:, :16], 24, proj=rproj)
             seq = [lg]
-            for t in range(4):
-                lg, cache = m_.decode_step(p_, cache, toks[:, 16 + t:17 + t],
-                                           16 + t, proj=proj)
+            for i in range(4):
+                lg, cache = m_.decode_step(p_, cache, toks[:, 16 + i:17 + i],
+                                           16 + i, proj=rproj)
+                seq.append(lg)
+            # paged: two chunks of 8 (the second padded to 8 from 6),
+            # then paged decode steps
+            bt = torch.as_tensor(btab_np, device=m_.device)
+            pcache = m_.init_paged_cache(1 + 2 * rpages, rps,
+                                         (rmp.rank_k, rmp.rank_v))
+            for c0, nv in ((0, 8), (8, 6)):
+                chunk = np.zeros((2, 8), np.int64)
+                chunk[:, :nv] = toks[:, c0:c0 + nv]
+                lg, pcache = m_.prefill_chunk(
+                    p_, pcache, chunk, c0,
+                    torch.full((2,), nv, dtype=torch.int32,
+                               device=m_.device), proj=rproj,
+                    block_table=bt)
+                seq.append(lg[:, :nv])
+            for i in range(4):
+                lg, pcache = m_.decode_step(p_, pcache,
+                                            toks[:, 14 + i:15 + i], 14 + i,
+                                            proj=rproj, block_table=bt)
                 seq.append(lg)
             outs.append([x.cpu() for x in seq])
+        worst = 0.0
         for a, b in zip(*outs):
             worst = max(worst, float((a - b).abs().max()))
             np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=2e-4,
                                        atol=2e-4)
-        assert kq_decode_attention.launches > before, "K3 did not run"
+        assert kq_decode_attention.launches > 0, "K3 did not run"
+        assert kq_decode_paged_attention.launches > 0, "K1 did not run"
+        assert kq_prefill_paged_attention.launches > 0, "K2 did not run"
         prompts = [np.random.default_rng(7 + i).integers(
             0, rcfg.vocab_size, L).astype(np.int32)
-            for i, L in enumerate((3, 9, 6, 12, 5, 8))]
-        served = []
-        for m_, p_ in ((cpu_model, p_cpu), (gpu_model, p_gpu)):
-            e = ServingEngine(rcfg, p_, ServeConfig(
-                max_seq_len=64, max_batch=4, decode_chunk=4),
-                projections=rmp, device=m_.device)
-            rs = [Request(rid=i, prompt=p, max_new_tokens=8)
-                  for i, p in enumerate(prompts)]
-            e.generate(rs)
-            served.append([r.out_tokens for r in rs])
-        assert served[0] == served[1], served
+            for i, L in enumerate((3, 9, 6, 12, 5, 8, 17, 1))]
+        served = {}
+        layouts = {"dense": {},
+                   "paged chunked": dict(paged=True, page_size=4,
+                                         n_pages=24, chunked_prefill=True,
+                                         prefill_chunk=8)}
+        for kind, kw in layouts.items():
+            for m_, p_ in ((cpu_model, p_cpu), (gpu_model, p_gpu)):
+                e = ServingEngine(rcfg, p_, ServeConfig(
+                    max_seq_len=64, max_batch=4, decode_chunk=4, **kw),
+                    projections=rmp, device=m_.device)
+                rs = [Request(rid=i, prompt=p, max_new_tokens=8)
+                      for i, p in enumerate(prompts)]
+                e.generate(rs)
+                if e.pool is not None:
+                    assert e.pool.free_count == e.pool.n_pages
+                served.setdefault(kind, []).append(
+                    [r.out_tokens for r in rs])
+            assert served[kind][0] == served[kind][1], (kind, served[kind])
         print(f"logits max |card - cpu| {worst:.3g} (tol 2e-4) over prefill"
-              f" + 4 decode steps; {len(prompts)} requests' greedy tokens "
-              f"identical on card and CPU")
+              f" + 4 dense decode steps and 2 prefill chunks + 4 paged "
+              f"decode steps; {len(prompts)} requests' greedy tokens "
+              f"identical on card and CPU in the dense and the paged "
+              f"chunked engine")
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -29,6 +30,18 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``.  To a CUDA device the copy
+    is made from pinned memory with ``non_blocking=True``: a copy from
+    pageable memory waits for the stream to drain, stalling the host
+    (PyTorch's pinned allocator keeps the staging buffer alive until the
+    copy has run)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.clone().to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def tree_to(tree, device: DeviceLike):

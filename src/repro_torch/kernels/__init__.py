@@ -1,7 +1,12 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
-kq_decode/  K3: decode attention over the KQ-SVD-compressed dense cache
-            (CUDA C++ in csrc/kq_decode.cu), the paper's runtime hot spot
+kq_decode/  compressed-cache attention, CUDA C++ over one kernel body
+            (csrc/kq_attend.cuh):
+            K3  decode over the dense cache (csrc/kq_decode.cu), the
+                paper's runtime hot spot;
+            K1  decode over the paged cache (csrc/kq_paged.cu);
+            K2  chunked prefill-append over the paged cache
+                (csrc/kq_paged.cu)
 
 ``build`` compiles the CUDA sources with ``nvcc`` at first use; importing
 this package builds nothing.

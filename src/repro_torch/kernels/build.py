@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``)
 into ``build/kernels/lib<name>-<hash>.so`` at the repository root, the
-first time a wrapper needs it; the hash of the source names the file, so
-an edited source never loads a stale library.  Nothing happens at
+first time a wrapper needs it; the hash of the source and of every local
+header it includes names the file, so an edited source or header never
+loads a stale library.  Nothing happens at
 import: the module imports where there is no ``nvcc`` and no GPU (the
 CPU tests), and only a call on a CUDA tensor builds.
 """
@@ -12,12 +13,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -38,11 +41,26 @@ def nvcc() -> str:
         "use on a machine with the CUDA toolkit")
 
 
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes
+    (``#include "..."``), transitively."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [CSRC / inc for inc in re.findall(
+            r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), re.M)]
+    return seen
+
+
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> str:
@@ -66,6 +84,13 @@ def build(name: str) -> str:
                            f"{res.returncode}\n{res.stdout}")
     os.replace(tmp, out)
     return res.stdout
+
+
+def build_all(names: Sequence[str]) -> Dict[str, str]:
+    """``build`` every library at once, one ``nvcc`` each, all started
+    together; returns each one's log.  Raises if any build fails."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

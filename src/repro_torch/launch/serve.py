@@ -3,12 +3,18 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --method kqsvd --requests 8
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+      --method kqsvd --requests 8 --paged --prefill-chunk 256
+
 The flags are the reference CLI's (``python -m repro.launch.serve``).
-This slice serves the dense-slot cache with exact-length prefill; a flag
-that asks for a path it does not have yet (paged pages, chunked prefill,
-token budget, shards, quantized pages, split-KV, preemption and its
-priorities, prefix sharing, audits, chaos) stops the run with an error
-naming it.  Runs on the CUDA device unless ``--device`` says otherwise.
+This slice serves the dense-slot cache and the paged store
+(``--paged``, ``--page-size``, ``--n-pages``), with exact-length or
+chunked prefill (``--prefill-chunk``, which turns on paging, and
+``--prefill-buckets``); a flag that asks for a path it does not have yet
+(token budget, shards, quantized pages, split-KV, optimistic admission
+and preemption with its priorities, prefix sharing, audits, chaos) stops
+the run with an error naming it.  Runs on the CUDA device unless
+``--device`` says otherwise.
 """
 from __future__ import annotations
 
@@ -29,9 +35,7 @@ from repro_torch.serving import Request, ServingEngine
 # flags of the reference CLI whose paths later slices bring (priority
 # only orders preemption there); refused when given
 _NOT_PORTED = (
-    "paged", "page-size", "n-pages", "shards", "cache-quant",
-    "decode-splits", "prefill-chunk", "prefill-buckets",
-    "max-batched-tokens", "admission", "preempt-mode", "watermark-high",
+    "shards", "cache-quant", "decode-splits", "max-batched-tokens", "admission", "preempt-mode", "watermark-high",
     "watermark-low", "admit-window", "share-prefix",
     "prefix-index-capacity", "priority", "audit", "chaos-seed",
     "chaos-rate",
@@ -53,6 +57,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max-new-tokens", type=int, default=16)
     ap.add_argument("--decode-chunk", type=int, default=8,
                     help="tokens per fused decode chunk (one host sync)")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache: page pool + block tables")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per page (with --paged)")
+    ap.add_argument("--n-pages", type=int, default=0,
+                    help="pool size; 0 derives full capacity, smaller "
+                         "oversubscribes with admission backpressure")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill straight into pages: chunk size "
+                         "in tokens; 0 keeps exact-length prefill.  "
+                         "Implies --paged.")
+    ap.add_argument("--prefill-buckets", default="",
+                    help="comma-separated padded chunk lengths (largest "
+                         "must equal --prefill-chunk); empty derives by "
+                         "doubling")
     ap.add_argument("--calib-seqs", type=int, default=8)
     ap.add_argument("--calib-len", type=int, default=64)
     ap.add_argument("--shared-frac", type=float, default=0.0,
@@ -71,7 +90,14 @@ def parse_args(argv=None) -> argparse.Namespace:
              if getattr(args, f.replace("-", "_")) is not None]
     if asked:
         ap.error(f"{', '.join(asked)}: not ported yet (this slice serves "
-                 f"the dense-slot cache; see ROADMAP.md queue 1)")
+                 f"dense slots and the paged store with reserve "
+                 f"admission; see ROADMAP.md queue 1)")
+    if args.prefill_buckets and not args.prefill_chunk:
+        ap.error("--prefill-buckets requires --prefill-chunk")
+    if args.prefill_chunk and not args.paged:
+        print("--prefill-chunk writes straight into pages: enabling "
+              "--paged")
+        args.paged = True
     return args
 
 
@@ -99,8 +125,16 @@ def main(argv=None) -> None:
               f"v={proj.ranks_v}; cache ratio {fp.ratio:.3f}")
 
     T = args.prompt_len + args.max_new_tokens + 8
+    if args.paged:   # logical capacity must be whole pages
+        T = -(-T // args.page_size) * args.page_size
+    buckets = tuple(int(x) for x in args.prefill_buckets.split(",")
+                    if x.strip())
     sc = ServeConfig(max_seq_len=T, max_batch=8,
-                     decode_chunk=args.decode_chunk)
+                     decode_chunk=args.decode_chunk, paged=args.paged,
+                     page_size=args.page_size, n_pages=args.n_pages,
+                     chunked_prefill=bool(args.prefill_chunk),
+                     prefill_chunk=args.prefill_chunk or 512,
+                     prefill_buckets=buckets)
     eng = ServingEngine(cfg, params, sc, projections=proj,
                         device=model.device)
     rng = np.random.default_rng(0)
@@ -131,6 +165,12 @@ def main(argv=None) -> None:
         print(f"req {r.rid} (prompt {len(r.prompt):3d}): "
               f"{r.out_tokens}{note}")
     print(f"capacity gain vs full cache: {eng.capacity_gain():.2f}x")
+    if eng.pool is not None:
+        print(f"page pool: {eng.pool.n_pages} pages of {sc.page_size} "
+              f"tokens, peak {eng.peak_used_pages} used, "
+              f"{eng.pool.free_count} free after the drain; "
+              f"{eng.n_prefill_chunks} prefill chunks at buckets "
+              f"{sorted(eng.prefill_chunk_shapes)}")
     if eng.n_failed:
         kinds = ", ".join(f"{k}={n}" for k, n in eng.error_counts.items()
                           if n)

@@ -2,21 +2,29 @@
 
 Torch counterpart of the dense subset of ``repro.models.attention`` with
 the same tensor layouts at every public function: q ``(B, H, S, dh)``,
-caches ``(B, Hkv, T, R)``, compressed queries ``(B, H, R)``.
+caches ``(B, Hkv, T, R)``, page pools ``(P, Hkv, page_size, R)``,
+compressed queries ``(B, H, R)``.
 
 * ``causal_attention`` is masked causal attention as plain f32 matmul and
   softmax — what the reference's lax ``blockwise_attention`` computes for
   prefill and calibration (a Hopper flash kernel, K6, replaces it later);
-* ``decode_attention`` is one-token attention over a full cache;
-* the compressed decode path scores with ``(q B_q)(K A_k)^T`` through K3
-  (``repro_torch.kernels.kq_decode``) and maps values out with ``C_v``,
-  which absorbs ``W^O``.
+* ``decode_attention`` is one-token attention over a full cache, and
+  ``chunk_decode_attention`` a chunk of queries over one;
+* the compressed decode path scores with ``(q B_q)(K A_k)^T`` and maps
+  values out with ``C_v``, which absorbs ``W^O``: over the dense cache in
+  K3, over the paged cache in K1; a chunk of a chunked prefill attends
+  the pages in K2 (``repro_torch.kernels.kq_decode``).
+
+A ``block_table`` (B, n_pages) selects the paged cache: new entries are
+written through it into the pools (``serving.paged_cache``), and without
+projections attention reads the gathered pages with the plain functions
+above, as the reference's lax path does.
 
 Caches are updated in place (the reference returns new arrays): a decode
-step writes one time slot per sequence into the tensors it was given and
-returns the same dict.  Softmax statistics are f32 whatever the
-activation type.  Sliding windows and int8 caches belong to later slices
-of the port and raise ``NotImplementedError``.
+step or a prefill chunk writes into the tensors it was given and returns
+the same dict.  Softmax statistics are f32 whatever the activation type.
+Sliding windows and quantized caches belong to later slices of the port
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,8 +35,12 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.kernels.kq_decode import kq_decode_attention
+from repro_torch.kernels.kq_decode import (kq_decode_attention,
+                                           kq_decode_paged_attention,
+                                           kq_prefill_paged_attention)
 from repro_torch.models.layers import apply_rope, init_dense
+from repro_torch.serving.paged_cache import (append_chunk, append_token,
+                                             gather_pages)
 
 NEG_INF = -1e30
 
@@ -97,6 +109,23 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     s = s.masked_fill(~valid_mask[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bgmt,bgtr->bgmr", p.to(cache_v.dtype), cache_v)
+
+
+def chunk_decode_attention(qg: torch.Tensor, cache_k: torch.Tensor,
+                           cache_v: torch.Tensor, qpos: torch.Tensor,
+                           scale: float) -> torch.Tensor:
+    """A chunk of S queries over a cache whose entries for the chunk are
+    already written.  qg: (B,Hkv,m,S,dk); cache_k/v: (B,Hkv,T,*); qpos:
+    (B,S) per-query positions, query s of row b attending t <= qpos[b, s]
+    -> (B,Hkv,m,S,rv) in the cache's type."""
+    T = cache_k.shape[2]
+    s = torch.einsum("bgmsd,bgtd->bgmst", qg.float(), cache_k.float()) \
+        * scale
+    mask = torch.arange(T, device=qg.device)[None, None, :] \
+        <= qpos[:, :, None]                                   # (B,S,T)
+    s = s.masked_fill(~mask[:, None, None], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bgmst,bgtr->bgmsr", p.to(cache_v.dtype), cache_v)
 
 
 # ---------------------------------------------------------------------------
@@ -193,8 +222,11 @@ def make_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
                     proj_rank: Tuple[int, int] = (0, 0),
                     dtype=torch.bfloat16, device=None
                     ) -> Dict[str, torch.Tensor]:
-    """Empty (zeroed) dense cache for one attention layer: ``kc``/``vc``
-    (B, Hkv, T, R) with projections, else ``k``/``v`` (B, Hkv, T, dh)."""
+    """Empty (zeroed) cache for one attention layer: ``kc``/``vc``
+    (B, Hkv, T, R) with projections, else ``k``/``v`` (B, Hkv, T, dh).
+    With (batch, max_len) read as (pages, page_size) these are the page
+    pools (P, Hkv, ps, R) of the paged cache: the fp page layout, the
+    only one ported, has the dense leaves' shapes."""
     _unsupported(cfg)
     Hkv = cfg.n_kv_heads
     rk, rv = proj_rank
@@ -230,38 +262,114 @@ def attn_prefill(p, x: torch.Tensor, cfg: ModelConfig, max_len: int,
     return y, cache
 
 
+def attn_prefill_chunk(p, x: torch.Tensor, cache: Dict, pos0: torch.Tensor,
+                       cfg: ModelConfig, proj: Optional[Dict] = None,
+                       block_table: Optional[torch.Tensor] = None,
+                       valid: Optional[torch.Tensor] = None):
+    """One bucket-padded prompt chunk straight into pages.
+
+    x: (B,S,D) chunk whose first token sits at position ``pos0[b]``;
+    ``valid``: (B,S) bool of real (non-padding) tokens, a contiguous
+    prefix per row, or a (B,) count of them.  The chunk's (compressed)
+    k/v entries are written through ``block_table`` into the pools in
+    place (padding goes to the garbage page); then its queries attend
+    the written pages, earlier chunks and its own, causally by position:
+    in K2 with projections, over the gathered pages without.  Padding
+    queries give garbage rows that the caller drops."""
+    if block_table is None:
+        raise ValueError("attn_prefill_chunk requires a paged cache "
+                         "(block_table)")
+    _unsupported(cfg)
+    B, S, _ = x.shape
+    dh = cfg.d_head
+    scale = 1.0 / math.sqrt(dh)
+    pos0 = batched_positions(pos0, B, x.device)
+    if valid is None:
+        valid = torch.ones((B, S), dtype=torch.bool, device=x.device)
+    n_valid = valid if valid.ndim == 1 else valid.sum(dim=1)
+    positions = pos0[:, None] + torch.arange(S, device=x.device)[None, :]
+    q, k_new, v_new = _qkv(p, x, cfg, positions[:, None, :])
+    lengths = (pos0 + n_valid).to(torch.int32)
+    Hkv = cfg.n_kv_heads
+    Hp = padded_heads(cfg)
+    m_p = Hp // Hkv
+    qg = q.reshape(B, Hkv, m_p, S, dh)
+    if proj is not None:
+        kc = append_chunk(cache["kc"], block_table, pos0,
+                          torch.einsum("bhtd,hdr->bhtr", k_new, proj["a_k"]),
+                          valid)
+        vc = append_chunk(cache["vc"], block_table, pos0,
+                          torch.einsum("bhtd,hdr->bhtr", v_new, proj["a_v"]),
+                          valid)
+        qc = torch.einsum("bgmsd,gdr->bgmsr", qg, proj["b_q"])
+        agg = kq_prefill_paged_attention(
+            qc.reshape(B, Hp, S, -1).contiguous(), kc, vc, lengths,
+            pos0.to(torch.int32), block_table, scale=scale
+        ).reshape(B, Hkv, m_p, S, -1)
+        m = cfg.n_heads // Hkv                 # real heads (c_v is real-m)
+        c_v = proj["c_v"].reshape(Hkv, -1, m, cfg.d_model)
+        y = torch.einsum("bgmsr,grmd->bsd", agg[:, :, :m], c_v)
+    else:
+        kk = append_chunk(cache["k"], block_table, pos0, k_new, valid)
+        vv = append_chunk(cache["v"], block_table, pos0, v_new, valid)
+        agg = chunk_decode_attention(qg, gather_pages(kk, block_table),
+                                     gather_pages(vv, block_table),
+                                     positions, scale)
+        y = _out(agg.reshape(B, Hp, S, dh), p["wo"])
+    return y.to(x.dtype), cache
+
+
 def attn_decode(p, x: torch.Tensor, cache: Dict, pos: torch.Tensor,
-                cfg: ModelConfig, proj: Optional[Dict] = None):
+                cfg: ModelConfig, proj: Optional[Dict] = None,
+                block_table: Optional[torch.Tensor] = None):
     """One-token decode.  x: (B,1,D); pos: (B,) per-sequence index of the
     new token.  Writes the token's (compressed) entry into ``cache`` in
     place and attends positions ``<= pos[b]``; with projections the
-    attention runs in K3."""
+    attention runs in K3 over the dense cache, in K1 over the paged one.
+    ``block_table`` (B, n_pages) selects the paged cache: the entry is
+    written through it into the pools, and without projections attention
+    reads the gathered pages."""
     _unsupported(cfg)
     B = x.shape[0]
     scale = 1.0 / math.sqrt(cfg.d_head)
     q, k_new, v_new = _qkv(p, x, cfg, pos[:, None, None])     # S = 1
     Hkv = cfg.n_kv_heads
     Hp = padded_heads(cfg)
+    paged = block_table is not None
     if proj is not None:
-        scatter_time(cache["kc"],
-                     torch.einsum("bhtd,hdr->bhtr", k_new, proj["a_k"]), pos)
-        scatter_time(cache["vc"],
-                     torch.einsum("bhtd,hdr->bhtr", v_new, proj["a_v"]), pos)
+        k_st = torch.einsum("bhtd,hdr->bhtr", k_new, proj["a_k"])
+        v_st = torch.einsum("bhtd,hdr->bhtr", v_new, proj["a_v"])
+        if paged:
+            append_token(cache["kc"], block_table, pos, k_st[:, :, 0])
+            append_token(cache["vc"], block_table, pos, v_st[:, :, 0])
+        else:
+            scatter_time(cache["kc"], k_st, pos)
+            scatter_time(cache["vc"], v_st, pos)
         qg = q.reshape(B, Hkv, Hp // Hkv, cfg.d_head)
         qc = torch.einsum("bgmd,gdr->bgmr", qg, proj["b_q"]).reshape(
-            B, Hp, -1)
+            B, Hp, -1).contiguous()
         vc = cache["vc"]
-        agg = kq_decode_attention(
-            qc.contiguous(), cache["kc"], vc, (pos + 1).to(torch.int32),
-            scale=scale).reshape(B, Hkv, Hp // Hkv, vc.shape[-1])
+        lengths = (pos + 1).to(torch.int32)
+        agg = (kq_decode_paged_attention(qc, cache["kc"], vc, lengths,
+                                         block_table, scale=scale)
+               if paged else
+               kq_decode_attention(qc, cache["kc"], vc, lengths,
+                                   scale=scale)
+               ).reshape(B, Hkv, Hp // Hkv, vc.shape[-1])
         m = cfg.n_heads // Hkv                 # real heads (c_v is real-m)
         c_v = proj["c_v"].reshape(Hkv, -1, m, cfg.d_model)
         y = torch.einsum("bgmr,grmd->bd", agg[:, :, :m], c_v)[:, None, :]
     else:
-        scatter_time(cache["k"], k_new, pos)
-        scatter_time(cache["v"], v_new, pos)
-        T = cache["k"].shape[2]
+        if paged:
+            append_token(cache["k"], block_table, pos, k_new[:, :, 0])
+            append_token(cache["v"], block_table, pos, v_new[:, :, 0])
+            keys = gather_pages(cache["k"], block_table)
+            vals = gather_pages(cache["v"], block_table)
+        else:
+            keys = scatter_time(cache["k"], k_new, pos)
+            vals = scatter_time(cache["v"], v_new, pos)
+        T = keys.shape[2]
         valid = torch.arange(T, device=x.device)[None, :] <= pos[:, None]
-        agg = decode_attention(q, cache["k"], cache["v"], valid, scale)
+        agg = decode_attention(q, keys, vals, valid, scale)
         y = _out(agg.reshape(B, Hp, 1, cfg.d_head), p["wo"])
     return y.to(x.dtype), cache

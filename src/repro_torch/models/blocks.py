@@ -43,12 +43,17 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, layer_idx: int,
 
 def apply_layer(p: Dict, x: torch.Tensor, cfg: ModelConfig, mode: str,
                 cache: Optional[Dict] = None, pos=None,
-                proj: Optional[Dict] = None, max_len: int = 0):
+                proj: Optional[Dict] = None, max_len: int = 0,
+                block_table: Optional[torch.Tensor] = None,
+                valid: Optional[torch.Tensor] = None):
     """Returns ``(x, new_cache, captures)``.
 
     ``mode``: ``calibrate`` (captures q/k/v), ``prefill`` (builds a
-    ``max_len`` cache) or ``decode`` (one token per sequence at ``pos``,
-    written into ``cache`` in place)."""
+    ``max_len`` cache), ``decode`` (one token per sequence at ``pos``,
+    written into ``cache`` in place) or ``chunk`` (a prefill chunk
+    starting at ``pos``, ``valid`` marking its real tokens, written into
+    the paged ``cache`` in place).  ``block_table`` (B, n_pages) selects
+    the paged cache in ``decode`` and is required in ``chunk``."""
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
     new_cache = captures = None
     if mode == "calibrate":
@@ -58,7 +63,10 @@ def apply_layer(p: Dict, x: torch.Tensor, cfg: ModelConfig, mode: str,
                                              proj)
     elif mode == "decode":
         y, new_cache = attn_mod.attn_decode(p["attn"], h, cache, pos, cfg,
-                                            proj)
+                                            proj, block_table)
+    elif mode == "chunk":
+        y, new_cache = attn_mod.attn_prefill_chunk(
+            p["attn"], h, cache, pos, cfg, proj, block_table, valid)
     else:
         raise ValueError(f"unknown mode {mode!r}")
     x = x + y

@@ -13,9 +13,14 @@ runtime projections are lists with one dict per layer.
 Public entry points:
     init(gen)                                   -> params
     prefill(params, batch, max_len, proj)       -> (logits, cache)
-    decode_step(params, cache, tokens, pos, proj) -> (logits, cache)
+    decode_step(params, cache, tokens, pos, proj, block_table)
+                                                -> (logits, cache)
         (pos: per-sequence (B,) positions; scalars broadcast; the cache
-        is updated in place and returned)
+        is updated in place and returned; a block table selects the
+        paged cache)
+    prefill_chunk(params, cache, tokens, pos0, valid, proj, block_table)
+                                                -> (logits, cache)
+        (one bucket-padded prompt chunk into the paged cache)
     calibrate(params, tokens)                   -> per-layer host captures
     group_output_weights(params)                -> stacked W^O per kv group
 
@@ -79,13 +84,14 @@ class LM:
         return x.float() @ head.float()
 
     def _run_stack(self, params, x, mode, cache=None, pos=None, proj=None,
-                   max_len: int = 0):
+                   max_len: int = 0, block_table=None, valid=None):
         caches, captures = [], []
         for i, lp in enumerate(params["layers"]):
             x, nc, caps = apply_layer(
                 lp, x, self.cfg, mode,
                 cache[i] if cache is not None else None, pos,
-                proj[i] if proj is not None else None, max_len)
+                proj[i] if proj is not None else None, max_len,
+                block_table, valid)
             caches.append(nc)
             if caps is not None:
                 captures.append(caps)
@@ -102,15 +108,40 @@ class LM:
         x = rms_norm(x[:, -1:], params["final_norm"], self.cfg.rms_eps)
         return self._logits(params, x), cache
 
-    def decode_step(self, params, cache, tokens, pos, proj=None):
+    def prefill_chunk(self, params, cache, tokens, pos0, valid, proj=None,
+                      block_table=None):
+        """One bucket-padded prompt chunk straight into a paged cache
+        (reference ``LM.prefill_chunk``).
+
+        tokens: (B, S) chunk whose first token sits at position
+        ``pos0[b]``; ``valid``: (B, S) bool of real (non-padding) tokens,
+        a contiguous prefix per row, or a (B,) count of them.  The chunk's
+        (compressed) entries are written through ``block_table`` into the
+        page pools in place; its queries attend the written pages.
+        Returns logits (B, S, V) — rows past a sequence's last real token
+        are garbage, so callers take the last real row — and ``cache``."""
+        tokens = self._tokens(tokens)
+        pos0 = attn_mod.batched_positions(pos0, tokens.shape[0], self.device)
+        valid = torch.as_tensor(valid, device=self.device)
+        x = params["embed"][tokens]
+        x, cache, _ = self._run_stack(params, x, "chunk", cache=cache,
+                                      pos=pos0, proj=proj,
+                                      block_table=block_table, valid=valid)
+        x = rms_norm(x, params["final_norm"], self.cfg.rms_eps)
+        return self._logits(params, x), cache
+
+    def decode_step(self, params, cache, tokens, pos, proj=None,
+                    block_table=None):
         """tokens: (B, 1); pos: (B,) index of each new token (a scalar
-        broadcasts).  Returns logits (B, 1, V) and ``cache``, updated in
-        place."""
+        broadcasts).  ``block_table``: (B, n_pages) int32, present iff
+        ``cache`` is paged.  Returns logits (B, 1, V) and ``cache``,
+        updated in place."""
         tokens = self._tokens(tokens)
         pos = attn_mod.batched_positions(pos, tokens.shape[0], self.device)
         x = params["embed"][tokens]
         x, cache, _ = self._run_stack(params, x, "decode", cache=cache,
-                                      pos=pos, proj=proj)
+                                      pos=pos, proj=proj,
+                                      block_table=block_table)
         x = rms_norm(x, params["final_norm"], self.cfg.rms_eps)
         return self._logits(params, x), cache
 
@@ -136,6 +167,17 @@ class LM:
         return [attn_mod.make_attn_cache(self.cfg, batch, max_len, ranks,
                                          dtype or self.dtype, self.device)
                 for _ in self.attn_layers]
+
+    def init_paged_cache(self, n_phys_pages: int, page_size: int,
+                         ranks: Tuple[int, int] = (0, 0), dtype=None
+                         ) -> List[Dict[str, torch.Tensor]]:
+        """Page-pool cache, one dict per layer: every leaf is a pool
+        ``(n_phys_pages, Hkv, page_size, R)`` read through a block table
+        (reference ``LM.init_paged_cache``), i.e. ``init_cache`` with
+        (batch, max_len) read as (pages, page_size).  Plain-attention
+        stacks without a sliding window only, as everywhere in the port
+        so far."""
+        return self.init_cache(n_phys_pages, page_size, ranks, dtype)
 
     def projections_pytree(self, mp, dtype=None
                            ) -> List[Dict[str, torch.Tensor]]:

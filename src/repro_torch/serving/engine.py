@@ -1,30 +1,51 @@
-"""Continuous-batching serving engine over the dense-slot cache.
+"""Continuous-batching serving engine over dense slots or the paged store.
 
-Torch counterpart of the dense path of ``repro.serving.engine``
-(``ServeConfig.paged=False``, exact-length prefill), on one CUDA device:
+Torch counterpart of ``repro.serving.engine`` for one CUDA device, on
+two cache layouts:
 
-* the batched cache is allocated once, one ``max_seq_len`` lane per
-  slot; ``step()`` admits pending requests into free slots (each
-  prefilled alone at its exact prompt length and copied into its slot),
-  runs one fused decode chunk over the live slots and harvests finished
-  ones, then refills the freed slots in the same step;
-* a decode chunk is ``decode_chunk`` iterations of sampling, EOS /
-  ``max_new_tokens`` / truncation masking and per-slot positions, all on
-  the device; the host syncs once per chunk, when it reads back the
-  sampled tokens, the masks and a finiteness flag per slot.  The host
-  knows from the same read-back how many of the chunk's iterations can
-  still have a live slot, and runs the model only for those (the
-  reference's ``lax.cond`` skip, decided without a sync);
-* every sequence carries its own position, and with KQ-SVD projections
-  the decode attention runs in the K3 kernel over the compressed cache.
+* **dense slots** (``ServeConfig.paged=False``): the batched cache is
+  allocated once, one ``max_seq_len`` lane per slot; each admitted
+  request is prefilled alone at its exact prompt length and copied into
+  its slot;
+* **paged** (``paged=True``): every layer's cache is a pool of
+  ``page_size``-token pages and one block table maps each slot's logical
+  pages to physical ones (``serving.paged_cache``).  Admission is the
+  reference's *reserve* policy: a request is admitted only when its worst
+  case (prompt + ``max_new_tokens``, capped at ``max_seq_len``) fits what
+  the pool has left after every admitted slot's own outstanding growth,
+  so no allocation can fail mid-serve; a request whose worst case
+  exceeds the whole pool fails with ``oversize``.  Pages are allocated
+  for the prompt at admission and grown before each decode chunk, and
+  freed when the request ends.  The prompt goes in either at its exact
+  length (dense staging repaged into the pool) or, with
+  ``chunked_prefill``, in ``prefill_chunk``-token chunks padded to a
+  bucket and written straight into the pages, ``prefill_chunks_per_step``
+  chunks per step round-robin over the slots, while the other slots
+  decode.
+
+``step()`` admits pending requests into free slots, advances chunked
+prefills, runs one fused decode chunk over the slots that are fully
+prefilled, harvests finished ones and refills the freed slots in the
+same step.  A decode chunk is ``decode_chunk`` iterations of sampling,
+EOS / ``max_new_tokens`` / truncation masking and per-slot positions, all
+on the device; the host syncs once per chunk, when it reads back the
+sampled tokens, the masks and a finiteness flag per slot, and knows from
+the same read-back how many of the chunk's iterations can still have a
+live slot, running the model only for those (the reference's
+``lax.cond`` skip, decided without a sync).  In the paged layout the
+block-table rows of slots outside the chunk (free, mid-prefill) go to
+the device as the garbage page, so their masked writes cannot touch a
+page a prefill is filling; the table is uploaded only when it changed.
+With KQ-SVD projections the decode attention runs in K3 over dense slots
+and in K1 over pages, and a prefill chunk's attention in K2.
 
 Failure semantics follow the reference: a request fails with a
-structured ``RequestError`` (deadlines, ``cancel``, non-finite logits)
-and the rest of the batch keeps serving; a ``stall_steps`` watchdog
-raises ``EngineStalledError`` instead of spinning.  Serving features of
-later slices (paged pages, chunked prefill, token budget, shards,
-quantized pages, audits, fault injection) raise ``NotImplementedError``
-at construction.
+structured ``RequestError`` (oversize, deadlines, ``cancel``, non-finite
+logits) and the rest of the batch keeps serving; a ``stall_steps``
+watchdog raises ``EngineStalledError`` instead of spinning.  Serving
+features of later slices (optimistic admission and preemption, prefix
+sharing, token budget, split-KV decode, shards, quantized pages, audits,
+fault injection) raise ``NotImplementedError`` at construction.
 """
 from __future__ import annotations
 
@@ -38,8 +59,10 @@ import torch
 from repro_torch.config import ModelConfig, ServeConfig
 from repro_torch.core.calibration import ModelProjections
 from repro_torch.core.compressed import cache_footprint
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, to_device
 from repro_torch.models.model import build_model
+from repro_torch.serving.paged_cache import (BlockTables, PagePool,
+                                             pages_needed)
 
 # the structured failure taxonomy: every terminal non-success outcome of
 # a request is exactly one of these
@@ -49,14 +72,16 @@ ERROR_KINDS = ("oversize", "deadline", "pool_exhausted", "swap_failed",
 # ServeConfig features that belong to later slices of the port, with the
 # ROADMAP.md queue-1 item that brings each
 _LATER = (
-    ("paged", lambda sc: sc.paged, "item 5 (paged store)"),
-    ("chunked_prefill", lambda sc: sc.chunked_prefill,
-     "item 5 (chunked prefill)"),
+    ("admission", lambda sc: sc.admission != "reserve",
+     "item 6 (optimistic admission and preemption)"),
+    ("share_prefix", lambda sc: sc.share_prefix, "item 6 (prefix sharing)"),
     ("max_num_batched_tokens", lambda sc: sc.max_num_batched_tokens > 0,
      "item 6 (token-budget scheduler)"),
     ("audit", lambda sc: sc.audit, "item 6 (invariant audits)"),
     ("chaos_seed", lambda sc: sc.chaos_seed is not None,
      "item 6 (fault injection)"),
+    ("decode_splits", lambda sc: sc.decode_splits != 1,
+     "item 7 (split-KV decode)"),
     ("cache_quant", lambda sc: sc.cache_quant != "none",
      "item 8 (page layouts)"),
     ("shards", lambda sc: sc.shards > 1, "item 12 (sharded engine)"),
@@ -122,17 +147,19 @@ def sample_token(logits: torch.Tensor, temperature: float,
 
 
 class ServingEngine:
-    """Continuous-batching serving engine over dense slots (see the
-    module docstring).
+    """Continuous-batching serving engine over dense slots or pages (see
+    the module docstring).
 
     ``start(requests)`` allocates the cache and slot state, ``step()``
     advances one scheduling iteration, ``generate`` is the
     start-and-drain loop and ``cancel(rid)`` unwinds one request.
     Counters: ``n_completed``, ``n_failed``, ``error_counts``,
-    ``n_decode_steps`` (model decode steps run), ``n_prefill_tokens`` and
-    the wall seconds spent in prefill (``prefill_seconds``, which ends
-    each admission with a device sync) and in decode chunks
-    (``decode_seconds``)."""
+    ``n_decode_steps`` (model decode steps run), ``n_prefill_tokens``,
+    ``n_prefill_chunks`` and ``prefill_chunk_shapes`` (the buckets
+    chunks ran at, over the engine's life), the paged ``pool`` and
+    ``peak_used_pages``, and the wall seconds spent in prefill
+    (``prefill_seconds``, which ends each admission or prefill pass with
+    a device sync) and in decode chunks (``decode_seconds``)."""
 
     def __init__(self, cfg: ModelConfig, params, sc: ServeConfig,
                  projections: Optional[ModelProjections] = None,
@@ -157,6 +184,7 @@ class ServingEngine:
                       if projections is not None else (0, 0))
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(sc.seed)
+        self.prefill_chunk_shapes: set = set()
         self._started = False
 
     # -- capacity accounting --------------------------------------------------
@@ -172,8 +200,8 @@ class ServingEngine:
     # -- serving ------------------------------------------------------------
 
     def start(self, requests: List[Request]) -> None:
-        """Allocate the dense cache and per-slot state for ``requests``;
-        ``step()`` then serves them."""
+        """Allocate the (dense or paged) cache and per-slot state for
+        ``requests``; ``step()`` then serves them."""
         sc = self.sc
         B, T = sc.max_batch, sc.max_seq_len
         for r in requests:
@@ -182,7 +210,26 @@ class ServingEngine:
                                  f"{len(r.prompt)} exceeds max_seq_len {T}")
         self._pending: List[Request] = list(requests)
         self._all_requests: List[Request] = list(requests)
-        self._cache = self.model.init_cache(B, T, self.ranks)
+        # paged bookkeeping per slot: the pages it may ever hold (its
+        # worst case, the growth cap) and the pages it holds
+        self._reserved = [0] * B
+        self._private = [0] * B
+        self.pool: Optional[PagePool] = None
+        self._btabs: Optional[BlockTables] = None
+        if sc.paged:
+            self.pool = PagePool(sc.total_pages, sc.watermark_high,
+                                 sc.watermark_low)
+            self._btabs = BlockTables(B, sc.pages_per_seq, self.device)
+            self._cache = self.model.init_paged_cache(
+                sc.total_pages + 1, sc.page_size, self.ranks)
+        else:
+            self._cache = self.model.init_cache(B, T, self.ranks)
+        self.n_prefill_chunks = 0
+        self.peak_used_pages = 0
+        # chunked prefill: prompt tokens already written per slot (None =
+        # slot empty or fully prefilled), and the round-robin cursor
+        self._prefilled: List[Optional[int]] = [None] * B
+        self._pf_next = 0
         self._step_count = 0
         self._no_progress = 0
         self._progress = False
@@ -267,28 +314,70 @@ class ServingEngine:
         for b, r in enumerate(self._slot_req):
             if r is not None:
                 lines.append(f"slot {b}: rid={r.rid} pos={self._pos[b]} "
-                             f"done={bool(self._done[b])}")
+                             f"done={bool(self._done[b])} "
+                             f"prefilled={self._prefilled[b]}")
+        if self.pool is not None:
+            lines.append(f"pool: {self.pool.used_count}/"
+                         f"{self.pool.n_pages} pages used")
         return "\n".join("    " + ln for ln in lines)
 
     # -- admission ------------------------------------------------------------
 
+    def _worst_case_pages(self, r: Request) -> int:
+        """Pages the request can ever occupy (truncation caps the
+        sequence at ``max_seq_len``)."""
+        sc = self.sc
+        return pages_needed(min(len(r.prompt) + max(r.max_new_tokens, 0),
+                                sc.max_seq_len), sc.page_size)
+
+    def _fits_now(self, worst: int) -> bool:
+        """Reserve admission: every admitted slot may still grow by
+        ``reserved - private`` pages; the request's worst case must fit
+        what the pool has left after the live pages and that growth."""
+        outstanding = sum(r - p for r, p in zip(self._reserved,
+                                                self._private))
+        headroom = self.pool.n_pages - self.pool.used_count - outstanding
+        return worst <= headroom
+
     def _next_admissible(self) -> Optional[Request]:
-        """Pop the first pending request with tokens left to generate;
-        requests with none are resolved (done) on the way."""
-        while self._pending:
-            r = self._pending.pop(0)
-            if r.max_new_tokens - len(r.out_tokens) > 0:
-                return r
-            r.done = True
+        """Pop the first admissible pending request within the
+        ``admit_window`` scan, so a small request is not blocked behind a
+        big one whose worst case does not fit yet.  Requests with no
+        tokens to generate are resolved (done) on the way; a request
+        whose worst case exceeds the whole pool fails (``oversize``)."""
+        sc = self.sc
+        i = scanned = 0
+        while i < len(self._pending) and scanned < sc.admit_window:
+            r = self._pending[i]
+            if r.max_new_tokens - len(r.out_tokens) <= 0:
+                r.done = True
+                self._pending.pop(i)
+                continue
+            if sc.paged:
+                worst = self._worst_case_pages(r)
+                if worst > self.pool.n_pages:
+                    self._fail_request(
+                        r, "oversize", f"worst case {worst} pages exceeds "
+                        f"the {self.pool.n_pages}-page pool")
+                    continue
+                if not self._fits_now(worst):
+                    i += 1
+                    scanned += 1
+                    continue
+            return self._pending.pop(i)
         return None
 
     def _admit(self) -> int:
-        """Fill free slots from the pending queue: prefill each request
-        alone at its exact length and copy its cache into the slot.
-        Returns how many requests were admitted."""
+        """Fill free slots from the pending queue; returns how many
+        requests were admitted.  Paged: allocate the prompt's pages and
+        charge the worst case.  Chunked prefill: queue the slot for
+        ``_prefill_step``.  Otherwise prefill the prompt alone at its
+        exact length and copy its cache into the slot (dense) or its
+        pages (paged)."""
+        sc = self.sc
         t0 = time.perf_counter()
         n = 0
-        for b in range(self.sc.max_batch):
+        for b in range(sc.max_batch):
             if self._slot_req[b] is not None:
                 continue
             r = self._next_admissible()
@@ -298,19 +387,44 @@ class ServingEngine:
                                      np.asarray(r.out_tokens, np.int32)])
             self._slot_req[b] = r
             self._slot_prompt[b] = prompt
+            n += 1
+            if sc.paged:
+                # reserve admission checked that these fit: no failure
+                self._reserved[b] = self._worst_case_pages(r)
+                n_priv = pages_needed(len(prompt), sc.page_size)
+                self._btabs.assign(b, self.pool.alloc(n_priv))
+                self._private[b] = n_priv
+            if sc.chunked_prefill:
+                self._prefilled[b] = 0
+                continue
+            max_len = (self._private[b] * sc.page_size if sc.paged
+                       else sc.max_seq_len)
             plogits, slot_cache = self.model.prefill(
-                self.params, prompt[None], self.sc.max_seq_len,
-                proj=self.proj)
-            for layer, small in zip(self._cache, slot_cache):
-                for name, t in small.items():
-                    layer[name][b].copy_(t[0])
+                self.params, prompt[None], max_len, proj=self.proj)
+            if sc.paged:
+                self._paged_insert(b, slot_cache)
+            else:
+                for layer, small in zip(self._cache, slot_cache):
+                    for name, t in small.items():
+                        layer[name][b].copy_(t[0])
             self._activate(b, r, plogits[0, -1])
             self.n_prefill_tokens += len(prompt)
-            n += 1
-        if n:
+        if n and not sc.chunked_prefill:
             self._sync()
             self.prefill_seconds += time.perf_counter() - t0
         return n
+
+    def _paged_insert(self, b: int, slot_cache) -> None:
+        """Cut a prefilled one-sequence cache, leaves (1, Hkv, n*ps, R),
+        into its n pages and write them at slot ``b``'s physical pages."""
+        ps = self.sc.page_size
+        phys = to_device(np.asarray(self._btabs.slot_pages[b], np.int64),
+                         self.device)
+        for layer, small in zip(self._cache, slot_cache):
+            for name, t in small.items():
+                hkv, tl, r = t.shape[1:]
+                layer[name][phys] = t[0].reshape(hkv, tl // ps, ps, r) \
+                    .transpose(0, 1).to(layer[name].dtype)
 
     def _activate(self, b: int, r: Request, last_logits) -> None:
         """Arm slot ``b`` for decode once its prompt cache is in place."""
@@ -324,11 +438,90 @@ class ServingEngine:
     def _release(self, b: int) -> None:
         self._slot_req[b] = None
         self._slot_prompt[b] = None
+        self._prefilled[b] = None
+        if self.sc.paged:
+            # the slot's pages go back to the pool; its row to garbage
+            self._btabs.release(b, self.pool)
+            self._reserved[b] = self._private[b] = 0
+
+    # -- chunked prefill ------------------------------------------------------
+
+    def _run_chunk(self, b: int) -> None:
+        """Run slot ``b``'s next prefill chunk, padded to its bucket,
+        through the model: its tokens, position, real-token count and the
+        slot's block-table row go to the device in one non-blocking copy.
+        The slot joins decode, with the logits of its last real token,
+        when its prompt is written."""
+        prompt = self._slot_prompt[b]
+        start = self._prefilled[b]
+        n = min(self.sc.prefill_chunk, len(prompt) - start)
+        bucket = self.sc.bucket_for(n)
+        host = np.zeros(bucket + 2 + self.sc.pages_per_seq, np.int32)
+        host[:n] = prompt[start: start + n]
+        host[bucket: bucket + 2] = start, n
+        host[bucket + 2:] = self._btabs.rows[b]
+        dev = to_device(host, self.device)
+        logits, self._cache = self.model.prefill_chunk(
+            self.params, self._cache, dev[None, :bucket],
+            dev[bucket: bucket + 1], dev[bucket + 1: bucket + 2],
+            proj=self.proj, block_table=dev[None, bucket + 2:])
+        self.prefill_chunk_shapes.add(bucket)
+        self.n_prefill_chunks += 1
+        self.n_prefill_tokens += n
+        self._prefilled[b] = start + n
+        self._progress = True
+        if start + n == len(prompt):
+            self._prefilled[b] = None            # complete: join decode
+            self._activate(b, self._slot_req[b], logits[0, n - 1])
+
+    def _prefill_step(self, budget: Optional[int] = None) -> int:
+        """Advance in-flight chunked prefills by up to ``budget`` (default
+        ``prefill_chunks_per_step``) chunks, round-robin over the slots so
+        a long prompt cannot starve another.  Returns the unspent budget,
+        so the refill after the harvest shares one per-step bound."""
+        sc = self.sc
+        B = sc.max_batch
+        if budget is None:
+            budget = sc.prefill_chunks_per_step
+        t0 = time.perf_counter()
+        ran = False
+        for off in range(B):
+            if budget == 0:
+                break
+            b = (self._pf_next + off) % B
+            if self._prefilled[b] is None:
+                continue
+            self._run_chunk(b)
+            ran = True
+            budget -= 1
+        self._pf_next = (self._pf_next + 1) % B
+        if ran:
+            self._sync()
+            self.prefill_seconds += time.perf_counter() - t0
+        return budget
+
+    def _ensure_chunk_headroom(self, live: np.ndarray) -> None:
+        """Grow every decoding slot's pages to cover the next
+        ``decode_chunk`` tokens (capped at its worst case) before the
+        chunk runs: the decode chunk itself never allocates.  Reserve
+        admission guarantees the pages are there."""
+        sc = self.sc
+        for b in np.nonzero(live)[0]:
+            end = min(int(self._pos[b]) + sc.decode_chunk, sc.max_seq_len)
+            need = min(pages_needed(end, sc.page_size), self._reserved[b])
+            have = len(self._btabs.slot_pages[b])
+            if need > have:
+                self._btabs.assign(b, self.pool.alloc(need - have),
+                                   start=have)
+                self._private[b] += need - have
 
     # -- decode ---------------------------------------------------------------
 
-    def _decode_chunk(self, live: np.ndarray):
+    def _decode_chunk(self, live: np.ndarray,
+                      block_table: Optional[torch.Tensor] = None):
         """``decode_chunk`` iterations on the device; one read-back.
+        ``block_table``: the paged cache's rows on the device, those of
+        slots outside ``live`` as the garbage page.
 
         Returns host arrays: tokens and emit masks (N, B) and a per-slot
         flag of finite next-token logits; positions, counts and the
@@ -369,7 +562,8 @@ class ServingEngine:
                 # soon released, lane
                 lg, self._cache = self.model.decode_step(
                     self.params, self._cache, nxt[:, None],
-                    pos.clamp(max=T - 1), proj=self.proj)
+                    pos.clamp(max=T - 1), proj=self.proj,
+                    block_table=block_table)
                 logits = lg[:, 0]
                 self.n_decode_steps += 1
             pos = torch.where(done, pos, pos + 1)
@@ -415,8 +609,9 @@ class ServingEngine:
         return freed
 
     def step(self) -> bool:
-        """One scheduling iteration: admit, one fused decode chunk,
-        harvest, then refill freed slots in the same step.  Deadlines are
+        """One scheduling iteration: admit, advance chunked prefills, one
+        fused decode chunk over the fully prefilled slots, harvest, then
+        refill freed slots in the same step.  Deadlines are
         checked first and the no-progress watchdog after.  Returns
         whether work remains."""
         if not self._started:
@@ -435,16 +630,36 @@ class ServingEngine:
         return busy
 
     def _step_inner(self) -> bool:
+        sc = self.sc
         self._admit()
-        live = np.array([r is not None for r in self._slot_req])
+        self._note_pages()
+        pf_budget = self._prefill_step() if sc.chunked_prefill else 0
+        # decodable = admitted and fully prefilled; mid-prefill slots hold
+        # their pages and join decode when their last chunk lands
+        live = np.array([r is not None and pf is None for r, pf in
+                         zip(self._slot_req, self._prefilled)])
         if not live.any():
             return self._busy()
+        btab = None
+        if sc.paged:
+            self._ensure_chunk_headroom(live)
+            btab = self._btabs.device(live)
+            self._note_pages()
         t0 = time.perf_counter()
-        toks_np, emits_np, finite = self._decode_chunk(live)
+        toks_np, emits_np, finite = self._decode_chunk(live, btab)
         self.decode_seconds += time.perf_counter() - t0
         if self._harvest(live, toks_np, emits_np, finite) and self._pending:
+            # refill the freed slots now, within the step's remaining
+            # prefill-chunk budget
             self._admit()
+            if sc.chunked_prefill and pf_budget:
+                self._prefill_step(pf_budget)
         return self._busy()
+
+    def _note_pages(self) -> None:
+        if self.pool is not None:
+            self.peak_used_pages = max(self.peak_used_pages,
+                                       self.pool.used_count)
 
     def generate(self, requests: List[Request]) -> List[Request]:
         """Serve a list of requests to completion (continuous batching)."""

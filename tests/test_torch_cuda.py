@@ -1,5 +1,6 @@
-"""The port on the card: each CUDA kernel against its plain PyTorch
-version, and the reduced model on the card against the CPU.  Marked
+"""The port on the card: each CUDA kernel (K3, K1, K2) against its plain
+PyTorch version, and the reduced model on the card against the CPU on
+the dense and the paged chunked engines.  Marked
 ``cuda``; skips where there is no GPU.  Imports no JAX, so it also runs
 on a machine without it (``--noconftest``: the repository's conftest
 imports JAX):
@@ -16,7 +17,11 @@ from repro_torch.core.calibration import calibrate_model
 from repro_torch.data import calibration_batches
 from repro_torch.device import tree_to
 from repro_torch.kernels.kq_decode import (kq_decode_attention,
-                                           kq_decode_attention_ref)
+                                           kq_decode_attention_ref,
+                                           kq_decode_paged_attention,
+                                           kq_decode_paged_attention_ref,
+                                           kq_prefill_paged_attention,
+                                           kq_prefill_paged_attention_ref)
 from repro_torch.models import build_model
 from repro_torch.serving import Request, ServingEngine
 
@@ -57,6 +62,108 @@ def test_k3_matches_plain_version(cuda, B, H, Hkv, T, Rk, Rv, lengths,
     tol = TOL[dtype]
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                ref.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+def _paged(dev, dtype, B, H, Hkv, ps, n_pages, Rk, Rv, S=None):
+    """Pools, a block table of shuffled physical pages (never the garbage
+    page 0) and queries: (B,H,Rk), or (B,H,S,Rk) for a chunk."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    P = 1 + B * n_pages
+    kp = torch.randn(P, Hkv, ps, Rk, generator=g, device=dev).to(dtype)
+    vp = torch.randn(P, Hkv, ps, Rv, generator=g, device=dev).to(dtype)
+    btab = (torch.randperm(P - 1, generator=g, device=dev) + 1).reshape(
+        B, n_pages).to(torch.int32)
+    shape = (B, H, Rk) if S is None else (B, H, S, Rk)
+    return torch.randn(*shape, generator=g, device=dev).to(dtype), kp, vp, \
+        btab
+
+
+def _close(out, ref, dtype):
+    tol = TOL[dtype]
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,ps,n_pages,Rk,Rv,lengths", [
+    (5, 32, 4, 4, 256, 50, 42, (1, 3, 4, 5, 1023)),
+    (6, 32, 4, 16, 64, 50, 42, (1, 15, 16, 17, 1023, 1024)),
+    (5, 16, 2, 64, 16, 37, 45, (1, 63, 64, 65, 1023)),
+    (2, 64, 4, 16, 8, 256, 256, (128, 3)),          # m=16, widest ranks
+    (3, 12, 4, 4, 4, 5, 7, (16, 0, 9)),             # m=3, empty slot
+    (2, 4, 4, 8, 4, 1, 1, (32, 17)),                # m=1, rank 1
+])
+def test_k1_matches_plain_version(cuda, B, H, Hkv, ps, n_pages, Rk, Rv,
+                                  lengths, dtype):
+    qc, kp, vp, btab = _paged(cuda, dtype, B, H, Hkv, ps, n_pages, Rk, Rv)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = kq_decode_paged_attention.launches
+    out = kq_decode_paged_attention(qc, kp, vp, lens, btab, scale=0.25)
+    torch.cuda.synchronize()
+    assert kq_decode_paged_attention.launches == before + 1
+    _close(out, kq_decode_paged_attention_ref(qc, kp, vp, lens, btab,
+                                              scale=0.25), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,S,ps,n_pages,Rk,Rv,pos0,n_valid", [
+    (1, 32, 4, 256, 16, 64, 50, 42, (0,), (256,)),  # first full chunk
+    (2, 32, 4, 64, 16, 64, 50, 42, (520, 8), (40, 64)),   # mid-page, padded
+    (2, 8, 2, 8, 4, 16, 16, 16, (5, 13), (8, 5)),
+    (2, 8, 2, 32, 64, 4, 16, 8, (0, 65), (32, 20)),
+    (1, 64, 4, 4, 16, 4, 256, 256, (3,), (4,)),     # m=16, widest ranks
+    (2, 12, 4, 5, 4, 8, 5, 7, (0, 7), (5, 2)),      # m=3: 15-row tiles
+    (1, 8, 2, 16, 16, 64, 32, 32, (1008,), (15,)),  # ends at 1023
+])
+def test_k2_matches_plain_version(cuda, B, H, Hkv, S, ps, n_pages, Rk, Rv,
+                                  pos0, n_valid, dtype):
+    qc, kp, vp, btab = _paged(cuda, dtype, B, H, Hkv, ps, n_pages, Rk, Rv,
+                              S=S)
+    p0 = torch.tensor(pos0, dtype=torch.int32, device=cuda)
+    lens = p0 + torch.tensor(n_valid, dtype=torch.int32, device=cuda)
+    before = kq_prefill_paged_attention.launches
+    out = kq_prefill_paged_attention(qc, kp, vp, lens, p0, btab, scale=0.3)
+    torch.cuda.synchronize()
+    assert kq_prefill_paged_attention.launches == before + 1
+    _close(out, kq_prefill_paged_attention_ref(qc, kp, vp, lens, p0, btab,
+                                               scale=0.3), dtype)
+
+
+def test_paged_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    qc, kp, vp, btab = _paged(cuda, torch.float32, 2, 8, 2, 4, 4, 8, 8)
+    lens = torch.tensor([3, 9], dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        kq_decode_paged_attention(qc, kp, vp, lens.long(), btab)
+    with pytest.raises(ValueError):
+        kq_decode_paged_attention(qc, kp, vp, lens, btab.cpu())
+    with pytest.raises(ValueError):
+        kq_prefill_paged_attention(qc[:, :, None].expand(2, 8, 3, 8), kp,
+                                   vp, lens, lens - 1, btab)
+
+
+def test_reduced_paged_engine_card_matches_cpu(cuda):
+    cfg = get_config("tinyllama-1.1b").reduced()
+    cpu, gpu = build_model(cfg, "cpu"), build_model(cfg, cuda)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    p_gpu = tree_to(p_cpu, cuda)
+    mp = calibrate_model(cpu, p_cpu,
+                         calibration_batches(cfg.vocab_size, 8, 32, batch=4),
+                         CompressionConfig(method="kqsvd", epsilon=0.1))
+    prompts = [np.random.default_rng(i).integers(
+        0, cfg.vocab_size, L).astype(np.int32)
+        for i, L in enumerate((5, 19, 9))]
+    served = []
+    for m, p in ((cpu, p_cpu), (gpu, p_gpu)):
+        eng = ServingEngine(cfg, p, ServeConfig(
+            max_seq_len=32, max_batch=2, decode_chunk=4, paged=True,
+            page_size=4, chunked_prefill=True, prefill_chunk=8),
+            projections=mp, device=m.device)
+        rs = [Request(rid=i, prompt=q, max_new_tokens=6)
+              for i, q in enumerate(prompts)]
+        eng.generate(rs)
+        assert eng.pool.free_count == eng.pool.n_pages
+        served.append([r.out_tokens for r in rs])
+    assert served[0] == served[1]
 
 
 def test_reduced_model_card_matches_cpu(cuda):

@@ -187,9 +187,10 @@ def test_watchdog_raises_on_no_progress(monkeypatch):
 
 
 @pytest.mark.parametrize("later", [
-    dict(paged=True, page_size=4, max_seq_len=64),
+    dict(paged=True, page_size=4, max_seq_len=64, admission="optimistic"),
     dict(paged=True, page_size=4, max_seq_len=64, chunked_prefill=True,
-         prefill_chunk=8),
+         prefill_chunk=8, share_prefix=True),
+    dict(paged=True, page_size=4, max_seq_len=64, decode_splits=3),
     dict(audit=True), dict(chaos_seed=0)])
 def test_later_slice_features_raise(later):
     _, _, tcfg, tp, _, _ = models()
@@ -198,8 +199,8 @@ def test_later_slice_features_raise(later):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--paged"], ["--priority", "0,1"], ["--shards", "2"],
-    ["--prefill-chunk", "8", "--audit"]])
+    ["--admission", "optimistic"], ["--priority", "0,1"], ["--shards", "2"],
+    ["--decode-splits", "3", "--audit"]])
 def test_cli_refuses_flags_of_later_slices(flags, capsys):
     """The reference CLI's flags for paths the port lacks stop the run
     with an error naming each of them."""
