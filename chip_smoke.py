@@ -32,20 +32,32 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              prefill attends over the compressed cache, exact prefill over
              the full one;
 3d. profile  one paged decode step (8 slots at position 512);
+3e. int8     the paged main path with int8 pages and per-chunk dynamic
+             split-KV (``cache_quant="int8"``, ``decode_splits=0``), same
+             model, projections, pool (256 fp-page units, so
+             ``int(256 * capacity_x)`` physical pages) and requests as 3c.
+             Counts zeroed just before and read just after: K5 split, K5
+             and the split merge each launched, K1, K2, K4 never; every
+             request done and the pool whole again;
+3f. profile  one paged decode step (8 slots at position 512) with fp pages
+             in 8 splits (K4) and int8 pages in 8 splits (K5 split), beside
+             3d's fp unsplit step (K1) in this one process;
 4.  kernels  each kernel against its plain PyTorch version on the card at
-             the main paths' shapes (the calibrated ranks) and, for K1 and
-             K2, on edge cases (page sizes 4, 16, 64; lengths 1, ps-1, ps,
-             ps+1, 1023; shuffled block tables; chunks at position 0,
-             mid-page and with bucket padding), in bf16 and float32, at the
+             the main paths' shapes (the calibrated ranks) and, for K1, K2,
+             K4 and K5, on edge cases (page sizes 4, 16, 64; lengths 0, 1,
+             ps-1, ps, ps+1, 1023; splits 1, 2, 3, 8 with empty trailing
+             splits; shuffled block tables; chunks at position 0, mid-page
+             and with bucket padding), in bf16 and float32, at the
              reference kernel tests' tolerances and within two bf16 ulps;
              its time (CUDA events, L2 flushed before every launch) beside
              the plain version's, one PyTorch library call's for the same
              function and the bound the card's bytes or flops allow;
 5.  parity   the port on the card against the port on the CPU (plain
              versions) at reduced size in float32, same seeded weights:
-             dense and paged chunked engines give identical greedy tokens;
-             prefill, ``LM.prefill_chunk`` and dense and paged
-             ``decode_step`` logits agree within 2e-4.
+             dense, paged chunked, int8 pages with dynamic splits, SVDq
+             pages with 3 splits and the dense int8 cache give identical
+             greedy tokens; prefill, ``LM.prefill_chunk`` and dense and
+             paged ``decode_step`` logits agree within 2e-4.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
@@ -54,6 +66,7 @@ the reference package, and exits non-zero where CUDA is not available.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -128,25 +141,29 @@ def check_close(label: str, dt_name: str, out, ref) -> float:
 
 def measure(row: dict, label: str, dt_name: str, kernel, plain, library,
             flush, nbytes: int, flops: int) -> None:
-    """Check ``kernel()`` against ``plain()`` (and the library call
-    against ``plain()``, at ten times the tolerance), time all three and
+    """Check ``kernel()`` against ``plain()`` (and the library call, where
+    there is one, against ``plain()``, at ten times the tolerance), time
+    them and
     write the numbers into ``row``: bf16, the main paths' type, under the
     plain keys, float32 with a ``_float32`` suffix."""
     ref = plain()
     err = check_close(label, dt_name, kernel(), ref)
-    lib_err = float((library().float() - ref.float()).abs().max())
-    assert lib_err <= 10 * TOL[dt_name], \
-        f"{label} library yardstick disagrees: {lib_err}"
+    if library is not None:
+        lib_err = float((library().float() - ref.float()).abs().max())
+        assert lib_err <= 10 * TOL[dt_name], \
+            f"{label} library yardstick disagrees: {lib_err}"
     times = {"ms": cuda_time_ms(kernel, flush),
              "plain_ms": cuda_time_ms(plain, flush),
-             "library_ms": cuda_time_ms(library, flush)}
+             "library_ms": (cuda_time_ms(library, flush)
+                            if library is not None else None)}
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * flops / PEAK_FLOPS[dt_name]
     bound = {"bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    lib = times["library_ms"]
     print(f"{label} {dt_name}: max |err| {err:.3g} (tol {TOL[dt_name]}); "
           f"kernel {times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, "
-          f"library {times['library_ms']:.4f} ms, bound "
+          f"library {'none' if lib is None else f'{lib:.4f} ms'}, bound "
           f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}: {nbytes} "
           f"bytes, {flops} flops)")
     if dt_name == "bfloat16":
@@ -172,13 +189,46 @@ def paged_inputs(g, dev, dt, B, H, Hkv, ps, n_pages, Rk, Rv, S=None):
     return q, kp, vp, btab
 
 
-def profile_decode(model, params, proj, ranks, dev, paged: bool,
-                   steps: int = 5):
+def int8_pools(kp, vp):
+    """int8 codes and (P, Hkv, ps, 1) bf16 per-token scales of fp pools,
+    by the port's page-layout quantizer."""
+    from repro_torch.serving.page_layouts import quantize_int8
+    (k8, ks), (v8, vs) = quantize_int8(kp), quantize_int8(vp)
+    return k8, v8, ks[..., None].contiguous(), vs[..., None].contiguous()
+
+
+def plain_decode(qc, kp, vp, lengths, btab, scale, num_splits, ks=None,
+                 vs=None):
+    """The plain version of the paged decode the wrapper dispatches: K1's
+    or K5's, or with more than one span K4's (K5 split's) partials merged
+    by ``combine_split_partials``."""
+    from repro_torch.kernels.kq_decode import (
+        combine_split_partials, kq_decode_paged_attention_int8_ref,
+        kq_decode_paged_attention_ref, kq_decode_paged_partials_ref,
+        resolve_splits)
+    n, span = resolve_splits(num_splits, btab.shape[1])
+    if n > 1:
+        o, lse = kq_decode_paged_partials_ref(
+            qc, kp, vp, lengths, btab, span=span, n_splits=n, scale=scale,
+            kscale=ks, vscale=vs)
+        return combine_split_partials(o, lse).reshape(
+            qc.shape[0], qc.shape[1], -1).to(qc.dtype)
+    if ks is not None:
+        return kq_decode_paged_attention_int8_ref(qc, kp, vp, ks, vs,
+                                                  lengths, btab, scale=scale)
+    return kq_decode_paged_attention_ref(qc, kp, vp, lengths, btab,
+                                         scale=scale)
+
+
+def profile_decode(label: str, model, params, proj, ranks, dev, paged: bool,
+                   num_splits: int = 1, steps: int = 5) -> dict:
     """Where a full-width decode step's time goes: host wall per step
     (synced), device busy time per step from ``torch.profiler`` (sum of
-    kernel times), the idle share, and the kernels that take the most.
+    kernel times), the idle share, launches per step, the attention
+    kernels' share of the busy time (``attend_kernel``, and the split
+    merge ``combine_kernel``), and the kernels that take the most.
     Paged: the 8 slots' 1024 tokens in pages of 16 at shuffled physical
-    ids."""
+    ids, in the page layout of ``model.cfg.cache_quant``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     B, T, ps = 8, 1024, 16
@@ -194,7 +244,7 @@ def profile_decode(model, params, proj, ranks, dev, paged: bool,
 
     def step():
         model.decode_step(params, cache, toks, pos, proj=proj,
-                          block_table=btab)
+                          block_table=btab, num_splits=num_splits)
 
     for _ in range(3):
         step()
@@ -214,30 +264,37 @@ def profile_decode(model, params, proj, ranks, dev, paged: bool,
             and getattr(e, "device_type", None)
             == torch.autograd.DeviceType.CUDA]
     busy = sum(r[1] for r in rows)
-    kind = "paged" if paged else "dense"
-    print(f"{kind} decode step, synced host wall: {wall:.3f} ms; device "
-          f"busy {busy:.3f} ms ({len(rows)} kernel kinds, "
-          f"{sum(r[2] for r in rows)} launches); idle share "
-          f"{1 - busy / wall:.3f}" if busy else
-          f"{kind} decode step, synced host wall: {wall:.3f} ms; the "
-          f"profiler saw no device time")
+    attn = sum(r[1] for r in rows
+               if "attend_kernel" in r[0] or "combine_kernel" in r[0])
+    launches = sum(r[2] for r in rows)
+    if not busy:
+        print(f"{label} decode step, synced host wall: {wall:.3f} ms; the "
+              f"profiler saw no device time")
+        return {"wall_ms": wall}
+    print(f"{label} decode step, synced host wall: {wall:.3f} ms; device "
+          f"busy {busy:.3f} ms ({len(rows)} kernel kinds, {launches} "
+          f"launches); idle share {1 - busy / wall:.3f}; attention kernels "
+          f"{attn:.4f} ms ({attn / busy:.3f} of busy)")
     for name, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
-        share = f"  ({ms / busy:.3f} of busy)" if busy else ""
         print(f"  {ms:8.4f} ms/step  {n:5d} launches/step  {name[:80]}"
-              f"{share}")
+              f"  ({ms / busy:.3f} of busy)")
+    return {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall,
+            "launches": launches, "attn_ms": attn}
 
 
 def ptxas_summary(log: str) -> list:
     """``nvcc -Xptxas -v`` condensed: registers and spilled bytes for each
-    instantiation of the kernel, as ``type/rows/cols: regs+spill``."""
+    instantiation of the kernel, as ``type[/int8]/rows/cols: regs+spill``
+    (int8: int8 pages)."""
     import re
     out, key = [], None
     for line in log.splitlines():
-        m = re.search(r"attend_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
-                      line)
+        m = re.search(r"Compiling entry.*attend_kernelI(f|13__nv_bfloat16)"
+                      r"(f|a|S1_)Li(\d+)ELi(\d+)E", line)
         if m:
             key = ("f32" if m.group(1) == "f" else "bf16") + \
-                f"/{m.group(2)}/{m.group(3)}"
+                ("/int8" if m.group(2) == "a" else "") + \
+                f"/{m.group(3)}/{m.group(4)}"
         elif key and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line).group(1)
         elif key and "registers" in line:
@@ -275,15 +332,20 @@ def main() -> int:
     from repro_torch.device import tree_to
     from repro_torch.kernels import build
     from repro_torch.kernels.kq_decode import (
-        kq_decode_attention, kq_decode_attention_ref,
-        kq_decode_paged_attention, kq_decode_paged_attention_ref,
-        kq_prefill_paged_attention, kq_prefill_paged_attention_ref)
+        combine_split_partials, kq_combine_splits, kq_decode_attention,
+        kq_decode_attention_ref, kq_decode_paged_attention,
+        kq_decode_paged_attention_ref, kq_decode_paged_int8,
+        kq_decode_paged_int8_split,
+        kq_decode_paged_split, kq_prefill_paged_attention,
+        kq_prefill_paged_attention_ref, resolve_splits)
     from repro_torch.models import build_model
     from repro_torch.serving import Request, ServingEngine, gather_pages
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     wrappers = (kq_decode_attention, kq_decode_paged_attention,
-                kq_prefill_paged_attention)
+                kq_prefill_paged_attention, kq_decode_paged_split,
+                kq_decode_paged_int8, kq_decode_paged_int8_split,
+                kq_combine_splits)
 
     def zero_counts():
         for w in wrappers:
@@ -360,7 +422,8 @@ def main() -> int:
         proj = eng.proj
 
     with phase("3b profile one dense decode step (8 slots at position 512)"):
-        profile_decode(model, params, proj, (rk, rv), dev, paged=False)
+        profile_decode("dense", model, params, proj, (rk, rv), dev,
+                       paged=False)
 
     # -- 3c: the paged main path --------------------------------------------
     with phase("3c serve tinyllama-1.1b, full width, KQ-SVD, paged + "
@@ -423,8 +486,78 @@ def main() -> int:
 
     with phase("3d profile one paged decode step (8 slots at position "
                "512)"):
-        profile_decode(model, params, proj, (rk, rv), dev, paged=True)
-        del eng, peng, params, model
+        prof = {"K1": profile_decode("paged", model, params, proj,
+                                     (rk, rv), dev, paged=True)}
+
+    # -- 3e: int8 pages and dynamic split-KV ------------------------------
+    with phase("3e serve tinyllama-1.1b, full width, KQ-SVD, int8 pages + "
+               "dynamic split-KV"):
+        qsc = dataclasses.replace(psc, cache_quant="int8", decode_splits=0)
+        qeng = ServingEngine(cfg, params, qsc, projections=mp)
+        qreqs = [Request(rid=i, prompt=p, max_new_tokens=32)
+                 for i, p in enumerate(prompts)]
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        qeng.generate(qreqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        q_launch = {"K5 split": kq_decode_paged_int8_split.launches,
+                    "K5": kq_decode_paged_int8.launches,
+                    "combine": kq_combine_splits.launches,
+                    "K1": kq_decode_paged_attention.launches,
+                    "K4": kq_decode_paged_split.launches,
+                    "K2": kq_prefill_paged_attention.launches,
+                    "K3": kq_decode_attention.launches}
+        bad = [r.rid for r in qreqs if r.failed or not r.done
+               or len(r.out_tokens) != min(32, 1024 - len(r.prompt) + 1)]
+        assert not bad, f"requests not served in full: {bad}"
+        assert qeng.pool.free_count == qeng.pool.n_pages, \
+            (qeng.pool.free_count, qeng.pool.n_pages)
+        assert qeng.pool.n_pages == int(256 * qeng.capacity_x) > 256
+        for k in ("K5 split", "K5", "combine"):
+            assert q_launch[k] > 0, f"{k} did not run: {q_launch}"
+        assert q_launch["K5 split"] + q_launch["K5"] == \
+            cfg.n_layers * qeng.n_decode_steps, q_launch
+        assert q_launch["combine"] == q_launch["K5 split"], q_launch
+        assert q_launch["K1"] == q_launch["K4"] == q_launch["K2"] == \
+            q_launch["K3"] == 0, q_launch
+        serve_report("int8 + dynamic splits", qeng, qreqs, wall)
+        print(f"capacity_x {qeng.capacity_x:.4f}: pool {qeng.pool.n_pages} "
+              f"physical pages of {qsc.page_size} for {qsc.total_pages} "
+              f"fp-page units; peak {qeng.peak_used_pages} used, "
+              f"{qeng.pool.free_count} free after the drain; launches "
+              f"{q_launch}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        same = sum(a == b for r, d in zip(qreqs, preqs)
+                   for a, b in zip(r.out_tokens, d.out_tokens))
+        print(f"agreement with the fp paged engine on the same requests: "
+              f"{same}/{sum(len(r.out_tokens) for r in qreqs)} tokens at "
+              f"equal places (int8 pages round the cache)")
+        qmodel = qeng.model
+        del qeng
+
+    with phase("3f profile one paged decode step (8 slots at position "
+               "512): fp 8 splits (K4) and int8 8 splits (K5 split), beside "
+               "3d's fp unsplit step (K1)"):
+        for label, m_, n_ in (("K4", model, 8), ("K5 split", qmodel, 8)):
+            zero_counts()
+            prof[label] = profile_decode(
+                f"paged {m_.cfg.cache_quant} pages, {n_} split(s)", m_,
+                params, proj, (rk, rv), dev, paged=True, num_splits=n_)
+            counts = {w.__name__: w.launches for w in wrappers
+                      if w.launches}
+            prof[label]["counts"] = counts
+            print(f"  launches over the 3 + 5 + 5 steps: {counts}")
+        k4_launches = prof["K4"]["counts"].get("kq_decode_paged_split", 0)
+        assert k4_launches > 0, prof["K4"]["counts"]
+        assert prof["K5 split"]["counts"].get(
+            "kq_decode_paged_int8_split", 0) > 0, prof["K5 split"]["counts"]
+        print("decode step, 8 slots at 512: " + "; ".join(
+            f"{k} busy {v['busy_ms']:.3f} ms, idle {v['idle']:.3f}, "
+            f"{v['launches']} launches, attention {v['attn_ms']:.4f} ms"
+            for k, v in prof.items() if "busy_ms" in v))
+        del eng, peng, params, model, qmodel
 
     # -- 4: each kernel against its plain version ------------------------
     with phase("4 kernels against their plain versions"):
@@ -535,6 +668,98 @@ def main() -> int:
                     + -(-int(plen) // ps) * 4,
                     2 * int(seen.sum()) * H * (rk + rv))
 
+        # K4, K5 (unsplit and split) and the split merge at the paged
+        # main path's decode shapes (pages of 16), 8 splits of 8 pages
+        n_sp, span = resolve_splits(8, n_pages)
+        part_bytes = B * Hkv * n_sp * m * (rv + 1) * 4     # f32 partials
+        meta_bytes = B * 4 + pages_used * 4                 # lengths, table
+        shape = {"B": B, "H": H, "Hkv": Hkv, "page_size": ps,
+                 "n_pages": n_pages, "Rk": rk, "Rv": rv,
+                 "lengths": lengths.tolist()}
+        k4 = {"name": "kq_decode_paged_split (K4) + kq_combine_splits",
+              "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/kq_paged.cu "
+                        "(body: csrc/kq_attend.cuh)",
+              "replaces": "src/repro/kernels/kq_decode/paged.py:120",
+              "launches": k4_launches, "launches_from": "phase 3f",
+              "shape": dict(shape, splits=n_sp, span_pages=span)}
+        k5 = {"name": "kq_decode_paged_int8 (K5)", "route": "cuda",
+              "source": k4["source"],
+              "replaces": "src/repro/kernels/kq_decode/paged.py:63 "
+                          "(quant=True)",
+              "launches": q_launch["K5"], "launches_from": "phase 3e",
+              "shape": shape}
+        k5s = {"name": "kq_decode_paged_int8_split (K5 split) + "
+                       "kq_combine_splits", "route": "cuda",
+               "source": k4["source"],
+               "replaces": "src/repro/kernels/kq_decode/paged.py:120 "
+                           "(quant=True)",
+               "launches": q_launch["K5 split"],
+               "launches_from": "phase 3e", "shape": k4["shape"]}
+        kcomb = {"name": "kq_combine_splits (split merge)", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/kq_paged.cu",
+                 "replaces": "src/repro/kernels/kq_decode/paged.py:196 "
+                             "(combine_split_partials, jnp beside K4)",
+                 "launches": q_launch["combine"],
+                 "launches_from": "phase 3e",
+                 "shape": {"B": B, "Hkv": Hkv, "splits": n_sp, "m": m,
+                           "Rv": rv}}
+        flops = 2 * live * H * (rk + rv)
+        for dt_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dt_name)
+            qc, kp, vp, btab = paged_inputs(g, dev, dt, B, H, Hkv, ps,
+                                            n_pages, rk, rv)
+            k8, v8, ks8, vs8 = int8_pools(kp.float(), vp.float())
+            kx = gather_pages(kp, btab).repeat_interleave(m, dim=1)
+            vx = gather_pages(vp, btab).repeat_interleave(m, dim=1)
+            kdx = (gather_pages(k8, btab).float()
+                   * gather_pages(ks8, btab).float()).to(dt) \
+                .repeat_interleave(m, dim=1)
+            vdx = (gather_pages(v8, btab).float()
+                   * gather_pages(vs8, btab).float()).to(dt) \
+                .repeat_interleave(m, dim=1)
+            isz = qc.element_size()
+            qo_bytes = B * H * (rk + rv) * isz
+            fp_bytes = live * Hkv * (rk + rv) * isz
+            i8_bytes = live * Hkv * (rk + rv + 2 * 2)      # codes + scales
+            measure(k4, "K4", dt_name,
+                    lambda: kq_decode_paged_attention(
+                        qc, kp, vp, lengths, btab, scale=scale,
+                        num_splits=8),
+                    lambda: plain_decode(qc, kp, vp, lengths, btab, scale, 8),
+                    lambda: sdpa(qc[:, :, None], kx, vx, attn_mask=mask,
+                                 scale=scale)[:, :, 0],
+                    flush, fp_bytes + qo_bytes + meta_bytes + 2 * part_bytes,
+                    flops)
+            measure(k5, "K5", dt_name,
+                    lambda: kq_decode_paged_int8(
+                        qc, k8, v8, ks8, vs8, lengths, btab, scale=scale),
+                    lambda: plain_decode(qc, k8, v8, lengths, btab, scale, 1,
+                                         ks8, vs8),
+                    lambda: sdpa(qc[:, :, None], kdx, vdx, attn_mask=mask,
+                                 scale=scale)[:, :, 0],
+                    flush, i8_bytes + qo_bytes + meta_bytes, flops)
+            measure(k5s, "K5 split", dt_name,
+                    lambda: kq_decode_paged_attention(
+                        qc, k8, v8, lengths, btab, scale=scale, num_splits=8,
+                        kscale=ks8, vscale=vs8),
+                    lambda: plain_decode(qc, k8, v8, lengths, btab, scale, 8,
+                                         ks8, vs8),
+                    lambda: sdpa(qc[:, :, None], kdx, vdx, attn_mask=mask,
+                                 scale=scale)[:, :, 0],
+                    flush, i8_bytes + qo_bytes + meta_bytes + 2 * part_bytes,
+                    flops)
+            o_p, lse_p = kq_decode_paged_split(qc, kp, vp, lengths, btab,
+                                               span=span, n_splits=n_sp,
+                                               scale=scale)
+            out_c = torch.empty(B, H, rv, dtype=dt, device=dev)
+            measure(kcomb, "combine", dt_name,
+                    lambda: kq_combine_splits(o_p, lse_p, out_c),
+                    lambda: combine_split_partials(o_p, lse_p).reshape(
+                        B, H, rv).to(dt), None, flush,
+                    part_bytes + B * H * rv * isz,
+                    B * H * n_sp * (2 * rv + 2))
+
         # K1 and K2 edge cases: page sizes, page-boundary lengths, chunk
         # starts at 0 and mid-page, bucket padding; both types
         n_cases = 0
@@ -568,7 +793,37 @@ def main() -> int:
         print(f"K1 and K2 edge cases: {n_cases} held to tolerance and two "
               f"bf16 ulps (page sizes 4, 16, 64; lengths 1, ps-1, ps, "
               f"ps+1, 1023; chunks at 0, mid-page, padded)")
-        kernels = [k1, k2, k3]
+        # K4 and K5 (with the merge) edge cases: page sizes, lengths 0 and
+        # at page boundaries, splits 1, 2, 3, 8 (short slots leave the
+        # trailing splits empty), shuffled tables; both types
+        n_cases = 0
+        for dt_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dt_name)
+            for eps in (4, 16, 64):
+                npg = T // eps
+                el = torch.tensor([0, 1, eps - 1, eps, eps + 1, 1023],
+                                  dtype=torch.int32, device=dev)
+                qc, kp, vp, btab = paged_inputs(g, dev, dt, 6, H, Hkv, eps,
+                                                npg, rk, rv)
+                k8, v8, ks8, vs8 = int8_pools(kp.float(), vp.float())
+                for ns in (1, 2, 3, 8):
+                    check_close(f"K4 ps={eps} splits={ns}", dt_name,
+                                kq_decode_paged_attention(
+                                    qc, kp, vp, el, btab, scale=scale,
+                                    num_splits=ns),
+                                plain_decode(qc, kp, vp, el, btab, scale,
+                                             ns))
+                    check_close(f"K5 ps={eps} splits={ns}", dt_name,
+                                kq_decode_paged_attention(
+                                    qc, k8, v8, el, btab, scale=scale,
+                                    num_splits=ns, kscale=ks8, vscale=vs8),
+                                plain_decode(qc, k8, v8, el, btab, scale, ns,
+                                             ks8, vs8))
+                    n_cases += 2
+        print(f"K4 and K5 edge cases: {n_cases} held to tolerance and two "
+              f"bf16 ulps (page sizes 4, 16, 64; lengths 0, 1, ps-1, ps, "
+              f"ps+1, 1023; splits 1, 2, 3, 8)")
+        kernels = [k1, k2, k3, k4, k5, k5s, kcomb]
 
     # -- 5: the port on the card against the port on the CPU ---------------
     with phase("5 card against CPU, reduced tinyllama-1.1b, float32"):
@@ -625,17 +880,24 @@ def main() -> int:
         assert kq_prefill_paged_attention.launches > 0, "K2 did not run"
         prompts = [np.random.default_rng(7 + i).integers(
             0, rcfg.vocab_size, L).astype(np.int32)
-            for i, L in enumerate((3, 9, 6, 12, 5, 8, 17, 1))]
+            for i, L in enumerate((3, 9, 6, 12, 5, 8, 17, 1, 30))]
         served = {}
-        layouts = {"dense": {},
-                   "paged chunked": dict(paged=True, page_size=4,
-                                         n_pages=24, chunked_prefill=True,
-                                         prefill_chunk=8)}
-        for kind, kw in layouts.items():
+        chunked = dict(paged=True, page_size=4, n_pages=24,
+                       chunked_prefill=True, prefill_chunk=8)
+        layouts = {"dense": ({}, {}),
+                   "paged chunked": (chunked, {}),
+                   "int8 pages, dynamic splits": (dict(
+                       chunked, cache_quant="int8", decode_splits=0), {}),
+                   "svdq pages, 3 splits": (dict(
+                       chunked, cache_quant="svdq", decode_splits=3), {}),
+                   "dense int8": ({}, {"cache_quant": "int8"})}
+        zero_counts()
+        for kind, (kw, cfg_kw) in layouts.items():
             for m_, p_ in ((cpu_model, p_cpu), (gpu_model, p_gpu)):
-                e = ServingEngine(rcfg, p_, ServeConfig(
-                    max_seq_len=64, max_batch=4, decode_chunk=4, **kw),
-                    projections=rmp, device=m_.device)
+                e = ServingEngine(dataclasses.replace(rcfg, **cfg_kw), p_,
+                                  ServeConfig(max_seq_len=64, max_batch=4,
+                                              decode_chunk=4, **kw),
+                                  projections=rmp, device=m_.device)
                 rs = [Request(rid=i, prompt=p, max_new_tokens=8)
                       for i, p in enumerate(prompts)]
                 e.generate(rs)
@@ -644,11 +906,15 @@ def main() -> int:
                 served.setdefault(kind, []).append(
                     [r.out_tokens for r in rs])
             assert served[kind][0] == served[kind][1], (kind, served[kind])
+        # the 30-token prompt reaches 11 pages of 4: dynamic mode splits
+        assert kq_decode_paged_int8_split.launches > 0
+        assert kq_decode_paged_int8.launches > 0
+        assert kq_combine_splits.launches > 0
         print(f"logits max |card - cpu| {worst:.3g} (tol 2e-4) over prefill"
               f" + 4 dense decode steps and 2 prefill chunks + 4 paged "
               f"decode steps; {len(prompts)} requests' greedy tokens "
-              f"identical on card and CPU in the dense and the paged "
-              f"chunked engine")
+              f"identical on card and CPU in the engines: "
+              f"{', '.join(layouts)}")
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -5,6 +5,10 @@ kq_decode/  compressed-cache attention, CUDA C++ over one kernel body
             K3  decode over the dense cache (csrc/kq_decode.cu), the
                 paper's runtime hot spot;
             K1  decode over the paged cache (csrc/kq_paged.cu);
+            K4  split-KV decode over the paged cache, with the merge of
+                its partials (csrc/kq_paged.cu);
+            K5  K1 and K4 over int8 pages with per-token scales
+                (csrc/kq_paged.cu);
             K2  chunked prefill-append over the paged cache
                 (csrc/kq_paged.cu)
 

@@ -1,5 +1,6 @@
-// Compressed-cache attention for Hopper: the one kernel body behind K1, K2
-// and K3 (kq_decode.cu holds K3's entry point, kq_paged.cu K1's and K2's).
+// Compressed-cache attention for Hopper: the one kernel body behind K1-K5
+// (kq_decode.cu holds K3's entry point, kq_paged.cu those of K1, K2, K4 and
+// K5 and the split combine).
 //
 // For every (sequence b, kv group g, tile of up to M query rows) it runs an
 // f32 online softmax of the rows' compressed queries qc (., Rk) against the
@@ -16,6 +17,22 @@
 //               token t is row (block_table[b, t/ps]*Hkv + g)*ps + t%ps.
 // Every token's R values are contiguous in both, so a tile staged token by
 // token stays coalesced whatever the page size.
+//
+// Int8 pages (K5): the pools hold int8 codes and two pools (P, Hkv, ps, 1)
+// of bf16 scales, one per token and side, at the token's own row index.
+// Staging dequantizes in registers, code * scale in f32, before anything
+// is dotted (the order of the TPU kernel and of the plain version), so
+// device-memory reads stay int8.  A token's codes are R bytes (50 and 42
+// at the calibrated ranks), not 4-byte aligned: they are loaded byte-wise,
+// lanes across the row, never past its end.
+//
+// Split-KV (K4, and K5 split): a block owns one span of span * ps tokens,
+// [s * span * ps, (s + 1) * span * ps), of its slot; it writes f32 partials
+// out_s = acc / max(l, 1e-30) and lse_s = m + log(max(l, 1e-30)) instead
+// of the output, and kq_combine_splits (kq_paged.cu) merges them.  A span
+// past the sequence's length loads nothing and writes out = 0,
+// lse = -1e30 + log(1e-30): its merge weight is exactly 0 beside any live
+// span, and a slot of length 0 merges to 0, as the unsplit kernel gives.
 //
 // What bounds it: the cache bytes in decode.  A decode call reads
 // B * Hkv * len * (Rk + Rv) * itemsize bytes and does about 2 m (Rk + Rv)
@@ -48,16 +65,19 @@
 //     be NaN); a token a row may not see gets p = 0 for that row;
 //   * the warps' (max, sum, acc) partials merge in shared memory at the
 //     end; acc / max(sum, 1e-30) makes a row that saw nothing return 0.
-// Known limits of this first version: decode has only B * Hkv blocks (32
-// at 8 slots of tinyllama) for 132 SMs, so it is latency-bound rather than
-// bandwidth-bound; prefill scores on CUDA cores.  Splitting a sequence
-// across SMs, TMA staging and wgmma are later work.
+// Known limits of this first version: unsplit decode has only B * Hkv
+// blocks (32 at 8 slots of tinyllama) for 132 SMs, so it is latency-bound
+// rather than bandwidth-bound (split-KV multiplies the blocks by the split
+// count); prefill scores on CUDA cores.  TMA staging and wgmma are later
+// work.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace kq {
 
@@ -69,12 +89,24 @@ constexpr int kMaxWarps = 8;
 constexpr float kNegInf = -1e30f;
 constexpr size_t kSmemLimit = 232448;  // per-block opt-in maximum on sm_90
 
-// Where the cache rows live.
+// Where the cache rows live, and how to read them.
 struct Cache {
   const int32_t* btab;  // (B, n_pages) block table; nullptr: dense cache
   int t_cap;            // tokens a sequence can hold: T, or n_pages * ps
   int ps;               // page size (paged)
   int n_pages;          // block-table width (paged)
+  const __nv_bfloat16* kscale;  // (P, Hkv, ps, 1) per-token scales of
+  const __nv_bfloat16* vscale;  // int8 pools; nullptr: fp pools
+};
+
+// Split-KV: which span of a slot's tokens a block owns, and where its
+// partials go.  o_part == nullptr: one span covering every token, and the
+// block writes the normalized output.
+struct Split {
+  float* o_part;        // (B * Hkv, n, m, Rv) f32 partial outputs
+  float* lse;           // (B * Hkv, n, m) f32 partial log-sum-exp
+  int n;                // splits
+  int span;             // tokens per split (span pages * ps)
 };
 
 // Which query rows a block owns and what each may see.  The rows of
@@ -87,6 +119,7 @@ struct Rows {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
@@ -96,27 +129,39 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 }
 
 // Copy a tile's n cache rows of R values into shared memory (row stride
-// `stride`).  The row of token t0 + l is lane l's `my_row`, handed out by
-// shuffle; rows go kBatch at a time, lane l taking columns l, l + 32, ...
-// of each, every load of the batch issued before the first store.
-template <typename T>
+// `stride`), as f32.  The row of token t0 + l is lane l's `my_row`, handed
+// out by shuffle; rows go kBatch at a time, lane l taking columns l,
+// l + 32, ... of each, every load of the batch issued before the first
+// store.  Int8 rows (C = int8_t) are dequantized on the way: code * the
+// token's bf16 scale `sc[row]`, in f32.
+template <typename C>
 __device__ __forceinline__ void stage(float* __restrict__ dst, int stride,
-                                      const T* __restrict__ src, int R, int n,
-                                      int my_row, int lane) {
+                                      const C* __restrict__ src,
+                                      const __nv_bfloat16* __restrict__ sc,
+                                      int R, int n, int my_row, int lane) {
+  constexpr bool kInt8 = std::is_same<C, int8_t>::value;
   for (int r0 = 0; r0 < n; r0 += kBatch) {       // r0 + kBatch <= 32
-    size_t from[kBatch];
+    int row[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u)
-      from[u] = (size_t)__shfl_sync(0xffffffffu, my_row, r0 + u) * R;
+      row[u] = __shfl_sync(0xffffffffu, my_row, r0 + u);
     const int nb = min(kBatch, n - r0);
+    float mul[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      mul[u] = kInt8 && u < nb ? __bfloat162float(sc[row[u]]) : 1.f;
     for (int c = lane; c < R; c += 32) {
       float v[kBatch];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u)
-        v[u] = u < nb ? to_f32(src[from[u] + c]) : 0.f;
+        v[u] = u < nb ? to_f32(src[(size_t)row[u] * R + c]) : 0.f;
 #pragma unroll
-      for (int u = 0; u < kBatch; ++u)
-        if (u < nb) dst[(r0 + u) * stride + c] = v[u];
+      for (int u = 0; u < kBatch; ++u) {
+        if (u < nb) {
+          if constexpr (kInt8) v[u] *= mul[u];
+          dst[(r0 + u) * stride + c] = v[u];
+        }
+      }
     }
   }
 }
@@ -149,19 +194,22 @@ __host__ inline size_t smem_bytes(int M, int Rk, int Rv, int nw) {
               nw * warp_floats(M, Rk, Rv) + M);
 }
 
-template <typename T, int M, int VT>
-__global__ void attend_kernel(const T* __restrict__ qc, const T* __restrict__ kc,
-                              const T* __restrict__ vc,
+// T: query and output type; C: cache element type (T, or int8_t with
+// scales); M: query rows per block; VT: value columns per lane.
+template <typename T, typename C, int M, int VT>
+__global__ void attend_kernel(const T* __restrict__ qc, const C* __restrict__ kc,
+                              const C* __restrict__ vc,
                               const int32_t* __restrict__ lengths,
                               T* __restrict__ out, int H, int Hkv, int Rk,
                               int Rv, int m, float scale, Cache cache,
-                              Rows rows) {
+                              Rows rows, Split split) {
   extern __shared__ float smem[];
   const int nw = blockDim.x / 32;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int tile = blockIdx.x % rows.n_tiles;
-  const int bg = blockIdx.x / rows.n_tiles;      // b * Hkv + g
+  const int sp = blockIdx.x / rows.n_tiles % split.n;   // split
+  const int bg = blockIdx.x / rows.n_tiles / split.n;   // b * Hkv + g
   const int b = bg / Hkv;
   const int g = bg % Hkv;
   const int ks = odd_stride(Rk);
@@ -198,6 +246,8 @@ __global__ void attend_kernel(const T* __restrict__ qc, const T* __restrict__ kc
   int bound = 0;                                 // the block's last key + 1
 #pragma unroll
   for (int j = 0; j < M; ++j) bound = max(bound, lim_s[j]);
+  const int t_lo = sp * split.span;              // this split's tokens
+  const int t_hi = min(bound, t_lo + split.span);
 
   float m_run[M], l_run[M], acc[M][VT];
 #pragma unroll
@@ -208,8 +258,8 @@ __global__ void attend_kernel(const T* __restrict__ qc, const T* __restrict__ kc
     for (int i = 0; i < VT; ++i) acc[j][i] = 0.f;
   }
 
-  for (int t0 = warp * kTile; t0 < bound; t0 += nw * kTile) {
-    const int n = min(kTile, bound - t0);        // staged rows of this tile
+  for (int t0 = t_lo + warp * kTile; t0 < t_hi; t0 += nw * kTile) {
+    const int n = min(kTile, t_hi - t0);         // staged rows of this tile
     int my_row = 0;                              // cache row of token t0+lane
     if (lane < n) {
       const int t = t0 + lane;
@@ -218,8 +268,8 @@ __global__ void attend_kernel(const T* __restrict__ qc, const T* __restrict__ kc
           : (cache.btab[(size_t)b * cache.n_pages + t / cache.ps] * Hkv + g) *
                     cache.ps + t % cache.ps;
     }
-    stage(k_s, ks, kc, Rk, n, my_row, lane);
-    stage(v_s, Rv, vc, Rv, n, my_row, lane);
+    stage(k_s, ks, kc, cache.kscale, Rk, n, my_row, lane);
+    stage(v_s, Rv, vc, cache.vscale, Rv, n, my_row, lane);
     __syncwarp();
 
     // lane = token: its scores against the M queries
@@ -236,7 +286,8 @@ __global__ void attend_kernel(const T* __restrict__ qc, const T* __restrict__ kc
     }
 #pragma unroll
     for (int j = 0; j < M; ++j) {
-      const bool seen = t0 + lane < lim_s[j];    // implies lane < n
+      // lane < n: a span may end before the row's limit (split-KV)
+      const bool seen = lane < n && t0 + lane < lim_s[j];
       const float sj = seen ? s[j] * scale : kNegInf;
       const float m_new = fmaxf(m_run[j], warp_max(sj));
       const float p = seen ? expf(sj - m_new) : 0.f;
@@ -285,7 +336,7 @@ __global__ void attend_kernel(const T* __restrict__ qc, const T* __restrict__ kc
   __syncthreads();
 
   // merge the warps: rescale each to the common max, then acc / sum
-  T* og = out + qrow0 * Rv;
+  // (unsplit), or the split's partial acc / sum and its log-sum-exp
   for (int i = threadIdx.x; i < nr * Rv; i += blockDim.x) {
     const int j = i / Rv;
     const int c = i - j * Rv;
@@ -297,7 +348,14 @@ __global__ void attend_kernel(const T* __restrict__ qc, const T* __restrict__ kc
       l += l_w[w * M + j] * e;
       a += warps0[w * wf + j * Rv + c] * e;
     }
-    store(og + i, a / fmaxf(l, 1e-30f));
+    const float den = fmaxf(l, 1e-30f);
+    if (split.o_part == nullptr) {
+      store(out + qrow0 * Rv + i, a / den);
+    } else {                                     // decode rows: S == 1
+      const size_t prow = ((size_t)bg * split.n + sp) * m + r0 + j;
+      split.o_part[prow * Rv + c] = a / den;
+      if (c == 0) split.lse[prow] = mx + logf(den);
+    }
   }
 }
 
@@ -309,10 +367,11 @@ struct Args {
   float scale;
   Cache cache;
   Rows rows;
+  Split split;
   cudaStream_t stream;
 };
 
-template <typename T, int M, int VT>
+template <typename T, typename C, int M, int VT>
 int launch(const Args& a) {
   int nw = kMaxWarps;
   while (nw > 1 && smem_bytes(M, a.Rk, a.Rv, nw) > kSmemLimit) --nw;
@@ -320,54 +379,78 @@ int launch(const Args& a) {
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        attend_kernel<T, M, VT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        attend_kernel<T, C, M, VT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  attend_kernel<T, M, VT>
-      <<<a.B * a.Hkv * a.rows.n_tiles, nw * 32, smem, a.stream>>>(
-          static_cast<const T*>(a.qc), static_cast<const T*>(a.kc),
-          static_cast<const T*>(a.vc), static_cast<const int32_t*>(a.lengths),
+  attend_kernel<T, C, M, VT>
+      <<<a.B * a.Hkv * a.split.n * a.rows.n_tiles, nw * 32, smem,
+         a.stream>>>(
+          static_cast<const T*>(a.qc), static_cast<const C*>(a.kc),
+          static_cast<const C*>(a.vc), static_cast<const int32_t*>(a.lengths),
           static_cast<T*>(a.out), a.H, a.Hkv, a.Rk, a.Rv, a.H / a.Hkv, a.scale,
-          a.cache, a.rows);
+          a.cache, a.rows, a.split);
   return (int)cudaGetLastError();
 }
 
 // VT = the value columns each lane owns: Rv / 32, rounded up to 1, 2, 4, 8.
-template <typename T, int M>
+template <typename T, typename C, int M>
 int dispatch_cols(const Args& a) {
-  if (a.Rv <= 32) return launch<T, M, 1>(a);
-  if (a.Rv <= 64) return launch<T, M, 2>(a);
-  if (a.Rv <= 128) return launch<T, M, 4>(a);
-  return launch<T, M, 8>(a);
+  if (a.Rv <= 32) return launch<T, C, M, 1>(a);
+  if (a.Rv <= 64) return launch<T, C, M, 2>(a);
+  if (a.Rv <= 128) return launch<T, C, M, 4>(a);
+  return launch<T, C, M, 8>(a);
 }
 
-// M = the row tile: n rows rounded up to a power of two, at most 16.
-template <typename T>
+// M = the row tile: n rows rounded up to a power of two, at most 16; int8
+// pools are decode-only, so their row tiles stop at 8 (groups m <= 8) and
+// the instantiations do not double.
+template <typename T, typename C>
 int dispatch_rows(int n, const Args& a) {
-  if (n <= 1) return dispatch_cols<T, 1>(a);
-  if (n <= 2) return dispatch_cols<T, 2>(a);
-  if (n <= 4) return dispatch_cols<T, 4>(a);
-  if (n <= 8) return dispatch_cols<T, 8>(a);
-  return dispatch_cols<T, 16>(a);
+  if (n <= 1) return dispatch_cols<T, C, 1>(a);
+  if (n <= 2) return dispatch_cols<T, C, 2>(a);
+  if (n <= 4) return dispatch_cols<T, C, 4>(a);
+  if (n <= 8) return dispatch_cols<T, C, 8>(a);
+  if constexpr (std::is_same<C, int8_t>::value) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    return dispatch_cols<T, C, 16>(a);
+  }
 }
 
 // Checks the shapes every entry point shares, then launches in `dtype`
 // (0 = float32, 1 = bfloat16) with row tiles of min(m * S, 16) rows.
-inline int attend(int dtype, const void* qc, const void* kc, const void* vc,
-                  const void* lengths, void* out, int B, int H, int Hkv, int Rk,
-                  int Rv, float scale, Cache cache, const int32_t* pos0, int S,
-                  void* stream) {
+// Int8 pools (cache.kscale set) are taken where kInt8Pages is true (the
+// paged library) for decode (S == 1, m <= 8) only.
+template <bool kInt8Pages>
+int attend(int dtype, const void* qc, const void* kc, const void* vc,
+           const void* lengths, void* out, int B, int H, int Hkv, int Rk,
+           int Rv, float scale, Cache cache, const int32_t* pos0, int S,
+           Split split, void* stream) {
   if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > kMaxRows || Rk < 1 ||
-      Rk > kMaxR || Rv < 1 || Rv > kMaxR || cache.t_cap < 1 || S < 1)
+      Rk > kMaxR || Rv < 1 || Rv > kMaxR || cache.t_cap < 1 || S < 1 ||
+      split.n < 1 || split.span < 1 ||
+      (split.o_part == nullptr) != (split.lse == nullptr) ||
+      (split.o_part == nullptr &&
+       (split.n != 1 || split.span < cache.t_cap)) ||
+      (split.o_part != nullptr && S != 1) ||
+      (cache.kscale == nullptr) != (cache.vscale == nullptr))
     return (int)cudaErrorInvalidValue;
   const int n_rows = H / Hkv * S;                // query rows per (b, g)
   const int tile = n_rows < kMaxRows ? n_rows : kMaxRows;
   const Args a{qc, kc, vc, lengths, out, B, H, Hkv, Rk, Rv, scale, cache,
-               Rows{pos0, S, (n_rows + kMaxRows - 1) / kMaxRows},
+               Rows{pos0, S, (n_rows + kMaxRows - 1) / kMaxRows}, split,
                static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return dispatch_rows<float>(tile, a);
-  if (dtype == 1) return dispatch_rows<__nv_bfloat16>(tile, a);
+  if (cache.kscale != nullptr) {
+    if constexpr (kInt8Pages) {
+      if (S != 1) return (int)cudaErrorInvalidValue;
+      if (dtype == 0) return dispatch_rows<float, int8_t>(tile, a);
+      if (dtype == 1) return dispatch_rows<__nv_bfloat16, int8_t>(tile, a);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype == 0) return dispatch_rows<float, float>(tile, a);
+  if (dtype == 1) return dispatch_rows<__nv_bfloat16, __nv_bfloat16>(tile, a);
   return (int)cudaErrorInvalidValue;
 }
 

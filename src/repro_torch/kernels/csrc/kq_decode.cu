@@ -25,7 +25,8 @@ extern "C" int kq_decode_launch(const void* qc, const void* kc, const void* vc,
                                 const void* lengths, void* out, int B, int H,
                                 int Hkv, int T_len, int Rk, int Rv, float scale,
                                 int dtype, void* stream) {
-  const kq::Cache cache{nullptr, T_len, 1, 1};
-  return kq::attend(dtype, qc, kc, vc, lengths, out, B, H, Hkv, Rk, Rv, scale,
-                    cache, nullptr, 1, stream);
+  const kq::Cache cache{nullptr, T_len, 1, 1, nullptr, nullptr};
+  return kq::attend<false>(dtype, qc, kc, vc, lengths, out, B, H, Hkv, Rk, Rv,
+                           scale, cache, nullptr, 1,
+                           kq::Split{nullptr, nullptr, 1, T_len}, stream);
 }

@@ -1,4 +1,5 @@
-// K1 and K2: attention over the KQ-SVD-compressed paged cache, for Hopper.
+// K1, K2, K4 and K5: attention over the KQ-SVD-compressed paged cache, and
+// the merge of split-KV partials, for Hopper.
 //
 // K1, paged decode, replaces the Pallas TPU kernel `_kq_decode_paged_kernel`
 // (src/repro/kernels/kq_decode/paged.py:63, entry point
@@ -6,6 +7,18 @@
 // every (slot b, kv group g) an f32 online softmax of the group's m
 // compressed queries over the slot's tokens t < lengths[b], read through
 // block_table[b, .].
+//
+// K4, split-KV paged decode, replaces `_kq_decode_paged_split_kernel`
+// (paged.py:120, launched by `_kq_decode_paged_split` at :216): the
+// slot's page chain is cut into n spans of `span` pages, one block per
+// (b, g, span) instead of per (b, g) (256 blocks instead of 32 at 8 slots,
+// 4 kv heads and 8 splits), each writing an f32 partial (out_s, lse_s);
+// kq_combine_splits below merges them into the output, as
+// `combine_split_partials` (paged.py:196) does in the reference.
+//
+// K5, int8 pages, replaces the same two kernels with quant=True
+// (paged.py:63-117, :120-193): int8 code pools plus bf16 per-token scale
+// pools (P, Hkv, ps, 1), dequantized in registers while staging.
 //
 // K2, paged prefill-append, replaces `_kq_prefill_paged_kernel`
 // (paged.py:292, entry point `kq_prefill_paged_attention` at :342): a
@@ -15,40 +28,105 @@
 // so they are cut into tiles of 16 rows, one block each, and a tile stops
 // reading keys at min(lengths[b], its largest query position + 1).
 //
-// Neither carries the TPU design over: the TPU kernels walk one page per
+// None carries the TPU design over: the TPU kernels walk one page per
 // grid step with the softmax state in VMEM scratch and the block table in
-// scalar prefetch.  Here a block walks its slot's tokens in 32-token warp
-// tiles, looking a tile's pages up in the table itself; each token's R
-// values are contiguous in the pool, so staging stays coalesced at any page
-// size.  The kernel body, what bounds it and how its design answers that
-// are in kq_attend.cuh, shared with K3 (kq_decode.cu).
+// scalar prefetch.  Here a block walks its slot's (or span's) tokens in
+// 32-token warp tiles, looking a tile's pages up in the table itself;
+// each token's R values are contiguous in the pool, so staging stays
+// coalesced at any page size.  The kernel body, what bounds it and how
+// its design answers that are in kq_attend.cuh, shared with K3
+// (kq_decode.cu).
+//
+// The combine is bound by nothing but its launch: it reads n * m * Rv
+// floats per (b, g) (a few hundred KB at full width) and does a few flops
+// per value.  One warp per output row, lanes across the row's values;
+// every lane walks the splits in order, so no shared memory is needed.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (see repro_torch/kernels/build.py).
 
 #include "kq_attend.cuh"
 
-// Plain C entry points (loaded with ctypes).  dtype: 0 = float32,
-// 1 = bfloat16, the same for qc, the pools and out; lengths, pos0 and
-// block_table are int32.  All tensors contiguous: pools (P, Hkv, ps, R),
-// block_table (B, n_pages) of physical page ids below P.  Each returns the
-// launch's cudaError_t (0 on success).
+namespace {
 
-// K1: qc (B, H, Rk) -> out (B, H, Rv).
-extern "C" int kq_decode_paged_launch(const void* qc, const void* kc_pool,
-                                      const void* vc_pool, const void* lengths,
-                                      const void* block_table, void* out, int B,
-                                      int H, int Hkv, int ps, int n_pages,
-                                      int Rk, int Rv, float scale, int dtype,
-                                      void* stream) {
-  if (ps < 1 || n_pages < 1) return (int)cudaErrorInvalidValue;
-  const kq::Cache cache{static_cast<const int32_t*>(block_table),
-                        ps * n_pages, ps, n_pages};
-  return kq::attend(dtype, qc, kc_pool, vc_pool, lengths, out, B, H, Hkv, Rk,
-                    Rv, scale, cache, nullptr, 1, stream);
+constexpr int kCombineWarps = 4;
+
+// out[r] = sum_s w_s o_part[s] / max(sum_s w_s, 1e-30), w_s =
+// exp(lse_s - max_s lse_s), for r = (b * Hkv + g) * m + j, which is head
+// g * m + j of slot b in out (B, H, Rv).
+template <typename T>
+__global__ void combine_kernel(const float* __restrict__ o_part,
+                               const float* __restrict__ lse,
+                               T* __restrict__ out, int n_rows, int n, int m,
+                               int Rv) {
+  const int r = blockIdx.x * kCombineWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= n_rows) return;
+  const int bg = r / m;
+  const int j = r - bg * m;
+  const float* ls = lse + (size_t)bg * n * m + j;        // stride m
+  float mx = __int_as_float(0xff800000);          // -inf
+  for (int s = lane; s < n; s += 32) mx = fmaxf(mx, ls[(size_t)s * m]);
+  mx = kq::warp_max(mx);
+  float den = 0.f, acc[kq::kMaxR / 32];
+#pragma unroll
+  for (int i = 0; i < kq::kMaxR / 32; ++i) acc[i] = 0.f;
+  for (int s = 0; s < n; ++s) {
+    const float w = expf(ls[(size_t)s * m] - mx);
+    den += w;
+    const float* op = o_part + (((size_t)bg * n + s) * m + j) * Rv;
+#pragma unroll
+    for (int i = 0; i < kq::kMaxR / 32; ++i) {
+      const int c = lane + 32 * i;
+      if (c < Rv) acc[i] += w * op[c];
+    }
+  }
+  den = fmaxf(den, 1e-30f);
+  T* o = out + (size_t)r * Rv;
+#pragma unroll
+  for (int i = 0; i < kq::kMaxR / 32; ++i) {
+    const int c = lane + 32 * i;
+    if (c < Rv) kq::store(o + c, acc[i] / den);
+  }
 }
 
-// K2: qc (B, H, S, Rk), pos0 (B,) -> out (B, H, S, Rv).
+}  // namespace
+
+// Plain C entry points (loaded with ctypes).  dtype: 0 = float32,
+// 1 = bfloat16, the type of qc and out (and of fp pools); lengths, pos0
+// and block_table are int32.  All tensors contiguous: pools
+// (P, Hkv, ps, R), block_table (B, n_pages) of physical page ids below P.
+// Each returns the launch's cudaError_t (0 on success).
+
+// K1, K4, K5: qc (B, H, Rk) -> out (B, H, Rv), or split partials.
+//   kscale/vscale: nullptr for fp pools of `dtype` (K1, K4); else the
+//     pools are int8 and these are their (P, Hkv, ps, 1) bf16 scales (K5).
+//   o_part/lse: nullptr for the unsplit kernel (n_splits 1), which writes
+//     out; else (B, Hkv, n_splits, m, Rv) and (B, Hkv, n_splits, m) f32
+//     partials of spans of span_pages pages (K4, K5 split), and out is
+//     not touched.
+extern "C" int kq_decode_paged_launch(const void* qc, const void* kc_pool,
+                                      const void* vc_pool, const void* kscale,
+                                      const void* vscale, const void* lengths,
+                                      const void* block_table, void* out,
+                                      void* o_part, void* lse, int B, int H,
+                                      int Hkv, int ps, int n_pages, int Rk,
+                                      int Rv, int span_pages, int n_splits,
+                                      float scale, int dtype, void* stream) {
+  if (ps < 1 || n_pages < 1 || span_pages < 1) return (int)cudaErrorInvalidValue;
+  const kq::Cache cache{static_cast<const int32_t*>(block_table),
+                        ps * n_pages, ps, n_pages,
+                        static_cast<const __nv_bfloat16*>(kscale),
+                        static_cast<const __nv_bfloat16*>(vscale)};
+  const kq::Split split{static_cast<float*>(o_part), static_cast<float*>(lse),
+                        n_splits,
+                        o_part == nullptr ? ps * n_pages : span_pages * ps};
+  return kq::attend<true>(dtype, qc, kc_pool, vc_pool, lengths, out, B, H,
+                          Hkv, Rk, Rv, scale, cache, nullptr, 1, split,
+                          stream);
+}
+
+// K2: qc (B, H, S, Rk), pos0 (B,) -> out (B, H, S, Rv); fp pools.
 extern "C" int kq_prefill_paged_launch(const void* qc, const void* kc_pool,
                                        const void* vc_pool, const void* lengths,
                                        const void* pos0, const void* block_table,
@@ -57,8 +135,34 @@ extern "C" int kq_prefill_paged_launch(const void* qc, const void* kc_pool,
                                        float scale, int dtype, void* stream) {
   if (ps < 1 || n_pages < 1) return (int)cudaErrorInvalidValue;
   const kq::Cache cache{static_cast<const int32_t*>(block_table),
-                        ps * n_pages, ps, n_pages};
-  return kq::attend(dtype, qc, kc_pool, vc_pool, lengths, out, B, H, Hkv, Rk,
-                    Rv, scale, cache, static_cast<const int32_t*>(pos0), S,
-                    stream);
+                        ps * n_pages, ps, n_pages, nullptr, nullptr};
+  return kq::attend<true>(dtype, qc, kc_pool, vc_pool, lengths, out, B, H,
+                          Hkv, Rk, Rv, scale, cache,
+                          static_cast<const int32_t*>(pos0), S,
+                          kq::Split{nullptr, nullptr, 1, ps * n_pages},
+                          stream);
+}
+
+// The split merge: o_part (B, Hkv, n, m, Rv) and lse (B, Hkv, n, m) f32
+// -> out (B, Hkv * m, Rv) in `dtype`.
+extern "C" int kq_combine_splits_launch(const void* o_part, const void* lse,
+                                        void* out, int B, int Hkv, int n,
+                                        int m, int Rv, int dtype,
+                                        void* stream) {
+  if (B < 1 || Hkv < 1 || n < 1 || m < 1 || Rv < 1 || Rv > kq::kMaxR)
+    return (int)cudaErrorInvalidValue;
+  const int n_rows = B * Hkv * m;
+  const dim3 grid((n_rows + kCombineWarps - 1) / kCombineWarps);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* op = static_cast<const float*>(o_part);
+  const auto* ls = static_cast<const float*>(lse);
+  if (dtype == 0)
+    combine_kernel<float><<<grid, kCombineWarps * 32, 0, st>>>(
+        op, ls, static_cast<float*>(out), n_rows, n, m, Rv);
+  else if (dtype == 1)
+    combine_kernel<__nv_bfloat16><<<grid, kCombineWarps * 32, 0, st>>>(
+        op, ls, static_cast<__nv_bfloat16*>(out), n_rows, n, m, Rv);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }

@@ -4,17 +4,19 @@
       --method kqsvd --requests 8
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
-      --method kqsvd --requests 8 --paged --prefill-chunk 256
+      --method kqsvd --requests 8 --paged --prefill-chunk 256 \\
+      --cache-quant int8 --decode-splits 0
 
 The flags are the reference CLI's (``python -m repro.launch.serve``).
 This slice serves the dense-slot cache and the paged store
 (``--paged``, ``--page-size``, ``--n-pages``), with exact-length or
 chunked prefill (``--prefill-chunk``, which turns on paging, and
-``--prefill-buckets``); a flag that asks for a path it does not have yet
-(token budget, shards, quantized pages, split-KV, optimistic admission
-and preemption with its priorities, prefix sharing, audits, chaos) stops
-the run with an error naming it.  Runs on the CUDA device unless
-``--device`` says otherwise.
+``--prefill-buckets``), quantized pages (``--cache-quant``) and split-KV
+decode (``--decode-splits``), both of which turn on paging too; a flag
+that asks for a path it does not have yet (token budget, shards,
+optimistic admission and preemption with its priorities, prefix sharing,
+audits, chaos) stops the run with an error naming it.  Runs on the CUDA
+device unless ``--device`` says otherwise.
 """
 from __future__ import annotations
 
@@ -31,12 +33,13 @@ from repro_torch.core.compressed import cache_footprint
 from repro_torch.data import calibration_batches
 from repro_torch.models import build_model
 from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving.page_layouts import FpLayout, get_layout
 
 # flags of the reference CLI whose paths later slices bring (priority
 # only orders preemption there); refused when given
 _NOT_PORTED = (
-    "shards", "cache-quant", "decode-splits", "max-batched-tokens", "admission", "preempt-mode", "watermark-high",
-    "watermark-low", "admit-window", "share-prefix",
+    "shards", "max-batched-tokens", "admission", "preempt-mode",
+    "watermark-high", "watermark-low", "admit-window", "share-prefix",
     "prefix-index-capacity", "priority", "audit", "chaos-seed",
     "chaos-rate",
 )
@@ -64,6 +67,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--n-pages", type=int, default=0,
                     help="pool size; 0 derives full capacity, smaller "
                          "oversubscribes with admission backpressure")
+    ap.add_argument("--cache-quant", default="none",
+                    choices=["none", "int8", "svdq"],
+                    help="paged page layout: int8 = int8 pages + per-token "
+                         "scale pools, dequantized in the decode kernel; "
+                         "svdq = per-rank key bits packed sub-byte.  "
+                         "Implies --paged (svdq needs --prefill-chunk); "
+                         "needs a compressed --method to take effect.")
+    ap.add_argument("--decode-splits", type=int, default=1,
+                    help="split-KV decode fan-out: >1 fixed, 0 derived per "
+                         "decode chunk from the live max length (snapped "
+                         "to {1,2,4,8}), 1 unsplit.  Implies --paged.")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="chunked prefill straight into pages: chunk size "
                          "in tokens; 0 keeps exact-length prefill.  "
@@ -94,6 +108,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                  f"admission; see ROADMAP.md queue 1)")
     if args.prefill_buckets and not args.prefill_chunk:
         ap.error("--prefill-buckets requires --prefill-chunk")
+    if args.cache_quant == "svdq" and not args.prefill_chunk:
+        ap.error("--cache-quant svdq packs sub-byte ranks at page-write "
+                 "time and requires --prefill-chunk (the exact-length "
+                 "prefill has no packed-page writer)")
+    if args.cache_quant != "none" and not args.paged:
+        print("--cache-quant selects a paged page layout: enabling "
+              "--paged")
+        args.paged = True
+    if args.decode_splits != 1 and not args.paged:
+        print("--decode-splits splits the paged page chain: enabling "
+              "--paged")
+        args.paged = True
     if args.prefill_chunk and not args.paged:
         print("--prefill-chunk writes straight into pages: enabling "
               "--paged")
@@ -134,7 +160,8 @@ def main(argv=None) -> None:
                      page_size=args.page_size, n_pages=args.n_pages,
                      chunked_prefill=bool(args.prefill_chunk),
                      prefill_chunk=args.prefill_chunk or 512,
-                     prefill_buckets=buckets)
+                     prefill_buckets=buckets, cache_quant=args.cache_quant,
+                     decode_splits=args.decode_splits)
     eng = ServingEngine(cfg, params, sc, projections=proj,
                         device=model.device)
     rng = np.random.default_rng(0)
@@ -171,6 +198,21 @@ def main(argv=None) -> None:
               f"{eng.pool.free_count} free after the drain; "
               f"{eng.n_prefill_chunks} prefill chunks at buckets "
               f"{sorted(eng.prefill_chunk_shapes)}")
+        if args.cache_quant != "none":
+            # the page layout's capacity story: packed vs fp bytes per
+            # cached token at the served ranks
+            rk, rv = eng.ranks
+            if eng.cfg.cache_quant == "none":
+                print(f"cache quant {args.cache_quant}: inert (no "
+                      f"compression projections; fp pages served)")
+            else:
+                lay, fp = get_layout(eng.cfg), FpLayout()
+                packed = lay.token_bytes("k", rk) + lay.token_bytes("v", rv)
+                full = fp.token_bytes("k", rk) + fp.token_bytes("v", rv)
+                print(f"cache quant {args.cache_quant}: {packed} packed vs "
+                      f"{full} fp byte(s)/token -> {full / packed:.2f}x "
+                      f"resident capacity ({eng.pool.n_pages} physical "
+                      f"pages for {sc.total_pages} fp-page units)")
     if eng.n_failed:
         kinds = ", ".join(f"{k}={n}" for k, n in eng.error_counts.items()
                           if n)

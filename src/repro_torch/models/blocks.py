@@ -45,7 +45,7 @@ def apply_layer(p: Dict, x: torch.Tensor, cfg: ModelConfig, mode: str,
                 cache: Optional[Dict] = None, pos=None,
                 proj: Optional[Dict] = None, max_len: int = 0,
                 block_table: Optional[torch.Tensor] = None,
-                valid: Optional[torch.Tensor] = None):
+                valid: Optional[torch.Tensor] = None, num_splits: int = 1):
     """Returns ``(x, new_cache, captures)``.
 
     ``mode``: ``calibrate`` (captures q/k/v), ``prefill`` (builds a
@@ -63,7 +63,7 @@ def apply_layer(p: Dict, x: torch.Tensor, cfg: ModelConfig, mode: str,
                                              proj)
     elif mode == "decode":
         y, new_cache = attn_mod.attn_decode(p["attn"], h, cache, pos, cfg,
-                                            proj, block_table)
+                                            proj, block_table, num_splits)
     elif mode == "chunk":
         y, new_cache = attn_mod.attn_prefill_chunk(
             p["attn"], h, cache, pos, cfg, proj, block_table, valid)

@@ -13,11 +13,11 @@ runtime projections are lists with one dict per layer.
 Public entry points:
     init(gen)                                   -> params
     prefill(params, batch, max_len, proj)       -> (logits, cache)
-    decode_step(params, cache, tokens, pos, proj, block_table)
+    decode_step(params, cache, tokens, pos, proj, block_table, num_splits)
                                                 -> (logits, cache)
         (pos: per-sequence (B,) positions; scalars broadcast; the cache
         is updated in place and returned; a block table selects the
-        paged cache)
+        paged cache, ``num_splits`` > 1 split-KV decoding over it)
     prefill_chunk(params, cache, tokens, pos0, valid, proj, block_table)
                                                 -> (logits, cache)
         (one bucket-padded prompt chunk into the paged cache)
@@ -84,14 +84,15 @@ class LM:
         return x.float() @ head.float()
 
     def _run_stack(self, params, x, mode, cache=None, pos=None, proj=None,
-                   max_len: int = 0, block_table=None, valid=None):
+                   max_len: int = 0, block_table=None, valid=None,
+                   num_splits: int = 1):
         caches, captures = [], []
         for i, lp in enumerate(params["layers"]):
             x, nc, caps = apply_layer(
                 lp, x, self.cfg, mode,
                 cache[i] if cache is not None else None, pos,
                 proj[i] if proj is not None else None, max_len,
-                block_table, valid)
+                block_table, valid, num_splits)
             caches.append(nc)
             if caps is not None:
                 captures.append(caps)
@@ -131,17 +132,19 @@ class LM:
         return self._logits(params, x), cache
 
     def decode_step(self, params, cache, tokens, pos, proj=None,
-                    block_table=None):
+                    block_table=None, num_splits: int = 1):
         """tokens: (B, 1); pos: (B,) index of each new token (a scalar
         broadcasts).  ``block_table``: (B, n_pages) int32, present iff
-        ``cache`` is paged.  Returns logits (B, 1, V) and ``cache``,
+        ``cache`` is paged; ``num_splits`` > 1 splits each slot's page
+        chain (split-KV decode).  Returns logits (B, 1, V) and ``cache``,
         updated in place."""
         tokens = self._tokens(tokens)
         pos = attn_mod.batched_positions(pos, tokens.shape[0], self.device)
         x = params["embed"][tokens]
         x, cache, _ = self._run_stack(params, x, "decode", cache=cache,
                                       pos=pos, proj=proj,
-                                      block_table=block_table)
+                                      block_table=block_table,
+                                      num_splits=num_splits)
         x = rms_norm(x, params["final_norm"], self.cfg.rms_eps)
         return self._logits(params, x), cache
 
@@ -161,23 +164,27 @@ class LM:
     # -- caches & projections ------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int,
-                   ranks: Tuple[int, int] = (0, 0), dtype=None
-                   ) -> List[Dict[str, torch.Tensor]]:
-        """Empty dense decode cache, one dict per layer."""
+                   ranks: Tuple[int, int] = (0, 0), dtype=None,
+                   paged: bool = False) -> List[Dict[str, torch.Tensor]]:
+        """Empty decode cache, one dict per layer; ``paged=True`` builds
+        page-pool leaves from the configured page layout."""
         return [attn_mod.make_attn_cache(self.cfg, batch, max_len, ranks,
-                                         dtype or self.dtype, self.device)
+                                         dtype or self.dtype, self.device,
+                                         paged)
                 for _ in self.attn_layers]
 
     def init_paged_cache(self, n_phys_pages: int, page_size: int,
                          ranks: Tuple[int, int] = (0, 0), dtype=None
                          ) -> List[Dict[str, torch.Tensor]]:
         """Page-pool cache, one dict per layer: every leaf is a pool
-        ``(n_phys_pages, Hkv, page_size, R)`` read through a block table
-        (reference ``LM.init_paged_cache``), i.e. ``init_cache`` with
-        (batch, max_len) read as (pages, page_size).  Plain-attention
+        ``(n_phys_pages, Hkv, page_size, width)`` read through a block
+        table (reference ``LM.init_paged_cache``), i.e. ``init_cache``
+        with (batch, max_len) read as (pages, page_size), its leaves those
+        of the page layout ``cfg.cache_quant`` selects.  Plain-attention
         stacks without a sliding window only, as everywhere in the port
         so far."""
-        return self.init_cache(n_phys_pages, page_size, ranks, dtype)
+        return self.init_cache(n_phys_pages, page_size, ranks, dtype,
+                               paged=True)
 
     def projections_pytree(self, mp, dtype=None
                            ) -> List[Dict[str, torch.Tensor]]:

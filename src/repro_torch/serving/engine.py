@@ -39,13 +39,25 @@ page a prefill is filling; the table is uploaded only when it changed.
 With KQ-SVD projections the decode attention runs in K3 over dense slots
 and in K1 over pages, and a prefill chunk's attention in K2.
 
+``decode_splits`` > 1 splits each slot's page chain across blocks in the
+paged decode (split-KV: K4, and K5 over int8 pages); 0 derives the split
+count for each decode chunk from the live slots' deepest host position,
+snapped to {1, 2, 4, 8}, with no device read.  ``cache_quant`` selects
+the page layout of the compressed pages (``serving.page_layouts``): int8
+pages with bf16 scale pools (decode in K5) or SVDq (plain decode, as in
+the reference).  Narrower pages hold more tokens in the same memory:
+``n_pages`` counts fp-page units, and the pool, its watermarks and the
+worst-case reservation are sized from ``int(total_pages * capacity_x)``
+physical pages.  ``ModelConfig.cache_quant = "int8"`` without pages is
+the dense int8 cache.
+
 Failure semantics follow the reference: a request fails with a
 structured ``RequestError`` (oversize, deadlines, ``cancel``, non-finite
 logits) and the rest of the batch keeps serving; a ``stall_steps``
 watchdog raises ``EngineStalledError`` instead of spinning.  Serving
 features of later slices (optimistic admission and preemption, prefix
-sharing, token budget, split-KV decode, shards, quantized pages, audits,
-fault injection) raise ``NotImplementedError`` at construction.
+sharing, token budget, shards, audits, fault injection) raise
+``NotImplementedError`` at construction.
 """
 from __future__ import annotations
 
@@ -60,7 +72,9 @@ from repro_torch.config import ModelConfig, ServeConfig
 from repro_torch.core.calibration import ModelProjections
 from repro_torch.core.compressed import cache_footprint
 from repro_torch.device import DeviceLike, to_device
+from repro_torch.kernels.kq_decode.ops import default_decode_splits
 from repro_torch.models.model import build_model
+from repro_torch.serving.page_layouts import FpLayout, get_layout
 from repro_torch.serving.paged_cache import (BlockTables, PagePool,
                                              pages_needed)
 
@@ -80,10 +94,6 @@ _LATER = (
     ("audit", lambda sc: sc.audit, "item 6 (invariant audits)"),
     ("chaos_seed", lambda sc: sc.chaos_seed is not None,
      "item 6 (fault injection)"),
-    ("decode_splits", lambda sc: sc.decode_splits != 1,
-     "item 7 (split-KV decode)"),
-    ("cache_quant", lambda sc: sc.cache_quant != "none",
-     "item 8 (page layouts)"),
     ("shards", lambda sc: sc.shards > 1, "item 12 (sharded engine)"),
 )
 
@@ -170,6 +180,12 @@ class ServingEngine:
             raise NotImplementedError(
                 "this slice of the port serves the dense-slot cache only; "
                 "not yet ported: " + ", ".join(later))
+        # the serve config owns the paged page layout: folded into the
+        # model config so prefill, chunks and decode resolve the same
+        # one; a full cache (no projections) has no compressed entries
+        # to quantize and keeps fp pages
+        if sc.cache_quant != "none" and projections is not None:
+            cfg = dataclasses.replace(cfg, cache_quant=sc.cache_quant)
         self.cfg = cfg
         self.sc = sc
         self.model = build_model(cfg, device)
@@ -184,8 +200,60 @@ class ServingEngine:
                       if projections is not None else (0, 0))
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(sc.seed)
+        # physical pages per fp page of memory under the page layout
+        self.capacity_x = self._capacity_multiplier()
+        if sc.paged:
+            self._validate_paged()
+        # split-KV: a fixed count, or 0 for one derived per decode chunk
+        self._dynamic_splits = sc.paged and sc.decode_splits == 0
+        self._decode_splits = sc.decode_splits if sc.paged else 1
         self.prefill_chunk_shapes: set = set()
         self._started = False
+
+    def _capacity_multiplier(self) -> float:
+        """Physical pages per fp page of memory under the page layout:
+        fp token bytes over the layout's at the engine's ranks; 1.0 for
+        fp pages or without projections."""
+        if not self.sc.paged or self.ranks[0] == 0 \
+                or self.sc.cache_quant == "none":
+            return 1.0
+        layout, fp = get_layout(self.cfg), FpLayout()
+        rk, rv = self.ranks
+        return ((fp.token_bytes("k", rk) + fp.token_bytes("v", rv))
+                / (layout.token_bytes("k", rk) + layout.token_bytes("v", rv)))
+
+    def _pool_pages(self) -> int:
+        """Allocatable physical pages: the fp-unit budget
+        (``ServeConfig.total_pages``) times ``capacity_x``."""
+        return max(1, int(self.sc.total_pages * self.capacity_x))
+
+    def _validate_paged(self) -> None:
+        """Fail at construction, not mid-serve."""
+        if self.cfg.cache_quant != "none" and self.sc.cache_quant == "none":
+            raise NotImplementedError(
+                "paged serving selects its page layout via "
+                "ServeConfig.cache_quant (DESIGN.md §page-layouts); "
+                "ModelConfig.cache_quant alone configures the *dense* "
+                "int8 cache only")
+
+    def _splits_for_step(self, live_max: int) -> int:
+        """Split count for one decode chunk: the fixed ``decode_splits``,
+        or (``decode_splits == 0``) the heuristic at the live maximum
+        length snapped down to {1, 2, 4, 8}."""
+        if not self._dynamic_splits:
+            return self._decode_splits
+        raw = default_decode_splits(
+            max(1, min(live_max, self.sc.max_seq_len)), self.sc.page_size)
+        return next(s for s in (8, 4, 2, 1) if raw >= s)
+
+    def _live_splits(self, live: np.ndarray) -> int:
+        """Split count for the chunk about to run: the live slots'
+        deepest host position plus the chunk's growth is the most cache
+        it can touch (no device read)."""
+        if not self._dynamic_splits:
+            return self._decode_splits
+        live_max = int(self._pos[live].max()) if live.any() else 1
+        return self._splits_for_step(live_max + self.sc.decode_chunk)
 
     # -- capacity accounting --------------------------------------------------
 
@@ -217,11 +285,13 @@ class ServingEngine:
         self.pool: Optional[PagePool] = None
         self._btabs: Optional[BlockTables] = None
         if sc.paged:
-            self.pool = PagePool(sc.total_pages, sc.watermark_high,
-                                 sc.watermark_low)
+            # sized in physical pages: the fp-unit budget times the page
+            # layout's capacity multiplier
+            n_phys = self._pool_pages()
+            self.pool = PagePool(n_phys, sc.watermark_high, sc.watermark_low)
             self._btabs = BlockTables(B, sc.pages_per_seq, self.device)
             self._cache = self.model.init_paged_cache(
-                sc.total_pages + 1, sc.page_size, self.ranks)
+                n_phys + 1, sc.page_size, self.ranks)
         else:
             self._cache = self.model.init_cache(B, T, self.ranks)
         self.n_prefill_chunks = 0
@@ -416,14 +486,17 @@ class ServingEngine:
 
     def _paged_insert(self, b: int, slot_cache) -> None:
         """Cut a prefilled one-sequence cache, leaves (1, Hkv, n*ps, R),
-        into its n pages and write them at slot ``b``'s physical pages."""
+        into its n pages and write them at slot ``b``'s physical pages;
+        the int8 cache's (1, Hkv, n*ps) scale planes go to the
+        (P, Hkv, ps, 1) scale pools the same way."""
         ps = self.sc.page_size
         phys = to_device(np.asarray(self._btabs.slot_pages[b], np.int64),
                          self.device)
         for layer, small in zip(self._cache, slot_cache):
             for name, t in small.items():
-                hkv, tl, r = t.shape[1:]
-                layer[name][phys] = t[0].reshape(hkv, tl // ps, ps, r) \
+                t = t[0] if t.ndim == 4 else t[0, ..., None]
+                hkv, tl, r = t.shape
+                layer[name][phys] = t.reshape(hkv, tl // ps, ps, r) \
                     .transpose(0, 1).to(layer[name].dtype)
 
     def _activate(self, b: int, r: Request, last_logits) -> None:
@@ -536,6 +609,7 @@ class ServingEngine:
         n_model = int(np.minimum(self._max_new - self._emitted - 1,
                                  T - self._pos)[act].max(initial=0))
         n_model = max(0, min(N, n_model))
+        n_splits = self._live_splits(live)
         state = torch.as_tensor(np.stack([
             self._pos, self._emitted, self._max_new, self._done,
             self._trunc]).astype(np.int64), device=dev)   # one copy in
@@ -563,7 +637,7 @@ class ServingEngine:
                 lg, self._cache = self.model.decode_step(
                     self.params, self._cache, nxt[:, None],
                     pos.clamp(max=T - 1), proj=self.proj,
-                    block_table=block_table)
+                    block_table=block_table, num_splits=n_splits)
                 logits = lg[:, 0]
                 self.n_decode_steps += 1
             pos = torch.where(done, pos, pos + 1)

@@ -1,12 +1,16 @@
-"""The port on the card: each CUDA kernel (K3, K1, K2) against its plain
-PyTorch version, and the reduced model on the card against the CPU on
-the dense and the paged chunked engines.  Marked
+"""The port on the card: each CUDA kernel (K3, K1, K2, K4, K5 and the
+split combine) against its plain PyTorch version, and the reduced model
+on the card against the CPU on the dense and the paged chunked engines,
+also with int8 pages and split-KV decode and with the dense int8 cache.
+Marked
 ``cuda``; skips where there is no GPU.  Imports no JAX, so it also runs
 on a machine without it (``--noconftest``: the repository's conftest
 imports JAX):
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,12 +20,15 @@ from repro_torch.configs import get_config
 from repro_torch.core.calibration import calibrate_model
 from repro_torch.data import calibration_batches
 from repro_torch.device import tree_to
-from repro_torch.kernels.kq_decode import (kq_decode_attention,
-                                           kq_decode_attention_ref,
-                                           kq_decode_paged_attention,
-                                           kq_decode_paged_attention_ref,
-                                           kq_prefill_paged_attention,
-                                           kq_prefill_paged_attention_ref)
+from repro_torch.kernels.kq_decode import (
+    combine_split_partials, kq_combine_splits, kq_decode_attention,
+    kq_decode_attention_ref, kq_decode_paged_attention,
+    kq_decode_paged_attention_int8_ref, kq_decode_paged_attention_ref,
+    kq_decode_paged_attention_split_ref, kq_decode_paged_int8,
+    kq_decode_paged_int8_split, kq_decode_paged_partials_ref,
+    kq_decode_paged_split, kq_prefill_paged_attention,
+    kq_prefill_paged_attention_ref, resolve_splits)
+from repro_torch.serving.page_layouts import quantize_int8
 from repro_torch.models import build_model
 from repro_torch.serving import Request, ServingEngine
 
@@ -129,6 +136,88 @@ def test_k2_matches_plain_version(cuda, B, H, Hkv, S, ps, n_pages, Rk, Rv,
                                                scale=0.3), dtype)
 
 
+def _int8_pools(kp, vp):
+    """int8 codes and (P,Hkv,ps,1) bf16 scales of fp pools."""
+    (k8, ks), (v8, vs) = quantize_int8(kp), quantize_int8(vp)
+    return k8, v8, ks[..., None].contiguous(), vs[..., None].contiguous()
+
+
+SPLIT_CASES = [   # B, H, Hkv, ps, n_pages, Rk, Rv, lengths
+    (5, 32, 4, 4, 256, 50, 42, (0, 3, 4, 5, 1023)),
+    (6, 32, 4, 16, 64, 50, 42, (1, 15, 16, 17, 300, 1024)),
+    (5, 16, 2, 64, 16, 37, 45, (1, 63, 64, 65, 1023)),
+    (3, 12, 4, 4, 4, 5, 7, (16, 0, 9)),                 # m=3, empty slot
+    (2, 4, 4, 8, 4, 1, 1, (32, 17)),                    # m=1, rank 1
+]
+
+
+@pytest.mark.parametrize("num_splits", [2, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(SPLIT_CASES)))
+def test_k4_and_combine_match_plain_versions(cuda, case, dtype, num_splits):
+    """K4's partials against their plain version, the combine against
+    ``combine_split_partials``, and the split decode end to end against
+    the plain split and the independent split oracle; short slots leave
+    trailing splits empty."""
+    B, H, Hkv, ps, n_pages, Rk, Rv, lengths = SPLIT_CASES[case]
+    qc, kp, vp, btab = _paged(cuda, dtype, B, H, Hkv, ps, n_pages, Rk, Rv)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    n, span = resolve_splits(num_splits, n_pages)
+    before = (kq_decode_paged_split.launches, kq_combine_splits.launches)
+    o, lse = kq_decode_paged_split(qc, kp, vp, lens, btab, span=span,
+                                   n_splits=n, scale=0.25)
+    o_ref, lse_ref = kq_decode_paged_partials_ref(
+        qc, kp, vp, lens, btab, span=span, n_splits=n, scale=0.25)
+    torch.cuda.synchronize()
+    _close(o, o_ref, dtype)
+    _close(lse, lse_ref, dtype)
+    out = kq_combine_splits(o, lse, torch.empty(B, H, Rv, dtype=dtype,
+                                                device=cuda))
+    _close(out, combine_split_partials(o, lse).reshape(B, H, Rv), dtype)
+    full = kq_decode_paged_attention(qc, kp, vp, lens, btab, scale=0.25,
+                                     num_splits=num_splits)
+    torch.cuda.synchronize()
+    assert (kq_decode_paged_split.launches,
+            kq_combine_splits.launches) == (before[0] + 1 + (n > 1),
+                                            before[1] + 1 + (n > 1))
+    _close(full, kq_decode_paged_attention_split_ref(
+        qc, kp, vp, lens, btab, num_splits=num_splits, scale=0.25), dtype)
+    _close(full, kq_decode_paged_attention_ref(qc, kp, vp, lens, btab,
+                                               scale=0.25), dtype)
+
+
+@pytest.mark.parametrize("num_splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(SPLIT_CASES)))
+def test_k5_matches_plain_version(cuda, case, dtype, num_splits):
+    """K5, unsplit and split, over int8 pools (codes of 50 and 42 bytes
+    a token are not 4-byte aligned) against the dequantize-first plain
+    version."""
+    B, H, Hkv, ps, n_pages, Rk, Rv, lengths = SPLIT_CASES[case]
+    qc, kp, vp, btab = _paged(cuda, dtype, B, H, Hkv, ps, n_pages, Rk, Rv)
+    k8, v8, ks, vs = _int8_pools(kp.float(), vp.float())
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    counter = kq_decode_paged_int8 if resolve_splits(
+        num_splits, n_pages)[0] == 1 else kq_decode_paged_int8_split
+    before = counter.launches
+    out = kq_decode_paged_attention(qc, k8, v8, lens, btab, scale=0.25,
+                                    num_splits=num_splits, kscale=ks,
+                                    vscale=vs)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    _close(out, kq_decode_paged_attention_int8_ref(
+        qc, k8, v8, ks, vs, lens, btab, scale=0.25), dtype)
+
+
+def test_k5_raises_on_groups_past_eight(cuda):
+    qc, kp, vp, btab = _paged(cuda, torch.float32, 1, 16, 1, 4, 2, 8, 8)
+    k8, v8, ks, vs = _int8_pools(kp, vp)
+    with pytest.raises(ValueError):
+        kq_decode_paged_int8(qc, k8, v8, ks, vs,
+                             torch.tensor([5], dtype=torch.int32,
+                                          device=cuda), btab)
+
+
 def test_paged_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     qc, kp, vp, btab = _paged(cuda, torch.float32, 2, 8, 2, 4, 4, 8, 8)
     lens = torch.tensor([3, 9], dtype=torch.int32, device=cuda)
@@ -141,8 +230,15 @@ def test_paged_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                                    vp, lens, lens - 1, btab)
 
 
-def test_reduced_paged_engine_card_matches_cpu(cuda):
-    cfg = get_config("tinyllama-1.1b").reduced()
+@pytest.mark.parametrize("extra,cfg_kw", [
+    ({}, {}),
+    (dict(cache_quant="int8", decode_splits=0, max_seq_len=64), {}),
+    (dict(cache_quant="svdq", decode_splits=3), {}),
+    (dict(paged=False, chunked_prefill=False), {"cache_quant": "int8"}),
+], ids=["fp", "int8-dynamic-splits", "svdq-splits3", "dense-int8"])
+def test_reduced_paged_engine_card_matches_cpu(cuda, extra, cfg_kw):
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
+                              **cfg_kw)
     cpu, gpu = build_model(cfg, "cpu"), build_model(cfg, cuda)
     p_cpu = cpu.init(torch.Generator().manual_seed(0))
     p_gpu = tree_to(p_cpu, cuda)
@@ -154,14 +250,15 @@ def test_reduced_paged_engine_card_matches_cpu(cuda):
         for i, L in enumerate((5, 19, 9))]
     served = []
     for m, p in ((cpu, p_cpu), (gpu, p_gpu)):
-        eng = ServingEngine(cfg, p, ServeConfig(
-            max_seq_len=32, max_batch=2, decode_chunk=4, paged=True,
-            page_size=4, chunked_prefill=True, prefill_chunk=8),
-            projections=mp, device=m.device)
+        eng = ServingEngine(cfg, p, ServeConfig(**{
+            **dict(max_seq_len=32, max_batch=2, decode_chunk=4, paged=True,
+                   page_size=4, chunked_prefill=True, prefill_chunk=8),
+            **extra}), projections=mp, device=m.device)
         rs = [Request(rid=i, prompt=q, max_new_tokens=6)
               for i, q in enumerate(prompts)]
         eng.generate(rs)
-        assert eng.pool.free_count == eng.pool.n_pages
+        if eng.pool is not None:
+            assert eng.pool.free_count == eng.pool.n_pages
         served.append([r.out_tokens for r in rs])
     assert served[0] == served[1]
 

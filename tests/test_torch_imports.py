@@ -30,10 +30,14 @@ def test_every_module_imports_without_jax_or_reference():
         "             or m.startswith(('jax.', 'jaxlib')) or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     res = _run(code)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 20        # the whole package walked
+    names = res.stdout.split()
+    assert len(names) >= 20                     # the whole package walked
+    assert {"repro_torch.serving.page_layouts",
+            "repro_torch.kernels.kq_decode.ops",
+            "repro_torch.kernels.kq_decode.paged"} <= set(names)
 
 
 def test_entry_points_without_device_raise_without_gpu():

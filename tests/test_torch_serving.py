@@ -190,7 +190,8 @@ def test_watchdog_raises_on_no_progress(monkeypatch):
     dict(paged=True, page_size=4, max_seq_len=64, admission="optimistic"),
     dict(paged=True, page_size=4, max_seq_len=64, chunked_prefill=True,
          prefill_chunk=8, share_prefix=True),
-    dict(paged=True, page_size=4, max_seq_len=64, decode_splits=3),
+    dict(paged=True, page_size=4, max_seq_len=64, chunked_prefill=True,
+         prefill_chunk=8, max_num_batched_tokens=6),
     dict(audit=True), dict(chaos_seed=0)])
 def test_later_slice_features_raise(later):
     _, _, tcfg, tp, _, _ = models()
@@ -200,7 +201,7 @@ def test_later_slice_features_raise(later):
 
 @pytest.mark.parametrize("flags", [
     ["--admission", "optimistic"], ["--priority", "0,1"], ["--shards", "2"],
-    ["--decode-splits", "3", "--audit"]])
+    ["--max-batched-tokens", "6", "--audit"]])
 def test_cli_refuses_flags_of_later_slices(flags, capsys):
     """The reference CLI's flags for paths the port lacks stop the run
     with an error naming each of them."""
