@@ -13,12 +13,14 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 2.  build    every CUDA kernel source of the port, one ``nvcc`` each, all
              started together;
 3.  serve    the dense main path at full width: tinyllama-1.1b (22 layers,
-             bf16, seeded random weights), KQ-SVD calibration and
-             closed-form solve, then the dense-slot ``ServingEngine``
-             serving 16 requests of 32..512 prompt tokens and 32 new
-             tokens each on 8 slots.  The kernels' launch counts are zeroed
-             just before and read just after: K3 must have run once per
-             layer per decode step;
+             bf16, seeded random weights), KQ-SVD calibration (16 x 512
+             tokens in batches of 4) and closed-form solve, then the
+             dense-slot ``ServingEngine`` serving 16 requests of 32..512
+             prompt tokens and 32 new tokens each on 8 slots.  The
+             kernels' launch counts are zeroed just before the calibration
+             and read just after the drain: K6 must have run once per
+             layer per calibration batch and per prefill, K3 once per layer
+             per decode step, and the plain attention never;
 3b. profile  one dense decode step (8 slots at position 512);
 3c. paged    the paged main path at full width, same model and
              projections: the paged ``ServingEngine`` with chunked prefill
@@ -42,22 +44,43 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 3f. profile  one paged decode step (8 slots at position 512) with fp pages
              in 8 splits (K4) and int8 pages in 8 splits (K5 split), beside
              3d's fp unsplit step (K1) in this one process;
+3g. window   h2o-danube-1.8b at full width (24 layers, d_head 80, window
+             4096, bf16, seeded random weights), KQ-SVD calibrated on
+             16 x 512 tokens in batches of 4, on dense slots
+             (``ServeConfig(max_batch=4, max_seq_len=8192,
+             decode_chunk=8)``, a ring of 4096 slots per sequence): 8
+             requests of 4095, 4096, 4097, 6000 and four of 256..3000
+             prompt tokens, 16 new tokens each, so prompts straddle the
+             window, decode wraps the ring and the 6000-token prefill runs
+             K6's window skip.  Counts zeroed before the calibration and
+             read after the drain: K6 once per layer per calibration batch
+             and per prefill, K1-K5 and the merge never, the plain
+             attention never; then one profiled decode step of this model
+             (4 slots at position 6000);
 4.  kernels  each kernel against its plain PyTorch version on the card at
-             the main paths' shapes (the calibrated ranks) and, for K1, K2,
-             K4 and K5, on edge cases (page sizes 4, 16, 64; lengths 0, 1,
-             ps-1, ps, ps+1, 1023; splits 1, 2, 3, 8 with empty trailing
-             splits; shuffled block tables; chunks at position 0, mid-page
-             and with bucket padding), in bf16 and float32, at the
-             reference kernel tests' tolerances and within two bf16 ulps;
-             its time (CUDA events, L2 flushed before every launch) beside
-             the plain version's, one PyTorch library call's for the same
-             function and the bound the card's bytes or flops allow;
+             the main paths' shapes (the calibrated ranks; K6 at
+             tinyllama's calibration batch and at danube's windowed
+             prefill, the plain one there at 4608 tokens) and on edge
+             cases: for K1, K2, K4 and K5 page sizes 4, 16, 64; lengths 0,
+             1, ps-1, ps, ps+1, 1023; splits 1, 2, 3, 8 with empty
+             trailing splits; shuffled block tables; chunks at position 0,
+             mid-page and with bucket padding; for K6 S in {1, 63, 64, 65,
+             1000}, windows {0, 1, 16, S-1, S, 2S}, groups m in
+             {1, 2, 4, 8} and d_head in {16, 64, 80, 128}; in bf16 and
+             float32, at the reference kernel tests' tolerances and within
+             two bf16 ulps; its time (CUDA events, L2 flushed before every
+             launch) beside the plain version's, one PyTorch library
+             call's for the same function and the bound the card's bytes
+             or flops allow;
 5.  parity   the port on the card against the port on the CPU (plain
              versions) at reduced size in float32, same seeded weights:
              dense, paged chunked, int8 pages with dynamic splits, SVDq
-             pages with 3 splits and the dense int8 cache give identical
-             greedy tokens; prefill, ``LM.prefill_chunk`` and dense and
-             paged ``decode_step`` logits agree within 2e-4.
+             pages with 3 splits and the dense int8 cache of tinyllama,
+             and reduced h2o-danube-1.8b (window 16) on dense slots with
+             the full cache, KQ-SVD and the dense int8 cache, give
+             identical greedy tokens; prefill, ``LM.prefill_chunk`` and
+             dense and paged ``decode_step`` logits agree within 2e-4,
+             and danube's prefill and ring decode logits too.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
@@ -83,7 +106,7 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py:15-17
 # kernel and plain version read the same inputs and both accumulate in
 # float32, so in bfloat16 they also agree to two ulps of the output
 ULPS_BF16 = 8e-3
-SOURCES = ("kq_decode", "kq_paged")
+SOURCES = ("kq_decode", "kq_paged", "flash")
 
 
 @contextlib.contextmanager
@@ -140,21 +163,22 @@ def check_close(label: str, dt_name: str, out, ref) -> float:
 
 
 def measure(row: dict, label: str, dt_name: str, kernel, plain, library,
-            flush, nbytes: int, flops: int) -> None:
+            flush, nbytes: int, flops: int, reps: int = 100) -> None:
     """Check ``kernel()`` against ``plain()`` (and the library call, where
     there is one, against ``plain()``, at ten times the tolerance), time
-    them and
-    write the numbers into ``row``: bf16, the main paths' type, under the
-    plain keys, float32 with a ``_float32`` suffix."""
+    them (``reps`` launches each) and write the numbers into ``row``:
+    bf16, the main paths' type, under the plain keys, float32 with a
+    ``_float32`` suffix."""
     ref = plain()
     err = check_close(label, dt_name, kernel(), ref)
     if library is not None:
         lib_err = float((library().float() - ref.float()).abs().max())
         assert lib_err <= 10 * TOL[dt_name], \
             f"{label} library yardstick disagrees: {lib_err}"
-    times = {"ms": cuda_time_ms(kernel, flush),
-             "plain_ms": cuda_time_ms(plain, flush),
-             "library_ms": (cuda_time_ms(library, flush)
+    del ref
+    times = {"ms": cuda_time_ms(kernel, flush, reps),
+             "plain_ms": cuda_time_ms(plain, flush, reps),
+             "library_ms": (cuda_time_ms(library, flush, reps)
                             if library is not None else None)}
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * flops / PEAK_FLOPS[dt_name]
@@ -221,17 +245,19 @@ def plain_decode(qc, kp, vp, lengths, btab, scale, num_splits, ks=None,
 
 
 def profile_decode(label: str, model, params, proj, ranks, dev, paged: bool,
-                   num_splits: int = 1, steps: int = 5) -> dict:
+                   num_splits: int = 1, steps: int = 5, B: int = 8,
+                   T: int = 1024, at: int = 512) -> dict:
     """Where a full-width decode step's time goes: host wall per step
     (synced), device busy time per step from ``torch.profiler`` (sum of
     kernel times), the idle share, launches per step, the attention
     kernels' share of the busy time (``attend_kernel``, and the split
-    merge ``combine_kernel``), and the kernels that take the most.
-    Paged: the 8 slots' 1024 tokens in pages of 16 at shuffled physical
-    ids, in the page layout of ``model.cfg.cache_quant``."""
+    merge ``combine_kernel``), and the kernels that take the most.  B
+    slots of T tokens (a sliding window makes it a ring) decode at
+    position ``at``.  Paged: the slots' tokens in pages of 16 at shuffled
+    physical ids, in the page layout of ``model.cfg.cache_quant``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    B, T, ps = 8, 1024, 16
+    ps = 16
     btab = None
     if paged:
         cache = model.init_paged_cache(1 + B * T // ps, ps, ranks)
@@ -240,7 +266,7 @@ def profile_decode(label: str, model, params, proj, ranks, dev, paged: bool,
     else:
         cache = model.init_cache(B, T, ranks)
     toks = torch.randint(0, model.cfg.vocab_size, (B, 1), device=dev)
-    pos = torch.full((B,), 512, dtype=torch.int64, device=dev)
+    pos = torch.full((B,), at, dtype=torch.int64, device=dev)
 
     def step():
         model.decode_step(params, cache, toks, pos, proj=proj,
@@ -284,17 +310,22 @@ def profile_decode(label: str, model, params, proj, ranks, dev, paged: bool,
 
 def ptxas_summary(log: str) -> list:
     """``nvcc -Xptxas -v`` condensed: registers and spilled bytes for each
-    instantiation of the kernel, as ``type[/int8]/rows/cols: regs+spill``
-    (int8: int8 pages)."""
+    instantiation of the kernels, as ``type[/int8]/rows/cols: regs+spill``
+    for the compressed-cache body (int8: int8 pages) and
+    ``type/d_head: regs+spill`` for K6."""
     import re
     out, key = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry.*attend_kernelI(f|13__nv_bfloat16)"
                       r"(f|a|S1_)Li(\d+)ELi(\d+)E", line)
+        f = re.search(r"Compiling entry.*flash_kernelI(f|13__nv_bfloat16)"
+                      r"Li(\d+)E", line)
         if m:
             key = ("f32" if m.group(1) == "f" else "bf16") + \
                 ("/int8" if m.group(2) == "a" else "") + \
                 f"/{m.group(3)}/{m.group(4)}"
+        elif f:
+            key = ("f32" if f.group(1) == "f" else "bf16") + f"/{f.group(2)}"
         elif key and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line).group(1)
         elif key and "registers" in line:
@@ -331,6 +362,8 @@ def main() -> int:
     from repro_torch.data import calibration_batches
     from repro_torch.device import tree_to
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash import flash as flash_mod
+    from repro_torch.kernels.flash import flash_attention, flash_attention_ref
     from repro_torch.kernels.kq_decode import (
         combine_split_partials, kq_combine_splits, kq_decode_attention,
         kq_decode_attention_ref, kq_decode_paged_attention,
@@ -345,11 +378,22 @@ def main() -> int:
     wrappers = (kq_decode_attention, kq_decode_paged_attention,
                 kq_prefill_paged_attention, kq_decode_paged_split,
                 kq_decode_paged_int8, kq_decode_paged_int8_split,
-                kq_combine_splits)
+                kq_combine_splits, flash_attention)
+
+    # calls of K6's plain version from its wrapper (CPU tensors only):
+    # the card's prefill and calibration must make none
+    plain_calls = {"flash_attention_ref": 0}
+
+    def counted_ref(*args, **kw):
+        plain_calls["flash_attention_ref"] += 1
+        return flash_attention_ref(*args, **kw)
+
+    flash_mod.flash_attention_ref = counted_ref
 
     def zero_counts():
         for w in wrappers:
             w.launches = 0
+        plain_calls["flash_attention_ref"] = 0
 
     with phase("1 device"):
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -378,6 +422,7 @@ def main() -> int:
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         params = model.init(gen)
+        zero_counts()
         t0 = time.perf_counter()
         calib = calibration_batches(cfg.vocab_size, 16, 512, batch=4)
         mp = calibrate_model(model, params, calib,
@@ -394,18 +439,23 @@ def main() -> int:
                         .astype(np.int32), max_new_tokens=32)
                 for i, L in enumerate(lens)]
         torch.cuda.reset_peak_memory_stats()
-        zero_counts()
         t0 = time.perf_counter()
         eng.generate(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         k3_launches = kq_decode_attention.launches
+        k6_launches = {"phase 3": flash_attention.launches}
         bad = [r.rid for r in reqs if r.failed or r.truncated or not r.done
                or len(r.out_tokens) != 32]
         assert not bad, f"requests not served in full: {bad}"
         assert eng.n_decode_steps > 0
         assert k3_launches == cfg.n_layers * eng.n_decode_steps, (
             k3_launches, eng.n_decode_steps)
+        # one exact-length prefill per request, one calibration pass per
+        # batch, each through K6 once per layer; the plain version never
+        assert k6_launches["phase 3"] == cfg.n_layers * (
+            len(reqs) + len(calib)), (k6_launches, len(reqs), len(calib))
+        assert plain_calls["flash_attention_ref"] == 0, plain_calls
         assert kq_decode_paged_attention.launches == 0
         assert kq_prefill_paged_attention.launches == 0
         probe, _ = model.prefill(params, reqs[0].prompt[None], 64,
@@ -414,7 +464,9 @@ def main() -> int:
         assert bool(torch.isfinite(probe).all()), "non-finite logits"
         serve_report("dense", eng, reqs, wall)
         print(f"capacity gain {eng.capacity_gain():.2f}x; K3 launches "
-              f"{k3_launches} = {cfg.n_layers} x {eng.n_decode_steps}; "
+              f"{k3_launches} = {cfg.n_layers} x {eng.n_decode_steps}; K6 "
+              f"launches {k6_launches['phase 3']} = {cfg.n_layers} x "
+              f"({len(reqs)} prefills + {len(calib)} calibration batches); "
               f"peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         print(f"req 0 tokens: {reqs[0].out_tokens}")
@@ -447,6 +499,7 @@ def main() -> int:
         k1_launches = kq_decode_paged_attention.launches
         k2_launches = kq_prefill_paged_attention.launches
         k3_paged = kq_decode_attention.launches
+        assert flash_attention.launches == 0, "chunked prefill ran K6"
         bad = [r.rid for r in preqs if r.failed or not r.done
                or len(r.out_tokens) != min(32, 1024 - len(r.prompt) + 1)]
         assert not bad, f"requests not served in full: {bad}"
@@ -558,6 +611,64 @@ def main() -> int:
             f"{v['launches']} launches, attention {v['attn_ms']:.4f} ms"
             for k, v in prof.items() if "busy_ms" in v))
         del eng, peng, params, model, qmodel
+
+    # -- 3g: the sliding-window ring cache -----------------------------------
+    with phase("3g serve h2o-danube-1.8b, full width, KQ-SVD, dense slots, "
+               "window 4096"):
+        wcfg = get_config("h2o-danube-1.8b")
+        wmodel = build_model(wcfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        wparams = wmodel.init(gen)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        wcalib = calibration_batches(wcfg.vocab_size, 16, 512, batch=4)
+        wmp = calibrate_model(wmodel, wparams, wcalib,
+                              CompressionConfig(method="kqsvd", epsilon=0.1))
+        calib_s = time.perf_counter() - t0
+        print(f"calibrated on {len(wcalib)} x {wcalib[0].shape} tokens in "
+              f"{calib_s:.1f} s; ranks k={wmp.ranks_k} v={wmp.ranks_v} "
+              f"(padded Rk={wmp.rank_k} Rv={wmp.rank_v})")
+        wsc = ServeConfig(max_batch=4, max_seq_len=8192, decode_chunk=8)
+        weng = ServingEngine(wcfg, wparams, wsc, projections=wmp)
+        rng = np.random.default_rng(3)
+        wlens = [4095, 4096, 4097, 6000] + [int(x) for x in
+                                            rng.integers(256, 3001, 4)]
+        wreqs = [Request(rid=i, prompt=rng.integers(0, wcfg.vocab_size, L)
+                         .astype(np.int32), max_new_tokens=16)
+                 for i, L in enumerate(wlens)]
+        t0 = time.perf_counter()
+        weng.generate(wreqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        w_launch = {w.__name__: w.launches for w in wrappers}
+        k6_launches["phase 3g"] = w_launch.pop("flash_attention")
+        bad = [r.rid for r in wreqs if r.failed or r.truncated or not r.done
+               or len(r.out_tokens) != 16]
+        assert not bad, f"requests not served in full: {bad}"
+        assert k6_launches["phase 3g"] == wcfg.n_layers * (
+            len(wreqs) + len(wcalib)), (k6_launches, len(wreqs), len(wcalib))
+        assert not any(w_launch.values()), f"K1-K5 ran: {w_launch}"
+        assert plain_calls["flash_attention_ref"] == 0, plain_calls
+        ring = weng._cache[0]["kc"].shape[2]
+        assert ring == wcfg.sliding_window == 4096, ring
+        assert tuple(weng._cache[0]["slot_pos"].shape) == (4, 4096)
+        serve_report("danube dense ring", weng, wreqs, wall)
+        print(f"ring T = {ring} slots per sequence for max_seq_len "
+              f"{wsc.max_seq_len} (window {wcfg.sliding_window}); capacity "
+              f"gain {weng.capacity_gain():.2f}x; K6 launches "
+              f"{k6_launches['phase 3g']} = {wcfg.n_layers} x "
+              f"({len(wreqs)} prefills + {len(wcalib)} calibration "
+              f"batches); K1-K5 and the merge {sum(w_launch.values())}; "
+              f"peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        print(f"req 3 (prompt 6000) tokens: {wreqs[3].out_tokens}")
+        prof["danube"] = profile_decode(
+            "danube dense ring, 4 slots at position 6000", wmodel, wparams,
+            weng.proj, (wmp.rank_k, wmp.rank_v), dev, paged=False, B=4,
+            T=8192, at=6000)
+        del weng, wparams, wmodel
 
     # -- 4: each kernel against its plain version ------------------------
     with phase("4 kernels against their plain versions"):
@@ -823,10 +934,113 @@ def main() -> int:
         print(f"K4 and K5 edge cases: {n_cases} held to tolerance and two "
               f"bf16 ulps (page sizes 4, 16, 64; lengths 0, 1, ps-1, ps, "
               f"ps+1, 1023; splits 1, 2, 3, 8)")
-        kernels = [k1, k2, k3, k4, k5, k5s, kcomb]
+
+        # K6 at tinyllama's calibration batch (causal) and at danube's
+        # windowed prefill: 6000 tokens for the kernel and the library
+        # call, the plain version's comparison at 4608 (its f32 scores
+        # would hold 4.6 GB at 6000).  Bound: 4 d_head flops per (query,
+        # key) pair of the band per head, against q, k, v and out moved
+        # once.
+        def band_pairs(S, W):
+            if not W or W >= S:
+                return S * (S + 1) // 2
+            return W * (W + 1) // 2 + (S - W) * W
+
+        def band_mask(S, W):
+            t = torch.arange(S, device=dev)
+            keep = t[None, :] <= t[:, None]
+            return keep & (t[:, None] - t[None, :] < W) if W else keep
+
+        k6_src = {"route": "cuda",
+                  "source": "src/repro_torch/kernels/csrc/flash.cu",
+                  "replaces": "src/repro/kernels/flash/flash.py:29",
+                  "launches": k6_launches["phase 3"]
+                  + k6_launches["phase 3g"],
+                  "launches_from": "phases 3 and 3g"}
+        k6c = dict(k6_src, name="flash (K6), tinyllama-1.1b calibration "
+                                "batch",
+                   shape={"B": 4, "H": 32, "Hkv": 4, "S": 512, "dh": 64,
+                          "window": 0})
+        k6w = dict(k6_src, name="flash (K6), h2o-danube-1.8b windowed "
+                                "prefill",
+                   shape={"B": 1, "H": 32, "Hkv": 8, "S": 4608, "dh": 80,
+                          "window": 4096})
+        for row, S_long in ((k6c, None), (k6w, 6000)):
+            sh = row["shape"]
+            B_, H_, Hkv_, S_, dh_, W_ = (sh[k] for k in
+                                         ("B", "H", "Hkv", "S", "dh",
+                                          "window"))
+            for dt_name in ("bfloat16", "float32"):
+                dt = getattr(torch, dt_name)
+                isz = torch.finfo(dt).bits // 8
+                fscale = dh_ ** -0.5
+                for S in ((S_,) if S_long is None else (S_, S_long)):
+                    q, k, v = (torch.randn(B_, h, S, dh_, generator=g,
+                                           device=dev).to(dt)
+                               for h in (H_, Hkv_, Hkv_))
+                    mask = band_mask(S, W_) if W_ else None
+                    lib = (lambda q=q, k=k, v=v, mask=mask: sdpa(
+                        q, k, v, attn_mask=mask, is_causal=mask is None,
+                        scale=fscale, enable_gqa=True))
+                    nbytes = 2 * B_ * (H_ + Hkv_) * S * dh_ * isz
+                    flops = 4 * dh_ * band_pairs(S, W_) * B_ * H_
+                    reps = 100 if S <= 512 else 20
+                    if S == S_:
+                        measure(row, f"K6 S={S} window={W_}", dt_name,
+                                lambda q=q, k=k, v=v: flash_attention(
+                                    q, k, v, window=W_),
+                                lambda q=q, k=k, v=v: flash_attention_ref(
+                                    q, k, v, window=W_),
+                                lib, flush, nbytes, flops, reps)
+                        continue
+                    # the longest prompt: held to the library call at ten
+                    # times the tolerance, and timed beside it
+                    out = flash_attention(q, k, v, window=W_)
+                    lib_err = float((out.float() - lib().float()).abs()
+                                    .max())
+                    assert lib_err <= 10 * TOL[dt_name], lib_err
+                    del out
+                    t_k = cuda_time_ms(lambda: flash_attention(
+                        q, k, v, window=W_), flush, reps)
+                    t_l = cuda_time_ms(lib, flush, reps)
+                    bound = max(1e3 * nbytes / HBM_BYTES_PER_S,
+                                1e3 * flops / PEAK_FLOPS[dt_name])
+                    sfx = "" if dt_name == "bfloat16" else "_float32"
+                    row[f"at_S{S}{sfx}"] = {"ms": t_k, "library_ms": t_l,
+                                            "bound_ms": bound,
+                                            "max_abs_err_vs_library":
+                                            lib_err}
+                    print(f"K6 S={S} window={W_} {dt_name}: kernel "
+                          f"{t_k:.4f} ms, library {t_l:.4f} ms, bound "
+                          f"{bound:.6f} ms (operations: {flops} flops); "
+                          f"max |kernel - library| {lib_err:.3g}")
+                    del q, k, v, mask
+        # K6 edge cases: sequence lengths around a tile, every window
+        # edge, groups m and head dims of the configs
+        n_cases = 0
+        for dt_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dt_name)
+            for S in (1, 63, 64, 65, 1000):
+                for W in sorted({0, 1, 16, max(S - 1, 0), S, 2 * S}):
+                    for m_ in (1, 2, 4, 8):
+                        for dh_ in (16, 64, 80, 128):
+                            q, k, v = (torch.randn(1, 2 * h, S, dh_,
+                                                   generator=g, device=dev)
+                                       .to(dt) for h in (m_, 1, 1))
+                            check_close(
+                                f"K6 S={S} window={W} m={m_} dh={dh_}",
+                                dt_name,
+                                flash_attention(q, k, v, window=W),
+                                flash_attention_ref(q, k, v, window=W))
+                            n_cases += 1
+        print(f"K6 edge cases: {n_cases} held to tolerance and two bf16 "
+              f"ulps (S 1, 63, 64, 65, 1000; windows 0, 1, 16, S-1, S, "
+              f"2S; m 1, 2, 4, 8; d_head 16, 64, 80, 128)")
+        kernels = [k1, k2, k3, k4, k5, k5s, kcomb, k6c, k6w]
 
     # -- 5: the port on the card against the port on the CPU ---------------
-    with phase("5 card against CPU, reduced tinyllama-1.1b, float32"):
+    with phase("5 card against CPU, reduced tinyllama-1.1b and "
+               "h2o-danube-1.8b, float32"):
         rcfg = get_config("tinyllama-1.1b").reduced()
         cpu_model = build_model(rcfg, "cpu")
         gpu_model = build_model(rcfg, dev)
@@ -915,6 +1129,62 @@ def main() -> int:
               f"decode steps; {len(prompts)} requests' greedy tokens "
               f"identical on card and CPU in the engines: "
               f"{', '.join(layouts)}")
+
+        # reduced h2o-danube-1.8b, window 16: prefill of 20 tokens and 8
+        # decode steps that wrap the ring, full cache and KQ-SVD; then the
+        # dense-slot engine with the full cache, KQ-SVD and the dense int8
+        # cache on prompts of 9..40 tokens
+        wr = get_config("h2o-danube-1.8b").reduced()
+        assert wr.sliding_window == 16
+        wcpu, wgpu = build_model(wr, "cpu"), build_model(wr, dev)
+        wp_cpu = wcpu.init(torch.Generator().manual_seed(0))
+        wp_gpu = tree_to(wp_cpu, dev)
+        wrmp = calibrate_model(
+            wcpu, wp_cpu, calibration_batches(wr.vocab_size, 8, 32, batch=4),
+            CompressionConfig(method="kqsvd", epsilon=0.1))
+        zero_counts()
+        wtoks = np.random.default_rng(5).integers(0, wr.vocab_size, (2, 28))
+        outs = []
+        for m_, p_ in ((wcpu, wp_cpu), (wgpu, wp_gpu)):
+            seq = []
+            for proj_ in (None, m_.projections_pytree(wrmp)):
+                lg, cache = m_.prefill(p_, wtoks[:, :20], 40, proj=proj_)
+                seq.append(lg)
+                for i in range(8):
+                    lg, cache = m_.decode_step(p_, cache,
+                                               wtoks[:, 20 + i:21 + i],
+                                               20 + i, proj=proj_)
+                    seq.append(lg)
+            outs.append([x.cpu() for x in seq])
+        wworst = 0.0
+        for a, b in zip(*outs):
+            wworst = max(wworst, float((a - b).abs().max()))
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=2e-4,
+                                       atol=2e-4)
+        assert flash_attention.launches > 0, "K6 did not run"
+        wprompts = [np.random.default_rng(20 + i).integers(
+            0, wr.vocab_size, L).astype(np.int32)
+            for i, L in enumerate((9, 40, 16, 17, 25))]
+        wkinds = {"full cache": ("none", None), "kqsvd": ("none", wrmp),
+                  "kqsvd dense int8": ("int8", wrmp)}
+        for kind, (cq, mp_) in wkinds.items():
+            got = []
+            for m_, p_ in ((wcpu, wp_cpu), (wgpu, wp_gpu)):
+                e = ServingEngine(dataclasses.replace(wr, cache_quant=cq), p_,
+                                  ServeConfig(max_seq_len=64, max_batch=3,
+                                              decode_chunk=4),
+                                  projections=mp_, device=m_.device)
+                rs = [Request(rid=i, prompt=p, max_new_tokens=12)
+                      for i, p in enumerate(wprompts)]
+                e.generate(rs)
+                assert all(r.done and len(r.out_tokens) == 12 for r in rs)
+                got.append([r.out_tokens for r in rs])
+            assert got[0] == got[1], (kind, got)
+        print(f"danube (window 16) logits max |card - cpu| {wworst:.3g} "
+              f"(tol 2e-4) over prefill + 8 ring decode steps, full cache "
+              f"and KQ-SVD; {len(wprompts)} requests' greedy tokens "
+              f"identical on card and CPU in the dense-slot engines: "
+              f"{', '.join(wkinds)}")
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,10 @@
 """Architecture registry of the port.
 
 Each module defines ``config() -> ModelConfig`` with the same numbers as
-the reference's module of the same name.  This slice of the port carries
-the dense-family configs; the other families come with their slices
-(ROADMAP.md queue 1, models off the main path).
+the reference's module of the same name.  The port carries the
+dense-family configs, h2o-danube-1.8b's sliding window included; the
+other families come with their slices (ROADMAP.md queue 1, models off
+the main path).
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from repro_torch.config import ModelConfig
 
 _ARCH_MODULES = {
     "tinyllama-1.1b": "tinyllama_1_1b",
+    # sliding window 4096: the ring cache and K6's window branch
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
     # the paper's own evaluation model
     "paper-llama2-7b": "paper_llama2_7b",
 }

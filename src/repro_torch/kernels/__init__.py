@@ -11,6 +11,9 @@ kq_decode/  compressed-cache attention, CUDA C++ over one kernel body
                 (csrc/kq_paged.cu);
             K2  chunked prefill-append over the paged cache
                 (csrc/kq_paged.cu)
+flash/      K6  causal GQA flash attention with an optional sliding
+                window (csrc/flash.cu), under every exact-length prefill
+                and calibration batch
 
 ``build`` compiles the CUDA sources with ``nvcc`` at first use; importing
 this package builds nothing.

@@ -8,7 +8,10 @@
       --cache-quant int8 --decode-splits 0
 
 The flags are the reference CLI's (``python -m repro.launch.serve``).
-This slice serves the dense-slot cache and the paged store
+``--arch`` takes tinyllama-1.1b, paper-llama2-7b and h2o-danube-1.8b
+(sliding window: a ring cache on dense slots; its paged store is refused,
+as in the reference).  The port serves the dense-slot cache and the
+paged store
 (``--paged``, ``--page-size``, ``--n-pages``), with exact-length or
 chunked prefill (``--prefill-chunk``, which turns on paging, and
 ``--prefill-buckets``), quantized pages (``--cache-quant``) and split-KV

@@ -5,9 +5,10 @@ the same tensor layouts at every public function: q ``(B, H, S, dh)``,
 caches ``(B, Hkv, T, R)``, page pools ``(P, Hkv, page_size, R)``,
 compressed queries ``(B, H, R)``.
 
-* ``causal_attention`` is masked causal attention as plain f32 matmul and
-  softmax — what the reference's lax ``blockwise_attention`` computes for
-  prefill and calibration (a Hopper flash kernel, K6, replaces it later);
+* full-sequence causal attention, with the sliding window where the
+  config has one, runs in K6 (``repro_torch.kernels.flash``) under
+  ``attn_prefill`` and ``attn_calibrate``: what the reference's lax
+  ``blockwise_attention`` computes there;
 * ``decode_attention`` is one-token attention over a full cache, and
   ``chunk_decode_attention`` a chunk of queries over one;
 * ``split_decode_attention``, ``int8_decode_attention`` and
@@ -30,11 +31,18 @@ quantized pages, nor for the dense int8 cache (``cfg.cache_quant`` int8
 without pages): those read gathered, decoded pages with the plain
 functions, as the reference does.
 
+A sliding window (``cfg.sliding_window`` = W) makes the dense cache a
+ring of ``min(max_len, W)`` slots: position p lives in slot ``p % W`` and
+``slot_pos`` (B, T) records which position each slot holds (-1: empty);
+decode attends the slots with ``slot_pos >= 0`` and ``slot_pos > pos -
+W``, through the plain ``decode_attention`` (``int8_decode_attention``
+for the dense int8 cache), as the reference routes it (its K3 branch is
+``and not W``).  The paged store and chunked prefill take no window and
+raise ``NotImplementedError``, as the reference does.
+
 Caches are updated in place (the reference returns new arrays): a decode
 step or a prefill chunk writes into the tensors it was given and returns
 the same dict.  Softmax statistics are f32 whatever the activation type.
-Sliding windows belong to a later slice of the port and raise
-``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.kernels.flash import flash_attention
 from repro_torch.kernels.kq_decode import (kq_decode_attention,
                                            kq_decode_paged_attention,
                                            kq_prefill_paged_attention)
@@ -54,13 +63,6 @@ from repro_torch.serving.paged_cache import (append_chunk, append_token,
                                              gather_pages)
 
 NEG_INF = -1e30
-
-
-def _unsupported(cfg: ModelConfig) -> None:
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            "sliding-window attention is not ported yet (ROADMAP.md queue "
-            "1, models off the main path)")
 
 
 def batched_positions(pos, batch: int, device) -> torch.Tensor:
@@ -84,23 +86,6 @@ def scatter_time(cache: torch.Tensor, val: torch.Tensor,
     rows = torch.arange(cache.shape[0], device=cache.device)
     cache[rows, :, slot] = val[:, :, 0].to(cache.dtype)
     return cache
-
-
-def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     scale: Optional[float] = None) -> torch.Tensor:
-    """Masked causal GQA attention in f32.  q: (B,H,S,dh); k/v:
-    (B,Hkv,S,*) -> (B,H,S,dv) in q's type."""
-    B, H, S, dh = q.shape
-    Hkv = k.shape[1]
-    m = H // Hkv
-    scale = scale or 1.0 / math.sqrt(dh)
-    qg = q.reshape(B, Hkv, m, S, dh).float()
-    s = torch.einsum("bgmsd,bgtd->bgmst", qg, k.float()) * scale
-    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-    s = s.masked_fill(~mask, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bgmst,bgtd->bgmsd", p, v.float())
-    return out.reshape(B, H, S, -1).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
@@ -302,10 +287,9 @@ def attn_calibrate(p, x: torch.Tensor, cfg: ModelConfig
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Causal attention plus the post-RoPE q/k/v captures of the KQ-SVD
     calibration pass (pad query heads excluded from the captures)."""
-    _unsupported(cfg)
     S = x.shape[1]
     q, k, v = _qkv(p, x, cfg, torch.arange(S, device=x.device))
-    y = _out(causal_attention(q, k, v), p["wo"])
+    y = _out(flash_attention(q, k, v, window=cfg.sliding_window), p["wo"])
     if padded_heads(cfg) != cfg.n_heads:
         Hkv = cfg.n_kv_heads
         m, m_p = cfg.n_heads // Hkv, padded_heads(cfg) // Hkv
@@ -338,8 +322,11 @@ def make_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
     and, with projections, builds the pools (P, Hkv, ps, width) of the
     page layout ``cfg.cache_quant`` selects: fp data pages (the dense
     leaves' shapes), or int8 / packed data pages plus width-1 bf16 scale
-    pools."""
-    _unsupported(cfg)
+    pools.  A sliding window W makes the time axis a ring of
+    ``T = min(max_len, W)`` slots and adds ``slot_pos`` (B, T) int32, the
+    position each slot holds, -1 while it is empty."""
+    W = cfg.sliding_window or 0
+    T = min(max_len, W) if W else max_len
     Hkv = cfg.n_kv_heads
     rk, rv = proj_rank
 
@@ -348,44 +335,59 @@ def make_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
 
     if paged and rk:
         layout = get_layout(cfg)
-        return {name: zeros(batch, Hkv, max_len, width, dt=ldt or dtype)
+        return {name: zeros(batch, Hkv, T, width, dt=ldt or dtype)
                 for side, rank in (("k", rk), ("v", rv))
                 for name, width, ldt in layout.leaves(side, rank)}
     if not rk:
-        return {"k": zeros(batch, Hkv, max_len, cfg.d_head),
-                "v": zeros(batch, Hkv, max_len, cfg.d_head)}
-    if cfg.cache_quant != "int8":
-        return {"kc": zeros(batch, Hkv, max_len, rk),
-                "vc": zeros(batch, Hkv, max_len, rv)}
-    return {"kc": zeros(batch, Hkv, max_len, rk, dt=torch.int8),
-            "vc": zeros(batch, Hkv, max_len, rv, dt=torch.int8),
-            "kscale": zeros(batch, Hkv, max_len, dt=torch.bfloat16),
-            "vscale": zeros(batch, Hkv, max_len, dt=torch.bfloat16)}
+        cache = {"k": zeros(batch, Hkv, T, cfg.d_head),
+                 "v": zeros(batch, Hkv, T, cfg.d_head)}
+    elif cfg.cache_quant != "int8":
+        cache = {"kc": zeros(batch, Hkv, T, rk),
+                 "vc": zeros(batch, Hkv, T, rv)}
+    else:
+        cache = {"kc": zeros(batch, Hkv, T, rk, dt=torch.int8),
+                 "vc": zeros(batch, Hkv, T, rv, dt=torch.int8),
+                 "kscale": zeros(batch, Hkv, T, dt=torch.bfloat16),
+                 "vscale": zeros(batch, Hkv, T, dt=torch.bfloat16)}
+    if W:
+        cache["slot_pos"] = torch.full((batch, T), -1, dtype=torch.int32,
+                                       device=device)
+    return cache
 
 
 def attn_prefill(p, x: torch.Tensor, cfg: ModelConfig, max_len: int,
                  proj: Optional[Dict] = None):
-    """Full-sequence attention; returns output and a length-``max_len``
-    cache holding the prompt's (compressed, with the int8 cache
-    quantized) entries at [0, S)."""
+    """Full-sequence attention (K6 on the card); returns output and a
+    length-``max_len`` cache holding the prompt's (compressed, with the
+    int8 cache quantized) entries at [0, S).  With a sliding window W the
+    cache is the ring of ``make_attn_cache``: the last ``min(S, W)``
+    entries go to slots ``pos % W`` and ``slot_pos`` records them."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, torch.arange(S, device=x.device))
-    y = _out(causal_attention(q, k, v), p["wo"])
+    W = cfg.sliding_window or 0
+    y = _out(flash_attention(q, k, v, window=W), p["wo"])
     ranks = ((proj["a_k"].shape[-1], proj["a_v"].shape[-1]) if proj
              else (0, 0))
     cache = make_attn_cache(cfg, B, max_len, ranks, x.dtype, x.device)
+    first = max(0, S - W) if W else 0          # the entries the cache keeps
+    k_st, v_st = k[:, :, first:], v[:, :, first:]
     if proj is not None:
-        k_st = torch.einsum("bhtd,hdr->bhtr", k, proj["a_k"])
-        v_st = torch.einsum("bhtd,hdr->bhtr", v, proj["a_v"])
+        k_st = torch.einsum("bhtd,hdr->bhtr", k_st, proj["a_k"])
+        v_st = torch.einsum("bhtd,hdr->bhtr", v_st, proj["a_v"])
         if cfg.cache_quant == "int8":
             (k_st, ks), (v_st, vs) = quantize_int8(k_st), quantize_int8(v_st)
-            cache["kscale"][:, :, :S] = ks
-            cache["vscale"][:, :, :S] = vs
-        cache["kc"][:, :, :S] = k_st
-        cache["vc"][:, :, :S] = v_st
+            updates = {"kc": k_st, "vc": v_st, "kscale": ks, "vscale": vs}
+        else:
+            updates = {"kc": k_st, "vc": v_st}
     else:
-        cache["k"][:, :, :S] = k
-        cache["v"][:, :, :S] = v
+        updates = {"k": k_st, "v": v_st}
+    slots = slice(0, S)
+    if W:                                      # ring slots of the kept
+        kept = torch.arange(first, S, device=x.device)
+        slots = kept % W
+        cache["slot_pos"][:, slots] = kept.to(torch.int32)
+    for name, val in updates.items():
+        cache[name][:, :, slots] = val.to(cache[name].dtype)
     return y, cache
 
 
@@ -427,7 +429,10 @@ def attn_prefill_chunk(p, x: torch.Tensor, cache: Dict, pos0: torch.Tensor,
     if block_table is None:
         raise ValueError("attn_prefill_chunk requires a paged cache "
                          "(block_table)")
-    _unsupported(cfg)
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            "chunked prefill supports full-attention stacks only "
+            "(no sliding window)")
     B, S, _ = x.shape
     dh = cfg.d_head
     scale = 1.0 / math.sqrt(dh)
@@ -491,11 +496,15 @@ def attn_decode(p, x: torch.Tensor, cache: Dict, pos: torch.Tensor,
       ``decode_attention`` / ``split_decode_attention`` (no kernel in the
       reference either);
     * over the dense cache in K3, or with ``cfg.cache_quant == "int8"``
-      in the plain ``int8_decode_attention``, as in the reference.
+      in the plain ``int8_decode_attention``, as in the reference;
+    * over the ring cache of a sliding window with the plain
+      ``decode_attention`` (``int8_decode_attention`` for the int8
+      cache), as the reference routes it.
 
     Without projections attention reads the (gathered) cache with the
-    plain ``decode_attention`` / ``split_decode_attention``."""
-    _unsupported(cfg)
+    plain ``decode_attention`` / ``split_decode_attention``.  With a
+    sliding window W the token goes to ring slot ``pos % W`` and
+    ``slot_pos`` records it; the paged cache takes no window."""
     B = x.shape[0]
     scale = 1.0 / math.sqrt(cfg.d_head)
     q, k_new, v_new = _qkv(p, x, cfg, pos[:, None, None])     # S = 1
@@ -503,8 +512,19 @@ def attn_decode(p, x: torch.Tensor, cache: Dict, pos: torch.Tensor,
     Hp = padded_heads(cfg)
     paged = block_table is not None
     lengths = (pos + 1).to(torch.int32)
+    W = cfg.sliding_window or 0
+    if W and paged:
+        raise NotImplementedError("paged cache supports full-attention "
+                                  "stacks only (no sliding window)")
+    slot = pos % W if W else pos                # the dense cache's slot
+    if W:
+        cache["slot_pos"][torch.arange(B, device=x.device), slot] = \
+            pos.to(torch.int32)
 
-    def seen(T: int) -> torch.Tensor:          # (B, T): positions <= pos
+    def seen(T: int) -> torch.Tensor:          # (B, T): entries attended
+        if W:
+            sp = cache["slot_pos"]
+            return (sp >= 0) & (sp > pos[:, None] - W)
         return torch.arange(T, device=x.device)[None, :] <= pos[:, None]
 
     if proj is None:
@@ -514,8 +534,8 @@ def attn_decode(p, x: torch.Tensor, cache: Dict, pos: torch.Tensor,
             keys = gather_pages(cache["k"], block_table)
             vals = gather_pages(cache["v"], block_table)
         else:
-            keys = scatter_time(cache["k"], k_new, pos)
-            vals = scatter_time(cache["v"], v_new, pos)
+            keys = scatter_time(cache["k"], k_new, slot)
+            vals = scatter_time(cache["v"], v_new, slot)
         valid = seen(keys.shape[2])
         agg = (split_decode_attention(q, keys, vals, valid, scale,
                                       num_splits)
@@ -551,19 +571,21 @@ def attn_decode(p, x: torch.Tensor, cache: Dict, pos: torch.Tensor,
                                     scale))
     elif cfg.cache_quant == "int8":
         (k8, ks), (v8, vs) = quantize_int8(k_st), quantize_int8(v_st)
-        scatter_time(cache["kc"], k8, pos)
-        scatter_time(cache["vc"], v8, pos)
-        scatter_time(cache["kscale"], ks, pos)
-        scatter_time(cache["vscale"], vs, pos)
+        scatter_time(cache["kc"], k8, slot)
+        scatter_time(cache["vc"], v8, slot)
+        scatter_time(cache["kscale"], ks, slot)
+        scatter_time(cache["vscale"], vs, slot)
         agg = int8_decode_attention(
             qc.reshape(B, Hkv, Hp // Hkv, -1), cache["kc"], cache["vc"],
             cache["kscale"], cache["vscale"], seen(cache["kc"].shape[2]),
             scale)
     else:
-        scatter_time(cache["kc"], k_st, pos)
-        scatter_time(cache["vc"], v_st, pos)
-        agg = kq_decode_attention(qc, cache["kc"], cache["vc"], lengths,
-                                  scale=scale)
+        scatter_time(cache["kc"], k_st, slot)
+        scatter_time(cache["vc"], v_st, slot)
+        agg = (decode_attention(qc[:, :, None], cache["kc"], cache["vc"],
+                                seen(cache["kc"].shape[2]), scale) if W
+               else kq_decode_attention(qc, cache["kc"], cache["vc"],
+                                        lengths, scale=scale))
     agg = agg.reshape(B, Hkv, Hp // Hkv, rv)
     m = cfg.n_heads // Hkv                     # real heads (c_v is real-m)
     c_v = proj["c_v"].reshape(Hkv, -1, m, cfg.d_model)

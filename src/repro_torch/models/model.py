@@ -13,6 +13,8 @@ runtime projections are lists with one dict per layer.
 Public entry points:
     init(gen)                                   -> params
     prefill(params, batch, max_len, proj)       -> (logits, cache)
+        (full-sequence attention in K6 on the card; a sliding window
+        makes the cache a ring of min(max_len, window) slots)
     decode_step(params, cache, tokens, pos, proj, block_table, num_splits)
                                                 -> (logits, cache)
         (pos: per-sequence (B,) positions; scalars broadcast; the cache
@@ -180,9 +182,12 @@ class LM:
         ``(n_phys_pages, Hkv, page_size, width)`` read through a block
         table (reference ``LM.init_paged_cache``), i.e. ``init_cache``
         with (batch, max_len) read as (pages, page_size), its leaves those
-        of the page layout ``cfg.cache_quant`` selects.  Plain-attention
-        stacks without a sliding window only, as everywhere in the port
-        so far."""
+        of the page layout ``cfg.cache_quant`` selects.  A sliding window
+        raises ``NotImplementedError``, as in the reference: its ring
+        cache lives on dense slots."""
+        if self.cfg.sliding_window:
+            raise NotImplementedError(
+                "paged cache: sliding window not supported")
         return self.init_cache(n_phys_pages, page_size, ranks, dtype,
                                paged=True)
 

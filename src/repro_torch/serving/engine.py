@@ -178,8 +178,8 @@ class ServingEngine:
                  for name, asks, item in _LATER if asks(sc)]
         if later:
             raise NotImplementedError(
-                "this slice of the port serves the dense-slot cache only; "
-                "not yet ported: " + ", ".join(later))
+                "the port serves dense slots and the paged store under "
+                "reserve admission; not yet ported: " + ", ".join(later))
         # the serve config owns the paged page layout: folded into the
         # model config so prefill, chunks and decode resolve the same
         # one; a full cache (no projections) has no compressed entries
@@ -229,6 +229,9 @@ class ServingEngine:
 
     def _validate_paged(self) -> None:
         """Fail at construction, not mid-serve."""
+        if self.cfg.sliding_window:
+            raise NotImplementedError(
+                "paged serving: sliding window not supported")
         if self.cfg.cache_quant != "none" and self.sc.cache_quant == "none":
             raise NotImplementedError(
                 "paged serving selects its page layout via "

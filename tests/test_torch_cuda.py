@@ -1,8 +1,8 @@
-"""The port on the card: each CUDA kernel (K3, K1, K2, K4, K5 and the
-split combine) against its plain PyTorch version, and the reduced model
-on the card against the CPU on the dense and the paged chunked engines,
-also with int8 pages and split-KV decode and with the dense int8 cache.
-Marked
+"""The port on the card: each CUDA kernel (K3, K1, K2, K4, K5, the
+split combine and K6) against its plain PyTorch version, and the reduced
+model on the card against the CPU on the dense and the paged chunked
+engines, also with int8 pages and split-KV decode, with the dense int8
+cache and with the sliding-window ring cache.  Marked
 ``cuda``; skips where there is no GPU.  Imports no JAX, so it also runs
 on a machine without it (``--noconftest``: the repository's conftest
 imports JAX):
@@ -20,6 +20,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.calibration import calibrate_model
 from repro_torch.data import calibration_batches
 from repro_torch.device import tree_to
+from repro_torch.kernels.flash import flash_attention, flash_attention_ref
 from repro_torch.kernels.kq_decode import (
     combine_split_partials, kq_combine_splits, kq_decode_attention,
     kq_decode_attention_ref, kq_decode_paged_attention,
@@ -282,4 +283,110 @@ def test_reduced_model_card_matches_cpu(cuda):
               for i, q in enumerate(prompts)]
         eng.generate(rs)
         served.append([r.out_tokens for r in rs])
+    assert served[0] == served[1]
+
+
+# K6: S in {1, 63, 64, 65, 1000} against every window edge (none, 1, 16,
+# S-1, S, 2S), the (group, head dim) pairs cycling through m in
+# {1, 2, 4, 8} and dh in {16, 64, 80, 128}
+FLASH_CASES = [(S, w) for S in (1, 63, 64, 65, 1000)
+               for w in sorted({0, 1, 16, max(S - 1, 0), S, 2 * S})]
+FLASH_GROUPS = [(1, 16), (2, 64), (4, 80), (8, 128)]
+
+
+def _flash_inputs(dev, dtype, B, H, Hkv, S, dh, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(B, h, S, dh, generator=g, device=dev).to(dtype)
+            for h in (H, Hkv, Hkv)]
+
+
+def _close_ulps(out, ref, dtype):
+    """The reference tolerance and, in bf16, two ulps of the plain
+    version's output (both accumulate in f32)."""
+    _close(out, ref, dtype)
+    if dtype == torch.bfloat16:
+        err = (out.float() - ref.float()).abs()
+        assert bool((err <= 1e-4 + 8e-3 * ref.float().abs()).all()), \
+            float(err.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(FLASH_CASES)))
+def test_k6_matches_plain_version(cuda, case, dtype):
+    S, window = FLASH_CASES[case]
+    m, dh = FLASH_GROUPS[case % len(FLASH_GROUPS)]
+    B, Hkv = (1, 2) if S > 100 else (2, 2)
+    q, k, v = _flash_inputs(cuda, dtype, B, Hkv * m, Hkv, S, dh, seed=case)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    _close_ulps(out, flash_attention_ref(q, k, v, window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(False, 0), (False, 24)])
+def test_k6_without_causal_mask(cuda, causal, window, dtype):
+    q, k, v = _flash_inputs(cuda, dtype, 2, 8, 2, 97, 64)
+    out = flash_attention(q, k, v, causal=causal, window=window, scale=0.2)
+    _close_ulps(out, flash_attention_ref(q, k, v, causal=causal,
+                                         window=window, scale=0.2), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_reads_strided_views(cuda, dtype):
+    """q/k/v as the model's projections leave them, (B,S,H,dh) memory
+    seen as (B,H,S,dh): the kernel reads them through their strides."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(2, 77, h, 80, generator=g, device=cuda)
+               .to(dtype).transpose(1, 2) for h in (16, 4, 4))
+    assert not q.is_contiguous()
+    out = flash_attention(q, k, v, window=30)
+    _close_ulps(out, flash_attention_ref(q, k, v, window=30), dtype)
+
+
+def test_k6_raises_on_what_the_kernel_does_not_take(cuda):
+    q, k, v = _flash_inputs(cuda, torch.float32, 1, 4, 2, 16, 64)
+    with pytest.raises(TypeError):
+        flash_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError):                 # head dim 8
+        flash_attention(*_flash_inputs(cuda, torch.float32, 1, 4, 2, 16, 8))
+    with pytest.raises(ValueError):                 # non-contiguous last dim
+        flash_attention(q.transpose(2, 3)[:, :, :16, :16].contiguous()
+                        .transpose(2, 3), k[..., :16], v[..., :16])
+    with pytest.raises(ValueError):                 # 3 query heads on 2
+        flash_attention(q[:, :3], k, v)
+
+
+@pytest.mark.parametrize("method,cache_quant", [
+    ("none", "none"), ("kqsvd", "none"), ("kqsvd", "int8")],
+    ids=["full", "kqsvd", "kqsvd-dense-int8"])
+def test_reduced_window_engine_card_matches_cpu(cuda, method, cache_quant):
+    """Reduced h2o-danube-1.8b (window 16) on dense slots: prompts past
+    and inside the window, decode wrapping the ring; K6's window branch
+    under prefill and calibration on the card."""
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b").reduced(),
+                              cache_quant=cache_quant)
+    cpu, gpu = build_model(cfg, "cpu"), build_model(cfg, cuda)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    p_gpu = tree_to(p_cpu, cuda)
+    mp = (calibrate_model(cpu, p_cpu,
+                          calibration_batches(cfg.vocab_size, 8, 32, batch=4),
+                          CompressionConfig(method="kqsvd", epsilon=0.1))
+          if method != "none" else None)
+    prompts = [np.random.default_rng(i).integers(
+        0, cfg.vocab_size, L).astype(np.int32)
+        for i, L in enumerate((9, 40, 17))]
+    before = flash_attention.launches
+    served = []
+    for m, p in ((cpu, p_cpu), (gpu, p_gpu)):
+        eng = ServingEngine(cfg, p, ServeConfig(max_seq_len=64, max_batch=2,
+                                                decode_chunk=4),
+                            projections=mp, device=m.device)
+        rs = [Request(rid=i, prompt=q, max_new_tokens=10)
+              for i, q in enumerate(prompts)]
+        eng.generate(rs)
+        served.append([r.out_tokens for r in rs])
+    assert flash_attention.launches == before + cfg.n_layers * len(prompts)
     assert served[0] == served[1]

@@ -37,7 +37,10 @@ def test_every_module_imports_without_jax_or_reference():
     assert len(names) >= 20                     # the whole package walked
     assert {"repro_torch.serving.page_layouts",
             "repro_torch.kernels.kq_decode.ops",
-            "repro_torch.kernels.kq_decode.paged"} <= set(names)
+            "repro_torch.kernels.kq_decode.paged",
+            "repro_torch.kernels.flash",
+            "repro_torch.kernels.flash.flash",
+            "repro_torch.configs.h2o_danube_1_8b"} <= set(names)
 
 
 def test_entry_points_without_device_raise_without_gpu():

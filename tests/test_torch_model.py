@@ -113,11 +113,16 @@ def test_entry_point_without_device_needs_a_gpu():
 
 
 def test_unported_families_raise():
-    cfg = dataclasses.replace(torch_config("tinyllama-1.1b").reduced(),
-                              sliding_window=8)
-    m = torch_model(cfg, "cpu")
+    """Families the port does not carry raise at construction; a sliding
+    window (served on dense slots since its ring cache was ported) still
+    raises for the paged cache, as in the reference."""
+    cfg = torch_config("tinyllama-1.1b").reduced()
     with pytest.raises(NotImplementedError):
-        m.init_cache(1, 16)
+        torch_model(dataclasses.replace(cfg, family="moe"), "cpu")
+    m = torch_model(dataclasses.replace(cfg, sliding_window=8), "cpu")
+    assert m.init_cache(1, 16)[0]["slot_pos"].shape == (1, 8)
+    with pytest.raises(NotImplementedError):
+        m.init_paged_cache(4, 4)
 
 
 def test_compressed_cache_ops_match_reference():
