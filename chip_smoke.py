@@ -57,6 +57,19 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              and per prefill, K1-K5 and the merge never, the plain
              attention never; then one profiled decode step of this model
              (4 slots at position 6000);
+3h. ssm      mamba2-2.7b at full width (64 layers, d_model 2560, 80 SSM
+             heads of 64, d_state 128, chunk 256, bf16, seeded random
+             weights, no compression: nothing to compress) on dense slots
+             (``ServeConfig(max_batch=4, max_seq_len=4608,
+             decode_chunk=8)``): 8 requests of 1, 255, 256, 257, 513,
+             1000, 2049 and 4096 prompt tokens (ragged last chunks), 16
+             new tokens each.  Counts zeroed before and read after: K7
+             once per layer per prefill (64 x 8), K1-K6 never, K7's plain
+             version never;
+3i. profile  one mamba2 decode step (4 slots at position 4096): the
+             recurrent update has no kernel of the reference's, so this is
+             where its time goes; and one 4096-token prefill, with K7's
+             share of its device time;
 4.  kernels  each kernel against its plain PyTorch version on the card at
              the main paths' shapes (the calibrated ranks; K6 at
              tinyllama's calibration batch and at danube's windowed
@@ -66,7 +79,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              trailing splits; shuffled block tables; chunks at position 0,
              mid-page and with bucket padding; for K6 S in {1, 63, 64, 65,
              1000}, windows {0, 1, 16, S-1, S, 2S}, groups m in
-             {1, 2, 4, 8} and d_head in {16, 64, 80, 128}; in bf16 and
+             {1, 2, 4, 8} and d_head in {16, 64, 80, 128}; K7 at
+             mamba2's full-width prefill (S 4096, and a ragged 4097, also
+             against the float64 recurrence) and on the reduced and the
+             reference sweep's shapes with and without an initial state;
+             in bf16 and
              float32, at the reference kernel tests' tolerances and within
              two bf16 ulps; its time (CUDA events, L2 flushed before every
              launch) beside the plain version's, one PyTorch library
@@ -77,10 +94,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              dense, paged chunked, int8 pages with dynamic splits, SVDq
              pages with 3 splits and the dense int8 cache of tinyllama,
              and reduced h2o-danube-1.8b (window 16) on dense slots with
-             the full cache, KQ-SVD and the dense int8 cache, give
-             identical greedy tokens; prefill, ``LM.prefill_chunk`` and
-             dense and paged ``decode_step`` logits agree within 2e-4,
-             and danube's prefill and ring decode logits too.
+             the full cache, KQ-SVD and the dense int8 cache, and reduced
+             mamba2-2.7b (chunk 32, prompts of 1..70 tokens) on dense
+             slots, give identical greedy tokens; prefill,
+             ``LM.prefill_chunk`` and dense and paged ``decode_step``
+             logits agree within 2e-4, and danube's prefill and ring
+             decode logits and mamba2's prefill and decode logits too.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
@@ -106,7 +125,7 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py:15-17
 # kernel and plain version read the same inputs and both accumulate in
 # float32, so in bfloat16 they also agree to two ulps of the output
 ULPS_BF16 = 8e-3
-SOURCES = ("kq_decode", "kq_paged", "flash")
+SOURCES = ("kq_decode", "kq_paged", "flash", "ssd")
 
 
 @contextlib.contextmanager
@@ -162,15 +181,32 @@ def check_close(label: str, dt_name: str, out, ref) -> float:
     return worst
 
 
+def check_ssd(label: str, dt_name: str, out, ref) -> float:
+    """Hold K7's (y, final state) to its plain version's: a float32 y and
+    the f32 state within 1e-4 + 1e-4 |ref| (the block's prefix sum and
+    tiles add in another order than torch.cumsum and the matmuls), a
+    bfloat16 y within two ulps.  Returns the max abs error of y."""
+    import torch
+    torch.cuda.synchronize()
+    (y, h), (y_ref, h_ref) = out, ref
+    rel_y = ULPS_BF16 if y.dtype == torch.bfloat16 else 1e-4
+    for name, o, r, rel in (("y", y, y_ref, rel_y), ("state", h, h_ref, 1e-4)):
+        err = (o.float() - r.float()).abs()
+        assert bool((err <= 1e-4 + rel * r.float().abs()).all()), \
+            f"{label} {dt_name} {name} disagrees: max |err| {float(err.max())}"
+    return float((y.float() - y_ref.float()).abs().max())
+
+
 def measure(row: dict, label: str, dt_name: str, kernel, plain, library,
-            flush, nbytes: int, flops: int, reps: int = 100) -> None:
-    """Check ``kernel()`` against ``plain()`` (and the library call, where
-    there is one, against ``plain()``, at ten times the tolerance), time
-    them (``reps`` launches each) and write the numbers into ``row``:
-    bf16, the main paths' type, under the plain keys, float32 with a
-    ``_float32`` suffix."""
+            flush, nbytes: int, flops: int, reps: int = 100,
+            check=check_close) -> None:
+    """Check ``kernel()`` against ``plain()`` with ``check`` (and the
+    library call, where there is one, against ``plain()``, at ten times
+    the tolerance), time them (``reps`` launches each) and write the
+    numbers into ``row``: bf16, the main paths' type, under the plain
+    keys, float32 with a ``_float32`` suffix."""
     ref = plain()
-    err = check_close(label, dt_name, kernel(), ref)
+    err = check(label, dt_name, kernel(), ref)
     if library is not None:
         lib_err = float((library().float() - ref.float()).abs().max())
         assert lib_err <= 10 * TOL[dt_name], \
@@ -185,7 +221,8 @@ def measure(row: dict, label: str, dt_name: str, kernel, plain, library,
     bound = {"bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     lib = times["library_ms"]
-    print(f"{label} {dt_name}: max |err| {err:.3g} (tol {TOL[dt_name]}); "
+    bar = f"tol {TOL[dt_name]}" if check is check_close else check.__name__
+    print(f"{label} {dt_name}: max |err| {err:.3g} ({bar}); "
           f"kernel {times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, "
           f"library {'none' if lib is None else f'{lib:.4f} ms'}, bound "
           f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}: {nbytes} "
@@ -226,6 +263,9 @@ def plain_decode(qc, kp, vp, lengths, btab, scale, num_splits, ks=None,
     """The plain version of the paged decode the wrapper dispatches: K1's
     or K5's, or with more than one span K4's (K5 split's) partials merged
     by ``combine_split_partials``."""
+    from repro_torch.kernels.ssd import ssd as ssd_mod
+    from repro_torch.kernels.ssd import (ssd_chunk_scan, ssd_chunk_scan_plain,
+                                         ssd_chunk_scan_ref)
     from repro_torch.kernels.kq_decode import (
         combine_split_partials, kq_decode_paged_attention_int8_ref,
         kq_decode_paged_attention_ref, kq_decode_paged_partials_ref,
@@ -308,11 +348,47 @@ def profile_decode(label: str, model, params, proj, ranks, dev, paged: bool,
             "launches": launches, "attn_ms": attn}
 
 
+def profile_prefill(label: str, model, params, tokens, kernel: str) -> None:
+    """Where one exact-length prefill's time goes: synced host wall,
+    device busy time from ``torch.profiler``, the idle share, launches,
+    the share of the kernels whose name holds ``kernel``, and the
+    largest device entries; after one warm-up prefill."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    T = tokens.shape[1]
+    model.prefill(params, tokens, T)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.prefill(params, tokens, T)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_time_total > 0
+            and getattr(e, "device_type", None)
+            == torch.autograd.DeviceType.CUDA]
+    busy = sum(r[1] for r in rows)
+    if not busy:
+        print(f"{label} prefill of {T} tokens: the profiler saw no device "
+              f"time")
+        return
+    mine = sum(r[1] for r in rows if kernel in r[0])
+    print(f"{label} prefill of {T} tokens, profiled host wall: {wall:.3f} "
+          f"ms; device busy {busy:.3f} ms ({sum(r[2] for r in rows)} "
+          f"launches); idle share {max(0.0, 1 - busy / wall):.3f}; "
+          f"{kernel} {mine:.3f} ms ({mine / busy:.3f} of busy)")
+    for name, ms, n in sorted(rows, key=lambda r: -r[1])[:6]:
+        print(f"  {ms:8.4f} ms  {n:5d} launches  {name[:80]}"
+              f"  ({ms / busy:.3f} of busy)")
+
+
 def ptxas_summary(log: str) -> list:
     """``nvcc -Xptxas -v`` condensed: registers and spilled bytes for each
     instantiation of the kernels, as ``type[/int8]/rows/cols: regs+spill``
-    for the compressed-cache body (int8: int8 pages) and
-    ``type/d_head: regs+spill`` for K6."""
+    for the compressed-cache body (int8: int8 pages),
+    ``type/d_head: regs+spill`` for K6 and ``type/head_dim/d_state:
+    regs+spill`` for K7."""
     import re
     out, key = [], None
     for line in log.splitlines():
@@ -320,12 +396,17 @@ def ptxas_summary(log: str) -> list:
                       r"(f|a|S1_)Li(\d+)ELi(\d+)E", line)
         f = re.search(r"Compiling entry.*flash_kernelI(f|13__nv_bfloat16)"
                       r"Li(\d+)E", line)
+        s7 = re.search(r"Compiling entry.*ssd_kernelI(f|13__nv_bfloat16)"
+                       r"Li(\d+)ELi(\d+)E", line)
         if m:
             key = ("f32" if m.group(1) == "f" else "bf16") + \
                 ("/int8" if m.group(2) == "a" else "") + \
                 f"/{m.group(3)}/{m.group(4)}"
         elif f:
             key = ("f32" if f.group(1) == "f" else "bf16") + f"/{f.group(2)}"
+        elif s7:
+            key = ("f32" if s7.group(1) == "f" else "bf16") + \
+                f"/{s7.group(2)}/{s7.group(3)}"
         elif key and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line).group(1)
         elif key and "registers" in line:
@@ -364,6 +445,9 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash import flash as flash_mod
     from repro_torch.kernels.flash import flash_attention, flash_attention_ref
+    from repro_torch.kernels.ssd import ssd as ssd_mod
+    from repro_torch.kernels.ssd import (ssd_chunk_scan, ssd_chunk_scan_plain,
+                                         ssd_chunk_scan_ref)
     from repro_torch.kernels.kq_decode import (
         combine_split_partials, kq_combine_splits, kq_decode_attention,
         kq_decode_attention_ref, kq_decode_paged_attention,
@@ -378,22 +462,28 @@ def main() -> int:
     wrappers = (kq_decode_attention, kq_decode_paged_attention,
                 kq_prefill_paged_attention, kq_decode_paged_split,
                 kq_decode_paged_int8, kq_decode_paged_int8_split,
-                kq_combine_splits, flash_attention)
+                kq_combine_splits, flash_attention, ssd_chunk_scan)
 
-    # calls of K6's plain version from its wrapper (CPU tensors only):
-    # the card's prefill and calibration must make none
-    plain_calls = {"flash_attention_ref": 0}
+    # calls of K6's and K7's plain versions from their wrappers (CPU
+    # tensors only): the card's prefill and calibration must make none
+    plain_calls = {"flash_attention_ref": 0, "ssd_chunk_scan_plain": 0}
 
-    def counted_ref(*args, **kw):
-        plain_calls["flash_attention_ref"] += 1
-        return flash_attention_ref(*args, **kw)
+    def counted(name, fn):
+        def call(*args, **kw):
+            plain_calls[name] += 1
+            return fn(*args, **kw)
+        return call
 
-    flash_mod.flash_attention_ref = counted_ref
+    flash_mod.flash_attention_ref = counted("flash_attention_ref",
+                                            flash_attention_ref)
+    ssd_mod.ssd_chunk_scan_plain = counted("ssd_chunk_scan_plain",
+                                           ssd_chunk_scan_plain)
 
     def zero_counts():
         for w in wrappers:
             w.launches = 0
-        plain_calls["flash_attention_ref"] = 0
+        for name in plain_calls:
+            plain_calls[name] = 0
 
     with phase("1 device"):
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -669,6 +759,59 @@ def main() -> int:
             weng.proj, (wmp.rank_k, wmp.rank_v), dev, paged=False, B=4,
             T=8192, at=6000)
         del weng, wparams, wmodel
+
+    # -- 3h: the SSM family --------------------------------------------------
+    with phase("3h serve mamba2-2.7b, full width, dense slots, SSM state"):
+        mcfg = get_config("mamba2-2.7b")
+        mmodel = build_model(mcfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        mparams = mmodel.init(gen)
+        msc = ServeConfig(max_batch=4, max_seq_len=4608, decode_chunk=8)
+        meng = ServingEngine(mcfg, mparams, msc)
+        rng = np.random.default_rng(4)
+        mlens = (1, 255, 256, 257, 513, 1000, 2049, 4096)
+        mreqs = [Request(rid=i, prompt=rng.integers(0, mcfg.vocab_size, L)
+                         .astype(np.int32), max_new_tokens=16)
+                 for i, L in enumerate(mlens)]
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        meng.generate(mreqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m_launch = {w.__name__: w.launches for w in wrappers}
+        k7_launches = m_launch.pop("ssd_chunk_scan")
+        bad = [r.rid for r in mreqs if r.failed or r.truncated or not r.done
+               or len(r.out_tokens) != 16]
+        assert not bad, f"requests not served in full: {bad}"
+        assert k7_launches == mcfg.n_layers * len(mreqs) == 512, k7_launches
+        assert not any(m_launch.values()), f"K1-K6 ran: {m_launch}"
+        assert plain_calls["ssd_chunk_scan_plain"] == 0, plain_calls
+        assert meng.n_decode_steps > 0
+        state_bytes = sum(t[0].numel() * t.element_size()
+                          for layer in meng._cache for t in layer.values())
+        probe, _ = mmodel.prefill(mparams, mreqs[0].prompt[None], 16)
+        assert probe.shape == (1, 1, mcfg.vocab_size)
+        assert bool(torch.isfinite(probe).all()), "non-finite logits"
+        serve_report("mamba2 dense slots", meng, mreqs, wall)
+        print(f"K7 launches {k7_launches} = {mcfg.n_layers} x "
+              f"{len(mreqs)} prefills; K1-K6 {sum(m_launch.values())}; "
+              f"decode state {state_bytes} bytes per slot "
+              f"({state_bytes / 2**20:.1f} MiB: conv tails and f32 SSM "
+              f"state of {mcfg.n_layers} layers); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        print(f"req 7 (prompt 4096) tokens: {mreqs[7].out_tokens}")
+        del meng
+
+    with phase("3i profile one mamba2 decode step (4 slots at position "
+               "4096) and one 4096-token prefill"):
+        prof["mamba2"] = profile_decode(
+            "mamba2 dense slots, 4 slots at position 4096", mmodel, mparams,
+            None, (0, 0), dev, paged=False, B=4, T=4608, at=4096)
+        profile_prefill("mamba2", mmodel, mparams, mreqs[7].prompt[None],
+                        "ssd_kernel")
+        del mparams, mmodel
 
     # -- 4: each kernel against its plain version ------------------------
     with phase("4 kernels against their plain versions"):
@@ -1036,11 +1179,132 @@ def main() -> int:
         print(f"K6 edge cases: {n_cases} held to tolerance and two bf16 "
               f"ulps (S 1, 63, 64, 65, 1000; windows 0, 1, 16, S-1, S, "
               f"2S; m 1, 2, 4, 8; d_head 16, 64, 80, 128)")
-        kernels = [k1, k2, k3, k4, k5, k5s, kcomb, k6c, k6w]
+
+        # K7 at mamba2-2.7b's prefill: B 1, 80 heads of 64, one group of
+        # d_state 128, chunk 256, S 4096 (3h's longest prompt) and a
+        # ragged 4097, on the model's layout (x, B, C slices of the conv
+        # output (B, S, conv_dim), a and dt (B, S, nh) read through
+        # transposes, y asked for in float32) and its data's law: dt the
+        # softplus of a normal plus the init's dt bias (dt from 1e-3 to
+        # 0.1), A = -(1..16), so some heads carry their state across
+        # every chunk.  Bound: the causal pairs of each chunk times
+        # 2 (d_state + head_dim) flops, plus 4 L d_state head_dim per
+        # chunk for the carried term and the state update, against x, B,
+        # C, a, dt, y and the final state moved once.
+        def ssd_views(dt_name, B_, nh_, G_, S, hd_, n_, model_law, seed):
+            dt_ = getattr(torch, dt_name)
+            gg = torch.Generator(device=dev)
+            gg.manual_seed(seed)
+            width = nh_ * hd_ + 2 * G_ * n_
+            xbc = torch.randn(B_, S, width, generator=gg, device=dev).to(dt_)
+            x = xbc[..., :nh_ * hd_].reshape(B_, S, nh_, hd_).transpose(1, 2)
+            Bm, Cm = (xbc[..., nh_ * hd_ + i * G_ * n_:
+                          nh_ * hd_ + (i + 1) * G_ * n_]
+                      .reshape(B_, S, G_, n_).transpose(1, 2)
+                      for i in range(2))
+            z = torch.randn(B_, S, nh_, generator=gg, device=dev)
+            if model_law:
+                dt0 = torch.exp(torch.linspace(np.log(1e-3), np.log(0.1), nh_,
+                                               device=dev))
+                dtv = torch.nn.functional.softplus(z + torch.log(
+                    torch.expm1(dt0)))
+                A = -torch.linspace(1.0, 16.0, nh_, device=dev)
+            else:
+                dtv = torch.nn.functional.softplus(z)
+                A = -torch.exp(torch.randn(nh_, generator=gg, device=dev)
+                               * 0.5)
+            return (x, (dtv * A).transpose(1, 2), dtv.transpose(1, 2), Bm,
+                    Cm)
+
+        def ssd_work(B_, nh_, G_, S, hd_, n_, ck, isz, ysz):
+            lens = [min(ck, S - c0) for c0 in range(0, S, ck)]
+            pairs = sum(L * (L + 1) // 2 for L in lens)
+            flops = B_ * nh_ * (2 * pairs * (n_ + hd_) + 4 * S * n_ * hd_)
+            nbytes = (B_ * nh_ * S * hd_ * (isz + ysz)
+                      + 2 * B_ * G_ * S * n_ * isz + 2 * B_ * nh_ * S * 4
+                      + B_ * nh_ * n_ * hd_ * 4)
+            return nbytes, flops
+
+        def check_recurrence(label, dt_name, out, args, h0=None):
+            y64, h64 = ssd_chunk_scan_ref(*args, h0=h0)
+            tol = 5e-2 if dt_name == "bfloat16" else 2e-3  # test_kernels.py
+            for name, o, r in (("y", out[0], y64), ("state", out[1], h64)):
+                err = (o.double() - r).abs()
+                assert bool((err <= tol + tol * r.abs()).all()), \
+                    f"{label} {dt_name} {name} vs float64 recurrence: " \
+                    f"{float(err.max())}"
+            return float((out[0].double() - y64).abs().max())
+
+        msh = {"B": 1, "nh": 80, "G": 1, "S": 4096, "hd": 64, "n": 128,
+               "chunk": 256}
+        k7 = {"name": "ssd_chunk_scan (K7), mamba2-2.7b prefill",
+              "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd.cu",
+              "replaces": "src/repro/kernels/ssd/ssd.py:26",
+              "launches": k7_launches, "launches_from": "phase 3h",
+              "shape": dict(msh, y="float32", layout="model views")}
+        f32 = torch.float32
+        for dt_name in ("bfloat16", "float32"):
+            isz = torch.finfo(getattr(torch, dt_name)).bits // 8
+            for S in (4096, 4097):
+                args = ssd_views(dt_name, 1, 80, 1, S, 64, 128, True, S)
+                if S == 4096:
+                    nbytes, flops = ssd_work(1, 80, 1, S, 64, 128, 256, isz,
+                                             4)
+                    measure(k7, f"K7 S={S}", dt_name,
+                            lambda args=args: ssd_chunk_scan(
+                                *args, chunk=256, out_dtype=f32),
+                            lambda args=args: ssd_chunk_scan_plain(
+                                *args, chunk=256, out_dtype=f32),
+                            None, flush, nbytes, flops, 20, check=check_ssd)
+                out = ssd_chunk_scan(*args, chunk=256, out_dtype=f32)
+                err = check_ssd(f"K7 S={S}", dt_name, out,
+                                ssd_chunk_scan_plain(*args, chunk=256,
+                                                     out_dtype=f32))
+                err64 = check_recurrence(f"K7 S={S}", dt_name, out, args)
+                sfx = "" if dt_name == "bfloat16" else "_float32"
+                k7[f"max_abs_err_vs_float64_S{S}{sfx}"] = err64
+                print(f"K7 S={S} {dt_name}: max |kernel - plain| {err:.3g}, "
+                      f"|kernel - float64 recurrence| {err64:.3g}")
+                del args, out
+        # K7 edge cases: the reference sweep's shapes, reduced mamba2 at
+        # lengths around its chunk of 32, the full width's head at short
+        # and ragged lengths; with and without an initial state, y in
+        # x's type and in float32; a fifth of them also against the
+        # float64 recurrence
+        ssd_cases = ([(2, 4, 2, 64, 8, 16, 16), (1, 2, 1, 128, 16, 8, 32),
+                      (2, 2, 2, 64, 8, 8, 64)]
+                     + [(2, 8, 1, S, 16, 16, 32) for S in (1, 31, 32, 33, 70)]
+                     + [(1, 80, 1, S, 64, 128, 256) for S in (1, 255, 257)]
+                     + [(1, 4, 1, 300, 128, 64, 256)])
+        n_cases = 0
+        for dt_name in ("bfloat16", "float32"):
+            for ci, (B_, nh_, G_, S, hd_, n_, ck) in enumerate(ssd_cases):
+                args = ssd_views(dt_name, B_, nh_, G_, S, hd_, n_, hd_ == 64,
+                                 ci)
+                for with_h0 in (False, True):
+                    h0 = (torch.randn(B_, nh_, n_, hd_, generator=g,
+                                      device=dev) if with_h0 else None)
+                    for od in (None, f32):
+                        label = (f"K7 {(B_, nh_, G_, S, hd_, n_, ck)} "
+                                 f"h0={with_h0} y={od or dt_name}")
+                        out = ssd_chunk_scan(*args, chunk=ck, h0=h0,
+                                             out_dtype=od)
+                        check_ssd(label, dt_name, out, ssd_chunk_scan_plain(
+                            *args, chunk=ck, h0=h0, out_dtype=od))
+                        if n_cases % 5 == 0:
+                            check_recurrence(label, dt_name, out, args, h0)
+                        n_cases += 1
+        print(f"K7 edge cases: {n_cases} held to their bars against the "
+              f"plain version, every fifth also against the float64 "
+              f"recurrence (the reference sweep's shapes; reduced mamba2 "
+              f"at S 1, 31, 32, 33, 70; the full width's head at S 1, "
+              f"255, 257; jamba's head at S 300; h0 zero and random; y in "
+              f"x's type and float32)")
+        kernels = [k1, k2, k3, k4, k5, k5s, kcomb, k6c, k6w, k7]
 
     # -- 5: the port on the card against the port on the CPU ---------------
-    with phase("5 card against CPU, reduced tinyllama-1.1b and "
-               "h2o-danube-1.8b, float32"):
+    with phase("5 card against CPU, reduced tinyllama-1.1b, "
+               "h2o-danube-1.8b and mamba2-2.7b, float32"):
         rcfg = get_config("tinyllama-1.1b").reduced()
         cpu_model = build_model(rcfg, "cpu")
         gpu_model = build_model(rcfg, dev)
@@ -1185,6 +1449,53 @@ def main() -> int:
               f"and KQ-SVD; {len(wprompts)} requests' greedy tokens "
               f"identical on card and CPU in the dense-slot engines: "
               f"{', '.join(wkinds)}")
+
+        # reduced mamba2-2.7b (chunk 32): prompts of 1..70 tokens, ragged
+        # at the chunk, prefill and 8 decode steps each; then the
+        # dense-slot engine on the same prompts
+        mr = get_config("mamba2-2.7b").reduced()
+        mcpu, mgpu = build_model(mr, "cpu"), build_model(mr, dev)
+        mp_cpu = mcpu.init(torch.Generator().manual_seed(0))
+        mp_gpu = tree_to(mp_cpu, dev)
+        zero_counts()
+        mprompts = [np.random.default_rng(30 + i).integers(
+            0, mr.vocab_size, L + 8).astype(np.int32)
+            for i, L in enumerate((1, 31, 32, 33, 64, 70))]
+        outs = []
+        for m_, p_ in ((mcpu, mp_cpu), (mgpu, mp_gpu)):
+            seq = []
+            for q in mprompts:
+                L = len(q) - 8
+                lg, cache = m_.prefill(p_, q[None, :L], len(q))
+                seq.append(lg)
+                for i in range(8):
+                    lg, cache = m_.decode_step(p_, cache, q[None, L + i:
+                                                            L + i + 1],
+                                               L + i)
+                    seq.append(lg)
+            outs.append([x.cpu() for x in seq])
+        mworst = 0.0
+        for a_, b_ in zip(*outs):
+            mworst = max(mworst, float((a_ - b_).abs().max()))
+            np.testing.assert_allclose(b_.numpy(), a_.numpy(), rtol=2e-4,
+                                       atol=2e-4)
+        assert ssd_chunk_scan.launches == mr.n_layers * len(mprompts), \
+            ssd_chunk_scan.launches
+        got = []
+        for m_, p_ in ((mcpu, mp_cpu), (mgpu, mp_gpu)):
+            e = ServingEngine(mr, p_, ServeConfig(max_seq_len=96, max_batch=3,
+                                                  decode_chunk=4),
+                              device=m_.device)
+            rs = [Request(rid=i, prompt=q[:len(q) - 8], max_new_tokens=12)
+                  for i, q in enumerate(mprompts)]
+            e.generate(rs)
+            assert all(r.done and len(r.out_tokens) == 12 for r in rs)
+            got.append([r.out_tokens for r in rs])
+        assert got[0] == got[1], got
+        print(f"mamba2 (chunk 32) logits max |card - cpu| {mworst:.3g} "
+              f"(tol 2e-4) over prefill + 8 decode steps of {len(mprompts)} "
+              f"prompts of 1..70 tokens; their greedy tokens identical on "
+              f"card and CPU in the dense-slot engine")
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

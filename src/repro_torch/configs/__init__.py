@@ -2,9 +2,9 @@
 
 Each module defines ``config() -> ModelConfig`` with the same numbers as
 the reference's module of the same name.  The port carries the
-dense-family configs, h2o-danube-1.8b's sliding window included; the
-other families come with their slices (ROADMAP.md queue 1, models off
-the main path).
+dense-family configs, h2o-danube-1.8b's sliding window included, and
+the SSM family's mamba2-2.7b; the other families come with their slices
+(ROADMAP.md queue 1, models off the main path).
 """
 from __future__ import annotations
 
@@ -19,6 +19,8 @@ _ARCH_MODULES = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     # the paper's own evaluation model
     "paper-llama2-7b": "paper_llama2_7b",
+    # attention-free SSM (Mamba-2 SSD): K7 under every prefill
+    "mamba2-2.7b": "mamba2_2_7b",
 }
 
 _cache: Dict[str, ModelConfig] = {}

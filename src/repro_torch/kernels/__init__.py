@@ -14,6 +14,8 @@ kq_decode/  compressed-cache attention, CUDA C++ over one kernel body
 flash/      K6  causal GQA flash attention with an optional sliding
                 window (csrc/flash.cu), under every exact-length prefill
                 and calibration batch
+ssd/        K7  the Mamba-2 SSD chunk scan with an initial and a final
+                state (csrc/ssd.cu), under every prefill of an SSM layer
 
 ``build`` compiles the CUDA sources with ``nvcc`` at first use; importing
 this package builds nothing.

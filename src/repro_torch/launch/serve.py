@@ -8,15 +8,16 @@
       --cache-quant int8 --decode-splits 0
 
 The flags are the reference CLI's (``python -m repro.launch.serve``).
-``--arch`` takes tinyllama-1.1b, paper-llama2-7b and h2o-danube-1.8b
+``--arch`` takes tinyllama-1.1b, paper-llama2-7b, h2o-danube-1.8b
 (sliding window: a ring cache on dense slots; its paged store is refused,
-as in the reference).  The port serves the dense-slot cache and the
-paged store
-(``--paged``, ``--page-size``, ``--n-pages``), with exact-length or
-chunked prefill (``--prefill-chunk``, which turns on paging, and
-``--prefill-buckets``), quantized pages (``--cache-quant``) and split-KV
-decode (``--decode-splits``), both of which turn on paging too; a flag
-that asks for a path it does not have yet (token budget, shards,
+as in the reference) and mamba2-2.7b (attention-free: no calibration,
+whatever ``--method`` says, as in the reference; SSM state on dense
+slots, K7 under every prefill).  The port serves the dense-slot cache
+and the paged store (``--paged``, ``--page-size``, ``--n-pages``), with
+exact-length or chunked prefill (``--prefill-chunk``, which turns on
+paging, and ``--prefill-buckets``), quantized pages (``--cache-quant``)
+and split-KV decode (``--decode-splits``), both of which turn on paging
+too; a flag that asks for a path it does not have yet (token budget, shards,
 optimistic admission and preemption with its priorities, prefix sharing,
 audits, chaos) stops the run with an error naming it.  Runs on the CUDA
 device unless ``--device`` says otherwise.
@@ -143,7 +144,7 @@ def main(argv=None) -> None:
     params = model.init(gen)
 
     proj = None
-    if args.method != "none":
+    if args.method != "none" and not cfg.attention_free:
         calib = calibration_batches(cfg.vocab_size, args.calib_seqs,
                                     args.calib_len, batch=4)
         ccfg = CompressionConfig(method=args.method, epsilon=args.epsilon)

@@ -1,20 +1,23 @@
 """The language model: embed -> blocks -> norm -> head, in PyTorch.
 
-Torch counterpart of ``repro.models.model.LM`` for the dense family.
-Parameters are a plain dict of tensors on the model's device:
+Torch counterpart of ``repro.models.model.LM`` for the dense and the
+SSM families.  Parameters are a plain dict of tensors on the model's
+device:
 
     {"embed": (V, D), "final_norm": (D,), "lm_head": (D, V),
      "layers": [layer dict, ...]}            (see ``blocks``)
 
 which is the reference's pytree with its stacked ``steps`` unstacked into
-a list (``repro_torch.bridge`` converts one into the other).  Caches and
-runtime projections are lists with one dict per layer.
+a list (``repro_torch.bridge`` converts one into the other).  Caches are
+lists with one dict per layer (an SSM layer's holds its conv tail and SSM
+state), runtime projections lists with one dict per attention layer.
 
 Public entry points:
     init(gen)                                   -> params
     prefill(params, batch, max_len, proj)       -> (logits, cache)
         (full-sequence attention in K6 on the card; a sliding window
-        makes the cache a ring of min(max_len, window) slots)
+        makes the cache a ring of min(max_len, window) slots; an SSM
+        layer runs K7 and keeps only its state)
     decode_step(params, cache, tokens, pos, proj, block_table, num_splits)
                                                 -> (logits, cache)
         (pos: per-sequence (B,) positions; scalars broadcast; the cache
@@ -39,6 +42,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.blocks import apply_layer, init_layer, step_layout
 from repro_torch.models.layers import dtype_of, init_rms, rms_norm
 
@@ -52,7 +56,9 @@ class LM:
         self.device = resolve_device(device)
         self.dtype = dtype_of(cfg.dtype)
         step_layout(cfg)            # raises for families not ported yet
-        self.attn_layers = list(range(cfg.n_layers))
+        self.kinds = cfg.layer_kinds()
+        self.attn_layers = [i for i, k in enumerate(self.kinds)
+                            if k in ("attn", "mla")]
 
     # -- init ---------------------------------------------------------------
 
@@ -88,13 +94,17 @@ class LM:
     def _run_stack(self, params, x, mode, cache=None, pos=None, proj=None,
                    max_len: int = 0, block_table=None, valid=None,
                    num_splits: int = 1):
-        caches, captures = [], []
+        caches, captures, attn_ord = [], [], 0
         for i, lp in enumerate(params["layers"]):
+            lproj = None
+            if self.kinds[i] != "ssm":
+                if proj is not None:
+                    lproj = proj[attn_ord]
+                attn_ord += 1
             x, nc, caps = apply_layer(
-                lp, x, self.cfg, mode,
-                cache[i] if cache is not None else None, pos,
-                proj[i] if proj is not None else None, max_len,
-                block_table, valid, num_splits)
+                lp, x, self.cfg, i, mode,
+                cache[i] if cache is not None else None, pos, lproj,
+                max_len, block_table, valid, num_splits)
             caches.append(nc)
             if caps is not None:
                 captures.append(caps)
@@ -151,8 +161,9 @@ class LM:
         return self._logits(params, x), cache
 
     def calibrate(self, params, tokens) -> List[Dict[str, np.ndarray]]:
-        """Per-layer post-RoPE captures ``{"k", "q", "v"}`` as host float32
-        numpy arrays (``GramAccumulator.update`` takes host arrays)."""
+        """Per-attention-layer post-RoPE captures ``{"k", "q", "v"}`` as
+        host float32 numpy arrays (``GramAccumulator.update`` takes host
+        arrays); empty for an attention-free stack."""
         x = params["embed"][self._tokens(tokens)]
         _, _, captures = self._run_stack(params, x, "calibrate")
         return [{name: t.detach().float().cpu().numpy()
@@ -160,8 +171,9 @@ class LM:
 
     def group_output_weights(self, params) -> List[np.ndarray]:
         """Stacked per-group output weights for the value-path solve."""
-        return [attn_mod.group_output_weights(lp["attn"], self.cfg)
-                for lp in params["layers"]]
+        return [attn_mod.group_output_weights(params["layers"][i]["attn"],
+                                              self.cfg)
+                for i in self.attn_layers]
 
     # -- caches & projections ------------------------------------------------
 
@@ -169,11 +181,17 @@ class LM:
                    ranks: Tuple[int, int] = (0, 0), dtype=None,
                    paged: bool = False) -> List[Dict[str, torch.Tensor]]:
         """Empty decode cache, one dict per layer; ``paged=True`` builds
-        page-pool leaves from the configured page layout."""
-        return [attn_mod.make_attn_cache(self.cfg, batch, max_len, ranks,
-                                         dtype or self.dtype, self.device,
-                                         paged)
-                for _ in self.attn_layers]
+        page-pool leaves from the configured page layout.  An SSM layer's
+        dict is its zeroed state, ``{"conv": (batch, conv_dim, K-1)`` in
+        the model dtype, ``"s": (batch, nh, d_state, head_dim)`` float32},
+        whatever ``max_len``."""
+        dtype = dtype or self.dtype
+        return [ssm_mod.make_ssm_state(self.cfg.ssm, self.cfg.d_model, batch,
+                                       dtype, self.device)
+                if kind == "ssm" else
+                attn_mod.make_attn_cache(self.cfg, batch, max_len, ranks,
+                                         dtype, self.device, paged)
+                for kind in self.kinds]
 
     def init_paged_cache(self, n_phys_pages: int, page_size: int,
                          ranks: Tuple[int, int] = (0, 0), dtype=None
@@ -184,7 +202,13 @@ class LM:
         with (batch, max_len) read as (pages, page_size), its leaves those
         of the page layout ``cfg.cache_quant`` selects.  A sliding window
         raises ``NotImplementedError``, as in the reference: its ring
-        cache lives on dense slots."""
+        cache lives on dense slots; so does a stack with non-attention
+        layers."""
+        kinds = set(self.kinds)
+        if kinds != {"attn"}:
+            raise NotImplementedError(
+                f"paged cache supports plain attention stacks only "
+                f"(layer kinds: {sorted(kinds)})")
         if self.cfg.sliding_window:
             raise NotImplementedError(
                 "paged cache: sliding window not supported")
@@ -194,7 +218,7 @@ class LM:
     def projections_pytree(self, mp, dtype=None
                            ) -> List[Dict[str, torch.Tensor]]:
         """Solved ``ModelProjections`` -> runtime projections: one dict of
-        ``a_k``/``b_q``[/``a_v``/``c_v``] tensors per layer."""
+        ``a_k``/``b_q``[/``a_v``/``c_v``] tensors per attention layer."""
         dtype = dtype or self.dtype
         arrays = {"a_k": mp.a_k, "b_q": mp.b_q}
         if mp.a_v is not None:

@@ -229,6 +229,11 @@ class ServingEngine:
 
     def _validate_paged(self) -> None:
         """Fail at construction, not mid-serve."""
+        kinds = set(self.cfg.layer_kinds())
+        if kinds != {"attn"}:
+            raise NotImplementedError(
+                f"paged serving supports plain attention stacks only "
+                f"(layer kinds: {sorted(kinds)})")
         if self.cfg.sliding_window:
             raise NotImplementedError(
                 "paged serving: sliding window not supported")

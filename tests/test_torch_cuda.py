@@ -1,8 +1,9 @@
 """The port on the card: each CUDA kernel (K3, K1, K2, K4, K5, the
-split combine and K6) against its plain PyTorch version, and the reduced
-model on the card against the CPU on the dense and the paged chunked
-engines, also with int8 pages and split-KV decode, with the dense int8
-cache and with the sliding-window ring cache.  Marked
+split combine, K6 and K7) against its plain PyTorch version, and the
+reduced model on the card against the CPU on the dense and the paged
+chunked engines, also with int8 pages and split-KV decode, with the dense
+int8 cache, with the sliding-window ring cache and with mamba2's SSM
+state.  Marked
 ``cuda``; skips where there is no GPU.  Imports no JAX, so it also runs
 on a machine without it (``--noconftest``: the repository's conftest
 imports JAX):
@@ -21,6 +22,7 @@ from repro_torch.core.calibration import calibrate_model
 from repro_torch.data import calibration_batches
 from repro_torch.device import tree_to
 from repro_torch.kernels.flash import flash_attention, flash_attention_ref
+from repro_torch.kernels.ssd import ssd_chunk_scan, ssd_chunk_scan_plain
 from repro_torch.kernels.kq_decode import (
     combine_split_partials, kq_combine_splits, kq_decode_attention,
     kq_decode_attention_ref, kq_decode_paged_attention,
@@ -389,4 +391,124 @@ def test_reduced_window_engine_card_matches_cpu(cuda, method, cache_quant):
         eng.generate(rs)
         served.append([r.out_tokens for r in rs])
     assert flash_attention.launches == before + cfg.n_layers * len(prompts)
+    assert served[0] == served[1]
+
+
+# K7: the reference sweep's shapes (B, nh, G, S, hd, n, chunk), reduced
+# mamba2 with a ragged last chunk, mamba2's full head at a ragged length
+# and jamba's head, each with and without an initial state
+SSD_CASES = [(2, 4, 2, 64, 8, 16, 16), (1, 2, 1, 128, 16, 8, 32),
+             (2, 2, 2, 64, 8, 8, 64), (2, 8, 1, 70, 16, 16, 32),
+             (1, 4, 1, 300, 64, 128, 256), (1, 2, 1, 130, 128, 64, 256),
+             (3, 4, 2, 1, 16, 16, 32)]
+
+
+def _ssd_inputs(dev, dtype, B, nh, G, S, hd, n, seed=0):
+    """The sweep's laws: x, B, C normal in ``dtype``; dt = softplus of a
+    normal, A = -exp(normal / 2), a = dt * A, float32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(B, nh, S, hd, generator=g, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, nh, S, generator=g, device=dev))
+    A = -torch.exp(torch.randn(nh, generator=g, device=dev) * 0.5)
+    Bm, Cm = (torch.randn(B, G, S, n, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    return x, dt * A[None, :, None], dt, Bm, Cm
+
+
+def _close_ssd(y, h, y_ref, h_ref, dtype):
+    """y: 1e-4 + 1e-4 |ref| in float32, two bf16 ulps in bfloat16; the
+    f32 state at 1e-4 + 1e-4 |ref| (kernel and plain version add in other
+    orders: block prefix sum against torch.cumsum, tiles against
+    matmuls)."""
+    if dtype == torch.bfloat16:
+        _close_ulps(y, y_ref, dtype)
+    else:
+        err = (y - y_ref).abs()
+        assert bool((err <= 1e-4 + 1e-4 * y_ref.abs()).all()), \
+            float(err.max())
+    err = (h - h_ref).abs()
+    assert bool((err <= 1e-4 + 1e-4 * h_ref.abs()).all()), float(err.max())
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["h0=0", "h0"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(SSD_CASES)))
+def test_k7_matches_plain_version(cuda, case, dtype, with_h0):
+    B, nh, G, S, hd, n, ck = SSD_CASES[case]
+    x, a, dt, Bm, Cm = _ssd_inputs(cuda, dtype, B, nh, G, S, hd, n, case)
+    h0 = (torch.randn(B, nh, n, hd, device=cuda) if with_h0 else None)
+    before = ssd_chunk_scan.launches
+    y, h = ssd_chunk_scan(x, a, dt, Bm, Cm, chunk=ck, h0=h0)
+    torch.cuda.synchronize()
+    assert ssd_chunk_scan.launches == before + 1
+    assert y.shape == x.shape and y.dtype == dtype
+    assert h.shape == (B, nh, n, hd) and h.dtype == torch.float32
+    y_ref, h_ref = ssd_chunk_scan_plain(x, a, dt, Bm, Cm, chunk=ck, h0=h0)
+    _close_ssd(y, h, y_ref, h_ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_reads_model_views(cuda, dtype):
+    """x, B and C as slices of the conv output (B, S, conv_dim), a and dt
+    as (B, S, nh) seen through transposes, y asked for in float32: the
+    model's call."""
+    B, S, nh, hd, G, n = 2, 77, 8, 16, 1, 16
+    g = torch.Generator(device=cuda).manual_seed(5)
+    xbc = torch.randn(B, S, nh * hd + 2 * G * n, generator=g,
+                      device=cuda).to(dtype)
+    x = xbc[..., :nh * hd].reshape(B, S, nh, hd).transpose(1, 2)
+    Bm = xbc[..., nh * hd:nh * hd + G * n].reshape(B, S, G, n).transpose(1, 2)
+    Cm = xbc[..., nh * hd + G * n:].reshape(B, S, G, n).transpose(1, 2)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, nh, generator=g, device=cuda))
+    a = dt * -torch.exp(torch.randn(nh, generator=g, device=cuda))
+    args = (x, a.transpose(1, 2), dt.transpose(1, 2), Bm, Cm)
+    assert not x.is_contiguous()
+    y, h = ssd_chunk_scan(*args, chunk=32, out_dtype=torch.float32)
+    assert y.dtype == torch.float32 and y.transpose(1, 2).is_contiguous()
+    y_ref, h_ref = ssd_chunk_scan_plain(*args, chunk=32,
+                                        out_dtype=torch.float32)
+    _close_ssd(y, h, y_ref, h_ref, torch.float32)
+
+
+def test_k7_raises_on_what_the_kernel_does_not_take(cuda):
+    x, a, dt, Bm, Cm = _ssd_inputs(cuda, torch.float32, 1, 4, 2, 16, 16, 16)
+    before = ssd_chunk_scan.launches
+    with pytest.raises(TypeError):                  # mixed input types
+        ssd_chunk_scan(x, a, dt, Bm.to(torch.bfloat16), Cm)
+    with pytest.raises(TypeError):                  # a in bfloat16
+        ssd_chunk_scan(x, a.to(torch.bfloat16), dt, Bm, Cm)
+    with pytest.raises(ValueError):                 # (hd, n) = (32, 16)
+        ssd_chunk_scan(*_ssd_inputs(cuda, torch.float32, 1, 4, 2, 16, 32,
+                                    16))
+    with pytest.raises(ValueError):                 # chunk past 256
+        ssd_chunk_scan(x, a, dt, Bm, Cm, chunk=512)
+    with pytest.raises(ValueError):                 # 3 heads on 2 groups
+        ssd_chunk_scan(x[:, :3], a[:, :3], dt[:, :3], Bm, Cm)
+    assert ssd_chunk_scan.launches == before
+
+
+def test_reduced_mamba2_engine_card_matches_cpu(cuda):
+    """Reduced mamba2-2.7b on dense slots: prompts of 1..70 tokens, ragged
+    at chunk 32; K7 once per layer per prefill on the card, the same
+    greedy tokens as the CPU."""
+    cfg = get_config("mamba2-2.7b").reduced()
+    cpu, gpu = build_model(cfg, "cpu"), build_model(cfg, cuda)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    p_gpu = tree_to(p_cpu, cuda)
+    prompts = [np.random.default_rng(i).integers(
+        0, cfg.vocab_size, L).astype(np.int32)
+        for i, L in enumerate((1, 31, 33, 70))]
+    before = ssd_chunk_scan.launches
+    served = []
+    for m, p in ((cpu, p_cpu), (gpu, p_gpu)):
+        eng = ServingEngine(cfg, p, ServeConfig(max_seq_len=96, max_batch=2,
+                                                decode_chunk=4),
+                            device=m.device)
+        rs = [Request(rid=i, prompt=q, max_new_tokens=8)
+              for i, q in enumerate(prompts)]
+        eng.generate(rs)
+        served.append([r.out_tokens for r in rs])
+    assert ssd_chunk_scan.launches == before + cfg.n_layers * len(prompts)
     assert served[0] == served[1]

@@ -40,7 +40,12 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.kernels.kq_decode.paged",
             "repro_torch.kernels.flash",
             "repro_torch.kernels.flash.flash",
-            "repro_torch.configs.h2o_danube_1_8b"} <= set(names)
+            "repro_torch.configs.h2o_danube_1_8b",
+            "repro_torch.configs.mamba2_2_7b",
+            "repro_torch.models.ssm",
+            "repro_torch.kernels.ssd",
+            "repro_torch.kernels.ssd.ref",
+            "repro_torch.kernels.ssd.ssd"} <= set(names)
 
 
 def test_entry_points_without_device_raise_without_gpu():
