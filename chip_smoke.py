@@ -72,14 +72,17 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              share of its device time;
 4.  kernels  each kernel against its plain PyTorch version on the card at
              the main paths' shapes (the calibrated ranks; K6 at
-             tinyllama's calibration batch and at danube's windowed
-             prefill, the plain one there at 4608 tokens) and on edge
-             cases: for K1, K2, K4 and K5 page sizes 4, 16, 64; lengths 0,
-             1, ps-1, ps, ps+1, 1023; splits 1, 2, 3, 8 with empty
-             trailing splits; shuffled block tables; chunks at position 0,
-             mid-page and with bucket padding; for K6 S in {1, 63, 64, 65,
-             1000}, windows {0, 1, 16, S-1, S, 2S}, groups m in
-             {1, 2, 4, 8} and d_head in {16, 64, 80, 128}; K7 at
+             tinyllama's calibration batch, at danube's windowed
+             prefill, the plain one there at 4608 tokens, and at
+             paper-llama2-7b's calibration batch, MHA at d_head 128) and
+             on edge cases: for K1, K2, K4 and K5 page sizes 4, 16, 64;
+             lengths 0, 1, ps-1, ps, ps+1, 1023; splits 1, 2, 3, 8 with
+             empty trailing splits; shuffled block tables; chunks at
+             position 0, mid-page and with bucket padding; for K6 S in
+             {1, 63, 64, 65, 1000}, windows {0, 1, 16, S-1, S, 2S},
+             groups m in {1, 2, 3, 4, 8} and every (d_head, d_v) pair it
+             takes: (8, 8), (16, 16), (32, 32), (64, 64), (80, 80),
+             (96, 96), (128, 128), (24, 16), (192, 128); K7 at
              mamba2's full-width prefill (S 4096, and a ragged 4097, also
              against the float64 recurrence) and on the reduced and the
              reference sweep's shapes with and without an initial state;
@@ -387,15 +390,15 @@ def ptxas_summary(log: str) -> list:
     """``nvcc -Xptxas -v`` condensed: registers and spilled bytes for each
     instantiation of the kernels, as ``type[/int8]/rows/cols: regs+spill``
     for the compressed-cache body (int8: int8 pages),
-    ``type/d_head: regs+spill`` for K6 and ``type/head_dim/d_state:
+    ``type/d_head/d_v: regs+spill`` for K6 and ``type/head_dim/d_state:
     regs+spill`` for K7."""
     import re
     out, key = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry.*attend_kernelI(f|13__nv_bfloat16)"
                       r"(f|a|S1_)Li(\d+)ELi(\d+)E", line)
-        f = re.search(r"Compiling entry.*flash_kernelI(f|13__nv_bfloat16)"
-                      r"Li(\d+)E", line)
+        f = re.search(r"Compiling entry.*flash_(bf16|f32)_kernelI"
+                      r"Li(\d+)ELi(\d+)E", line)
         s7 = re.search(r"Compiling entry.*ssd_kernelI(f|13__nv_bfloat16)"
                        r"Li(\d+)ELi(\d+)E", line)
         if m:
@@ -403,7 +406,7 @@ def ptxas_summary(log: str) -> list:
                 ("/int8" if m.group(2) == "a" else "") + \
                 f"/{m.group(3)}/{m.group(4)}"
         elif f:
-            key = ("f32" if f.group(1) == "f" else "bf16") + f"/{f.group(2)}"
+            key = f"{f.group(1)}/{f.group(2)}/{f.group(3)}"
         elif s7:
             key = ("f32" if s7.group(1) == "f" else "bf16") + \
                 f"/{s7.group(2)}/{s7.group(3)}"
@@ -1078,12 +1081,12 @@ def main() -> int:
               f"bf16 ulps (page sizes 4, 16, 64; lengths 0, 1, ps-1, ps, "
               f"ps+1, 1023; splits 1, 2, 3, 8)")
 
-        # K6 at tinyllama's calibration batch (causal) and at danube's
-        # windowed prefill: 6000 tokens for the kernel and the library
-        # call, the plain version's comparison at 4608 (its f32 scores
-        # would hold 4.6 GB at 6000).  Bound: 4 d_head flops per (query,
-        # key) pair of the band per head, against q, k, v and out moved
-        # once.
+        # K6 at tinyllama's calibration batch (causal), at danube's
+        # windowed prefill (6000 tokens for the kernel and the library
+        # call, the plain version's comparison at 4608: its f32 scores
+        # would hold 4.6 GB at 6000) and at paper-llama2-7b's calibration
+        # batch (MHA, d_head 128).  Bound: 4 d_head flops per (query, key)
+        # pair of the band per head, against q, k, v and out moved once.
         def band_pairs(S, W):
             if not W or W >= S:
                 return S * (S + 1) // 2
@@ -1108,7 +1111,11 @@ def main() -> int:
                                 "prefill",
                    shape={"B": 1, "H": 32, "Hkv": 8, "S": 4608, "dh": 80,
                           "window": 4096})
-        for row, S_long in ((k6c, None), (k6w, 6000)):
+        k6l = dict(k6_src, name="flash (K6), paper-llama2-7b calibration "
+                                "batch",
+                   shape={"B": 4, "H": 32, "Hkv": 32, "S": 512, "dh": 128,
+                          "window": 0})
+        for row, S_long in ((k6c, None), (k6w, 6000), (k6l, None)):
             sh = row["shape"]
             B_, H_, Hkv_, S_, dh_, W_ = (sh[k] for k in
                                          ("B", "H", "Hkv", "S", "dh",
@@ -1159,26 +1166,30 @@ def main() -> int:
                           f"max |kernel - library| {lib_err:.3g}")
                     del q, k, v, mask
         # K6 edge cases: sequence lengths around a tile, every window
-        # edge, groups m and head dims of the configs
+        # edge, groups m (3: rows that do not tile a block in whole
+        # positions) and every (d_head, d_v) pair the kernel takes
         n_cases = 0
         for dt_name in ("bfloat16", "float32"):
             dt = getattr(torch, dt_name)
             for S in (1, 63, 64, 65, 1000):
                 for W in sorted({0, 1, 16, max(S - 1, 0), S, 2 * S}):
-                    for m_ in (1, 2, 4, 8):
-                        for dh_ in (16, 64, 80, 128):
-                            q, k, v = (torch.randn(1, 2 * h, S, dh_,
+                    for m_ in (1, 2, 3, 4, 8):
+                        for dh_, dv_ in flash_mod.HEAD_DIMS:
+                            q, k, v = (torch.randn(1, 2 * h, S, d,
                                                    generator=g, device=dev)
-                                       .to(dt) for h in (m_, 1, 1))
+                                       .to(dt) for h, d in ((m_, dh_),
+                                                            (1, dh_),
+                                                            (1, dv_)))
                             check_close(
-                                f"K6 S={S} window={W} m={m_} dh={dh_}",
-                                dt_name,
+                                f"K6 S={S} window={W} m={m_} "
+                                f"dh={dh_} dv={dv_}", dt_name,
                                 flash_attention(q, k, v, window=W),
                                 flash_attention_ref(q, k, v, window=W))
                             n_cases += 1
         print(f"K6 edge cases: {n_cases} held to tolerance and two bf16 "
               f"ulps (S 1, 63, 64, 65, 1000; windows 0, 1, 16, S-1, S, "
-              f"2S; m 1, 2, 4, 8; d_head 16, 64, 80, 128)")
+              f"2S; m 1, 2, 3, 4, 8; (d_head, d_v) "
+              f"{', '.join(map(str, flash_mod.HEAD_DIMS))})")
 
         # K7 at mamba2-2.7b's prefill: B 1, 80 heads of 64, one group of
         # d_state 128, chunk 256, S 4096 (3h's longest prompt) and a
@@ -1300,7 +1311,7 @@ def main() -> int:
               f"at S 1, 31, 32, 33, 70; the full width's head at S 1, "
               f"255, 257; jamba's head at S 300; h0 zero and random; y in "
               f"x's type and float32)")
-        kernels = [k1, k2, k3, k4, k5, k5s, kcomb, k6c, k6w, k7]
+        kernels = [k1, k2, k3, k4, k5, k5s, kcomb, k6c, k6w, k6l, k7]
 
     # -- 5: the port on the card against the port on the CPU ---------------
     with phase("5 card against CPU, reduced tinyllama-1.1b, "

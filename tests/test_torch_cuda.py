@@ -22,6 +22,7 @@ from repro_torch.core.calibration import calibrate_model
 from repro_torch.data import calibration_batches
 from repro_torch.device import tree_to
 from repro_torch.kernels.flash import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash.flash import HEAD_DIMS
 from repro_torch.kernels.ssd import ssd_chunk_scan, ssd_chunk_scan_plain
 from repro_torch.kernels.kq_decode import (
     combine_split_partials, kq_combine_splits, kq_decode_attention,
@@ -289,17 +290,19 @@ def test_reduced_model_card_matches_cpu(cuda):
 
 
 # K6: S in {1, 63, 64, 65, 1000} against every window edge (none, 1, 16,
-# S-1, S, 2S), the (group, head dim) pairs cycling through m in
-# {1, 2, 4, 8} and dh in {16, 64, 80, 128}
+# S-1, S, 2S); the cases cycle through every (dh, dv) pair the kernel
+# takes and, independently, the groups m in {1, 2, 3, 4, 8} (m 3:
+# smollm-360m's group, whose rows do not tile a block in whole positions)
 FLASH_CASES = [(S, w) for S in (1, 63, 64, 65, 1000)
                for w in sorted({0, 1, 16, max(S - 1, 0), S, 2 * S})]
-FLASH_GROUPS = [(1, 16), (2, 64), (4, 80), (8, 128)]
+FLASH_GROUPS = [((1, 2, 3, 4, 8)[i % 5],) + HEAD_DIMS[i % len(HEAD_DIMS)]
+                for i in range(len(FLASH_CASES))]
 
 
-def _flash_inputs(dev, dtype, B, H, Hkv, S, dh, seed=0):
+def _flash_inputs(dev, dtype, B, H, Hkv, S, dh, dv=None, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
-    return [torch.randn(B, h, S, dh, generator=g, device=dev).to(dtype)
-            for h in (H, Hkv, Hkv)]
+    return [torch.randn(B, h, S, d, generator=g, device=dev).to(dtype)
+            for h, d in ((H, dh), (Hkv, dh), (Hkv, dv or dh))]
 
 
 def _close_ulps(out, ref, dtype):
@@ -316,14 +319,15 @@ def _close_ulps(out, ref, dtype):
 @pytest.mark.parametrize("case", range(len(FLASH_CASES)))
 def test_k6_matches_plain_version(cuda, case, dtype):
     S, window = FLASH_CASES[case]
-    m, dh = FLASH_GROUPS[case % len(FLASH_GROUPS)]
+    m, dh, dv = FLASH_GROUPS[case]
     B, Hkv = (1, 2) if S > 100 else (2, 2)
-    q, k, v = _flash_inputs(cuda, dtype, B, Hkv * m, Hkv, S, dh, seed=case)
+    q, k, v = _flash_inputs(cuda, dtype, B, Hkv * m, Hkv, S, dh, dv,
+                            seed=case)
     before = flash_attention.launches
     out = flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
-    assert out.shape == q.shape and out.dtype == dtype
+    assert out.shape == (B, Hkv * m, S, dv) and out.dtype == dtype
     _close_ulps(out, flash_attention_ref(q, k, v, window=window), dtype)
 
 
@@ -337,12 +341,14 @@ def test_k6_without_causal_mask(cuda, causal, window, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k6_reads_strided_views(cuda, dtype):
-    """q/k/v as the model's projections leave them, (B,S,H,dh) memory
-    seen as (B,H,S,dh): the kernel reads them through their strides."""
+@pytest.mark.parametrize("dh,dv", [(80, 80), (24, 16)])
+def test_k6_reads_strided_views(cuda, dh, dv, dtype):
+    """q/k/v as the model's projections leave them, (B,S,H,d) memory
+    seen as (B,H,S,d): the kernel reads them through their strides."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    q, k, v = (torch.randn(2, 77, h, 80, generator=g, device=cuda)
-               .to(dtype).transpose(1, 2) for h in (16, 4, 4))
+    q, k, v = (torch.randn(2, 77, h, d, generator=g, device=cuda)
+               .to(dtype).transpose(1, 2)
+               for h, d in ((16, dh), (4, dh), (4, dv)))
     assert not q.is_contiguous()
     out = flash_attention(q, k, v, window=30)
     _close_ulps(out, flash_attention_ref(q, k, v, window=30), dtype)
@@ -352,13 +358,22 @@ def test_k6_raises_on_what_the_kernel_does_not_take(cuda):
     q, k, v = _flash_inputs(cuda, torch.float32, 1, 4, 2, 16, 64)
     with pytest.raises(TypeError):
         flash_attention(q, k.to(torch.bfloat16), v)
-    with pytest.raises(ValueError):                 # head dim 8
-        flash_attention(*_flash_inputs(cuda, torch.float32, 1, 4, 2, 16, 8))
+    with pytest.raises(ValueError, match="head dims"):   # (12, 12)
+        flash_attention(*_flash_inputs(cuda, torch.float32, 1, 4, 2, 16, 12))
     with pytest.raises(ValueError):                 # non-contiguous last dim
         flash_attention(q.transpose(2, 3)[:, :, :16, :16].contiguous()
                         .transpose(2, 3), k[..., :16], v[..., :16])
     with pytest.raises(ValueError):                 # 3 query heads on 2
         flash_attention(q[:, :3], k, v)
+    # a bfloat16 view whose base is 8 bytes past a 16-byte boundary
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    shifted = torch.empty(qb.numel() + 4, dtype=torch.bfloat16,
+                          device=cuda)[4:].view(qb.shape)
+    shifted.copy_(qb)
+    assert shifted.data_ptr() % 16 == 8
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(shifted, kb, vb)
+    flash_attention(qb, kb, vb)                     # the aligned twin runs
 
 
 @pytest.mark.parametrize("method,cache_quant", [

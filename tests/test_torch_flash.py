@@ -6,6 +6,9 @@ window cases of tests/test_attention.py plus d_head 80, a sequence that
 is no multiple of any tile and windows at and past the sequence.  Inputs
 come from numpy with fixed seeds; the kernel itself is held to this
 plain version on the card (tests/test_torch_cuda.py)."""
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +16,7 @@ import torch
 
 from repro.kernels.flash import flash_attention_op
 from repro.models.attention import blockwise_attention
+from repro_torch.kernels.flash import flash as flash_mod
 from repro_torch.kernels.flash import flash_attention, flash_attention_ref
 from repro_torch.models import attention as attn_mod
 
@@ -56,6 +60,43 @@ def test_matches_reference_flash_kernel(B, H, Hkv, S, dh, b, window, dtype):
     np.testing.assert_allclose(out.float().numpy(),
                                np.asarray(ref, np.float32), rtol=tol,
                                atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("dh,dv", [(8, 8), (32, 32), (96, 96), (24, 16),
+                                   (192, 128)])
+def test_matches_reference_flash_kernel_at_every_width(dh, dv, window,
+                                                       dtype):
+    """The head widths the kernel takes beyond the sweep's: dh 8 and 24
+    (no multiple of 16), phi-3-vision's 96, reduced MLA (24, 16) and
+    deepseek-v2-lite's MLA (192, 128), S 64, m 2; the reference kernel in
+    interpret mode with 16 x 16 tiles."""
+    rng = np.random.default_rng(5)
+    arrays = [rng.normal(size=(1, h, 64, d)).astype(np.float32)
+              for h, d in ((4, dh), (2, dh), (2, dv))]
+    out = flash_attention(*_torch(arrays, dtype), window=window)
+    assert out.dtype == getattr(torch, dtype) and out.shape == (1, 4, 64, dv)
+    ref = flash_attention_op(*_jax(arrays, dtype), causal=True,
+                             window=window, block_q=16, block_k=16,
+                             interpret=True)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref, np.float32), rtol=tol,
+                               atol=tol)
+
+
+def test_wrapper_table_matches_the_cuda_instantiations():
+    """``HEAD_DIMS`` in the wrapper and ``FLASH_PAIRS`` in the CUDA source
+    name the same (dh, dv) pairs, read as text."""
+    src = (Path(flash_mod.__file__).resolve().parents[1] / "csrc"
+           / "flash.cu").read_text()
+    body = re.search(r"#define FLASH_PAIRS\(X\)((?:[^\n]*\\\n)*[^\n]*)",
+                     src).group(1)
+    pairs = [(int(a), int(b)) for a, b in
+             re.findall(r"X\((\d+), (\d+)\)", body)]
+    assert len(pairs) == len(set(pairs))
+    assert set(pairs) == set(flash_mod.HEAD_DIMS)
 
 
 @pytest.mark.parametrize("packed", [False, True])
