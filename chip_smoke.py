@@ -11,7 +11,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              float32 matrix products and convolutions (full float32, so
              the card agrees with the CPU to float32 rounding);
 2.  build    every CUDA kernel source of the port, one ``nvcc`` each, all
-             started together;
+             started together, with each instantiation's registers and
+             spills (bf16 K2's tensor-core body as ``bf16/K2/N``, N its
+             p.v width);
 3.  serve    the dense main path at full width: tinyllama-1.1b (22 layers,
              bf16, seeded random weights), KQ-SVD calibration (16 x 512
              tokens in batches of 4) and closed-form solve, then the
@@ -28,7 +30,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              chunks of 256) serving 16 requests of 32..1000 prompt tokens
              and 32 new tokens each.  Counts zeroed just before and read
              just after: K1 once per layer per decode step, K2 once per
-             layer per prefill chunk, K3 never; every request done and
+             layer per prefill chunk, K3 never, K2's plain version and the
+             model's plain chunk attention never; every request done and
              the pool whole again.  The tokens' agreement with the dense
              engine on the same requests is printed, not asserted: chunked
              prefill attends over the compressed cache, exact prefill over
@@ -71,14 +74,18 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              where its time goes; and one 4096-token prefill, with K7's
              share of its device time;
 4.  kernels  each kernel against its plain PyTorch version on the card at
-             the main paths' shapes (the calibrated ranks; K6 at
+             the main paths' shapes (the calibrated ranks; K2 at the last
+             chunk of a 1000-token prompt and at a first chunk; K6 at
              tinyllama's calibration batch, at danube's windowed
              prefill, the plain one there at 4608 tokens, and at
              paper-llama2-7b's calibration batch, MHA at d_head 128) and
              on edge cases: for K1, K2, K4 and K5 page sizes 4, 16, 64;
              lengths 0, 1, ps-1, ps, ps+1, 1023; splits 1, 2, 3, 8 with
              empty trailing splits; shuffled block tables; chunks at
-             position 0, mid-page and with bucket padding; for K6 S in
+             position 0, mid-page and with bucket padding; for K2 also
+             odd ranks (37/45, 5/7: pool rows 2-byte aligned), ranks 1
+             and 256, groups m 1, 3 and 16 and a chunk of padding rows
+             only; for K6 S in
              {1, 63, 64, 65, 1000}, windows {0, 1, 16, S-1, S, 2S},
              groups m in {1, 2, 3, 4, 8} and every (d_head, d_v) pair it
              takes: (8, 8), (16, 16), (32, 32), (64, 64), (80, 80),
@@ -389,7 +396,8 @@ def profile_prefill(label: str, model, params, tokens, kernel: str) -> None:
 def ptxas_summary(log: str) -> list:
     """``nvcc -Xptxas -v`` condensed: registers and spilled bytes for each
     instantiation of the kernels, as ``type[/int8]/rows/cols: regs+spill``
-    for the compressed-cache body (int8: int8 pages),
+    for the compressed-cache body (int8: int8 pages), ``bf16/K2/N:
+    regs+spill`` for bf16 K2's tensor-core body (N its p.v width),
     ``type/d_head/d_v: regs+spill`` for K6 and ``type/head_dim/d_state:
     regs+spill`` for K7."""
     import re
@@ -401,6 +409,7 @@ def ptxas_summary(log: str) -> list:
                       r"Li(\d+)ELi(\d+)E", line)
         s7 = re.search(r"Compiling entry.*ssd_kernelI(f|13__nv_bfloat16)"
                        r"Li(\d+)ELi(\d+)E", line)
+        k2 = re.search(r"Compiling entry.*prefill_kernelILi(\d+)E", line)
         if m:
             key = ("f32" if m.group(1) == "f" else "bf16") + \
                 ("/int8" if m.group(2) == "a" else "") + \
@@ -410,6 +419,8 @@ def ptxas_summary(log: str) -> list:
         elif s7:
             key = ("f32" if s7.group(1) == "f" else "bf16") + \
                 f"/{s7.group(2)}/{s7.group(3)}"
+        elif k2:
+            key = f"bf16/K2/{k2.group(1)}"
         elif key and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line).group(1)
         elif key and "registers" in line:
@@ -451,6 +462,8 @@ def main() -> int:
     from repro_torch.kernels.ssd import ssd as ssd_mod
     from repro_torch.kernels.ssd import (ssd_chunk_scan, ssd_chunk_scan_plain,
                                          ssd_chunk_scan_ref)
+    from repro_torch.kernels.kq_decode import paged as paged_mod
+    from repro_torch.models import attention as attention_mod
     from repro_torch.kernels.kq_decode import (
         combine_split_partials, kq_combine_splits, kq_decode_attention,
         kq_decode_attention_ref, kq_decode_paged_attention,
@@ -467,9 +480,13 @@ def main() -> int:
                 kq_decode_paged_int8, kq_decode_paged_int8_split,
                 kq_combine_splits, flash_attention, ssd_chunk_scan)
 
-    # calls of K6's and K7's plain versions from their wrappers (CPU
-    # tensors only): the card's prefill and calibration must make none
-    plain_calls = {"flash_attention_ref": 0, "ssd_chunk_scan_plain": 0}
+    # calls of K2's, K6's and K7's plain versions from their wrappers (CPU
+    # tensors only) and of the model's plain chunk attention (the route of
+    # non-fp page layouts): the card's prefill and calibration must make
+    # none where a kernel serves them
+    plain_calls = {"flash_attention_ref": 0, "ssd_chunk_scan_plain": 0,
+                   "kq_prefill_paged_attention_ref": 0,
+                   "chunk_decode_attention": 0}
 
     def counted(name, fn):
         def call(*args, **kw):
@@ -481,6 +498,10 @@ def main() -> int:
                                             flash_attention_ref)
     ssd_mod.ssd_chunk_scan_plain = counted("ssd_chunk_scan_plain",
                                            ssd_chunk_scan_plain)
+    paged_mod.kq_prefill_paged_attention_ref = counted(
+        "kq_prefill_paged_attention_ref", kq_prefill_paged_attention_ref)
+    attention_mod.chunk_decode_attention = counted(
+        "chunk_decode_attention", attention_mod.chunk_decode_attention)
 
     def zero_counts():
         for w in wrappers:
@@ -593,6 +614,8 @@ def main() -> int:
         k2_launches = kq_prefill_paged_attention.launches
         k3_paged = kq_decode_attention.launches
         assert flash_attention.launches == 0, "chunked prefill ran K6"
+        assert plain_calls["kq_prefill_paged_attention_ref"] == 0 \
+            and plain_calls["chunk_decode_attention"] == 0, plain_calls
         bad = [r.rid for r in preqs if r.failed or not r.done
                or len(r.out_tokens) != min(32, 1024 - len(r.prompt) + 1)]
         assert not bad, f"requests not served in full: {bad}"
@@ -612,7 +635,9 @@ def main() -> int:
               f"buckets {sorted(peng.prefill_chunk_shapes)}; K1 launches "
               f"{k1_launches} = {cfg.n_layers} x {peng.n_decode_steps}, K2 "
               f"{k2_launches} = {cfg.n_layers} x {peng.n_prefill_chunks}, "
-              f"K3 {k3_paged}; truncated "
+              f"K3 {k3_paged}, K2's plain version and the plain chunk "
+              f"attention {plain_calls['kq_prefill_paged_attention_ref']} "
+              f"and {plain_calls['chunk_decode_attention']}; truncated "
               f"{[r.rid for r in preqs if r.truncated]}; peak device "
               f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         # the same requests through the dense engine (exact prefill over
@@ -887,43 +912,53 @@ def main() -> int:
                     live * Hkv * (rk + rv) * isz + B * H * (rk + rv) * isz
                     + B * 4 + pages_used * 4, 2 * live * H * (rk + rv))
 
-        # K2 at the paged main path's prefill shape: the last chunk of a
-        # 1000-token prompt, 232 real tokens in a 256 bucket
-        S, pos0_v, n_valid = 256, 768, 232
-        k2 = {"name": "kq_prefill_paged (K2)", "route": "cuda",
-              "source": "src/repro_torch/kernels/csrc/kq_paged.cu "
-                        "(body: csrc/kq_attend.cuh)",
-              "replaces": "src/repro/kernels/kq_decode/paged.py:292",
-              "launches": k2_launches,
-              "shape": {"B": 1, "H": H, "Hkv": Hkv, "S": S,
-                        "page_size": ps, "n_pages": n_pages, "Rk": rk,
-                        "Rv": rv, "pos0": pos0_v, "n_valid": n_valid}}
-        plen = torch.tensor([pos0_v + n_valid], dtype=torch.int32,
-                            device=dev)
-        pos0 = torch.tensor([pos0_v], dtype=torch.int32, device=dev)
-        qpos = pos0_v + torch.arange(S, device=dev)
-        t = torch.arange(T, device=dev)
-        cmask = ((t[None, :] <= qpos[:, None])
-                 & (t[None, :] < int(plen)))[None, None]       # (1,1,S,T)
-        seen = torch.minimum(qpos + 1, plen.long())            # keys per row
-        for dt_name in ("bfloat16", "float32"):
-            dt = getattr(torch, dt_name)
-            qc, kp, vp, btab = paged_inputs(g, dev, dt, 1, H, Hkv, ps,
-                                            n_pages, rk, rv, S=S)
-            kx = gather_pages(kp, btab).repeat_interleave(m, dim=1)
-            vx = gather_pages(vp, btab).repeat_interleave(m, dim=1)
-            isz = qc.element_size()
-            measure(k2, "K2", dt_name,
-                    lambda: kq_prefill_paged_attention(
-                        qc, kp, vp, plen, pos0, btab, scale=scale),
-                    lambda: kq_prefill_paged_attention_ref(
-                        qc, kp, vp, plen, pos0, btab, scale=scale),
-                    lambda: sdpa(qc, kx, vx, attn_mask=cmask, scale=scale),
-                    flush,
-                    int(plen) * Hkv * (rk + rv) * isz
-                    + H * S * (rk + rv) * isz + 8
-                    + -(-int(plen) // ps) * 4,
-                    2 * int(seen.sum()) * H * (rk + rv))
+        # K2 at the paged main path's prefill shapes: the last chunk of a
+        # 1000-token prompt, 232 real tokens in a 256 bucket, and a first
+        # chunk (pos0 0, 256 real), as every request's first of phase 3c's
+        # chunks is
+        k2_src = {"route": "cuda",
+                  "source": "src/repro_torch/kernels/csrc/kq_paged.cu "
+                            "(bf16 body: csrc/kq_prefill.cuh; float32: "
+                            "csrc/kq_attend.cuh)",
+                  "replaces": "src/repro/kernels/kq_decode/paged.py:292",
+                  "launches": k2_launches, "launches_from": "phase 3c"}
+        k2_shape = {"B": 1, "H": H, "Hkv": Hkv, "S": 256, "page_size": ps,
+                    "n_pages": n_pages, "Rk": rk, "Rv": rv}
+        k2 = dict(k2_src, name="kq_prefill_paged (K2)",
+                  shape=dict(k2_shape, pos0=768, n_valid=232))
+        k2f = dict(k2_src, name="kq_prefill_paged (K2), first chunk",
+                   shape=dict(k2_shape, pos0=0, n_valid=256))
+        for row in (k2, k2f):
+            S, pos0_v = row["shape"]["S"], row["shape"]["pos0"]
+            n_valid = row["shape"]["n_valid"]
+            plen = torch.tensor([pos0_v + n_valid], dtype=torch.int32,
+                                device=dev)
+            pos0 = torch.tensor([pos0_v], dtype=torch.int32, device=dev)
+            qpos = pos0_v + torch.arange(S, device=dev)
+            t = torch.arange(T, device=dev)
+            cmask = ((t[None, :] <= qpos[:, None])
+                     & (t[None, :] < int(plen)))[None, None]   # (1,1,S,T)
+            seen = torch.minimum(qpos + 1, plen.long())        # keys per row
+            for dt_name in ("bfloat16", "float32"):
+                dt = getattr(torch, dt_name)
+                qc, kp, vp, btab = paged_inputs(g, dev, dt, 1, H, Hkv, ps,
+                                                n_pages, rk, rv, S=S)
+                kx = gather_pages(kp, btab).repeat_interleave(m, dim=1)
+                vx = gather_pages(vp, btab).repeat_interleave(m, dim=1)
+                isz = qc.element_size()
+                measure(row, f"K2 pos0={pos0_v} n_valid={n_valid}",
+                        dt_name,
+                        lambda: kq_prefill_paged_attention(
+                            qc, kp, vp, plen, pos0, btab, scale=scale),
+                        lambda: kq_prefill_paged_attention_ref(
+                            qc, kp, vp, plen, pos0, btab, scale=scale),
+                        lambda: sdpa(qc, kx, vx, attn_mask=cmask,
+                                     scale=scale),
+                        flush,
+                        int(plen) * Hkv * (rk + rv) * isz
+                        + H * S * (rk + rv) * isz + 8
+                        + -(-int(plen) // ps) * 4,
+                        2 * int(seen.sum()) * H * (rk + rv))
 
         # K4, K5 (unsplit and split) and the split merge at the paged
         # main path's decode shapes (pages of 16), 8 splits of 8 pages
@@ -1047,9 +1082,35 @@ def main() -> int:
                             kq_prefill_paged_attention_ref(
                                 qc, kp, vp, p0 + nv, p0, btab, scale=scale))
                 n_cases += 2
+        # K2 beyond the calibrated ranks and tinyllama's group: odd ranks
+        # (2-byte pool rows), ranks 1 and 256, groups m 1, 3 and 16, and a
+        # chunk whose every row is padding past its slot's length; chunks
+        # that cross 64-row blocks and 64-key tiles
+        k2_edge = [  # B, H, Hkv, S, ps, n_pages, Rk, Rv, pos0, n_valid
+            (2, 32, 4, 100, 4, 256, 37, 45, (60, 130), (100, 0)),
+            (2, 12, 4, 90, 16, 64, 5, 7, (10, 0), (90, 33)),
+            (1, 64, 4, 256, 16, 64, 256, 256, (3,), (256,)),
+            (2, 4, 4, 70, 64, 16, 1, 1, (0, 3), (70, 9)),
+        ]
+        for dt_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dt_name)
+            for B_, H_, Hkv_, S_, ps_, np_, rk_, rv_, p0_, nv_ in k2_edge:
+                p0 = torch.tensor(p0_, dtype=torch.int32, device=dev)
+                ln = p0 + torch.tensor(nv_, dtype=torch.int32, device=dev)
+                qc, kp, vp, btab = paged_inputs(g, dev, dt, B_, H_, Hkv_,
+                                                ps_, np_, rk_, rv_, S=S_)
+                check_close(f"K2 m={H_ // Hkv_} Rk={rk_} Rv={rv_} ps={ps_}",
+                            dt_name,
+                            kq_prefill_paged_attention(
+                                qc, kp, vp, ln, p0, btab, scale=scale),
+                            kq_prefill_paged_attention_ref(
+                                qc, kp, vp, ln, p0, btab, scale=scale))
+                n_cases += 1
         print(f"K1 and K2 edge cases: {n_cases} held to tolerance and two "
               f"bf16 ulps (page sizes 4, 16, 64; lengths 1, ps-1, ps, "
-              f"ps+1, 1023; chunks at 0, mid-page, padded)")
+              f"ps+1, 1023; chunks at 0, mid-page, padded, all padding; "
+              f"K2 at ranks 37/45, 5/7, 256/256, 1/1 and groups 8, 3, 16, "
+              f"1)")
         # K4 and K5 (with the merge) edge cases: page sizes, lengths 0 and
         # at page boundaries, splits 1, 2, 3, 8 (short slots leave the
         # trailing splits empty), shuffled tables; both types
@@ -1311,7 +1372,8 @@ def main() -> int:
               f"at S 1, 31, 32, 33, 70; the full width's head at S 1, "
               f"255, 257; jamba's head at S 300; h0 zero and random; y in "
               f"x's type and float32)")
-        kernels = [k1, k2, k3, k4, k5, k5s, kcomb, k6c, k6w, k6l, k7]
+        kernels = [k1, k2, k2f, k3, k4, k5, k5s, kcomb, k6c, k6w, k6l,
+                   k7]
 
     # -- 5: the port on the card against the port on the CPU ---------------
     with phase("5 card against CPU, reduced tinyllama-1.1b, "

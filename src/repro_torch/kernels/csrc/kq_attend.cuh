@@ -1,6 +1,7 @@
-// Compressed-cache attention for Hopper: the one kernel body behind K1-K5
-// (kq_decode.cu holds K3's entry point, kq_paged.cu those of K1, K2, K4 and
-// K5 and the split combine).
+// Compressed-cache attention for Hopper: the kernel body behind K1, K3, K4,
+// K5 and float32 K2 (kq_decode.cu holds K3's entry point, kq_paged.cu those
+// of K1, K2, K4 and K5 and the split combine).  bfloat16 K2 has a body of
+// its own on the tensor cores, kq_prefill.cuh.
 //
 // For every (sequence b, kv group g, tile of up to M query rows) it runs an
 // f32 online softmax of the rows' compressed queries qc (., Rk) against the
@@ -40,8 +41,9 @@
 // below the ~295 flop/byte where the H100's tensor cores, not its
 // 3.35 TB/s, would be the limit.  A prefill chunk of S queries per head
 // does S times the flops on the same bytes (2,048 rows per group at
-// S = 256): operations bound it there, on CUDA cores, since this version
-// uses no tensor cores.  The design:
+// S = 256): operations bound it there.  bf16 chunks therefore run on the
+// tensor cores in kq_prefill.cuh; float32 chunks (the reduced parity
+// runs) run here, in true f32 on CUDA cores.  The design:
 //   * one block per (b, g, row tile); the block reads lengths[b] (and
 //     pos0[b]) itself and loads no tile at or past its largest row limit,
 //     so nothing past a sequence's length, and nothing the causal mask
@@ -68,7 +70,7 @@
 // Known limits of this first version: unsplit decode has only B * Hkv
 // blocks (32 at 8 slots of tinyllama) for 132 SMs, so it is latency-bound
 // rather than bandwidth-bound (split-KV multiplies the blocks by the split
-// count); prefill scores on CUDA cores.  TMA staging and wgmma are later
+// count); float32 prefill scores on CUDA cores.  TMA staging is later
 // work.
 
 #pragma once

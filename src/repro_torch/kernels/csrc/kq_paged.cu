@@ -24,17 +24,21 @@
 // (paged.py:292, entry point `kq_prefill_paged_attention` at :342): a
 // chunk of S queries per head attends the pages already written, its own
 // included; query s sees t <= pos0[b] + s and t < lengths[b].  Its m * S
-// rows per (b, g) (2,048 at full width) do not fit one block's registers,
-// so they are cut into tiles of 16 rows, one block each, and a tile stops
-// reading keys at min(lengths[b], its largest query position + 1).
+// rows per (b, g) (2,048 at full width) make it bound by operations, so
+// bf16 K2 has a body of its own on the tensor cores (`wgmma`, 64-row
+// tiles, a cp.async ring staged through the block table): see
+// kq_prefill.cuh.  float32 K2 (the reduced parity runs) stays on the
+// shared body of kq_attend.cuh, in true f32 on CUDA cores, in tiles of 16
+// rows, one block each, a tile stopping at min(lengths[b], its last
+// position + 1).
 //
 // None carries the TPU design over: the TPU kernels walk one page per
 // grid step with the softmax state in VMEM scratch and the block table in
-// scalar prefetch.  Here a block walks its slot's (or span's) tokens in
-// 32-token warp tiles, looking a tile's pages up in the table itself;
-// each token's R values are contiguous in the pool, so staging stays
-// coalesced at any page size.  The kernel body, what bounds it and how
-// its design answers that are in kq_attend.cuh, shared with K3
+// scalar prefetch.  Here a block of K1, K4, K5 or f32 K2 walks its slot's
+// (or span's) tokens in 32-token warp tiles, looking a tile's pages up in
+// the table itself; each token's R values are contiguous in the pool, so
+// staging stays coalesced at any page size.  That body, what bounds it and
+// how its design answers that are in kq_attend.cuh, shared with K3
 // (kq_decode.cu).
 //
 // The combine is bound by nothing but its launch: it reads n * m * Rv
@@ -46,6 +50,7 @@
 //             -Xcompiler -fPIC (see repro_torch/kernels/build.py).
 
 #include "kq_attend.cuh"
+#include "kq_prefill.cuh"
 
 namespace {
 
@@ -127,6 +132,8 @@ extern "C" int kq_decode_paged_launch(const void* qc, const void* kc_pool,
 }
 
 // K2: qc (B, H, S, Rk), pos0 (B,) -> out (B, H, S, Rv); fp pools.
+// bfloat16 runs the tensor-core body (kq_prefill.cuh), float32 the shared
+// one.
 extern "C" int kq_prefill_paged_launch(const void* qc, const void* kc_pool,
                                        const void* vc_pool, const void* lengths,
                                        const void* pos0, const void* block_table,
@@ -134,6 +141,10 @@ extern "C" int kq_prefill_paged_launch(const void* qc, const void* kc_pool,
                                        int ps, int n_pages, int Rk, int Rv,
                                        float scale, int dtype, void* stream) {
   if (ps < 1 || n_pages < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return kq_prefill::prefill_bf16(qc, kc_pool, vc_pool, lengths, pos0,
+                                    block_table, out, B, H, Hkv, S, ps,
+                                    n_pages, Rk, Rv, scale, stream);
   const kq::Cache cache{static_cast<const int32_t*>(block_table),
                         ps * n_pages, ps, n_pages, nullptr, nullptr};
   return kq::attend<true>(dtype, qc, kc_pool, vc_pool, lengths, out, B, H,

@@ -15,11 +15,16 @@ paged cache.
 
 ``kq_prefill_paged_attention`` (K2) replaces ``_kq_prefill_paged_kernel``
 (``paged.py:292``, entry point at ``:342``).  The kernels are CUDA C++
-for ``sm_90a`` in ``repro_torch/kernels/csrc/kq_paged.cu`` over the
-kernel body they share with K3 (``csrc/kq_attend.cuh``, whose header
-says what bounds them and how the design answers that), compiled with
+for ``sm_90a`` in ``repro_torch/kernels/csrc/kq_paged.cu``, compiled with
 ``nvcc`` at first use and called through plain C entry points with
-``ctypes`` on PyTorch's current stream.
+``ctypes`` on PyTorch's current stream.  K1, K4, K5 and float32 K2 run
+the CUDA-core body they share with K3 (``csrc/kq_attend.cuh``); bfloat16
+K2, bound by operations, has a body of its own on the tensor cores
+(``csrc/kq_prefill.cuh``: ``wgmma``, 64-row tiles of the flattened
+(position, head) rows, a ``cp.async`` ring staged through the block
+table).  Each header says what bounds its kernels and how the design
+answers that.  Both K2 bodies take every group up to ``MAX_GROUP`` and
+every rank up to ``MAX_RANK``.
 
 Each wrapper takes its plain version (``ref.py``, and
 ``combine_split_partials`` here) only for tensors on the CPU.  For CUDA

@@ -116,6 +116,10 @@ def test_k1_matches_plain_version(cuda, B, H, Hkv, ps, n_pages, Rk, Rv,
                                               scale=0.25), dtype)
 
 
+# K2: float32 runs the shared CUDA-core body, bfloat16 the tensor-core one
+# (csrc/kq_prefill.cuh: 64-row blocks, 64-key tiles split between two
+# warpgroups, p.v widths 16..256, copy granules of 16, 8, 4 or 2 bytes by
+# the ranks' alignment); every table is shuffled
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Hkv,S,ps,n_pages,Rk,Rv,pos0,n_valid", [
     (1, 32, 4, 256, 16, 64, 50, 42, (0,), (256,)),  # first full chunk
@@ -125,6 +129,16 @@ def test_k1_matches_plain_version(cuda, B, H, Hkv, ps, n_pages, Rk, Rv,
     (1, 64, 4, 4, 16, 4, 256, 256, (3,), (4,)),     # m=16, widest ranks
     (2, 12, 4, 5, 4, 8, 5, 7, (0, 7), (5, 2)),      # m=3: 15-row tiles
     (1, 8, 2, 16, 16, 64, 32, 32, (1008,), (15,)),  # ends at 1023
+    # the main path's last chunk: 32 blocks of 64 rows a group, keys to
+    # 1000 over 16 tiles of 64
+    (1, 32, 4, 256, 16, 64, 50, 42, (768,), (232,)),
+    # odd ranks (2-byte pool rows) at pages of 4; the second slot's chunk
+    # is padding past its length in every row
+    (2, 16, 2, 100, 4, 64, 37, 45, (60, 130), (100, 0)),
+    (2, 12, 4, 90, 16, 16, 5, 7, (10, 0), (90, 33)),   # m=3, 270 rows
+    (2, 4, 4, 70, 64, 4, 1, 1, (0, 3), (70, 9)),       # m=1, rank 1
+    (1, 64, 4, 256, 16, 64, 256, 256, (3,), (256,)),   # m=16, 256 at S 256
+    (1, 16, 1, 40, 4, 32, 40, 200, (11,), (33,)),      # m=16, Rv 200
 ])
 def test_k2_matches_plain_version(cuda, B, H, Hkv, S, ps, n_pages, Rk, Rv,
                                   pos0, n_valid, dtype):
@@ -136,8 +150,9 @@ def test_k2_matches_plain_version(cuda, B, H, Hkv, S, ps, n_pages, Rk, Rv,
     out = kq_prefill_paged_attention(qc, kp, vp, lens, p0, btab, scale=0.3)
     torch.cuda.synchronize()
     assert kq_prefill_paged_attention.launches == before + 1
-    _close(out, kq_prefill_paged_attention_ref(qc, kp, vp, lens, p0, btab,
-                                               scale=0.3), dtype)
+    assert out.shape == (B, H, S, Rv) and out.dtype == dtype
+    _close_ulps(out, kq_prefill_paged_attention_ref(qc, kp, vp, lens, p0,
+                                                    btab, scale=0.3), dtype)
 
 
 def _int8_pools(kp, vp):
@@ -232,6 +247,23 @@ def test_paged_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         kq_prefill_paged_attention(qc[:, :, None].expand(2, 8, 3, 8), kp,
                                    vp, lens, lens - 1, btab)
+    # bf16 K2 (its own body) refuses what its shared checks refuse
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (qc, kp, vp))
+    q4 = qb[:, :, None].expand(2, 8, 3, 8).contiguous()
+    kq_prefill_paged_attention(q4, kb, vb, lens, lens - 1, btab)   # runs
+    with pytest.raises(TypeError):                  # int64 pos0
+        kq_prefill_paged_attention(q4, kb, vb, lens, (lens - 1).long(), btab)
+    with pytest.raises(TypeError):                  # float32 pools
+        kq_prefill_paged_attention(q4, kp, vp, lens, lens - 1, btab)
+    with pytest.raises(ValueError):                 # group 32 > MAX_GROUP
+        kq_prefill_paged_attention(
+            qb.repeat(1, 8, 1)[:, :, None].expand(2, 64, 3, 8)
+            .contiguous(), kb, vb, lens, lens - 1, btab)
+    with pytest.raises(ValueError):                 # rank 257 > MAX_RANK
+        kq_prefill_paged_attention(
+            torch.zeros(2, 8, 3, 257, dtype=torch.bfloat16, device=cuda),
+            torch.zeros(9, 2, 4, 257, dtype=torch.bfloat16, device=cuda),
+            vb, lens, lens - 1, btab)
 
 
 @pytest.mark.parametrize("extra,cfg_kw", [

@@ -5,6 +5,7 @@ mid-page) and against its Pallas kernels in interpret mode; the wrappers'
 CPU routing; and a lazy build (the module imports where there is no
 nvcc)."""
 import os
+import re
 import subprocess
 import sys
 
@@ -20,6 +21,7 @@ from repro.kernels.kq_decode import (kq_decode_paged_attention_op,
 from repro_torch.kernels import build
 from repro_torch.kernels.kq_decode import (kq_decode_paged_attention,
                                            kq_prefill_paged_attention)
+from repro_torch.kernels.kq_decode.kq_decode import MAX_GROUP, MAX_RANK
 
 # the reference kernel tests' tolerances (tests/test_kernels.py:15-17)
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
@@ -200,15 +202,42 @@ def test_module_imports_without_nvcc(tmp_path):
 
 def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     """The library's name hashes its source and the headers it includes,
-    so an edited shared header never loads a stale library."""
-    for name in ("kq_decode", "kq_paged"):
-        assert [p.name for p in build.sources(name)] == \
-            [f"{name}.cu", "kq_attend.cuh"]
+    so an edited shared header never loads a stale library: the shared
+    body reaches K3's and the paged library, bf16 K2's body the paged one
+    alone."""
+    names = ("kq_decode", "kq_paged")
+    assert sorted(p.name for p in build.sources("kq_decode")) == \
+        ["kq_attend.cuh", "kq_decode.cu"]
+    assert sorted(p.name for p in build.sources("kq_paged")) == \
+        ["kq_attend.cuh", "kq_paged.cu", "kq_prefill.cuh"]
     for path in build.CSRC.iterdir():
         (tmp_path / path.name).write_bytes(path.read_bytes())
     monkeypatch.setattr(build, "CSRC", tmp_path)
-    before = {n: build.library_path(n) for n in ("kq_decode", "kq_paged")}
+    before = {n: build.library_path(n) for n in names}
+    with open(tmp_path / "kq_prefill.cuh", "a") as f:
+        f.write("// edited\n")
+    assert build.library_path("kq_decode") == before["kq_decode"]
+    assert build.library_path("kq_paged") != before["kq_paged"]
+    before = {n: build.library_path(n) for n in names}
     with open(tmp_path / "kq_attend.cuh", "a") as f:
         f.write("// edited\n")
     for name, path in before.items():
         assert build.library_path(name) != path
+
+
+def test_bf16_k2_widths_cover_every_rank_the_wrapper_takes():
+    """bf16 K2's p.v widths (``KQ_PREFILL_PV_WIDTHS`` in
+    ``csrc/kq_prefill.cuh``, read as text) are multiples of 8 up to
+    ``wgmma``'s 256 whose largest is ``MAX_RANK``, so the wrapper refuses
+    no Rv in 1..MAX_RANK; the body's rank and group limits are the
+    wrapper's."""
+    src = (build.CSRC / "kq_prefill.cuh").read_text()
+    body = re.search(r"#define KQ_PREFILL_PV_WIDTHS\(X\)((?:[^\n]*\\\n)*"
+                     r"[^\n]*)", src).group(1)
+    widths = [int(w) for w in re.findall(r"X\((\d+)\)", body)]
+    assert widths == sorted(set(widths))
+    assert all(w % 8 == 0 and 8 <= w <= 256 for w in widths)
+    assert widths[-1] == MAX_RANK
+    assert re.search(r"constexpr int kMaxR = (\d+);", src).group(1) == \
+        str(MAX_RANK)
+    assert f"H / Hkv > {MAX_GROUP}" in src
