@@ -13,7 +13,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 2.  build    every CUDA kernel source of the port, one ``nvcc`` each, all
              started together, with each instantiation's registers and
              spills (bf16 K2's tensor-core body as ``bf16/K2/N``, N its
-             p.v width);
+             p.v width; bf16 K7's three kernels as ``bf16/K7 state/hd/n``,
+             ``bf16/K7 pass`` and ``bf16/K7 scan/hd/n``);
 3.  serve    the dense main path at full width: tinyllama-1.1b (22 layers,
              bf16, seeded random weights), KQ-SVD calibration (16 x 512
              tokens in batches of 4) and closed-form solve, then the
@@ -72,7 +73,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 3i. profile  one mamba2 decode step (4 slots at position 4096): the
              recurrent update has no kernel of the reference's, so this is
              where its time goes; and one 4096-token prefill, with K7's
-             share of its device time;
+             share of its device time (all of its kernels, and each one's
+             device ms);
 4.  kernels  each kernel against its plain PyTorch version on the card at
              the main paths' shapes (the calibrated ranks; K2 at the last
              chunk of a 1000-token prompt and at a first chunk; K6 at
@@ -91,8 +93,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              takes: (8, 8), (16, 16), (32, 32), (64, 64), (80, 80),
              (96, 96), (128, 128), (24, 16), (192, 128); K7 at
              mamba2's full-width prefill (S 4096, and a ragged 4097, also
-             against the float64 recurrence) and on the reduced and the
-             reference sweep's shapes with and without an initial state;
+             against the float64 recurrence; each of bf16 K7's three
+             kernels' share of a call from ``torch.profiler``) and on the
+             reduced and the reference sweep's shapes with and without an
+             initial state, two groups of four heads, chunks of 1, 17 and
+             100 tokens and S 0;
              in bf16 and
              float32, at the reference kernel tests' tolerances and within
              two bf16 ulps; its time (CUDA events, L2 flushed before every
@@ -136,6 +141,9 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py:15-17
 # float32, so in bfloat16 they also agree to two ulps of the output
 ULPS_BF16 = 8e-3
 SOURCES = ("kq_decode", "kq_paged", "flash", "ssd")
+# K7's kernels by name: bf16's three (csrc/ssd_tc.cuh), float32's one
+K7_KERNELS = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_scan_kernel",
+              "ssd_kernel<")
 
 
 @contextlib.contextmanager
@@ -204,6 +212,8 @@ def check_ssd(label: str, dt_name: str, out, ref) -> float:
         err = (o.float() - r.float()).abs()
         assert bool((err <= 1e-4 + rel * r.float().abs()).all()), \
             f"{label} {dt_name} {name} disagrees: max |err| {float(err.max())}"
+    if not y.numel():
+        return 0.0
     return float((y.float() - y_ref.float()).abs().max())
 
 
@@ -358,11 +368,13 @@ def profile_decode(label: str, model, params, proj, ranks, dev, paged: bool,
             "launches": launches, "attn_ms": attn}
 
 
-def profile_prefill(label: str, model, params, tokens, kernel: str) -> None:
+def profile_prefill(label: str, model, params, tokens,
+                    kernels: tuple) -> None:
     """Where one exact-length prefill's time goes: synced host wall,
     device busy time from ``torch.profiler``, the idle share, launches,
-    the share of the kernels whose name holds ``kernel``, and the
-    largest device entries; after one warm-up prefill."""
+    the share of the kernels whose names hold one of ``kernels`` (and
+    each such kernel's device ms), and the largest device entries; after
+    one warm-up prefill."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     T = tokens.shape[1]
@@ -383,14 +395,19 @@ def profile_prefill(label: str, model, params, tokens, kernel: str) -> None:
         print(f"{label} prefill of {T} tokens: the profiler saw no device "
               f"time")
         return
-    mine = sum(r[1] for r in rows if kernel in r[0])
+    mine = [r for r in rows if any(k in r[0] for k in kernels)]
+    ms = sum(r[1] for r in mine)
     print(f"{label} prefill of {T} tokens, profiled host wall: {wall:.3f} "
           f"ms; device busy {busy:.3f} ms ({sum(r[2] for r in rows)} "
           f"launches); idle share {max(0.0, 1 - busy / wall):.3f}; "
-          f"{kernel} {mine:.3f} ms ({mine / busy:.3f} of busy)")
-    for name, ms, n in sorted(rows, key=lambda r: -r[1])[:6]:
-        print(f"  {ms:8.4f} ms  {n:5d} launches  {name[:80]}"
-              f"  ({ms / busy:.3f} of busy)")
+          f"{' + '.join(kernels)} {ms:.3f} ms ({ms / busy:.3f} of busy)")
+    for name, t, n in mine:
+        print(f"  {t:8.4f} ms  {n:5d} launches  {name[:80]}  "
+              f"({t / busy:.3f} of busy)")
+    print("  largest:")
+    for name, t, n in sorted(rows, key=lambda r: -r[1])[:6]:
+        print(f"  {t:8.4f} ms  {n:5d} launches  {name[:80]}"
+              f"  ({t / busy:.3f} of busy)")
 
 
 def ptxas_summary(log: str) -> list:
@@ -398,8 +415,9 @@ def ptxas_summary(log: str) -> list:
     instantiation of the kernels, as ``type[/int8]/rows/cols: regs+spill``
     for the compressed-cache body (int8: int8 pages), ``bf16/K2/N:
     regs+spill`` for bf16 K2's tensor-core body (N its p.v width),
-    ``type/d_head/d_v: regs+spill`` for K6 and ``type/head_dim/d_state:
-    regs+spill`` for K7."""
+    ``type/d_head/d_v: regs+spill`` for K6, ``f32/head_dim/d_state:
+    regs+spill`` for float32 K7 and ``bf16/K7 state|scan/head_dim/d_state``
+    and ``bf16/K7 pass`` for bf16 K7's three kernels."""
     import re
     out, key = [], None
     for line in log.splitlines():
@@ -409,6 +427,8 @@ def ptxas_summary(log: str) -> list:
                       r"Li(\d+)ELi(\d+)E", line)
         s7 = re.search(r"Compiling entry.*ssd_kernelI(f|13__nv_bfloat16)"
                        r"Li(\d+)ELi(\d+)E", line)
+        t7 = re.search(r"Compiling entry.*ssd_(state|pass|scan)_kernel"
+                       r"(?:ILi(\d+)ELi(\d+)E)?", line)
         k2 = re.search(r"Compiling entry.*prefill_kernelILi(\d+)E", line)
         if m:
             key = ("f32" if m.group(1) == "f" else "bf16") + \
@@ -419,6 +439,9 @@ def ptxas_summary(log: str) -> list:
         elif s7:
             key = ("f32" if s7.group(1) == "f" else "bf16") + \
                 f"/{s7.group(2)}/{s7.group(3)}"
+        elif t7:
+            key = f"bf16/K7 {t7.group(1)}" + (
+                f"/{t7.group(2)}/{t7.group(3)}" if t7.group(2) else "")
         elif k2:
             key = f"bf16/K2/{k2.group(1)}"
         elif key and "spill stores" in line:
@@ -838,7 +861,7 @@ def main() -> int:
             "mamba2 dense slots, 4 slots at position 4096", mmodel, mparams,
             None, (0, 0), dev, paged=False, B=4, T=4608, at=4096)
         profile_prefill("mamba2", mmodel, mparams, mreqs[7].prompt[None],
-                        "ssd_kernel")
+                        K7_KERNELS)
         del mparams, mmodel
 
     # -- 4: each kernel against its plain version ------------------------
@@ -1305,12 +1328,39 @@ def main() -> int:
                 assert bool((err <= tol + tol * r.abs()).all()), \
                     f"{label} {dt_name} {name} vs float64 recurrence: " \
                     f"{float(err.max())}"
-            return float((out[0].double() - y64).abs().max())
+            return (float((out[0].double() - y64).abs().max())
+                    if y64.numel() else 0.0)
+
+        def k7_shares(args, calls=10):
+            """Each of K7's kernels' device ms per launch (its recorded
+            time over its recorded launches) and share of a call, from
+            torch.profiler over ``calls`` calls (L2 flushed before
+            each)."""
+            from torch.profiler import ProfilerActivity, profile
+            ssd_chunk_scan(*args, chunk=256, out_dtype=f32)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    flush()
+                    ssd_chunk_scan(*args, chunk=256, out_dtype=f32)
+                torch.cuda.synchronize()
+            per = {e.key: (e.device_time_total / 1e3 / e.count, e.count)
+                   for e in prof.key_averages()
+                   if any(k in e.key for k in K7_KERNELS) and e.count}
+            total = sum(t for t, _ in per.values())
+            assert total > 0, "the profiler saw no K7 kernel"
+            print(f"K7 S=4096 bfloat16 under torch.profiler: "
+                  f"{total:.4f} ms of kernels a call")
+            for name, (t, n) in sorted(per.items(), key=lambda kv: -kv[1][0]):
+                print(f"  {t:.4f} ms ({t / total:.3f} of the call; {n} of "
+                      f"{calls} launches recorded)  {name[:70]}")
 
         msh = {"B": 1, "nh": 80, "G": 1, "S": 4096, "hd": 64, "n": 128,
                "chunk": 256}
         k7 = {"name": "ssd_chunk_scan (K7), mamba2-2.7b prefill",
-              "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd.cu",
+              "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/ssd.cu (bf16 body: "
+                        "csrc/ssd_tc.cuh)",
               "replaces": "src/repro/kernels/ssd/ssd.py:26",
               "launches": k7_launches, "launches_from": "phase 3h",
               "shape": dict(msh, y="float32", layout="model views")}
@@ -1337,17 +1387,26 @@ def main() -> int:
                 k7[f"max_abs_err_vs_float64_S{S}{sfx}"] = err64
                 print(f"K7 S={S} {dt_name}: max |kernel - plain| {err:.3g}, "
                       f"|kernel - float64 recurrence| {err64:.3g}")
+                if S == 4096 and dt_name == "bfloat16":
+                    k7_shares(args)
                 del args, out
         # K7 edge cases: the reference sweep's shapes, reduced mamba2 at
         # lengths around its chunk of 32, the full width's head at short
-        # and ragged lengths; with and without an initial state, y in
-        # x's type and in float32; a fifth of them also against the
-        # float64 recurrence
+        # and ragged lengths and at 4097, two groups of four heads,
+        # chunks of 1, 17 and 100 tokens (no multiple of a 64-token
+        # tile), S 0; with and without an initial state, y in x's type
+        # and in float32; a fifth of them also against the float64
+        # recurrence
         ssd_cases = ([(2, 4, 2, 64, 8, 16, 16), (1, 2, 1, 128, 16, 8, 32),
                       (2, 2, 2, 64, 8, 8, 64)]
                      + [(2, 8, 1, S, 16, 16, 32) for S in (1, 31, 32, 33, 70)]
-                     + [(1, 80, 1, S, 64, 128, 256) for S in (1, 255, 257)]
-                     + [(1, 4, 1, 300, 128, 64, 256)])
+                     + [(1, 80, 1, S, 64, 128, 256)
+                        for S in (1, 255, 257, 4097)]
+                     + [(1, 4, 1, 300, 128, 64, 256),
+                        (2, 8, 2, 200, 64, 128, 64),
+                        (1, 4, 1, 50, 16, 8, 1), (2, 4, 2, 123, 64, 128, 17),
+                        (1, 2, 1, 333, 128, 64, 100),
+                        (2, 4, 1, 0, 16, 16, 32)])
         n_cases = 0
         for dt_name in ("bfloat16", "float32"):
             for ci, (B_, nh_, G_, S, hd_, n_, ck) in enumerate(ssd_cases):
@@ -1370,8 +1429,9 @@ def main() -> int:
               f"plain version, every fifth also against the float64 "
               f"recurrence (the reference sweep's shapes; reduced mamba2 "
               f"at S 1, 31, 32, 33, 70; the full width's head at S 1, "
-              f"255, 257; jamba's head at S 300; h0 zero and random; y in "
-              f"x's type and float32)")
+              f"255, 257, 4097; jamba's head at S 300 and 333 (chunk "
+              f"100); G 2 of 4 heads; chunks of 1 and 17; S 0; h0 zero "
+              f"and random; y in x's type and float32)")
         kernels = [k1, k2, k2f, k3, k4, k5, k5s, kcomb, k6c, k6w, k6l,
                    k7]
 

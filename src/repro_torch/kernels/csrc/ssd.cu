@@ -1,4 +1,6 @@
-// K7: the Mamba-2 SSD chunk scan, for Hopper.
+// K7: the Mamba-2 SSD chunk scan, for Hopper: float32 on this file's
+// first body, bf16 on the chunk-parallel tensor-core body of ssd_tc.cuh
+// (its header says what bounds it and how that design answers it).
 //
 // Replaces the Pallas TPU kernel `_ssd_kernel`
 // (src/repro/kernels/ssd/ssd.py:26, entry point `ssd_chunk_scan` at :64).
@@ -19,11 +21,10 @@
 // half of the chunk's pairs times (2 n + 2 hd) flops for C.B^T and w.x,
 // plus 2 L n hd each for the carried term and the state update, on x, B, C,
 // a, dt and y moved once.  At mamba2-2.7b's prefill of 4096 tokens (80
-// heads, hd 64, n 128, chunk 256, bf16) that is about 27 GFLOP against
-// about 90 MB: some 27 us either way at the tensor cores' bf16 rate and
-// the memory rate.  This first version does all arithmetic in f32 on the
-// CUDA cores, so its own ceiling is the f32 rate (67 TFLOP/s, some 0.4 ms
-// there), and one block per (b, head) fills 80 of 132 SMs at batch 1.
+// heads, hd 64, n 128, chunk 256) that is about 27 GFLOP against about
+// 180 MB in f32: some 0.4 ms at the CUDA cores' f32 rate, the ceiling of
+// true f32 arithmetic.  The float32 body does all arithmetic in f32 on the
+// CUDA cores, and one block per (b, head) fills 80 of 132 SMs at batch 1.
 // The design:
 //   * one block of 256 threads per (b, head), looping over the chunks in
 //     order: the loop takes the place of the TPU's sequential grid axis,
@@ -43,12 +44,11 @@
 //   * the last query tile of a chunk sees every key tile, so the state
 //     update is accumulated in registers during that tile's key loop and
 //     applied after it: each key tile is staged once per query tile;
-//   * inputs are staged to shared memory as f32 (exact from bf16), read
-//     through their strides (the model's (B, S, nh, hd) views need no
-//     copy); B and C rows are padded by one float so the 16 lanes reading
-//     16 rows hit 16 banks.
-// Known limits of this first version: f32 on the CUDA cores rather than
-// `mma.sync` / `wgmma`, tiles staged synchronously, one block per
+//   * inputs are staged to shared memory, read through their strides
+//     (the model's (B, S, nh, hd) views need no copy); B and C rows are
+//     padded by one float so the 16 lanes reading 16 rows hit 16 banks.
+// Known limits of the float32 body: f32 on the CUDA cores (true f32 is
+// what a float32 call asks for), tiles staged synchronously, one block per
 // (b, head) with no split of the scan over chunks, and C.B^T computed per
 // head where the heads of a group could share it.
 //
@@ -58,6 +58,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "ssd_tc.cuh"
 
 namespace ssd {
 
@@ -85,13 +87,7 @@ struct Args {
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 template <int HD, int N>
 struct Shape {
@@ -371,13 +367,14 @@ int dispatch(const Args& a, int blocks, int hd, int n, cudaStream_t stream) {
 
 }  // namespace ssd
 
-// Plain C entry point (loaded with ctypes).  dtype: 0 = float32,
-// 1 = bfloat16, the type of x, B and C; a and dt are float32; y is float32
-// when y_f32 is 1, else x's type.  Element strides of x (Bsz, nh, S, hd),
-// a and dt (Bsz, nh, S), B and C (Bsz, G, S, n) and y (Bsz, nh, S, hd);
-// the last dim of x, B, C and y is contiguous.  h0 (null: zeros) and h_out
-// are (Bsz, nh, n, hd) float32, contiguous.  1 <= chunk <= 256.  Returns
-// the launch's cudaError_t (0 on success).
+// Plain C entry points (loaded with ctypes).  Element strides of x
+// (Bsz, nh, S, hd), a and dt (Bsz, nh, S), B and C (Bsz, G, S, n) and y
+// (Bsz, nh, S, hd); the last dim of x, B, C and y is contiguous.  h0 (null:
+// zeros) and h_out are (Bsz, nh, n, hd) float32, contiguous, 16-byte
+// aligned.  1 <= chunk <= 256.  Each returns the first failing launch's
+// cudaError_t (0 on success).
+//
+// ssd_launch: the float32 body: x, B, C, a, dt and y float32.
 extern "C" int ssd_launch(
     const void* x, const void* a, const void* dt, const void* B,
     const void* C, const void* h0, void* y, void* h_out, long long xs_b,
@@ -386,7 +383,7 @@ extern "C" int ssd_launch(
     long long bs_b, long long bs_g, long long bs_s, long long cs_b,
     long long cs_g, long long cs_s, long long ys_b, long long ys_h,
     long long ys_s, int Bsz, int nh, int G, int S, int hd, int n, int chunk,
-    int dtype, int y_f32, void* stream) {
+    void* stream) {
   if (G <= 0 || nh % G != 0 || S < 0 || chunk < 1 ||
       chunk > ssd::kMaxChunk) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -397,12 +394,42 @@ extern "C" int ssd_launch(
                  static_cast<float*>(h_out),
                  xs_b, xs_h, xs_s, as_b, as_h, as_s, ds_b, ds_h, ds_s,
                  bs_b, bs_g, bs_s, cs_b, cs_g, cs_s, ys_b, ys_h, ys_s,
-                 nh,   G,    S,    chunk, y_f32};
+                 nh,   G,    S,    chunk, 1};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = Bsz * nh;
-  if (dtype == 0) return ssd::dispatch<float>(args, blocks, hd, n, st);
-  if (dtype == 1) {
-    return ssd::dispatch<__nv_bfloat16>(args, blocks, hd, n, st);
+  return ssd::dispatch<float>(args, Bsz * nh, hd, n, st);
+}
+
+// ssd_tc_launch: the bf16 body (ssd_tc.cuh).  x, B and C bfloat16, a and
+// dt float32; y float32 when y_f32 is 1, else bfloat16.  cum (Bsz, nh, S)
+// and st (Bsz, nh, ceil(S / chunk), n, hd) are float32 scratch,
+// contiguous, that the call overwrites.
+extern "C" int ssd_tc_launch(
+    const void* x, const void* a, const void* dt, const void* B,
+    const void* C, const void* h0, void* y, void* h_out, void* cum,
+    void* st, long long xs_b, long long xs_h, long long xs_s,
+    long long as_b, long long as_h, long long as_s, long long ds_b,
+    long long ds_h, long long ds_s, long long bs_b, long long bs_g,
+    long long bs_s, long long cs_b, long long cs_g, long long cs_s,
+    long long ys_b, long long ys_h, long long ys_s, int Bsz, int nh, int G,
+    int S, int hd, int n, int chunk, int y_f32, void* stream) {
+  if (Bsz < 0 || nh < 1 || G <= 0 || nh % G != 0 || S < 0 || chunk < 1 ||
+      chunk > ssd_tc::kMaxChunk) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  ssd_tc::Args args{static_cast<const __nv_bfloat16*>(x),
+                    static_cast<const float*>(a),
+                    static_cast<const float*>(dt),
+                    static_cast<const __nv_bfloat16*>(B),
+                    static_cast<const __nv_bfloat16*>(C),
+                    static_cast<const float*>(h0), y,
+                    static_cast<float*>(h_out), static_cast<float*>(cum),
+                    static_cast<float*>(st),
+                    xs_b, xs_h, xs_s, as_b, as_h, as_s, ds_b, ds_h, ds_s,
+                    bs_b, bs_g, bs_s, cs_b, cs_g, cs_s, ys_b, ys_h, ys_s,
+                    Bsz, nh, G, S, chunk,
+                    (S + chunk - 1) / chunk, y_f32,
+                    ssd_tc::granule(x, xs_b, xs_h, xs_s),
+                    ssd_tc::granule(B, bs_b, bs_g, bs_s),
+                    ssd_tc::granule(C, cs_b, cs_g, cs_s)};
+  return ssd_tc::dispatch(args, hd, n, static_cast<cudaStream_t>(stream));
 }

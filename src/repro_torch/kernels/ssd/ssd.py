@@ -2,18 +2,23 @@
 
 Replaces the reference's Pallas TPU kernel ``_ssd_kernel``
 (``src/repro/kernels/ssd/ssd.py:26``, entry point ``ssd_chunk_scan`` at
-``:64``).  The kernel is CUDA C++ for ``sm_90a`` in
-``repro_torch/kernels/csrc/ssd.cu`` (its header says what bounds it and
-how the design answers that), compiled with ``nvcc`` at first use and
-called through a plain C entry point with ``ctypes`` on PyTorch's current
-stream.
+``:64``).  The kernels are CUDA C++ for ``sm_90a`` in
+``repro_torch/kernels/csrc/ssd.cu``, compiled with ``nvcc`` at first use
+and called through plain C entry points with ``ctypes`` on PyTorch's
+current stream.  The input type picks the body: bfloat16 runs the
+chunk-parallel tensor-core body (``csrc/ssd_tc.cuh``: three kernels, the
+chunk-local states, the state pass over chunks and the scan, on float32
+scratch the wrapper allocates), float32 the first body (``ssd.cu``, one
+block per (b, head), true f32 arithmetic).  Each header says what bounds
+its body and how the design answers that.
 
 ``ssd_chunk_scan`` takes the plain version (``ssd_chunk_scan_plain``)
-only for tensors on the CPU.  For CUDA tensors it launches the kernel or
-raises: there is no fallback.  The kernel reads x, a, dt, B and C
+only for tensors on the CPU.  For CUDA tensors it launches the kernels
+or raises: there is no fallback.  The kernels read x, a, dt, B and C
 through their strides (the last dim of x, B and C contiguous), so the
-model's (B, S, nh, hd) views need no copy.  Every launch adds one to
-``ssd_chunk_scan.launches``.
+model's (B, S, nh, hd) views need no copy.  Every call that launches
+adds one to ``ssd_chunk_scan.launches``, whatever number of kernels the
+body runs.
 """
 from __future__ import annotations
 
@@ -29,16 +34,18 @@ from repro_torch.kernels.ssd.ref import ssd_chunk_scan_plain
 # and SSM tests, the reduced configs, mamba2-2.7b and jamba
 SHAPES = ((8, 8), (8, 16), (16, 8), (16, 16), (64, 128), (128, 64))
 MAX_CHUNK = 256
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load("ssd")
-    fn = lib.ssd_launch
-    if not fn.argtypes:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 18
-                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    for fn, n_ptr, n_int in ((lib.ssd_launch, 8, 7),
+                             (lib.ssd_tc_launch, 10, 8)):
+        if not fn.argtypes:
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr
+                           + [ctypes.c_longlong] * 18
+                           + [ctypes.c_int] * n_int + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -53,9 +60,11 @@ def ssd_chunk_scan(x: torch.Tensor, a: torch.Tensor, dt: torch.Tensor,
     (Bsz,nh,n,hd) float32.
 
     Any S: chunks of ``chunk`` tokens (1..256) and a shorter last one.
-    x, B and C float32 or bfloat16, all of one type; f32 arithmetic and
-    state.  On the card y is a view of (Bsz,S,nh,hd) memory, the model's
-    layout, so ``y.transpose(1, 2)`` is contiguous."""
+    x, B and C float32 or bfloat16, all of one type; f32 state.  On the
+    card y is a view of (Bsz,S,nh,hd) memory, the model's layout, so
+    ``y.transpose(1, 2)`` is contiguous; bfloat16 inputs run the
+    tensor-core body (three kernel launches, counted as one call),
+    float32 ones the f32 body."""
     if x.device.type == "cpu":
         return ssd_chunk_scan_plain(x, a, dt, B, C, chunk=chunk, h0=h0,
                                     out_dtype=out_dtype)
@@ -103,17 +112,29 @@ def ssd_chunk_scan(x: torch.Tensor, a: torch.Tensor, dt: torch.Tensor,
             raise ValueError(f"ssd_chunk_scan: h0 {tuple(h0.shape)} on "
                              f"{h0.device}; want ({Bsz}, {nh}, {n}, {hd})")
         h0 = h0.to(torch.float32).contiguous()
+        if h0.data_ptr() % 16:       # the state pass reads 16-byte units
+            h0 = h0.clone()
     y = torch.empty((Bsz, S, nh, hd), dtype=out_dtype,
                     device=x.device).transpose(1, 2)
     h = torch.empty((Bsz, nh, n, hd), dtype=torch.float32, device=x.device)
+    lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _library().ssd_launch(
-        x.data_ptr(), a.data_ptr(), dt.data_ptr(), B.data_ptr(),
-        C.data_ptr(), 0 if h0 is None else h0.data_ptr(), y.data_ptr(),
-        h.data_ptr(), *x.stride()[:3], *a.stride(), *dt.stride(),
-        *B.stride()[:3], *C.stride()[:3], *y.stride()[:3], Bsz, nh, G, S,
-        hd, n, chunk, _DTYPES[x.dtype], int(out_dtype == torch.float32),
-        stream)
+    ptrs = (x.data_ptr(), a.data_ptr(), dt.data_ptr(), B.data_ptr(),
+            C.data_ptr(), 0 if h0 is None else h0.data_ptr(), y.data_ptr(),
+            h.data_ptr())
+    strides = (*x.stride()[:3], *a.stride(), *dt.stride(), *B.stride()[:3],
+               *C.stride()[:3], *y.stride()[:3])
+    if x.dtype == torch.bfloat16:
+        # scratch: each chunk's cum, and its local state, then h_in
+        cum = torch.empty((Bsz, nh, S), dtype=torch.float32, device=x.device)
+        st = torch.empty((Bsz, nh, -(-S // chunk), n, hd),
+                         dtype=torch.float32, device=x.device)
+        err = lib.ssd_tc_launch(*ptrs, cum.data_ptr(), st.data_ptr(),
+                                *strides, Bsz, nh, G, S, hd, n, chunk,
+                                int(out_dtype == torch.float32), stream)
+    else:                           # float32: y too
+        err = lib.ssd_launch(*ptrs, *strides, Bsz, nh, G, S, hd, n, chunk,
+                             stream)
     if err != 0:
         raise RuntimeError(f"ssd kernel launch failed: cudaError {err}")
     ssd_chunk_scan.launches += 1

@@ -447,7 +447,16 @@ def test_reduced_window_engine_card_matches_cpu(cuda, method, cache_quant):
 SSD_CASES = [(2, 4, 2, 64, 8, 16, 16), (1, 2, 1, 128, 16, 8, 32),
              (2, 2, 2, 64, 8, 8, 64), (2, 8, 1, 70, 16, 16, 32),
              (1, 4, 1, 300, 64, 128, 256), (1, 2, 1, 130, 128, 64, 256),
-             (3, 4, 2, 1, 16, 16, 32)]
+             (3, 4, 2, 1, 16, 16, 32),
+             (1, 80, 1, 4097, 64, 128, 256),    # mamba2's head, ragged
+             (2, 8, 2, 200, 64, 128, 64),       # G 2, 4 heads a group
+             (1, 4, 1, 50, 16, 8, 1),           # chunks of 1 token
+             (2, 4, 2, 123, 64, 128, 17),       # chunks of no tile multiple
+             (1, 2, 1, 333, 128, 64, 100),
+             (2, 4, 1, 0, 16, 16, 32)]          # S 0: the state passes
+# cases that ask y in float32, as the model does (models/ssm.py): held at
+# 1e-4 + 1e-4 |ref| whatever the input type
+SSD_Y_F32 = {7}
 
 
 def _ssd_inputs(dev, dtype, B, nh, G, S, hd, n, seed=0):
@@ -464,7 +473,8 @@ def _ssd_inputs(dev, dtype, B, nh, G, S, hd, n, seed=0):
 
 
 def _close_ssd(y, h, y_ref, h_ref, dtype):
-    """y: 1e-4 + 1e-4 |ref| in float32, two bf16 ulps in bfloat16; the
+    """y: 1e-4 + 1e-4 |ref| in float32 (``dtype``, y's type), two bf16
+    ulps in bfloat16; the
     f32 state at 1e-4 + 1e-4 |ref| (kernel and plain version add in other
     orders: block prefix sum against torch.cumsum, tiles against
     matmuls)."""
@@ -482,17 +492,23 @@ def _close_ssd(y, h, y_ref, h_ref, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", range(len(SSD_CASES)))
 def test_k7_matches_plain_version(cuda, case, dtype, with_h0):
+    """bfloat16 runs the chunk-parallel tensor-core body (three kernels,
+    one count), float32 the f32 body; y in x's type, or in float32 for the
+    cases of ``SSD_Y_F32``."""
     B, nh, G, S, hd, n, ck = SSD_CASES[case]
     x, a, dt, Bm, Cm = _ssd_inputs(cuda, dtype, B, nh, G, S, hd, n, case)
     h0 = (torch.randn(B, nh, n, hd, device=cuda) if with_h0 else None)
+    out_dtype = torch.float32 if case in SSD_Y_F32 else None
     before = ssd_chunk_scan.launches
-    y, h = ssd_chunk_scan(x, a, dt, Bm, Cm, chunk=ck, h0=h0)
+    y, h = ssd_chunk_scan(x, a, dt, Bm, Cm, chunk=ck, h0=h0,
+                          out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert ssd_chunk_scan.launches == before + 1
-    assert y.shape == x.shape and y.dtype == dtype
+    assert y.shape == x.shape and y.dtype == (out_dtype or dtype)
     assert h.shape == (B, nh, n, hd) and h.dtype == torch.float32
-    y_ref, h_ref = ssd_chunk_scan_plain(x, a, dt, Bm, Cm, chunk=ck, h0=h0)
-    _close_ssd(y, h, y_ref, h_ref, dtype)
+    y_ref, h_ref = ssd_chunk_scan_plain(x, a, dt, Bm, Cm, chunk=ck, h0=h0,
+                                        out_dtype=out_dtype)
+    _close_ssd(y, h, y_ref, h_ref, y.dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
