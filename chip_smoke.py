@@ -12,9 +12,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              the card agrees with the CPU to float32 rounding);
 2.  build    every CUDA kernel source of the port, one ``nvcc`` each, all
              started together, with each instantiation's registers and
-             spills (bf16 K2's tensor-core body as ``bf16/K2/N``, N its
-             p.v width; bf16 K7's three kernels as ``bf16/K7 state/hd/n``,
-             ``bf16/K7 pass`` and ``bf16/K7 scan/hd/n``);
+             spills (bf16 decode's tensor-core body as ``bf16/decode/N``
+             and ``bf16/decode int8/N``, N its p.v width; bf16 K2's as
+             ``bf16/K2/N``; bf16 K7's three kernels as
+             ``bf16/K7 state/hd/n``, ``bf16/K7 pass`` and
+             ``bf16/K7 scan/hd/n``);
 3.  serve    the dense main path at full width: tinyllama-1.1b (22 layers,
              bf16, seeded random weights), KQ-SVD calibration (16 x 512
              tokens in batches of 4) and closed-form solve, then the
@@ -23,7 +25,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              kernels' launch counts are zeroed just before the calibration
              and read just after the drain: K6 must have run once per
              layer per calibration batch and per prefill, K3 once per layer
-             per decode step, and the plain attention never;
+             per decode step, and the plain attention and K3's plain
+             version never;
 3b. profile  one dense decode step (8 slots at position 512);
 3c. paged    the paged main path at full width, same model and
              projections: the paged ``ServingEngine`` with chunked prefill
@@ -31,8 +34,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              chunks of 256) serving 16 requests of 32..1000 prompt tokens
              and 32 new tokens each.  Counts zeroed just before and read
              just after: K1 once per layer per decode step, K2 once per
-             layer per prefill chunk, K3 never, K2's plain version and the
-             model's plain chunk attention never; every request done and
+             layer per prefill chunk, K3 never, K1's and K2's plain
+             versions and the model's plain chunk attention never; every
+             request done and
              the pool whole again.  The tokens' agreement with the dense
              engine on the same requests is printed, not asserted: chunked
              prefill attends over the compressed cache, exact prefill over
@@ -43,8 +47,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              model, projections, pool (256 fp-page units, so
              ``int(256 * capacity_x)`` physical pages) and requests as 3c.
              Counts zeroed just before and read just after: K5 split, K5
-             and the split merge each launched, K1, K2, K4 never; every
-             request done and the pool whole again;
+             and the split merge each launched, K1, K2, K4 and the plain
+             versions of K5 and K5 split never; every request done and the
+             pool whole again;
 3f. profile  one paged decode step (8 slots at position 512) with fp pages
              in 8 splits (K4) and int8 pages in 8 splits (K5 split), beside
              3d's fp unsplit step (K1) in this one process;
@@ -84,7 +89,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              on edge cases: for K1, K2, K4 and K5 page sizes 4, 16, 64;
              lengths 0, 1, ps-1, ps, ps+1, 1023; splits 1, 2, 3, 8 with
              empty trailing splits; shuffled block tables; chunks at
-             position 0, mid-page and with bucket padding; for K2 also
+             position 0, mid-page and with bucket padding; for K1 and
+             K3-K5 lengths at the edges of bf16 decode's cluster runs
+             (1, 15, 16, 17, 127, 128, 129, 1024), a slot at t_cap 8192,
+             and caches whose rows past each length, page 0 and pages
+             outside the table hold NaN; the decode rows print the
+             cluster size they ran with; for K2 also
              odd ranks (37/45, 5/7: pool rows 2-byte aligned), ranks 1
              and 256, groups m 1, 3 and 16 and a chunk of padding rows
              only; for K6 S in
@@ -278,6 +288,54 @@ def int8_pools(kp, vp):
     return k8, v8, ks[..., None].contiguous(), vs[..., None].contiguous()
 
 
+def poisoned_decode(kind, g, dev, dt, H, Hkv, Rk, Rv, scale):
+    """(kernel output, plain output) of ``kind`` (K1, K3, K4, K5 or K5
+    split) on caches whose rows past each length, page 0 (the garbage
+    page) and three pages outside the table hold NaN (int8 pools: their
+    scales), the plain version run on the same caches with those rows
+    zeroed.  Four slots of 64 pages of 16, lengths 0, 17, 500, 1023."""
+    import torch
+    from repro_torch.kernels.kq_decode import (
+        kq_decode_attention, kq_decode_attention_ref,
+        kq_decode_paged_attention)
+    from repro_torch.serving import gather_pages
+    B, ps, n_pages = 4, 16, 64
+    lens = torch.tensor([0, 17, 500, 1023], dtype=torch.int32, device=dev)
+    qc, kp, vp, btab = paged_inputs(g, dev, dt, B, H, Hkv, ps, n_pages, Rk,
+                                    Rv)
+    if kind == "K3":
+        kp, vp = gather_pages(kp, btab), gather_pages(vp, btab)
+        dead = (torch.arange(kp.shape[2], device=dev)[None, :]
+                >= lens[:, None].long())[:, None, :, None]
+    else:
+        spare = torch.randn(3, Hkv, ps, Rk + Rv, generator=g,
+                            device=dev).to(dt)
+        kp = torch.cat([kp, spare[..., :Rk]]).contiguous()
+        vp = torch.cat([vp, spare[..., Rk:]]).contiguous()
+        live = torch.zeros(kp.shape[0], ps, dtype=torch.bool)
+        for b, n in enumerate(lens.tolist()):
+            t = torch.arange(n)
+            live[btab[b].cpu()[t // ps], t % ps] = True
+        dead = ~live.to(dev)[:, None, :, None]
+    kz, vz = (x.masked_fill(dead, 0.0) for x in (kp, vp))
+    if kind == "K3":
+        kn, vn = (x.masked_fill(dead, float("nan")) for x in (kp, vp))
+        return (kq_decode_attention(qc, kn, vn, lens, scale=scale),
+                kq_decode_attention_ref(qc, kz, vz, lens, scale=scale))
+    ns = 8 if kind in ("K4", "K5 split") else 1
+    if kind in ("K1", "K4"):
+        kn, vn = (x.masked_fill(dead, float("nan")) for x in (kp, vp))
+        return (kq_decode_paged_attention(qc, kn, vn, lens, btab,
+                                          scale=scale, num_splits=ns),
+                plain_decode(qc, kz, vz, lens, btab, scale, 1))
+    k8, v8, ks, vs = int8_pools(kz.float(), vz.float())
+    ksn, vsn = (x.masked_fill(dead, float("nan")) for x in (ks, vs))
+    return (kq_decode_paged_attention(qc, k8, v8, lens, btab, scale=scale,
+                                      num_splits=ns, kscale=ksn,
+                                      vscale=vsn),
+            plain_decode(qc, k8, v8, lens, btab, scale, 1, ks, vs))
+
+
 def plain_decode(qc, kp, vp, lengths, btab, scale, num_splits, ks=None,
                  vs=None):
     """The plain version of the paged decode the wrapper dispatches: K1's
@@ -311,7 +369,8 @@ def profile_decode(label: str, model, params, proj, ranks, dev, paged: bool,
     (synced), device busy time per step from ``torch.profiler`` (sum of
     kernel times), the idle share, launches per step, the attention
     kernels' share of the busy time (``attend_kernel``, and the split
-    merge ``combine_kernel``), and the kernels that take the most.  B
+    merge ``combine_kernel``; bf16 decode is ``decode_tc_kernel``), and
+    the kernels that take the most.  B
     slots of T tokens (a sliding window makes it a ring) decode at
     position ``at``.  Paged: the slots' tokens in pages of 16 at shuffled
     physical ids, in the page layout of ``model.cfg.cache_quant``."""
@@ -350,8 +409,9 @@ def profile_decode(label: str, model, params, proj, ranks, dev, paged: bool,
             and getattr(e, "device_type", None)
             == torch.autograd.DeviceType.CUDA]
     busy = sum(r[1] for r in rows)
-    attn = sum(r[1] for r in rows
-               if "attend_kernel" in r[0] or "combine_kernel" in r[0])
+    attn = sum(r[1] for r in rows if any(
+        k in r[0] for k in ("attend_kernel", "decode_tc_kernel",
+                            "combine_kernel")))
     launches = sum(r[2] for r in rows)
     if not busy:
         print(f"{label} decode step, synced host wall: {wall:.3f} ms; the "
@@ -412,8 +472,10 @@ def profile_prefill(label: str, model, params, tokens,
 
 def ptxas_summary(log: str) -> list:
     """``nvcc -Xptxas -v`` condensed: registers and spilled bytes for each
-    instantiation of the kernels, as ``type[/int8]/rows/cols: regs+spill``
-    for the compressed-cache body (int8: int8 pages), ``bf16/K2/N:
+    instantiation of the kernels, as ``f32[/int8]/rows/cols: regs+spill``
+    for the float32 compressed-cache body (int8: int8 pages),
+    ``bf16/decode[ int8]/N: regs+spill`` for bf16 decode's tensor-core
+    body (N its p.v width), ``bf16/K2/N:
     regs+spill`` for bf16 K2's tensor-core body (N its p.v width),
     ``type/d_head/d_v: regs+spill`` for K6, ``f32/head_dim/d_state:
     regs+spill`` for float32 K7 and ``bf16/K7 state|scan/head_dim/d_state``
@@ -430,6 +492,8 @@ def ptxas_summary(log: str) -> list:
         t7 = re.search(r"Compiling entry.*ssd_(state|pass|scan)_kernel"
                        r"(?:ILi(\d+)ELi(\d+)E)?", line)
         k2 = re.search(r"Compiling entry.*prefill_kernelILi(\d+)E", line)
+        dc = re.search(r"Compiling entry.*decode_tc_kernelI"
+                       r"(13__nv_bfloat16|a)Li(\d+)E", line)
         if m:
             key = ("f32" if m.group(1) == "f" else "bf16") + \
                 ("/int8" if m.group(2) == "a" else "") + \
@@ -444,6 +508,9 @@ def ptxas_summary(log: str) -> list:
                 f"/{t7.group(2)}/{t7.group(3)}" if t7.group(2) else "")
         elif k2:
             key = f"bf16/K2/{k2.group(1)}"
+        elif dc:
+            key = ("bf16/decode int8/" if dc.group(1) == "a"
+                   else "bf16/decode/") + dc.group(2)
         elif key and "spill stores" in line:
             spill = re.search(r"(\d+) bytes spill stores", line).group(1)
         elif key and "registers" in line:
@@ -485,6 +552,7 @@ def main() -> int:
     from repro_torch.kernels.ssd import ssd as ssd_mod
     from repro_torch.kernels.ssd import (ssd_chunk_scan, ssd_chunk_scan_plain,
                                          ssd_chunk_scan_ref)
+    from repro_torch.kernels.kq_decode import kq_decode as k3_mod
     from repro_torch.kernels.kq_decode import paged as paged_mod
     from repro_torch.models import attention as attention_mod
     from repro_torch.kernels.kq_decode import (
@@ -503,13 +571,17 @@ def main() -> int:
                 kq_decode_paged_int8, kq_decode_paged_int8_split,
                 kq_combine_splits, flash_attention, ssd_chunk_scan)
 
-    # calls of K2's, K6's and K7's plain versions from their wrappers (CPU
-    # tensors only) and of the model's plain chunk attention (the route of
-    # non-fp page layouts): the card's prefill and calibration must make
+    # calls of the kernels' plain versions from their wrappers (CPU tensors
+    # only) and of the model's plain chunk attention (the route of non-fp
+    # page layouts): the card's decode, prefill and calibration must make
     # none where a kernel serves them
     plain_calls = {"flash_attention_ref": 0, "ssd_chunk_scan_plain": 0,
                    "kq_prefill_paged_attention_ref": 0,
-                   "chunk_decode_attention": 0}
+                   "chunk_decode_attention": 0,
+                   "kq_decode_attention_ref": 0,
+                   "kq_decode_paged_attention_ref": 0,
+                   "kq_decode_paged_attention_int8_ref": 0,
+                   "kq_decode_paged_partials_ref": 0}
 
     def counted(name, fn):
         def call(*args, **kw):
@@ -523,6 +595,12 @@ def main() -> int:
                                            ssd_chunk_scan_plain)
     paged_mod.kq_prefill_paged_attention_ref = counted(
         "kq_prefill_paged_attention_ref", kq_prefill_paged_attention_ref)
+    for name in ("kq_decode_paged_attention_ref",
+                 "kq_decode_paged_attention_int8_ref",
+                 "kq_decode_paged_partials_ref"):
+        setattr(paged_mod, name, counted(name, getattr(paged_mod, name)))
+    k3_mod.kq_decode_attention_ref = counted("kq_decode_attention_ref",
+                                             kq_decode_attention_ref)
     attention_mod.chunk_decode_attention = counted(
         "chunk_decode_attention", attention_mod.chunk_decode_attention)
 
@@ -592,7 +670,8 @@ def main() -> int:
         # batch, each through K6 once per layer; the plain version never
         assert k6_launches["phase 3"] == cfg.n_layers * (
             len(reqs) + len(calib)), (k6_launches, len(reqs), len(calib))
-        assert plain_calls["flash_attention_ref"] == 0, plain_calls
+        assert plain_calls["flash_attention_ref"] == 0 \
+            and plain_calls["kq_decode_attention_ref"] == 0, plain_calls
         assert kq_decode_paged_attention.launches == 0
         assert kq_prefill_paged_attention.launches == 0
         probe, _ = model.prefill(params, reqs[0].prompt[None], 64,
@@ -638,7 +717,8 @@ def main() -> int:
         k3_paged = kq_decode_attention.launches
         assert flash_attention.launches == 0, "chunked prefill ran K6"
         assert plain_calls["kq_prefill_paged_attention_ref"] == 0 \
-            and plain_calls["chunk_decode_attention"] == 0, plain_calls
+            and plain_calls["chunk_decode_attention"] == 0 \
+            and plain_calls["kq_decode_paged_attention_ref"] == 0, plain_calls
         bad = [r.rid for r in preqs if r.failed or not r.done
                or len(r.out_tokens) != min(32, 1024 - len(r.prompt) + 1)]
         assert not bad, f"requests not served in full: {bad}"
@@ -658,8 +738,10 @@ def main() -> int:
               f"buckets {sorted(peng.prefill_chunk_shapes)}; K1 launches "
               f"{k1_launches} = {cfg.n_layers} x {peng.n_decode_steps}, K2 "
               f"{k2_launches} = {cfg.n_layers} x {peng.n_prefill_chunks}, "
-              f"K3 {k3_paged}, K2's plain version and the plain chunk "
-              f"attention {plain_calls['kq_prefill_paged_attention_ref']} "
+              f"K3 {k3_paged}, K1's and K2's plain versions and the plain "
+              f"chunk attention "
+              f"{plain_calls['kq_decode_paged_attention_ref']}, "
+              f"{plain_calls['kq_prefill_paged_attention_ref']} "
               f"and {plain_calls['chunk_decode_attention']}; truncated "
               f"{[r.rid for r in preqs if r.truncated]}; peak device "
               f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -716,6 +798,8 @@ def main() -> int:
         assert q_launch["combine"] == q_launch["K5 split"], q_launch
         assert q_launch["K1"] == q_launch["K4"] == q_launch["K2"] == \
             q_launch["K3"] == 0, q_launch
+        assert plain_calls["kq_decode_paged_attention_int8_ref"] == 0 \
+            and plain_calls["kq_decode_paged_partials_ref"] == 0, plain_calls
         serve_report("int8 + dynamic splits", qeng, qreqs, wall)
         print(f"capacity_x {qeng.capacity_x:.4f}: pool {qeng.pool.n_pages} "
               f"physical pages of {qsc.page_size} for {qsc.total_pages} "
@@ -877,11 +961,13 @@ def main() -> int:
         B, T = 8, 1024
         lengths = torch.tensor([1, 31, 32, 33, 500, 777, 1023, 1024],
                                dtype=torch.int32, device=dev)
+        cluster = paged_mod._library().kq_decode_cluster_size
         k3 = {"name": "kq_decode (K3)", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/kq_decode.cu "
-                        "(body: csrc/kq_attend.cuh)",
+                        "(bf16 body: csrc/kq_decode_tc.cuh; float32: "
+                        "csrc/kq_attend.cuh)",
               "replaces": "src/repro/kernels/kq_decode/kq_decode.py:53",
-              "launches": k3_launches,
+              "launches": k3_launches, "cluster_size": cluster(T),
               "shape": {"B": B, "H": H, "Hkv": Hkv, "T": T, "Rk": rk,
                         "Rv": rv, "lengths": lengths.tolist()}}
         live = int(lengths.sum())
@@ -910,9 +996,10 @@ def main() -> int:
         ps, n_pages = 16, T // 16
         k1 = {"name": "kq_decode_paged (K1)", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/kq_paged.cu "
-                        "(body: csrc/kq_attend.cuh)",
+                        "(bf16 body: csrc/kq_decode_tc.cuh; float32: "
+                        "csrc/kq_attend.cuh)",
               "replaces": "src/repro/kernels/kq_decode/paged.py:63",
-              "launches": k1_launches,
+              "launches": k1_launches, "cluster_size": cluster(ps * n_pages),
               "shape": {"B": B, "H": H, "Hkv": Hkv, "page_size": ps,
                         "n_pages": n_pages, "Rk": rk, "Rv": rv,
                         "lengths": lengths.tolist()}}
@@ -993,24 +1080,25 @@ def main() -> int:
                  "lengths": lengths.tolist()}
         k4 = {"name": "kq_decode_paged_split (K4) + kq_combine_splits",
               "route": "cuda",
-              "source": "src/repro_torch/kernels/csrc/kq_paged.cu "
-                        "(body: csrc/kq_attend.cuh)",
+              "source": k1["source"],
               "replaces": "src/repro/kernels/kq_decode/paged.py:120",
               "launches": k4_launches, "launches_from": "phase 3f",
+              "cluster_size": cluster(span * ps),
               "shape": dict(shape, splits=n_sp, span_pages=span)}
         k5 = {"name": "kq_decode_paged_int8 (K5)", "route": "cuda",
               "source": k4["source"],
               "replaces": "src/repro/kernels/kq_decode/paged.py:63 "
                           "(quant=True)",
               "launches": q_launch["K5"], "launches_from": "phase 3e",
-              "shape": shape}
+              "cluster_size": k1["cluster_size"], "shape": shape}
         k5s = {"name": "kq_decode_paged_int8_split (K5 split) + "
                        "kq_combine_splits", "route": "cuda",
                "source": k4["source"],
                "replaces": "src/repro/kernels/kq_decode/paged.py:120 "
                            "(quant=True)",
                "launches": q_launch["K5 split"],
-               "launches_from": "phase 3e", "shape": k4["shape"]}
+               "launches_from": "phase 3e",
+               "cluster_size": k4["cluster_size"], "shape": k4["shape"]}
         kcomb = {"name": "kq_combine_splits (split merge)", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/kq_paged.cu",
                  "replaces": "src/repro/kernels/kq_decode/paged.py:196 "
@@ -1164,6 +1252,53 @@ def main() -> int:
         print(f"K4 and K5 edge cases: {n_cases} held to tolerance and two "
               f"bf16 ulps (page sizes 4, 16, 64; lengths 0, 1, ps-1, ps, "
               f"ps+1, 1023; splits 1, 2, 3, 8)")
+        print("bf16 decode's cluster size per row: " + "; ".join(
+            f"{r['name']} {r['cluster_size']}" for r in (k1, k3, k4, k5,
+                                                         k5s)))
+        # K1 and K3-K5 at the edges of bf16 decode's cluster runs (16-token
+        # tiles, C 8 at 1024 tokens) and at t_cap 8192 with a slot full;
+        # then on caches poisoned with NaN where no row may be read
+        n_cases = 0
+        for dt_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dt_name)
+            for np_, el_ in ((64, (1, 15, 16, 17, 127, 128, 129, 1024)),
+                             (512, (8192, 129, 4000))):
+                el = torch.tensor(el_, dtype=torch.int32, device=dev)
+                qc, kp, vp, btab = paged_inputs(g, dev, dt, len(el_), H, Hkv,
+                                                16, np_, rk, rv)
+                k8, v8, ks8, vs8 = int8_pools(kp.float(), vp.float())
+                kd, vd = gather_pages(kp, btab), gather_pages(vp, btab)
+                check_close(f"K3 T={16 * np_}", dt_name,
+                            kq_decode_attention(qc, kd, vd, el, scale=scale),
+                            kq_decode_attention_ref(qc, kd, vd, el,
+                                                    scale=scale))
+                for ns in (1, 8):
+                    check_close(f"K{1 if ns == 1 else 4} t_cap={16 * np_}",
+                                dt_name, kq_decode_paged_attention(
+                                    qc, kp, vp, el, btab, scale=scale,
+                                    num_splits=ns),
+                                plain_decode(qc, kp, vp, el, btab, scale,
+                                             ns))
+                    check_close(f"K5 t_cap={16 * np_} splits={ns}", dt_name,
+                                kq_decode_paged_attention(
+                                    qc, k8, v8, el, btab, scale=scale,
+                                    num_splits=ns, kscale=ks8, vscale=vs8),
+                                plain_decode(qc, k8, v8, el, btab, scale, ns,
+                                             ks8, vs8))
+                    n_cases += 2
+                n_cases += 1
+            for kind in ("K1", "K3", "K4", "K5", "K5 split"):
+                out, ref = poisoned_decode(kind, g, dev, dt, H, Hkv, rk, rv,
+                                           scale)
+                assert bool(torch.isfinite(out).all()), \
+                    f"{kind} on NaN-poisoned caches is not finite"
+                check_close(f"{kind} NaN-poisoned", dt_name, out, ref)
+                n_cases += 1
+        print(f"K1, K3-K5 run-edge and NaN-poisoned cases: {n_cases} held "
+              f"to tolerance and two bf16 ulps (lengths 1, 15, 16, 17, 127, "
+              f"128, 129, 1024; t_cap 8192 with lengths 8192, 129, 4000; "
+              f"splits 1, 8; NaN past each length, in page 0 and in pages "
+              f"outside the table)")
 
         # K6 at tinyllama's calibration batch (causal), at danube's
         # windowed prefill (6000 tokens for the kernel and the library

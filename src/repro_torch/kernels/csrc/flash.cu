@@ -30,8 +30,9 @@
 //     output.  The online
 //     softmax runs in wgmma's accumulator layout (lane (g8, t4) of warp w
 //     holds rows 16 w + g8 and + 8, keys 8 n + 2 t4 and + 1), its
-//     exponentials are single `ex2` ops, and each 16-key step's p is made
-//     while the tensor cores run the step before;
+//     exponentials are single `ex2` ops, and a tile's p fragments are all
+//     made before its p.v products are issued and kept alive past their
+//     wait (ptxas guards only the accumulators of an asynchronous wgmma);
 //   * large row tiles: a block of two consumer warpgroups holds 128
 //     flattened (position, head) rows of one (b, kv group) -- row r is
 //     position r / m of head g m + r % m, so each staged K/V tile serves
@@ -188,6 +189,16 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float* d) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// An A fragment in registers must not change until the wgmma that reads it
+// has completed, and ptxas does not guard those registers (it does the
+// accumulators): a register-A batch builds all of its fragments, issues,
+// waits, and then "uses" the fragments here, so that none of their
+// registers is reused while a wgmma may still read it.
+template <int N>
+__device__ __forceinline__ void keep_regs(const uint32_t* a) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" ::"r"(a[i]) : "memory");
 }
 
 // S (64 x 64 keys, f32) = Q (64 x 16) . K (64 x 16)^T, both K-major in
@@ -564,10 +575,10 @@ __global__ void __launch_bounds__(kThreads, Shape<DH, DV>::kPair ? 2 : 1)
     fence_regs<DV / 2>(acc);
     // p as bf16 hi + lo in the A fragments of each 16-key step k (register
     // q: row g8 + 8 (q & 1), keys 16 k + 8 (q >> 1) + 2 t4 and + 1, i.e.
-    // s[8 k + 2 q] and + 1), made while the step before runs
+    // s[8 k + 2 q] and + 1), all made before the first product is issued
+    uint32_t pa[kKeys / 16][2][4];  // [step][hi, lo][register]
 #pragma unroll
     for (int k = 0; k < kKeys / 16; ++k) {
-      uint32_t hi[4], lo[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int i = 8 * k + 2 * q, r = q & 1;
@@ -578,19 +589,24 @@ __global__ void __launch_bounds__(kThreads, Shape<DH, DV>::kPair ? 2 : 1)
         // in f32 and rounded to bf16, so hi + lo keeps 16 bits of p
         const uint32_t b0 = __float_as_uint(p0) & 0xffff0000u;
         const uint32_t b1 = __float_as_uint(p1) & 0xffff0000u;
-        hi[q] = __byte_perm(b0, b1, 0x7632);
-        lo[q] = pack_bf16(p0 - __uint_as_float(b0), p1 - __uint_as_float(b1));
+        pa[k][0][q] = __byte_perm(b0, b1, 0x7632);
+        pa[k][1][q] =
+            pack_bf16(p0 - __uint_as_float(b0), p1 - __uint_as_float(b1));
       }
-      wg_fence();
+    }
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < kKeys / 16; ++k) {
       // V rows 16 k .. 16 k + 15: two core matrices along keys, 128 bytes
       // apart; column chunks kKeys * 16 bytes apart
       const uint64_t vd = desc(v_s + 2 * k * 128, 128, kKeys * 16);
-      wgmma_pv<DV>(acc, hi, vd);
-      wgmma_pv<DV>(acc, lo, vd);
+      wgmma_pv<DV>(acc, pa[k][0], vd);
+      wgmma_pv<DV>(acc, pa[k][1], vd);
     }
     wg_commit();
     wg_wait();
     fence_regs<DV / 2>(acc);
+    keep_regs<kKeys / 16 * 8>(&pa[0][0][0]);
   }
   cp_wait<0>();
   __syncthreads();                  // every tile consumed: reuse the ring

@@ -1,7 +1,9 @@
-// Compressed-cache attention for Hopper: the kernel body behind K1, K3, K4,
-// K5 and float32 K2 (kq_decode.cu holds K3's entry point, kq_paged.cu those
-// of K1, K2, K4 and K5 and the split combine).  bfloat16 K2 has a body of
-// its own on the tensor cores, kq_prefill.cuh.
+// Compressed-cache attention for Hopper in float32: the kernel body behind
+// float32 K1, K3, K4 and K5 (decode) and float32 K2 (prefill-append), the
+// reduced parity runs (kq_decode.cu holds K3's entry point, kq_paged.cu
+// those of K1, K2, K4 and K5 and the split combine).  bfloat16 has bodies
+// of its own on the tensor cores: kq_decode_tc.cuh for every decode call,
+// kq_prefill.cuh for K2.
 //
 // For every (sequence b, kv group g, tile of up to M query rows) it runs an
 // f32 online softmax of the rows' compressed queries qc (., Rk) against the
@@ -35,15 +37,10 @@
 // lse = -1e30 + log(1e-30): its merge weight is exactly 0 beside any live
 // span, and a slot of length 0 merges to 0, as the unsplit kernel gives.
 //
-// What bounds it: the cache bytes in decode.  A decode call reads
-// B * Hkv * len * (Rk + Rv) * itemsize bytes and does about 2 m (Rk + Rv)
-// flops per cached row, m / itemsize flops per byte (4 at bf16, m = 8), far
-// below the ~295 flop/byte where the H100's tensor cores, not its
-// 3.35 TB/s, would be the limit.  A prefill chunk of S queries per head
-// does S times the flops on the same bytes (2,048 rows per group at
-// S = 256): operations bound it there.  bf16 chunks therefore run on the
-// tensor cores in kq_prefill.cuh; float32 chunks (the reduced parity
-// runs) run here, in true f32 on CUDA cores.  The design:
+// What bounds it: the cache bytes in decode, operations in a prefill chunk
+// (S times the flops on the same bytes).  In float32 both run here, in
+// true f32 on CUDA cores (the point of these runs is agreement with the
+// CPU to float32 rounding, not speed).  The design:
 //   * one block per (b, g, row tile); the block reads lengths[b] (and
 //     pos0[b]) itself and loads no tile at or past its largest row limit,
 //     so nothing past a sequence's length, and nothing the causal mask
@@ -67,11 +64,9 @@
 //     be NaN); a token a row may not see gets p = 0 for that row;
 //   * the warps' (max, sum, acc) partials merge in shared memory at the
 //     end; acc / max(sum, 1e-30) makes a row that saw nothing return 0.
-// Known limits of this first version: unsplit decode has only B * Hkv
-// blocks (32 at 8 slots of tinyllama) for 132 SMs, so it is latency-bound
-// rather than bandwidth-bound (split-KV multiplies the blocks by the split
-// count); float32 prefill scores on CUDA cores.  TMA staging is later
-// work.
+// Known limits: unsplit decode has only B * Hkv blocks (32 at 8 slots of
+// tinyllama) for 132 SMs, so it is latency-bound rather than
+// bandwidth-bound; kq_decode_tc.cuh answers that for bf16.
 
 #pragma once
 
@@ -122,9 +117,6 @@ struct Rows {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -420,10 +412,11 @@ int dispatch_rows(int n, const Args& a) {
   }
 }
 
-// Checks the shapes every entry point shares, then launches in `dtype`
-// (0 = float32, 1 = bfloat16) with row tiles of min(m * S, 16) rows.
-// Int8 pools (cache.kscale set) are taken where kInt8Pages is true (the
-// paged library) for decode (S == 1, m <= 8) only.
+// Checks the shapes every entry point shares, then launches in float32
+// (`dtype` 0; bfloat16 runs kq_decode_tc.cuh or kq_prefill.cuh) with row
+// tiles of min(m * S, 16) rows.  Int8 pools (cache.kscale set) are taken
+// where kInt8Pages is true (the paged library) for decode (S == 1,
+// m <= 8) only.
 template <bool kInt8Pages>
 int attend(int dtype, const void* qc, const void* kc, const void* vc,
            const void* lengths, void* out, int B, int H, int Hkv, int Rk,
@@ -447,12 +440,10 @@ int attend(int dtype, const void* qc, const void* kc, const void* vc,
     if constexpr (kInt8Pages) {
       if (S != 1) return (int)cudaErrorInvalidValue;
       if (dtype == 0) return dispatch_rows<float, int8_t>(tile, a);
-      if (dtype == 1) return dispatch_rows<__nv_bfloat16, int8_t>(tile, a);
     }
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == 0) return dispatch_rows<float, float>(tile, a);
-  if (dtype == 1) return dispatch_rows<__nv_bfloat16, __nv_bfloat16>(tile, a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -18,7 +18,9 @@
 //
 // K5, int8 pages, replaces the same two kernels with quant=True
 // (paged.py:63-117, :120-193): int8 code pools plus bf16 per-token scale
-// pools (P, Hkv, ps, 1), dequantized in registers while staging.
+// pools (P, Hkv, ps, 1): in bf16 the codes enter the tensor cores as they
+// are and the scales multiply scores and p; in float32 they are
+// dequantized in registers while staging.
 //
 // K2, paged prefill-append, replaces `_kq_prefill_paged_kernel`
 // (paged.py:292, entry point `kq_prefill_paged_attention` at :342): a
@@ -34,12 +36,14 @@
 //
 // None carries the TPU design over: the TPU kernels walk one page per
 // grid step with the softmax state in VMEM scratch and the block table in
-// scalar prefetch.  Here a block of K1, K4, K5 or f32 K2 walks its slot's
-// (or span's) tokens in 32-token warp tiles, looking a tile's pages up in
-// the table itself; each token's R values are contiguous in the pool, so
-// staging stays coalesced at any page size.  That body, what bounds it and
-// how its design answers that are in kq_attend.cuh, shared with K3
-// (kq_decode.cu).
+// scalar prefetch.  In bfloat16, K1, K4 and K5 run kq_decode_tc.cuh (shared
+// with K3, kq_decode.cu): a thread-block cluster per (slot, kv group), or
+// per split span, each CTA staging its run of 16-token tiles straight from
+// the pages with cp.async, both products on mma.sync tensor cores, and the
+// CTAs' partials merged through distributed shared memory.  In float32
+// they and K2 run kq_attend.cuh (a block walks its slot's or span's tokens
+// in 32-token warp tiles on CUDA cores).  Each header says what bounds its
+// kernels and how the design answers that.
 //
 // The combine is bound by nothing but its launch: it reads n * m * Rv
 // floats per (b, g) (a few hundred KB at full width) and does a few flops
@@ -50,6 +54,7 @@
 //             -Xcompiler -fPIC (see repro_torch/kernels/build.py).
 
 #include "kq_attend.cuh"
+#include "kq_decode_tc.cuh"
 #include "kq_prefill.cuh"
 
 namespace {
@@ -103,7 +108,9 @@ __global__ void combine_kernel(const float* __restrict__ o_part,
 // (P, Hkv, ps, R), block_table (B, n_pages) of physical page ids below P.
 // Each returns the launch's cudaError_t (0 on success).
 
-// K1, K4, K5: qc (B, H, Rk) -> out (B, H, Rv), or split partials.
+// K1, K4, K5: qc (B, H, Rk) -> out (B, H, Rv), or split partials;
+// bfloat16 runs the tensor-core body (kq_decode_tc.cuh), float32 the
+// shared one.
 //   kscale/vscale: nullptr for fp pools of `dtype` (K1, K4); else the
 //     pools are int8 and these are their (P, Hkv, ps, 1) bf16 scales (K5).
 //   o_part/lse: nullptr for the unsplit kernel (n_splits 1), which writes
@@ -119,6 +126,13 @@ extern "C" int kq_decode_paged_launch(const void* qc, const void* kc_pool,
                                       int Rv, int span_pages, int n_splits,
                                       float scale, int dtype, void* stream) {
   if (ps < 1 || n_pages < 1 || span_pages < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return kq_tc::decode_bf16(qc, kc_pool, vc_pool, kscale, vscale, lengths,
+                              block_table, out, o_part, lse, B, H, Hkv, Rk,
+                              Rv, ps * n_pages, ps, n_pages,
+                              o_part == nullptr ? ps * n_pages
+                                                : span_pages * ps,
+                              n_splits, scale, stream);
   const kq::Cache cache{static_cast<const int32_t*>(block_table),
                         ps * n_pages, ps, n_pages,
                         static_cast<const __nv_bfloat16*>(kscale),
@@ -176,4 +190,10 @@ extern "C" int kq_combine_splits_launch(const void* o_part, const void* lse,
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// The cluster size bf16 decode (kq_decode_tc.cuh) runs with over a span of
+// `tokens` tokens: a slot's capacity, or a split's span.
+extern "C" int kq_decode_cluster_size(int tokens) {
+  return kq_tc::cluster_size(tokens);
 }

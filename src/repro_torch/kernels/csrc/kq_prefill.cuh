@@ -177,6 +177,16 @@ __device__ __forceinline__ void fence_regs(float* d) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+// An A fragment in registers must not change until the wgmma that reads it
+// has completed, and ptxas does not guard those registers (it does the
+// accumulators): a register-A batch builds all of its fragments, issues,
+// waits, and then "uses" the fragments here, so that none of their
+// registers is reused while a wgmma may still read it.
+template <int N>
+__device__ __forceinline__ void keep_regs(const uint32_t* a) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" ::"r"(a[i]) : "memory");
+}
 
 // S (64 rows x 32 keys, f32) = Q (64 x 16) . K (32 x 16)^T, both K-major
 // in shared memory; scale_d 0 overwrites S, 1 accumulates.
@@ -593,6 +603,7 @@ __global__ void __launch_bounds__(kThreads, N <= 64 ? 2 : 1)
     // this warpgroup's keys: [kw, kw + 32) of tile j
     const int kw = j * kKeys + 32 * wg;
     const bool live = kw < t_hi;
+    uint32_t pa[2][2][4];           // p's A fragments: [step][hi, lo][register]
     const unsigned char* k_s = ring + (j % kStages) * stage_bytes;
     const unsigned char* v_s = k_s + kbytes;
     if (live) {
@@ -640,10 +651,10 @@ __global__ void __launch_bounds__(kThreads, N <= 64 ? 2 : 1)
       fence_regs<N / 2>(acc);
       // p as bf16 hi + lo in the A fragments of each 16-key step k
       // (register q: row g8 + 8 (q & 1), keys 16 k + 8 (q >> 1) + 2 t4 and
-      // + 1, i.e. s[8 k + 2 q] and + 1), made while the step before runs
+      // + 1, i.e. s[8 k + 2 q] and + 1), all made before the first product
+      // is issued
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
-        uint32_t hi[4], lo[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int i = 8 * k + 2 * q, r = q & 1;
@@ -654,17 +665,20 @@ __global__ void __launch_bounds__(kThreads, N <= 64 ? 2 : 1)
           // exact in f32 and rounded to bf16, so hi + lo keeps 16 bits
           const uint32_t b0 = __float_as_uint(p0v) & 0xffff0000u;
           const uint32_t b1 = __float_as_uint(p1v) & 0xffff0000u;
-          hi[q] = __byte_perm(b0, b1, 0x7632);
-          lo[q] = pack_bf16(p0v - __uint_as_float(b0),
-                            p1v - __uint_as_float(b1));
+          pa[k][0][q] = __byte_perm(b0, b1, 0x7632);
+          pa[k][1][q] = pack_bf16(p0v - __uint_as_float(b0),
+                                  p1v - __uint_as_float(b1));
         }
-        wg_fence();
+      }
+      wg_fence();
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
         // V keys 32 wg + 16 k ..: two core matrices along keys, 128 bytes
         // apart; column chunks kKeys * 16 bytes apart
         const uint64_t vd = desc(v_s + (4 * wg + 2 * k) * 128, 128,
                                  kKeys * 16);
-        wgmma_pv<N>(acc, hi, vd);
-        wgmma_pv<N>(acc, lo, vd);
+        wgmma_pv<N>(acc, pa[k][0], vd);
+        wgmma_pv<N>(acc, pa[k][1], vd);
       }
       wg_commit();
     }
@@ -673,6 +687,7 @@ __global__ void __launch_bounds__(kThreads, N <= 64 ? 2 : 1)
     if (live) {
       wg_wait();
       fence_regs<N / 2>(acc);
+      keep_regs<16>(&pa[0][0][0]);
     }
   }
   cp_wait<0>();

@@ -2,10 +2,13 @@
 
 Replaces the reference's Pallas TPU kernel ``_kq_decode_kernel``
 (``src/repro/kernels/kq_decode/kq_decode.py:53``).  The kernel itself is
-CUDA C++ for ``sm_90a`` in ``repro_torch/kernels/csrc/kq_decode.cu``
-(its header says what bounds it and how the design answers that),
-compiled with ``nvcc`` at first use and called through a plain C entry
-point with ``ctypes`` on PyTorch's current stream.
+CUDA C++ for ``sm_90a`` in ``repro_torch/kernels/csrc/kq_decode.cu``:
+bfloat16 runs the tensor-core decode body ``csrc/kq_decode_tc.cuh``
+(shared with K1, K4 and K5), float32 the CUDA-core body
+``csrc/kq_attend.cuh`` (each header says what bounds it and how the
+design answers that).  It is compiled with ``nvcc`` at first use and
+called through a plain C entry point with ``ctypes`` on PyTorch's
+current stream.
 
 ``kq_decode_attention`` takes the plain version
 (``kq_decode_attention_ref``) only for tensors on the CPU.  For CUDA

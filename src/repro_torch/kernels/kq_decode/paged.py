@@ -17,14 +17,18 @@ paged cache.
 (``paged.py:292``, entry point at ``:342``).  The kernels are CUDA C++
 for ``sm_90a`` in ``repro_torch/kernels/csrc/kq_paged.cu``, compiled with
 ``nvcc`` at first use and called through plain C entry points with
-``ctypes`` on PyTorch's current stream.  K1, K4, K5 and float32 K2 run
-the CUDA-core body they share with K3 (``csrc/kq_attend.cuh``); bfloat16
-K2, bound by operations, has a body of its own on the tensor cores
-(``csrc/kq_prefill.cuh``: ``wgmma``, 64-row tiles of the flattened
-(position, head) rows, a ``cp.async`` ring staged through the block
-table).  Each header says what bounds its kernels and how the design
-answers that.  Both K2 bodies take every group up to ``MAX_GROUP`` and
-every rank up to ``MAX_RANK``.
+``ctypes`` on PyTorch's current stream.  In bfloat16, K1, K4 and K5 run
+the tensor-core decode body they share with K3 (``csrc/kq_decode_tc.cuh``:
+a thread-block cluster per (slot, kv group) or split span, ``cp.async``
+staging straight from the pages, ``mma.sync`` products, a merge through
+distributed shared memory, one launch); bfloat16 K2, bound by
+operations, has a body of its own (``csrc/kq_prefill.cuh``: ``wgmma``,
+64-row tiles of the flattened (position, head) rows, a ``cp.async`` ring
+staged through the block table).  float32 (the reduced parity runs)
+runs every one of them on the CUDA-core body ``csrc/kq_attend.cuh``.
+Each header says what bounds its kernels and how the design answers
+that.  Every body takes every group up to ``MAX_GROUP`` (int8 pages:
+``MAX_GROUP_INT8``) and every rank up to ``MAX_RANK``.
 
 Each wrapper takes its plain version (``ref.py``, and
 ``combine_split_partials`` here) only for tensors on the CPU.  For CUDA

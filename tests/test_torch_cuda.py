@@ -57,6 +57,11 @@ def cuda():
     (2, 32, 32, 300, 128, 128, (0, 299)),
     (2, 64, 4, 70, 256, 256, (70, 3)),              # m=16, widest ranks
     (3, 12, 4, 50, 5, 7, (50, 0, 9)),               # m=3
+    # bf16 runs a cluster of 8 CTAs a group at T 1024, 8192: lengths at
+    # the edges of its runs of 16-token tiles, and slots at T
+    (8, 32, 4, 1024, 50, 42, (1, 15, 16, 17, 127, 128, 129, 1024)),
+    (3, 32, 4, 8192, 50, 42, (8192, 129, 4000)),
+    (2, 8, 2, 75, 5, 7, (75, 20)),     # 150-byte slots: copied bytewise
 ])
 def test_k3_matches_plain_version(cuda, B, H, Hkv, T, Rk, Rv, lengths,
                                   dtype):
@@ -69,10 +74,8 @@ def test_k3_matches_plain_version(cuda, B, H, Hkv, T, Rk, Rv, lengths,
     out = kq_decode_attention(qc, kc, vc, lens, scale=0.25)
     torch.cuda.synchronize()
     assert kq_decode_attention.launches == before + 1
-    ref = kq_decode_attention_ref(qc, kc, vc, lens, scale=0.25)
-    tol = TOL[dtype]
-    np.testing.assert_allclose(out.float().cpu().numpy(),
-                               ref.float().cpu().numpy(), rtol=tol, atol=tol)
+    _close_ulps(out, kq_decode_attention_ref(qc, kc, vc, lens, scale=0.25),
+                dtype)
 
 
 def _paged(dev, dtype, B, H, Hkv, ps, n_pages, Rk, Rv, S=None):
@@ -103,6 +106,11 @@ def _close(out, ref, dtype):
     (2, 64, 4, 16, 8, 256, 256, (128, 3)),          # m=16, widest ranks
     (3, 12, 4, 4, 4, 5, 7, (16, 0, 9)),             # m=3, empty slot
     (2, 4, 4, 8, 4, 1, 1, (32, 17)),                # m=1, rank 1
+    # lengths at the edges of bf16's cluster runs, a slot at t_cap, and
+    # t_cap 8192 (512 pages of 16)
+    (8, 32, 4, 16, 64, 50, 42, (1, 15, 16, 17, 127, 128, 129, 1024)),
+    (3, 32, 4, 16, 512, 50, 42, (8192, 129, 4000)),
+    (2, 8, 2, 1, 40, 3, 3, (40, 7)),   # pages of 1 row of 6 bytes
 ])
 def test_k1_matches_plain_version(cuda, B, H, Hkv, ps, n_pages, Rk, Rv,
                                   lengths, dtype):
@@ -112,8 +120,8 @@ def test_k1_matches_plain_version(cuda, B, H, Hkv, ps, n_pages, Rk, Rv,
     out = kq_decode_paged_attention(qc, kp, vp, lens, btab, scale=0.25)
     torch.cuda.synchronize()
     assert kq_decode_paged_attention.launches == before + 1
-    _close(out, kq_decode_paged_attention_ref(qc, kp, vp, lens, btab,
-                                              scale=0.25), dtype)
+    _close_ulps(out, kq_decode_paged_attention_ref(qc, kp, vp, lens, btab,
+                                                   scale=0.25), dtype)
 
 
 # K2: float32 runs the shared CUDA-core body, bfloat16 the tensor-core one
@@ -167,6 +175,12 @@ SPLIT_CASES = [   # B, H, Hkv, ps, n_pages, Rk, Rv, lengths
     (5, 16, 2, 64, 16, 37, 45, (1, 63, 64, 65, 1023)),
     (3, 12, 4, 4, 4, 5, 7, (16, 0, 9)),                 # m=3, empty slot
     (2, 4, 4, 8, 4, 1, 1, (32, 17)),                    # m=1, rank 1
+    # lengths at the edges of bf16's cluster runs, a slot at t_cap, and
+    # t_cap 8192 (512 pages of 16)
+    (8, 32, 4, 16, 64, 50, 42, (1, 15, 16, 17, 127, 128, 129, 1024)),
+    (3, 32, 4, 16, 512, 50, 42, (8192, 129, 4000)),
+    # pages of 2: int8 pages of 10 bytes, copied bytewise
+    (3, 8, 2, 2, 16, 5, 7, (0, 17, 32)),
 ]
 
 
@@ -224,8 +238,63 @@ def test_k5_matches_plain_version(cuda, case, dtype, num_splits):
                                     vscale=vs)
     torch.cuda.synchronize()
     assert counter.launches == before + 1
-    _close(out, kq_decode_paged_attention_int8_ref(
+    _close_ulps(out, kq_decode_paged_attention_int8_ref(
         qc, k8, v8, ks, vs, lens, btab, scale=0.25), dtype)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K3", "K4", "K5", "K5 split"])
+def test_decode_ignores_rows_it_must_not_read(cuda, kernel):
+    """bf16 decode over caches whose rows past each length, page 0 (the
+    garbage page) and pages outside the table hold NaN: the output is
+    finite and equals the plain version's on the same caches with those
+    rows set to 0.  Lengths end mid-page and mid-tile (a 16-token tile
+    runs past them), and one slot is empty."""
+    dt = torch.bfloat16
+    B, H, Hkv, ps, n_pages, Rk, Rv = 4, 32, 4, 16, 64, 50, 42
+    lens = torch.tensor([0, 17, 500, 1023], dtype=torch.int32, device=cuda)
+    qc, kp, vp, btab = _paged(cuda, dt, B, H, Hkv, ps, n_pages, Rk, Rv)
+    if kernel == "K3":            # the dense cache: (B, Hkv, T, R)
+        from repro_torch.serving import gather_pages
+        kp, vp = gather_pages(kp, btab).contiguous(), \
+            gather_pages(vp, btab).contiguous()
+        dead = (torch.arange(kp.shape[2], device=cuda)[None, :]
+                >= lens[:, None].long())[:, None, :, None]
+    else:
+        # pad the pools with pages no table names, then mark each pool
+        # row dead unless it holds a live token of some slot
+        spare = torch.randn(3, Hkv, ps, Rk + Rv, device=cuda).to(dt)
+        kp = torch.cat([kp, spare[..., :Rk]]).contiguous()
+        vp = torch.cat([vp, spare[..., Rk:]]).contiguous()
+        live = torch.zeros(kp.shape[0], ps, dtype=torch.bool)
+        for b, n in enumerate(lens.tolist()):
+            t = torch.arange(n)
+            live[btab[b].cpu()[t // ps], t % ps] = True
+        dead = ~live.to(cuda)[:, None, :, None]
+    kn, vn = (x.masked_fill(dead, float("nan")) for x in (kp, vp))
+    kz, vz = (x.masked_fill(dead, 0.0) for x in (kp, vp))
+    if kernel == "K3":
+        out = kq_decode_attention(qc, kn, vn, lens, scale=0.25)
+        ref = kq_decode_attention_ref(qc, kz, vz, lens, scale=0.25)
+    elif kernel in ("K1", "K4"):
+        ns = 1 if kernel == "K1" else 8
+        out = kq_decode_paged_attention(qc, kn, vn, lens, btab, scale=0.25,
+                                        num_splits=ns)
+        ref = kq_decode_paged_attention_ref(qc, kz, vz, lens, btab,
+                                            scale=0.25)
+    else:
+        # int8 codes and scales of the clean pools; the dead rows' scales
+        # are NaN (their codes have no NaN)
+        k8, v8, ks, vs = _int8_pools(kz.float(), vz.float())
+        ksn, vsn = (x.masked_fill(dead, float("nan")) for x in (ks, vs))
+        ns = 1 if kernel == "K5" else 8
+        out = kq_decode_paged_attention(qc, k8, v8, lens, btab, scale=0.25,
+                                        num_splits=ns, kscale=ksn,
+                                        vscale=vsn)
+        ref = kq_decode_paged_attention_int8_ref(qc, k8, v8, ks, vs, lens,
+                                                 btab, scale=0.25)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    _close_ulps(out, ref, dt)
 
 
 def test_k5_raises_on_groups_past_eight(cuda):

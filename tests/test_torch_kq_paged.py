@@ -203,13 +203,14 @@ def test_module_imports_without_nvcc(tmp_path):
 def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     """The library's name hashes its source and the headers it includes,
     so an edited shared header never loads a stale library: the shared
-    body reaches K3's and the paged library, bf16 K2's body the paged one
-    alone."""
+    bodies (float32 and bf16 decode) reach K3's and the paged library,
+    bf16 K2's body the paged one alone."""
     names = ("kq_decode", "kq_paged")
     assert sorted(p.name for p in build.sources("kq_decode")) == \
-        ["kq_attend.cuh", "kq_decode.cu"]
+        ["kq_attend.cuh", "kq_decode.cu", "kq_decode_tc.cuh"]
     assert sorted(p.name for p in build.sources("kq_paged")) == \
-        ["kq_attend.cuh", "kq_paged.cu", "kq_prefill.cuh"]
+        ["kq_attend.cuh", "kq_decode_tc.cuh", "kq_paged.cu",
+         "kq_prefill.cuh"]
     for path in build.CSRC.iterdir():
         (tmp_path / path.name).write_bytes(path.read_bytes())
     monkeypatch.setattr(build, "CSRC", tmp_path)
@@ -218,11 +219,12 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
         f.write("// edited\n")
     assert build.library_path("kq_decode") == before["kq_decode"]
     assert build.library_path("kq_paged") != before["kq_paged"]
-    before = {n: build.library_path(n) for n in names}
-    with open(tmp_path / "kq_attend.cuh", "a") as f:
-        f.write("// edited\n")
-    for name, path in before.items():
-        assert build.library_path(name) != path
+    for header in ("kq_attend.cuh", "kq_decode_tc.cuh"):
+        before = {n: build.library_path(n) for n in names}
+        with open(tmp_path / header, "a") as f:
+            f.write("// edited\n")
+        for name, path in before.items():
+            assert build.library_path(name) != path
 
 
 def test_bf16_k2_widths_cover_every_rank_the_wrapper_takes():
