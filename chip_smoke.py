@@ -46,13 +46,15 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              split-KV (``cache_quant="int8"``, ``decode_splits=0``), same
              model, projections, pool (256 fp-page units, so
              ``int(256 * capacity_x)`` physical pages) and requests as 3c.
-             Counts zeroed just before and read just after: K5 split, K5
-             and the split merge each launched, K1, K2, K4 and the plain
-             versions of K5 and K5 split never; every request done and the
-             pool whole again;
+             Counts zeroed just before and read just after: K5 split and
+             K5 each launched, together once per layer per decode step, the
+             merge kernel never (bf16 K5 split merges its spans in its own
+             launch), K1, K2, K4 and the plain versions of K5 and K5 split
+             never; every request done and the pool whole again;
 3f. profile  one paged decode step (8 slots at position 512) with fp pages
              in 8 splits (K4) and int8 pages in 8 splits (K5 split), beside
-             3d's fp unsplit step (K1) in this one process;
+             3d's fp unsplit step (K1) in this one process, with each
+             wrapper's launches per step (22 of K4 or K5 split, no merge);
 3g. window   h2o-danube-1.8b at full width (24 layers, d_head 80, window
              4096, bf16, seeded random weights), KQ-SVD calibrated on
              16 x 512 tokens in batches of 4, on dense slots
@@ -113,7 +115,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              two bf16 ulps; its time (CUDA events, L2 flushed before every
              launch) beside the plain version's, one PyTorch library
              call's for the same function and the bound the card's bytes
-             or flops allow;
+             or flops allow.  bf16 K4 and K5 split merge their spans in
+             their own launch: each such output, at the main shape and in
+             every edge case, equals the two launches it replaces (the
+             partials entry, then the merge kernel) bit for bit, the
+             arrival counters read back zero after it, and the rows print
+             the two launches' time beside the one launch's;
 5.  parity   the port on the card against the port on the CPU (plain
              versions) at reduced size in float32, same seeded weights:
              dense, paged chunked, int8 pages with dynamic splits, SVDq
@@ -293,7 +300,9 @@ def poisoned_decode(kind, g, dev, dt, H, Hkv, Rk, Rv, scale):
     split) on caches whose rows past each length, page 0 (the garbage
     page) and three pages outside the table hold NaN (int8 pools: their
     scales), the plain version run on the same caches with those rows
-    zeroed.  Four slots of 64 pages of 16, lengths 0, 17, 500, 1023."""
+    zeroed.  Four slots of 64 pages of 16, lengths 0, 17, 500, 1023.  A
+    bf16 split's output is also held to the two launches bit for bit
+    (``check_fused``)."""
     import torch
     from repro_torch.kernels.kq_decode import (
         kq_decode_attention, kq_decode_attention_ref,
@@ -325,15 +334,18 @@ def poisoned_decode(kind, g, dev, dt, H, Hkv, Rk, Rv, scale):
     ns = 8 if kind in ("K4", "K5 split") else 1
     if kind in ("K1", "K4"):
         kn, vn = (x.masked_fill(dead, float("nan")) for x in (kp, vp))
-        return (kq_decode_paged_attention(qc, kn, vn, lens, btab,
-                                          scale=scale, num_splits=ns),
-                plain_decode(qc, kz, vz, lens, btab, scale, 1))
+        out = kq_decode_paged_attention(qc, kn, vn, lens, btab, scale=scale,
+                                        num_splits=ns)
+        check_fused(f"{kind} NaN-poisoned", out, qc, kn, vn, lens, btab,
+                    scale, ns)
+        return out, plain_decode(qc, kz, vz, lens, btab, scale, 1)
     k8, v8, ks, vs = int8_pools(kz.float(), vz.float())
     ksn, vsn = (x.masked_fill(dead, float("nan")) for x in (ks, vs))
-    return (kq_decode_paged_attention(qc, k8, v8, lens, btab, scale=scale,
-                                      num_splits=ns, kscale=ksn,
-                                      vscale=vsn),
-            plain_decode(qc, k8, v8, lens, btab, scale, 1, ks, vs))
+    out = kq_decode_paged_attention(qc, k8, v8, lens, btab, scale=scale,
+                                    num_splits=ns, kscale=ksn, vscale=vsn)
+    check_fused(f"{kind} NaN-poisoned", out, qc, k8, v8, lens, btab, scale,
+                ns, ksn, vsn)
+    return out, plain_decode(qc, k8, v8, lens, btab, scale, 1, ks, vs)
 
 
 def plain_decode(qc, kp, vp, lengths, btab, scale, num_splits, ks=None,
@@ -360,6 +372,51 @@ def plain_decode(qc, kp, vp, lengths, btab, scale, num_splits, ks=None,
                                                   lengths, btab, scale=scale)
     return kq_decode_paged_attention_ref(qc, kp, vp, lengths, btab,
                                          scale=scale)
+
+
+def split_two_launches(qc, kp, vp, lengths, btab, scale, num_splits,
+                       ks=None, vs=None):
+    """bf16 split decode as the two launches the fused one replaces: the
+    partials entry (K4, or K5 split with scales), then
+    ``kq_combine_splits``."""
+    import torch
+    from repro_torch.kernels.kq_decode import (kq_combine_splits,
+                                               kq_decode_paged_int8_split,
+                                               kq_decode_paged_split,
+                                               resolve_splits)
+    n, span = resolve_splits(num_splits, btab.shape[1])
+    if ks is None:
+        o, lse = kq_decode_paged_split(qc, kp, vp, lengths, btab, span=span,
+                                       n_splits=n, scale=scale)
+    else:
+        o, lse = kq_decode_paged_int8_split(qc, kp, vp, lengths, btab,
+                                            span=span, n_splits=n,
+                                            kscale=ks, vscale=vs,
+                                            scale=scale)
+    return kq_combine_splits(o, lse, torch.empty(
+        qc.shape[0], qc.shape[1], vp.shape[-1], dtype=qc.dtype,
+        device=qc.device))
+
+
+def check_fused(label, out, qc, kp, vp, lengths, btab, scale, num_splits,
+                ks=None, vs=None) -> bool:
+    """Hold a bf16 split decode's one-launch output to the two launches'
+    bit for bit, and every arrival counter to zero after it.  Returns
+    whether the call was a fused one (bf16, more than one span)."""
+    import torch
+    from repro_torch.kernels.kq_decode import paged, resolve_splits
+    if qc.dtype != torch.bfloat16 \
+            or resolve_splits(num_splits, btab.shape[1])[0] == 1:
+        return False
+    torch.cuda.synchronize()
+    assert not any(bool(b.any()) for b in paged._ARRIVALS.values()), \
+        f"{label}: arrival counters not zero after the fused launch"
+    two = split_two_launches(qc, kp, vp, lengths, btab, scale, num_splits,
+                             ks, vs)
+    assert torch.equal(out, two), \
+        f"{label}: the fused merge differs from the two launches: max " \
+        f"|diff| {float((out.float() - two.float()).abs().max())}"
+    return True
 
 
 def profile_decode(label: str, model, params, proj, ranks, dev, paged: bool,
@@ -416,7 +473,7 @@ def profile_decode(label: str, model, params, proj, ranks, dev, paged: bool,
     if not busy:
         print(f"{label} decode step, synced host wall: {wall:.3f} ms; the "
               f"profiler saw no device time")
-        return {"wall_ms": wall}
+        return {"wall_ms": wall, "steps": 3 + 2 * steps}
     print(f"{label} decode step, synced host wall: {wall:.3f} ms; device "
           f"busy {busy:.3f} ms ({len(rows)} kernel kinds, {launches} "
           f"launches); idle share {1 - busy / wall:.3f}; attention kernels "
@@ -425,7 +482,7 @@ def profile_decode(label: str, model, params, proj, ranks, dev, paged: bool,
         print(f"  {ms:8.4f} ms/step  {n:5d} launches/step  {name[:80]}"
               f"  ({ms / busy:.3f} of busy)")
     return {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall,
-            "launches": launches, "attn_ms": attn}
+            "launches": launches, "attn_ms": attn, "steps": 3 + 2 * steps}
 
 
 def profile_prefill(label: str, model, params, tokens,
@@ -791,11 +848,12 @@ def main() -> int:
         assert qeng.pool.free_count == qeng.pool.n_pages, \
             (qeng.pool.free_count, qeng.pool.n_pages)
         assert qeng.pool.n_pages == int(256 * qeng.capacity_x) > 256
-        for k in ("K5 split", "K5", "combine"):
+        for k in ("K5 split", "K5"):
             assert q_launch[k] > 0, f"{k} did not run: {q_launch}"
         assert q_launch["K5 split"] + q_launch["K5"] == \
             cfg.n_layers * qeng.n_decode_steps, q_launch
-        assert q_launch["combine"] == q_launch["K5 split"], q_launch
+        # bf16 K5 split merges its spans in its own launch
+        assert q_launch["combine"] == 0, q_launch
         assert q_launch["K1"] == q_launch["K4"] == q_launch["K2"] == \
             q_launch["K3"] == 0, q_launch
         assert plain_calls["kq_decode_paged_attention_int8_ref"] == 0 \
@@ -805,7 +863,8 @@ def main() -> int:
               f"physical pages of {qsc.page_size} for {qsc.total_pages} "
               f"fp-page units; peak {qeng.peak_used_pages} used, "
               f"{qeng.pool.free_count} free after the drain; launches "
-              f"{q_launch}; peak device memory "
+              f"{q_launch} (K5 split + K5 = {cfg.n_layers} x "
+              f"{qeng.n_decode_steps} steps); peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         same = sum(a == b for r, d in zip(qreqs, preqs)
                    for a, b in zip(r.out_tokens, d.out_tokens))
@@ -826,11 +885,19 @@ def main() -> int:
             counts = {w.__name__: w.launches for w in wrappers
                       if w.launches}
             prof[label]["counts"] = counts
-            print(f"  launches over the 3 + 5 + 5 steps: {counts}")
+            n_steps = prof[label]["steps"]
+            print(f"  launches over the {n_steps} steps: {counts}; per "
+                  f"step: " + ", ".join(f"{k} {v / n_steps:g}"
+                                        for k, v in counts.items()))
+            # one launch a layer and step, the merge inside it
+            assert "kq_combine_splits" not in counts, counts
         k4_launches = prof["K4"]["counts"].get("kq_decode_paged_split", 0)
-        assert k4_launches > 0, prof["K4"]["counts"]
+        assert k4_launches == cfg.n_layers * prof["K4"]["steps"], \
+            prof["K4"]["counts"]
         assert prof["K5 split"]["counts"].get(
-            "kq_decode_paged_int8_split", 0) > 0, prof["K5 split"]["counts"]
+            "kq_decode_paged_int8_split", 0) == \
+            cfg.n_layers * prof["K5 split"]["steps"], \
+            prof["K5 split"]["counts"]
         print("decode step, 8 slots at 512: " + "; ".join(
             f"{k} busy {v['busy_ms']:.3f} ms, idle {v['idle']:.3f}, "
             f"{v['launches']} launches, attention {v['attn_ms']:.4f} ms"
@@ -1071,14 +1138,20 @@ def main() -> int:
                         2 * int(seen.sum()) * H * (rk + rv))
 
         # K4, K5 (unsplit and split) and the split merge at the paged
-        # main path's decode shapes (pages of 16), 8 splits of 8 pages
+        # main path's decode shapes (pages of 16), 8 splits of 8 pages.
+        # bf16 K4 and K5 split merge their spans in their own launch, so
+        # their bound counts what the function reads and writes (as K1's
+        # and K5's); the f32 partials, written and read back through L2
+        # inside the launch, are counted only in ``bound_ms_with_partials``
+        # (and in float32, which still merges in a second launch)
         n_sp, span = resolve_splits(8, n_pages)
         part_bytes = B * Hkv * n_sp * m * (rv + 1) * 4     # f32 partials
         meta_bytes = B * 4 + pages_used * 4                 # lengths, table
         shape = {"B": B, "H": H, "Hkv": Hkv, "page_size": ps,
                  "n_pages": n_pages, "Rk": rk, "Rv": rv,
                  "lengths": lengths.tolist()}
-        k4 = {"name": "kq_decode_paged_split (K4) + kq_combine_splits",
+        k4 = {"name": "kq_decode_paged_split (K4), spans merged in the "
+                      "launch",
               "route": "cuda",
               "source": k1["source"],
               "replaces": "src/repro/kernels/kq_decode/paged.py:120",
@@ -1091,20 +1164,27 @@ def main() -> int:
                           "(quant=True)",
               "launches": q_launch["K5"], "launches_from": "phase 3e",
               "cluster_size": k1["cluster_size"], "shape": shape}
-        k5s = {"name": "kq_decode_paged_int8_split (K5 split) + "
-                       "kq_combine_splits", "route": "cuda",
+        k5s = {"name": "kq_decode_paged_int8_split (K5 split), spans "
+                       "merged in the launch", "route": "cuda",
                "source": k4["source"],
                "replaces": "src/repro/kernels/kq_decode/paged.py:120 "
                            "(quant=True)",
                "launches": q_launch["K5 split"],
                "launches_from": "phase 3e",
                "cluster_size": k4["cluster_size"], "shape": k4["shape"]}
+        # the merge kernel: float32 split decode's second launch (bf16
+        # merges in K4's and K5 split's own); its launches are phase 5's
+        # float32 engines' (set there)
         kcomb = {"name": "kq_combine_splits (split merge)", "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/kq_paged.cu",
+                 "source": "src/repro_torch/kernels/csrc/kq_paged.cu "
+                           "(row merge kq_tc::merge_row, "
+                           "csrc/kq_decode_tc.cuh)",
                  "replaces": "src/repro/kernels/kq_decode/paged.py:196 "
                              "(combine_split_partials, jnp beside K4)",
-                 "launches": q_launch["combine"],
-                 "launches_from": "phase 3e",
+                 "launches": None,
+                 "launches_from": "phase 5 (float32 engines; bf16 K4 and "
+                                  "K5 split merge in their own launch: "
+                                  f"{q_launch['combine']} in phase 3e)",
                  "shape": {"B": B, "Hkv": Hkv, "splits": n_sp, "m": m,
                            "Rv": rv}}
         flops = 2 * live * H * (rk + rv)
@@ -1125,6 +1205,7 @@ def main() -> int:
             qo_bytes = B * H * (rk + rv) * isz
             fp_bytes = live * Hkv * (rk + rv) * isz
             i8_bytes = live * Hkv * (rk + rv + 2 * 2)      # codes + scales
+            bf16 = dt_name == "bfloat16"
             measure(k4, "K4", dt_name,
                     lambda: kq_decode_paged_attention(
                         qc, kp, vp, lengths, btab, scale=scale,
@@ -1132,8 +1213,8 @@ def main() -> int:
                     lambda: plain_decode(qc, kp, vp, lengths, btab, scale, 8),
                     lambda: sdpa(qc[:, :, None], kx, vx, attn_mask=mask,
                                  scale=scale)[:, :, 0],
-                    flush, fp_bytes + qo_bytes + meta_bytes + 2 * part_bytes,
-                    flops)
+                    flush, fp_bytes + qo_bytes + meta_bytes
+                    + (0 if bf16 else 2 * part_bytes), flops)
             measure(k5, "K5", dt_name,
                     lambda: kq_decode_paged_int8(
                         qc, k8, v8, ks8, vs8, lengths, btab, scale=scale),
@@ -1150,8 +1231,35 @@ def main() -> int:
                                          ks8, vs8),
                     lambda: sdpa(qc[:, :, None], kdx, vdx, attn_mask=mask,
                                  scale=scale)[:, :, 0],
-                    flush, i8_bytes + qo_bytes + meta_bytes + 2 * part_bytes,
-                    flops)
+                    flush, i8_bytes + qo_bytes + meta_bytes
+                    + (0 if bf16 else 2 * part_bytes), flops)
+            if bf16:
+                # the one launch against the two it replaces: the same
+                # bits, counters zero, and both times
+                for row, label, args in (
+                        (k4, "K4", (qc, kp, vp)),
+                        (k5s, "K5 split", (qc, k8, v8, ks8, vs8))):
+                    kw = ({} if len(args) == 3
+                          else dict(kscale=args[3], vscale=args[4]))
+                    out = kq_decode_paged_attention(
+                        *args[:3], lengths, btab, scale=scale,
+                        num_splits=8, **kw)
+                    check_fused(label, out, *args[:3], lengths, btab,
+                                scale, 8, *args[3:])
+                    nbytes = (fp_bytes if label == "K4" else i8_bytes) \
+                        + qo_bytes + meta_bytes + 2 * part_bytes
+                    row["bound_ms_with_partials"] = 1e3 * nbytes \
+                        / HBM_BYTES_PER_S
+                    row["two_launch_ms"] = cuda_time_ms(
+                        lambda args=args: split_two_launches(
+                            *args[:3], lengths, btab, scale, 8, *args[3:]),
+                        flush)
+                    print(f"{label} bfloat16: one launch {row['ms']:.4f} "
+                          f"ms, the two launches it replaces (partials, "
+                          f"then the merge kernel) "
+                          f"{row['two_launch_ms']:.4f} ms; outputs equal "
+                          f"bit for bit, counters zero; bound with the "
+                          f"partials {row['bound_ms_with_partials']:.6f} ms")
             o_p, lse_p = kq_decode_paged_split(qc, kp, vp, lengths, btab,
                                                span=span, n_splits=n_sp,
                                                scale=scale)
@@ -1224,8 +1332,9 @@ def main() -> int:
               f"1)")
         # K4 and K5 (with the merge) edge cases: page sizes, lengths 0 and
         # at page boundaries, splits 1, 2, 3, 8 (short slots leave the
-        # trailing splits empty), shuffled tables; both types
-        n_cases = 0
+        # trailing splits empty), shuffled tables; both types; each bf16
+        # split also against the two launches (``check_fused``)
+        n_cases = n_fused = 0
         for dt_name in ("bfloat16", "float32"):
             dt = getattr(torch, dt_name)
             for eps in (4, 16, 64):
@@ -1236,22 +1345,27 @@ def main() -> int:
                                                 npg, rk, rv)
                 k8, v8, ks8, vs8 = int8_pools(kp.float(), vp.float())
                 for ns in (1, 2, 3, 8):
-                    check_close(f"K4 ps={eps} splits={ns}", dt_name,
-                                kq_decode_paged_attention(
-                                    qc, kp, vp, el, btab, scale=scale,
-                                    num_splits=ns),
+                    out = kq_decode_paged_attention(
+                        qc, kp, vp, el, btab, scale=scale, num_splits=ns)
+                    check_close(f"K4 ps={eps} splits={ns}", dt_name, out,
                                 plain_decode(qc, kp, vp, el, btab, scale,
                                              ns))
-                    check_close(f"K5 ps={eps} splits={ns}", dt_name,
-                                kq_decode_paged_attention(
-                                    qc, k8, v8, el, btab, scale=scale,
-                                    num_splits=ns, kscale=ks8, vscale=vs8),
+                    n_fused += check_fused(f"K4 ps={eps} splits={ns}", out,
+                                           qc, kp, vp, el, btab, scale, ns)
+                    out = kq_decode_paged_attention(
+                        qc, k8, v8, el, btab, scale=scale, num_splits=ns,
+                        kscale=ks8, vscale=vs8)
+                    check_close(f"K5 ps={eps} splits={ns}", dt_name, out,
                                 plain_decode(qc, k8, v8, el, btab, scale, ns,
                                              ks8, vs8))
+                    n_fused += check_fused(f"K5 ps={eps} splits={ns}", out,
+                                           qc, k8, v8, el, btab, scale, ns,
+                                           ks8, vs8)
                     n_cases += 2
         print(f"K4 and K5 edge cases: {n_cases} held to tolerance and two "
               f"bf16 ulps (page sizes 4, 16, 64; lengths 0, 1, ps-1, ps, "
-              f"ps+1, 1023; splits 1, 2, 3, 8)")
+              f"ps+1, 1023; splits 1, 2, 3, 8); {n_fused} bf16 splits' one "
+              f"launch equal to the two launches bit for bit, counters zero")
         print("bf16 decode's cluster size per row: " + "; ".join(
             f"{r['name']} {r['cluster_size']}" for r in (k1, k3, k4, k5,
                                                          k5s)))
@@ -1273,18 +1387,23 @@ def main() -> int:
                             kq_decode_attention_ref(qc, kd, vd, el,
                                                     scale=scale))
                 for ns in (1, 8):
-                    check_close(f"K{1 if ns == 1 else 4} t_cap={16 * np_}",
-                                dt_name, kq_decode_paged_attention(
-                                    qc, kp, vp, el, btab, scale=scale,
-                                    num_splits=ns),
+                    label = f"K{1 if ns == 1 else 4} t_cap={16 * np_}"
+                    out = kq_decode_paged_attention(
+                        qc, kp, vp, el, btab, scale=scale, num_splits=ns)
+                    check_close(label, dt_name, out,
                                 plain_decode(qc, kp, vp, el, btab, scale,
                                              ns))
-                    check_close(f"K5 t_cap={16 * np_} splits={ns}", dt_name,
-                                kq_decode_paged_attention(
-                                    qc, k8, v8, el, btab, scale=scale,
-                                    num_splits=ns, kscale=ks8, vscale=vs8),
+                    n_fused += check_fused(label, out, qc, kp, vp, el, btab,
+                                           scale, ns)
+                    label = f"K5 t_cap={16 * np_} splits={ns}"
+                    out = kq_decode_paged_attention(
+                        qc, k8, v8, el, btab, scale=scale, num_splits=ns,
+                        kscale=ks8, vscale=vs8)
+                    check_close(label, dt_name, out,
                                 plain_decode(qc, k8, v8, el, btab, scale, ns,
                                              ks8, vs8))
+                    n_fused += check_fused(label, out, qc, k8, v8, el, btab,
+                                           scale, ns, ks8, vs8)
                     n_cases += 2
                 n_cases += 1
             for kind in ("K1", "K3", "K4", "K5", "K5 split"):
@@ -1294,11 +1413,14 @@ def main() -> int:
                     f"{kind} on NaN-poisoned caches is not finite"
                 check_close(f"{kind} NaN-poisoned", dt_name, out, ref)
                 n_cases += 1
+                n_fused += kind in ("K4", "K5 split") and dt_name == \
+                    "bfloat16"
         print(f"K1, K3-K5 run-edge and NaN-poisoned cases: {n_cases} held "
               f"to tolerance and two bf16 ulps (lengths 1, 15, 16, 17, 127, "
               f"128, 129, 1024; t_cap 8192 with lengths 8192, 129, 4000; "
               f"splits 1, 8; NaN past each length, in page 0 and in pages "
-              f"outside the table)")
+              f"outside the table); bf16 splits equal to the two launches "
+              f"bit for bit with counters zero, all edge cases: {n_fused}")
 
         # K6 at tinyllama's calibration batch (causal), at danube's
         # windowed prefill (6000 tokens for the kernel and the library
@@ -1652,15 +1774,18 @@ def main() -> int:
                 served.setdefault(kind, []).append(
                     [r.out_tokens for r in rs])
             assert served[kind][0] == served[kind][1], (kind, served[kind])
-        # the 30-token prompt reaches 11 pages of 4: dynamic mode splits
+        # the 30-token prompt reaches 11 pages of 4: dynamic mode splits,
+        # and float32 split decode merges in the merge kernel
         assert kq_decode_paged_int8_split.launches > 0
         assert kq_decode_paged_int8.launches > 0
         assert kq_combine_splits.launches > 0
+        kcomb["launches"] = kq_combine_splits.launches
         print(f"logits max |card - cpu| {worst:.3g} (tol 2e-4) over prefill"
               f" + 4 dense decode steps and 2 prefill chunks + 4 paged "
               f"decode steps; {len(prompts)} requests' greedy tokens "
               f"identical on card and CPU in the engines: "
-              f"{', '.join(layouts)}")
+              f"{', '.join(layouts)}; merge kernel launches "
+              f"{kq_combine_splits.launches} (float32 splits)")
 
         # reduced h2o-danube-1.8b, window 16: prefill of 20 tokens and 8
         # decode steps that wrap the ring, full cache and KQ-SVD; then the

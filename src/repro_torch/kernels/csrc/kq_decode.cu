@@ -28,8 +28,8 @@ extern "C" int kq_decode_launch(const void* qc, const void* kc, const void* vc,
                                 int dtype, void* stream) {
   if (dtype == 1)
     return kq_tc::decode_bf16(qc, kc, vc, nullptr, nullptr, lengths, nullptr,
-                              out, nullptr, nullptr, B, H, Hkv, Rk, Rv, T_len,
-                              1, 1, T_len, 1, scale, stream);
+                              out, nullptr, nullptr, nullptr, B, H, Hkv, Rk,
+                              Rv, T_len, 1, 1, T_len, 1, scale, stream);
   const kq::Cache cache{nullptr, T_len, 1, 1, nullptr, nullptr};
   return kq::attend<false>(dtype, qc, kc, vc, lengths, out, B, H, Hkv, Rk, Rv,
                            scale, cache, nullptr, 1,

@@ -15,8 +15,10 @@
 // Int8 pools hold codes with bf16 per-token scales (P, Hkv, ps, 1).  Split
 // (K4, K5 split): the span [s * span, (s + 1) * span) of each slot gives
 // f32 partials out_s = acc / max(l, 1e-30) and lse_s = m + log(max(l,
-// 1e-30)) (an empty span: out 0, lse -1e30 + log(1e-30)), merged by
-// kq_combine_splits as before.
+// 1e-30)) (an empty span: out 0, lse -1e30 + log(1e-30)), and the last
+// CTA of each (b, g) to finish merges them into the output in the same
+// launch (below); the partials alone, for kq_combine_splits, when no
+// output is given.
 //
 // What bounds it: bytes.  A decode call reads each live cache row once,
 // (Rk + Rv) itemsize bytes a token per kv head, and does 2 m (Rk + Rv)
@@ -35,8 +37,8 @@
 //     memory: each publishes its own, cluster.sync(), each CTA merges a
 //     C-th of the group's outputs from all peers' shared memory and
 //     writes it, and a second cluster.sync() keeps every CTA alive until
-//     its peers have read it.  No partial goes to device memory, and there
-//     is no second launch.
+//     its peers have read it.  Unsplit, no partial goes to device memory;
+//     split, the spans' partials merge in the same launch (below).
 //   * Four warps a CTA, each with its own tiles (the CTA's tiles w, w + 4,
 //     ...), its own ring of `stages` tile slots and its own running max and
 //     sum: no block barrier until the merge.  A warp stages a tile with
@@ -80,6 +82,27 @@
 //     as single `ex2` ops; the running max starts at -1e30, so a row that
 //     sees nothing keeps max -1e30, sum 0, acc 0 through every merge and
 //     returns 0 (split: lse -1e30 + log(1e-30), as kq_attend.cuh writes).
+//   * Split spans merge in the launch that computes them.  A span's
+//     cluster cannot see the other spans' (n of them, C CTAs each, not
+//     all resident at once: a CTA never waits on another through device
+//     memory, or the launch could hang).  So every CTA writes its share
+//     of its span's f32 partial (it stays in L2) and arrives: after the
+//     cluster barrier, thread 0 adds 1 to an int32 counter of its (b, g)
+//     with an atomic of acquire-release order at device scope, whose
+//     release publishes what the barrier ordered before it.  Each (b, g)
+//     has a 128-byte line of its own (kCountStride counters apart), so
+//     the groups' atomics, which come all at once when the slots are of
+//     one length, do not queue on one line.  The CTA that
+//     sees n C - 1 is the last; it reads all n partials of its (b, g)
+//     through L2 (`ld.global.cg`: L1 is not coherent across SMs), merges
+//     the m Rv values, a thread each, with merge_value, which
+//     kq_combine_splits runs too, so the output is bit for bit the two
+//     launches' whichever CTA is last, and stores 0 back into the
+//     counter: the buffer is zero before and after every launch, and
+//     nothing outside the kernel resets it.  Every CTA arrives, those of
+//     empty spans and slots too; the others leave.  This takes the merge
+//     kernel's launch, its grid of tiny blocks and a DRAM round trip of
+//     the partials off every split decode call.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (see repro_torch/kernels/build.py), as part
@@ -120,6 +143,7 @@ constexpr int kMaxGroupInt8 = 8;
 constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr size_t kSmemBudget = 110 * 1024;   // two CTAs an SM
+constexpr int kCountStride = 32;     // int32s a group's arrival counter owns
 
 struct Params {
   const __nv_bfloat16* q;            // (B, H, Rk)
@@ -129,9 +153,12 @@ struct Params {
   const unsigned char* vs;           // int8 pools; nullptr: bf16 pools
   const int32_t* lengths;            // (B,)
   const int32_t* btab;               // (B, n_pages); nullptr: dense
-  __nv_bfloat16* out;                // (B, H, Rv), unsplit
+  __nv_bfloat16* out;                // (B, H, Rv); split: may be nullptr
   float* o_part;                     // (B, Hkv, n, m, Rv), split
   float* lse;                        // (B, Hkv, n, m), split
+  int* count;                        // (B * Hkv * kCountStride) zero
+                                     // arrival counters, split with out
+                                     // (merged in-launch)
   int H, Hkv, m, Rk, Rv;
   int t_cap;                         // tokens a slot holds (T, n_pages ps)
   int ps, n_pages;
@@ -246,6 +273,77 @@ __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint32_t b0,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The split merge of one output value: out = sum_s w_s o_s / max(sum_s
+// w_s, 1e-30), w_s = exp(lse_s - max_s lse_s), summed over the spans in
+// order.  lse: its row's lse in span 0, spans `ls` apart; op: its partial
+// in span 0, spans `os` apart.  The loads of the first kMergeBatch spans
+// are issued together (one L2 round trip for up to 8 spans, which is
+// every split the engines make), spans past them one at a time.  Loads go
+// through L2 (`ld.global.cg`), so a partial written by another SM in the
+// same launch is never read from a stale L1 line.  kq_combine_splits
+// (kq_paged.cu) and the fused tail of decode_tc_kernel both run this, so
+// their outputs are the same bits; each value's operations are those of a
+// lane walking the spans in order (the max is exact in any order).
+constexpr int kMergeBatch = 8;
+
+__device__ __forceinline__ float merge_value(const float* lse,
+                                             const float* op, int n, int ls,
+                                             int os) {
+  float l[kMergeBatch], o[kMergeBatch];
+#pragma unroll
+  for (int u = 0; u < kMergeBatch; ++u) {
+    l[u] = u < n ? __ldcg(lse + (size_t)u * ls)
+                 : __int_as_float(0xff800000);        // -inf
+    o[u] = u < n ? __ldcg(op + (size_t)u * os) : 0.f;
+  }
+  float mx = l[0];
+#pragma unroll
+  for (int u = 1; u < kMergeBatch; ++u) mx = fmaxf(mx, l[u]);
+#pragma unroll 1
+  for (int s = kMergeBatch; s < n; ++s)
+    mx = fmaxf(mx, __ldcg(lse + (size_t)s * ls));
+  float den = 0.f, acc = 0.f;
+#pragma unroll
+  for (int u = 0; u < kMergeBatch; ++u) {
+    if (u < n) {
+      const float w = expf(l[u] - mx);
+      den += w;
+      acc = fmaf(w, o[u], acc);
+    }
+  }
+#pragma unroll 1
+  for (int s = kMergeBatch; s < n; ++s) {
+    const float w = expf(__ldcg(lse + (size_t)s * ls) - mx);
+    den += w;
+    acc = fmaf(w, __ldcg(op + (size_t)s * os), acc);
+  }
+  return acc / fmaxf(den, 1e-30f);
+}
+
+// *c += 1 with acquire-release order at device scope; returns the old value
+__device__ __forceinline__ int arrive(int* c) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+               : "=r"(old) : "l"(c) : "memory");
+  return old;
+}
+
+// The last CTA of (b, g) merges its m Rv outputs, a thread a value at a
+// time.  lse, o_part: the (b, g)'s span 0 (B, Hkv, n, m[, Rv]); out: its
+// first row (b, g m) of (B, H, Rv).  Out of line, so that the body's
+// registers are allocated as if it were not there, and short: it runs
+// once a launch from a cold instruction cache, where in a decode step its
+// code costs more than its loads (on an H100, a version that overlapped
+// each value's loads with the one before took 0.9 us more a call there).
+__device__ __noinline__ void merge_spans(const float* lse,
+                                         const float* o_part,
+                                         __nv_bfloat16* out, int n, int m,
+                                         int Rv) {
+  for (int i = threadIdx.x; i < m * Rv; i += kThreads)
+    out[i] = __float2bfloat16(merge_value(lse + i / Rv, o_part + i, n, m,
+                                          m * Rv));
 }
 
 // Shared memory: the queries' A fragments [nk][32 lanes][4 x 32 bits]; a
@@ -534,6 +632,21 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   cluster.sync();                   // no CTA leaves while a peer reads it
+  if (p.o_part == nullptr || p.out == nullptr) return;
+
+  // split with an output: every CTA arrives; the barrier above orders
+  // all its threads' partial stores before thread 0's release, which
+  // publishes them device-wide (the pattern of a grid-wide sync)
+  __shared__ int last;
+  int* count = p.count + (size_t)bg * kCountStride;
+  if (tid == 0) last = arrive(count) == p.n_splits * p.C - 1;
+  __syncthreads();                  // thread 0's acquire, for every thread
+  if (!last) return;
+  const size_t row0 = (size_t)bg * p.n_splits * m;      // (b, g, span 0)
+  merge_spans(p.lse + row0, p.o_part + row0 * Rv,
+              p.out + ((size_t)b * p.H + (size_t)g * m) * Rv, p.n_splits, m,
+              Rv);
+  if (tid == 0) *count = 0;         // zero again for the next launch
 }
 
 // The cluster size for a span of `tokens` tokens: about kRunTokens a CTA,
@@ -582,20 +695,26 @@ int launch(const Params& p, int grid, size_t smem, cudaStream_t stream) {
 // smallest p.v width >= Rv.  btab == nullptr: a dense cache (B, Hkv, t_cap,
 // R) and ps ignored; else pools (P, Hkv, ps, R) and a table (B, n_pages),
 // t_cap = n_pages ps.  kscale / vscale: int8 pools.  o_part / lse: the
-// split partials of n_splits spans of `span` tokens; nullptr: the output.
+// split partials of n_splits spans of `span` tokens, merged into `out` in
+// the launch when out is given too, with `count` B * Hkv * kCountStride
+// int32 counters that are zero (and left zero); nullptr: the output,
+// unsplit.
 inline int decode_bf16(const void* qc, const void* kc, const void* vc,
                        const void* kscale, const void* vscale,
                        const void* lengths, const void* btab, void* out,
-                       void* o_part, void* lse, int B, int H, int Hkv,
-                       int Rk, int Rv, int t_cap, int ps, int n_pages,
-                       int span, int n_splits, float scale, void* stream) {
+                       void* o_part, void* lse, void* count, int B, int H,
+                       int Hkv, int Rk, int Rv, int t_cap, int ps,
+                       int n_pages, int span, int n_splits, float scale,
+                       void* stream) {
   const bool int8 = kscale != nullptr;
   if (B < 1 || Hkv < 1 || H % Hkv != 0 ||
       H / Hkv > (int8 ? kMaxGroupInt8 : kMaxGroup) || Rk < 1 || Rk > kMaxR ||
       Rv < 1 || Rv > kMaxR || t_cap < 1 || ps < 1 || n_splits < 1 ||
       span < 1 || (kscale == nullptr) != (vscale == nullptr) ||
       (o_part == nullptr) != (lse == nullptr) ||
-      (o_part == nullptr && (n_splits != 1 || span < t_cap)))
+      (o_part == nullptr && (n_splits != 1 || span < t_cap ||
+                             out == nullptr || count != nullptr)) ||
+      (o_part != nullptr && (out == nullptr) != (count == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int isz = int8 ? 1 : 2;
   Params p{};
@@ -609,6 +728,7 @@ inline int decode_bf16(const void* qc, const void* kc, const void* vc,
   p.out = static_cast<__nv_bfloat16*>(out);
   p.o_part = static_cast<float*>(o_part);
   p.lse = static_cast<float*>(lse);
+  p.count = static_cast<int*>(count);
   p.H = H;
   p.Hkv = Hkv;
   p.m = H / Hkv;

@@ -12,9 +12,10 @@
 // (paged.py:120, launched by `_kq_decode_paged_split` at :216): the
 // slot's page chain is cut into n spans of `span` pages, one block per
 // (b, g, span) instead of per (b, g) (256 blocks instead of 32 at 8 slots,
-// 4 kv heads and 8 splits), each writing an f32 partial (out_s, lse_s);
-// kq_combine_splits below merges them into the output, as
-// `combine_split_partials` (paged.py:196) does in the reference.
+// 4 kv heads and 8 splits), each writing an f32 partial (out_s, lse_s),
+// merged into the output as `combine_split_partials` (paged.py:196) does
+// in the reference: in bfloat16 by the last CTA of each (b, g) inside the
+// same launch (kq_decode_tc.cuh), in float32 by kq_combine_splits below.
 //
 // K5, int8 pages, replaces the same two kernels with quant=True
 // (paged.py:63-117, :120-193): int8 code pools plus bf16 per-token scale
@@ -47,8 +48,11 @@
 //
 // The combine is bound by nothing but its launch: it reads n * m * Rv
 // floats per (b, g) (a few hundred KB at full width) and does a few flops
-// per value.  One warp per output row, lanes across the row's values;
-// every lane walks the splits in order, so no shared memory is needed.
+// per value.  A thread per output value, each issuing its spans' loads
+// together; no shared memory.  Its merge, kq_tc::merge_value, is the one
+// bf16 split decode runs inside its own launch, so the two routes give the
+// same bits; float32 split decode (the reduced parity runs) and callers
+// of the partials still launch it.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (see repro_torch/kernels/build.py).
@@ -59,9 +63,9 @@
 
 namespace {
 
-constexpr int kCombineWarps = 4;
+constexpr int kCombineThreads = 128;
 
-// out[r] = sum_s w_s o_part[s] / max(sum_s w_s, 1e-30), w_s =
+// out[r, c] = sum_s w_s o_part[s, c] / max(sum_s w_s, 1e-30), w_s =
 // exp(lse_s - max_s lse_s), for r = (b * Hkv + g) * m + j, which is head
 // g * m + j of slot b in out (B, H, Rv).
 template <typename T>
@@ -69,35 +73,14 @@ __global__ void combine_kernel(const float* __restrict__ o_part,
                                const float* __restrict__ lse,
                                T* __restrict__ out, int n_rows, int n, int m,
                                int Rv) {
-  const int r = blockIdx.x * kCombineWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (r >= n_rows) return;
+  const long long e = (long long)blockIdx.x * kCombineThreads + threadIdx.x;
+  if (e >= (long long)n_rows * Rv) return;
+  const int r = static_cast<int>(e / Rv);
+  const int c = static_cast<int>(e - (long long)r * Rv);
   const int bg = r / m;
-  const int j = r - bg * m;
-  const float* ls = lse + (size_t)bg * n * m + j;        // stride m
-  float mx = __int_as_float(0xff800000);          // -inf
-  for (int s = lane; s < n; s += 32) mx = fmaxf(mx, ls[(size_t)s * m]);
-  mx = kq::warp_max(mx);
-  float den = 0.f, acc[kq::kMaxR / 32];
-#pragma unroll
-  for (int i = 0; i < kq::kMaxR / 32; ++i) acc[i] = 0.f;
-  for (int s = 0; s < n; ++s) {
-    const float w = expf(ls[(size_t)s * m] - mx);
-    den += w;
-    const float* op = o_part + (((size_t)bg * n + s) * m + j) * Rv;
-#pragma unroll
-    for (int i = 0; i < kq::kMaxR / 32; ++i) {
-      const int c = lane + 32 * i;
-      if (c < Rv) acc[i] += w * op[c];
-    }
-  }
-  den = fmaxf(den, 1e-30f);
-  T* o = out + (size_t)r * Rv;
-#pragma unroll
-  for (int i = 0; i < kq::kMaxR / 32; ++i) {
-    const int c = lane + 32 * i;
-    if (c < Rv) kq::store(o + c, acc[i] / den);
-  }
+  const size_t row = (size_t)bg * n * m + (r - bg * m);
+  kq::store(out + e, kq_tc::merge_value(lse + row, o_part + row * Rv + c, n,
+                                        m, m * Rv));
 }
 
 }  // namespace
@@ -115,24 +98,30 @@ __global__ void combine_kernel(const float* __restrict__ o_part,
 //     pools are int8 and these are their (P, Hkv, ps, 1) bf16 scales (K5).
 //   o_part/lse: nullptr for the unsplit kernel (n_splits 1), which writes
 //     out; else (B, Hkv, n_splits, m, Rv) and (B, Hkv, n_splits, m) f32
-//     partials of spans of span_pages pages (K4, K5 split), and out is
-//     not touched.
+//     partials of spans of span_pages pages (K4, K5 split).
+//   count: nullptr but for a bfloat16 split with out, which merges the
+//     partials into out in this launch: B * Hkv * 32 int32 arrival
+//     counters (one a 128-byte line), zero before the launch and left
+//     zero.  A float32 split leaves out untouched (kq_combine_splits
+//     merges).
 extern "C" int kq_decode_paged_launch(const void* qc, const void* kc_pool,
                                       const void* vc_pool, const void* kscale,
                                       const void* vscale, const void* lengths,
                                       const void* block_table, void* out,
-                                      void* o_part, void* lse, int B, int H,
-                                      int Hkv, int ps, int n_pages, int Rk,
-                                      int Rv, int span_pages, int n_splits,
+                                      void* o_part, void* lse, void* count,
+                                      int B, int H, int Hkv, int ps,
+                                      int n_pages, int Rk, int Rv,
+                                      int span_pages, int n_splits,
                                       float scale, int dtype, void* stream) {
   if (ps < 1 || n_pages < 1 || span_pages < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
     return kq_tc::decode_bf16(qc, kc_pool, vc_pool, kscale, vscale, lengths,
-                              block_table, out, o_part, lse, B, H, Hkv, Rk,
-                              Rv, ps * n_pages, ps, n_pages,
+                              block_table, out, o_part, lse, count, B, H,
+                              Hkv, Rk, Rv, ps * n_pages, ps, n_pages,
                               o_part == nullptr ? ps * n_pages
                                                 : span_pages * ps,
                               n_splits, scale, stream);
+  if (count != nullptr) return (int)cudaErrorInvalidValue;
   const kq::Cache cache{static_cast<const int32_t*>(block_table),
                         ps * n_pages, ps, n_pages,
                         static_cast<const __nv_bfloat16*>(kscale),
@@ -177,15 +166,16 @@ extern "C" int kq_combine_splits_launch(const void* o_part, const void* lse,
   if (B < 1 || Hkv < 1 || n < 1 || m < 1 || Rv < 1 || Rv > kq::kMaxR)
     return (int)cudaErrorInvalidValue;
   const int n_rows = B * Hkv * m;
-  const dim3 grid((n_rows + kCombineWarps - 1) / kCombineWarps);
+  const dim3 grid(static_cast<unsigned>(
+      ((long long)n_rows * Rv + kCombineThreads - 1) / kCombineThreads));
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* op = static_cast<const float*>(o_part);
   const auto* ls = static_cast<const float*>(lse);
   if (dtype == 0)
-    combine_kernel<float><<<grid, kCombineWarps * 32, 0, st>>>(
+    combine_kernel<float><<<grid, kCombineThreads, 0, st>>>(
         op, ls, static_cast<float*>(out), n_rows, n, m, Rv);
   else if (dtype == 1)
-    combine_kernel<__nv_bfloat16><<<grid, kCombineWarps * 32, 0, st>>>(
+    combine_kernel<__nv_bfloat16><<<grid, kCombineThreads, 0, st>>>(
         op, ls, static_cast<__nv_bfloat16*>(out), n_rows, n, m, Rv);
   else
     return (int)cudaErrorInvalidValue;

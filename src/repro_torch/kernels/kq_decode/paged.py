@@ -8,8 +8,9 @@ paged cache.
 * K1, ``_kq_decode_paged_kernel`` (``paged.py:63``), unsplit over fp
   pages;
 * K4, ``_kq_decode_paged_split_kernel`` (``paged.py:120``), split-KV
-  over fp pages, followed by ``kq_combine_splits``, the merge the
-  reference does in jnp (``combine_split_partials``, ``paged.py:196``);
+  over fp pages, with the merge the reference does in jnp
+  (``combine_split_partials``, ``paged.py:196``): in bfloat16 inside the
+  same launch, in float32 by ``kq_combine_splits``;
 * K5, either kernel over int8 pages with per-token bf16 scales
   (``kscale``/``vscale``, the reference's ``quant=True``).
 
@@ -21,7 +22,8 @@ for ``sm_90a`` in ``repro_torch/kernels/csrc/kq_paged.cu``, compiled with
 the tensor-core decode body they share with K3 (``csrc/kq_decode_tc.cuh``:
 a thread-block cluster per (slot, kv group) or split span, ``cp.async``
 staging straight from the pages, ``mma.sync`` products, a merge through
-distributed shared memory, one launch); bfloat16 K2, bound by
+distributed shared memory, and the split spans merged by the last CTA of
+each (slot, kv group) to finish: one launch); bfloat16 K2, bound by
 operations, has a body of its own (``csrc/kq_prefill.cuh``: ``wgmma``,
 64-row tiles of the flattened (position, head) rows, a ``cp.async`` ring
 staged through the block table).  float32 (the reduced parity runs)
@@ -56,15 +58,21 @@ from repro_torch.kernels.kq_decode.ref import (
 MAX_GROUP_INT8 = 8    # int8 pages are instantiated for groups m <= 8
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argument types of the C entry points of csrc/kq_paged.cu
+_SIGNATURES = {
+    "kq_decode_paged_launch": [_P] * 11 + [_I] * 9 + [ctypes.c_float, _I,
+                                                     _P],
+    "kq_prefill_paged_launch": [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I,
+                                                      _P],
+    "kq_combine_splits_launch": [_P] * 3 + [_I] * 6 + [_P],
+}
+
+
 def _library() -> ctypes.CDLL:
     lib = build.load("kq_paged")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    for fn, args in (
-            (lib.kq_decode_paged_launch,
-             [P] * 10 + [I] * 9 + [ctypes.c_float, I, P]),
-            (lib.kq_prefill_paged_launch,
-             [P] * 7 + [I] * 8 + [ctypes.c_float, I, P]),
-            (lib.kq_combine_splits_launch, [P] * 3 + [I] * 6 + [P])):
+    for name, args in _SIGNATURES.items():
+        fn = getattr(lib, name)
         if not fn.argtypes:
             fn.argtypes = args
             fn.restype = ctypes.c_int
@@ -141,11 +149,40 @@ def _cuda_only(name: str, qc: torch.Tensor) -> None:
         raise ValueError(f"{name}: unsupported device {qc.device}")
 
 
+# The fused split merge's arrival counters, one int32 buffer per
+# (device, stream): see ``_arrivals``.  Each (slot, kv group) owns
+# ARRIVAL_STRIDE of them, a 128-byte line (``kCountStride`` in
+# csrc/kq_decode_tc.cuh).
+_ARRIVALS: dict = {}
+ARRIVAL_STRIDE = 32
+
+
+def _arrivals(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 arrival counters for bf16 split decode on
+    ``stream`` of ``device``, all zero.  The kernel counts each (slot, kv
+    group)'s CTAs on its own line of them and its last CTA stores 0
+    back, so the buffer stays zero between launches and is allocated
+    once, not zeroed
+    per call (``torch.zeros`` would be a launch of its own).  Two streams
+    never share one: their launches may overlap.  A call that needs more
+    grows it, zeroed anew, to at least twice its size."""
+    key = (device, stream)
+    buf = _ARRIVALS.get(key)
+    if buf is None or buf.numel() < n:
+        size = n if buf is None else max(n, 2 * buf.numel())
+        buf = _ARRIVALS[key] = torch.zeros(size, dtype=torch.int32,
+                                           device=device)
+    return buf
+
+
 def _decode(name: str, qc, kc_pool, vc_pool, lengths, block_table, scale,
-            scales=(), span: int = 0, n_splits: int = 1):
+            scales=(), span: int = 0, n_splits: int = 1,
+            merge: bool = False):
     """Check and launch the paged decode kernel: unsplit (``n_splits``
     1) into a new (B,H,Rv) output, else into new f32 partials
-    (B,Hkv,n,m,Rv) and lse (B,Hkv,n,m) over spans of ``span`` pages."""
+    (B,Hkv,n,m,Rv) and lse (B,Hkv,n,m) over spans of ``span`` pages,
+    returned; with ``merge`` (bfloat16 only) the same launch also merges
+    the partials into a new (B,H,Rv) output, which is returned."""
     _cuda_only(name, qc)
     if qc.ndim != 3:
         raise ValueError(f"{name}: qc must be (B, H, Rk), got "
@@ -155,16 +192,19 @@ def _decode(name: str, qc, kc_pool, vc_pool, lengths, block_table, scale,
     _, Hkv, ps, Rk = kc_pool.shape
     Rv = vc_pool.shape[-1]
     dev = qc.device
-    if n_splits == 1:
-        res = out = torch.empty((B, H, Rv), dtype=qc.dtype, device=dev)
-        o_part = lse = None
-    else:
-        out = None
-        res = o_part, lse = (
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = o_part = lse = count = None
+    if n_splits == 1 or merge:
+        out = torch.empty((B, H, Rv), dtype=qc.dtype, device=dev)
+    if n_splits > 1:
+        o_part, lse = (
             torch.empty((B, Hkv, n_splits, H // Hkv, Rv),
                         dtype=torch.float32, device=dev),
             torch.empty((B, Hkv, n_splits, H // Hkv), dtype=torch.float32,
                         device=dev))
+    if merge:
+        count = _arrivals(dev, stream, B * Hkv * ARRIVAL_STRIDE)
+
     def ptr(t):
         return None if t is None else t.data_ptr()
 
@@ -172,10 +212,10 @@ def _decode(name: str, qc, kc_pool, vc_pool, lengths, block_table, scale,
     _launched(name, _library().kq_decode_paged_launch(
         qc.data_ptr(), kc_pool.data_ptr(), vc_pool.data_ptr(), ptr(ks),
         ptr(vs), lengths.data_ptr(), block_table.data_ptr(), ptr(out),
-        ptr(o_part), ptr(lse), B, H, Hkv, ps, block_table.shape[1], Rk, Rv,
-        max(span, 1), n_splits, float(scale), _DTYPES[qc.dtype],
-        torch.cuda.current_stream(dev).cuda_stream))
-    return res
+        ptr(o_part), ptr(lse), ptr(count), B, H, Hkv, ps,
+        block_table.shape[1], Rk, Rv, max(span, 1), n_splits, float(scale),
+        _DTYPES[qc.dtype], stream))
+    return (o_part, lse) if out is None else out
 
 
 def kq_decode_paged_attention(qc: torch.Tensor, kc_pool: torch.Tensor,
@@ -197,14 +237,26 @@ def kq_decode_paged_attention(qc: torch.Tensor, kc_pool: torch.Tensor,
 
     ``num_splits`` > 1 cuts the table's ``n_pages`` pages into spans
     resolved as the reference does (``resolve_splits``); with more than
-    one span this runs K4 (or K5 split) and ``kq_combine_splits``, else
-    K1 (or K5).  K1 is launched here and counted on this function."""
+    one span this runs K4 (or K5 split) and the merge, else K1 (or K5).
+    On a bfloat16 CUDA tensor the split is one launch that merges its
+    spans itself, counted on ``kq_decode_paged_split`` (or
+    ``kq_decode_paged_int8_split``); float32, and the plain versions on
+    the CPU, write the partials and merge them with
+    ``kq_combine_splits``.  K1 is launched here and counted on this
+    function."""
     if (kscale is None) != (vscale is None):
         raise ValueError("kscale/vscale must be passed together")
     quant = kscale is not None
     n, span = resolve_splits(num_splits, block_table.shape[1])
     if n > 1:
         split = kq_decode_paged_int8_split if quant else kq_decode_paged_split
+        if qc.device.type == "cuda" and qc.dtype == torch.bfloat16:
+            out = _decode(split.__name__, qc, kc_pool, vc_pool, lengths,
+                          block_table, scale,
+                          scales=(kscale, vscale) if quant else (),
+                          span=span, n_splits=n, merge=True)
+            split.launches += 1
+            return out
         o_part, lse = split(qc, kc_pool, vc_pool, lengths, block_table,
                             span=span, n_splits=n, scale=scale,
                             **(dict(kscale=kscale, vscale=vscale)
@@ -231,7 +283,9 @@ def kq_decode_paged_split(qc: torch.Tensor, kc_pool: torch.Tensor,
                           n_splits: int, scale: float = 1.0):
     """K4, the split-KV decode over fp pages, before the merge: f32
     partials (B,Hkv,n,m,Rv) and lse (B,Hkv,n,m) of spans of ``span``
-    pages (``span * n_splits`` covers the table)."""
+    pages (``span * n_splits`` covers the table).  This entry writes the
+    partials only; ``kq_decode_paged_attention`` merges them in the same
+    launch on bfloat16."""
     if qc.device.type == "cpu":
         return kq_decode_paged_partials_ref(
             qc, kc_pool, vc_pool, lengths, block_table, span=span,

@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel (K3, K1, K2, K4, K5, the
-split combine, K6 and K7) against its plain PyTorch version, and the
+split combine, K6 and K7) against its plain PyTorch version, bf16 split
+decode's in-launch merge against the two launches it replaces, and the
 reduced model on the card against the CPU on the dense and the paged
 chunked engines, also with int8 pages and split-KV decode, with the dense
 int8 cache, with the sliding-window ring cache and with mamba2's SSM
@@ -32,6 +33,7 @@ from repro_torch.kernels.kq_decode import (
     kq_decode_paged_int8_split, kq_decode_paged_partials_ref,
     kq_decode_paged_split, kq_prefill_paged_attention,
     kq_prefill_paged_attention_ref, resolve_splits)
+from repro_torch.kernels.kq_decode import paged as paged_mod
 from repro_torch.serving.page_layouts import quantize_int8
 from repro_torch.models import build_model
 from repro_torch.serving import Request, ServingEngine
@@ -210,9 +212,12 @@ def test_k4_and_combine_match_plain_versions(cuda, case, dtype, num_splits):
     full = kq_decode_paged_attention(qc, kp, vp, lens, btab, scale=0.25,
                                      num_splits=num_splits)
     torch.cuda.synchronize()
+    # bfloat16 merges its spans inside K4's launch, float32 launches the
+    # merge after it
     assert (kq_decode_paged_split.launches,
-            kq_combine_splits.launches) == (before[0] + 1 + (n > 1),
-                                            before[1] + 1 + (n > 1))
+            kq_combine_splits.launches) == (
+                before[0] + 1 + (n > 1),
+                before[1] + 1 + (n > 1 and dtype == torch.float32))
     _close(full, kq_decode_paged_attention_split_ref(
         qc, kp, vp, lens, btab, num_splits=num_splits, scale=0.25), dtype)
     _close(full, kq_decode_paged_attention_ref(qc, kp, vp, lens, btab,
@@ -240,6 +245,120 @@ def test_k5_matches_plain_version(cuda, case, dtype, num_splits):
     assert counter.launches == before + 1
     _close_ulps(out, kq_decode_paged_attention_int8_ref(
         qc, k8, v8, ks, vs, lens, btab, scale=0.25), dtype)
+
+
+def _arrivals_zero(dev):
+    """Every arrival counter buffer of bf16 split decode on ``dev``
+    reads back zero (the kernel's last CTA of each group resets its
+    own)."""
+    torch.cuda.synchronize()
+    bufs = [b for (d, _), b in paged_mod._ARRIVALS.items() if d == dev]
+    assert bufs and all(not bool(b.any()) for b in bufs)
+
+
+def _two_launches(qc, kp, vp, lens, btab, num_splits, kw):
+    """bf16 split decode the old way: the partials entry, then
+    ``kq_combine_splits``."""
+    n, span = resolve_splits(num_splits, btab.shape[1])
+    split = kq_decode_paged_int8_split if kw else kq_decode_paged_split
+    o, lse = split(qc, kp, vp, lens, btab, span=span, n_splits=n,
+                   scale=0.25, **kw)
+    return kq_combine_splits(o, lse, torch.empty(
+        qc.shape[0], qc.shape[1], vp.shape[-1], dtype=qc.dtype,
+        device=qc.device))
+
+
+@pytest.mark.parametrize("num_splits", [2, 3, 8])
+@pytest.mark.parametrize("quant", [False, True], ids=["K4", "K5split"])
+@pytest.mark.parametrize("case", range(len(SPLIT_CASES)))
+def test_fused_split_merge_equals_two_launches(cuda, case, quant,
+                                               num_splits):
+    """bf16 K4 and K5 split merge their spans in their own launch (the
+    last CTA of each (slot, kv group) to arrive): one launch and no merge
+    launch; the output is the two launches' (partials, then
+    ``kq_combine_splits``) bit for bit, within 2e-2 and two bf16 ulps of
+    the plain version; the arrival counters read back zero.  The cases
+    cover empty trailing spans, length 0, the cluster-run edges, pages
+    of 2, 4, 16 and 64 and t_cap 8192 (spans of 1,024 tokens: clusters
+    of 8, 64 arrivals a group)."""
+    dt = torch.bfloat16
+    B, H, Hkv, ps, n_pages, Rk, Rv, lengths = SPLIT_CASES[case]
+    qc, kp, vp, btab = _paged(cuda, dt, B, H, Hkv, ps, n_pages, Rk, Rv)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    kw = {}
+    if quant:
+        kp, vp, ks, vs = _int8_pools(kp.float(), vp.float())
+        kw = dict(kscale=ks, vscale=vs)
+    assert resolve_splits(num_splits, n_pages)[0] > 1
+    split = kq_decode_paged_int8_split if quant else kq_decode_paged_split
+    before = (split.launches, kq_combine_splits.launches)
+    fused = kq_decode_paged_attention(qc, kp, vp, lens, btab, scale=0.25,
+                                      num_splits=num_splits, **kw)
+    assert (split.launches, kq_combine_splits.launches) == \
+        (before[0] + 1, before[1])
+    _arrivals_zero(cuda)
+    assert torch.equal(fused, _two_launches(qc, kp, vp, lens, btab,
+                                            num_splits, kw))
+    ref = (kq_decode_paged_attention_int8_ref(qc, kp, vp, ks, vs, lens,
+                                              btab, scale=0.25) if quant
+           else kq_decode_paged_attention_ref(qc, kp, vp, lens, btab,
+                                              scale=0.25))
+    _close_ulps(fused, ref, dt)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["K4", "K5split"])
+@pytest.mark.parametrize("shape", ["main", "t_cap 8192"])
+def test_fused_split_merge_is_repeatable(cuda, shape, quant):
+    """200 calls of the fused bf16 split decode give the same bits
+    whichever CTA arrives last, and leave the counters zero: at phase
+    4's shape (8 slots of 64 pages of 16, 8 splits, a CTA a span) and at
+    t_cap 8192 (8 CTAs a span)."""
+    dt = torch.bfloat16
+    B, n_pages, lengths = (
+        (8, 64, (1, 31, 32, 33, 500, 777, 1023, 1024)) if shape == "main"
+        else (3, 512, (8192, 129, 4000)))
+    qc, kp, vp, btab = _paged(cuda, dt, B, 32, 4, 16, n_pages, 50, 42)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    kw = {}
+    if quant:
+        kp, vp, ks, vs = _int8_pools(kp.float(), vp.float())
+        kw = dict(kscale=ks, vscale=vs)
+    outs = [kq_decode_paged_attention(qc, kp, vp, lens, btab, scale=0.25,
+                                      num_splits=8, **kw)
+            for _ in range(200)]
+    _arrivals_zero(cuda)
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert torch.equal(outs[0], _two_launches(qc, kp, vp, lens, btab, 8,
+                                              kw))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["K4", "K5split"])
+def test_fused_split_merge_on_a_side_stream(cuda, quant):
+    """On a side stream the fused split decode takes counters of its
+    own (one buffer per (device, stream)) and gives the default
+    stream's answer; both streams' counters read back zero."""
+    dt = torch.bfloat16
+    qc, kp, vp, btab = _paged(cuda, dt, 6, 32, 4, 16, 64, 50, 42)
+    lens = torch.tensor((0, 1, 17, 300, 1023, 1024), dtype=torch.int32,
+                        device=cuda)
+    kw = {}
+    if quant:
+        kp, vp, ks, vs = _int8_pools(kp.float(), vp.float())
+        kw = dict(kscale=ks, vscale=vs)
+    main = kq_decode_paged_attention(qc, kp, vp, lens, btab, scale=0.25,
+                                     num_splits=8, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = kq_decode_paged_attention(qc, kp, vp, lens, btab,
+                                          scale=0.25, num_splits=8, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    assert (cuda, side.cuda_stream) in paged_mod._ARRIVALS
+    assert (paged_mod._ARRIVALS[(cuda, side.cuda_stream)].data_ptr()
+            != paged_mod._ARRIVALS[
+                (cuda, torch.cuda.current_stream().cuda_stream)].data_ptr())
+    _arrivals_zero(cuda)
+    assert torch.equal(main, other)
 
 
 @pytest.mark.parametrize("kernel", ["K1", "K3", "K4", "K5", "K5 split"])
@@ -281,6 +400,9 @@ def test_decode_ignores_rows_it_must_not_read(cuda, kernel):
                                         num_splits=ns)
         ref = kq_decode_paged_attention_ref(qc, kz, vz, lens, btab,
                                             scale=0.25)
+        if ns > 1:          # the fused merge, bit for bit the two launches
+            assert torch.equal(out, _two_launches(qc, kn, vn, lens, btab,
+                                                  ns, {}))
     else:
         # int8 codes and scales of the clean pools; the dead rows' scales
         # are NaN (their codes have no NaN)
@@ -292,6 +414,9 @@ def test_decode_ignores_rows_it_must_not_read(cuda, kernel):
                                         vscale=vsn)
         ref = kq_decode_paged_attention_int8_ref(qc, k8, v8, ks, vs, lens,
                                                  btab, scale=0.25)
+        if ns > 1:
+            assert torch.equal(out, _two_launches(
+                qc, k8, v8, lens, btab, ns, dict(kscale=ksn, vscale=vsn)))
     torch.cuda.synchronize()
     assert bool(torch.isfinite(out).all())
     _close_ulps(out, ref, dt)

@@ -243,3 +243,33 @@ def test_bf16_k2_widths_cover_every_rank_the_wrapper_takes():
     assert re.search(r"constexpr int kMaxR = (\d+);", src).group(1) == \
         str(MAX_RANK)
     assert f"H / Hkv > {MAX_GROUP}" in src
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """The argument types the wrapper declares for each C entry point of
+    ``csrc/kq_paged.cu`` are its parameters in order (a pointer cut to a
+    32-bit int, or one argument too few, would fault only on the card)."""
+    import ctypes
+
+    from repro_torch.kernels.kq_decode import paged
+    src = (build.CSRC / "kq_paged.cu").read_text()
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "float": ctypes.c_float}
+    for name, want in paged._SIGNATURES.items():
+        params = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)",
+                           src).group(1)
+        got = [kinds[re.sub(r"\s+", "", re.sub(r"\bconst\b", "",
+                                               p.rsplit(None, 1)[0]))]
+               for p in params.split(",")]
+        assert got == want, name
+
+
+def test_arrival_counter_stride_matches_the_kernel():
+    """The wrapper sizes bf16 split decode's arrival counters by the
+    stride the kernel indexes them with (``kCountStride``, read as text
+    from ``csrc/kq_decode_tc.cuh``): a 128-byte line a (slot, kv group)."""
+    from repro_torch.kernels.kq_decode import paged
+    src = (build.CSRC / "kq_decode_tc.cuh").read_text()
+    stride = int(re.search(r"constexpr int kCountStride = (\d+);",
+                           src).group(1))
+    assert paged.ARRIVAL_STRIDE == stride and stride * 4 == 128

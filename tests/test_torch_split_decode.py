@@ -3,7 +3,11 @@ PyTorch versions against the reference's jnp oracles and its Pallas
 kernels in interpret mode, on seeded numpy inputs (scrambled block
 tables, page-boundary lengths, splits 1, 2, 3 and 8 with empty trailing
 splits); the split merge against the reference's; the split heuristic;
-and the reference's lax twins for split and int8 decode."""
+the Python side of bf16 split decode's in-launch merge (its arrival
+counters, what one launch is handed); and the reference's lax twins for
+split and int8 decode."""
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +28,7 @@ from repro_torch.kernels.kq_decode import (combine_split_partials,
                                            kq_decode_paged_attention,
                                            kq_decode_paged_attention_split_ref,
                                            resolve_splits)
+from repro_torch.kernels.kq_decode import paged
 from repro_torch.models import attention as tattn
 
 TOL = dict(rtol=2e-5, atol=2e-5)          # tests/test_kernels.py, float32
@@ -202,6 +207,91 @@ def test_scales_must_come_together():
     with pytest.raises(ValueError):
         kq_decode_paged_attention(tq, tk, tv, torch.tensor([3]), tb,
                                   kscale=tks)
+
+
+# ---------------------------------------------------------------------------
+# bf16 split decode's in-launch merge: the Python side
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 6, 32])
+def test_arrival_counters_are_kept_per_device_and_stream(monkeypatch, n):
+    """One zeroed int32 buffer per (device, stream), handed out again on
+    the next call (the kernel leaves it zero), never shared between two
+    streams."""
+    monkeypatch.setattr(paged, "_ARRIVALS", {})
+    cpu = torch.device("cpu")
+    a = paged._arrivals(cpu, 11, n)
+    assert a.dtype == torch.int32 and a.numel() == n and not bool(a.any())
+    assert paged._arrivals(cpu, 11, n) is a
+    assert paged._arrivals(cpu, 11, max(1, n // 2)) is a
+    b = paged._arrivals(cpu, 12, n)
+    assert b is not a and b.data_ptr() != a.data_ptr()
+    assert set(paged._ARRIVALS) == {(cpu, 11), (cpu, 12)}
+
+
+@pytest.mark.parametrize("first,then,want", [(4, 5, 8), (4, 20, 20),
+                                             (8, 9, 16)])
+def test_arrival_counters_grow_zeroed(monkeypatch, first, then, want):
+    """A call that needs more counters than the buffer holds gets a new
+    one, zeroed, of at least twice the size; later smaller calls reuse
+    it."""
+    monkeypatch.setattr(paged, "_ARRIVALS", {})
+    cpu = torch.device("cpu")
+    a = paged._arrivals(cpu, 0, first)
+    a.fill_(3)                  # what a launch that died would leave
+    b = paged._arrivals(cpu, 0, then)
+    assert b is not a and b.numel() == want and not bool(b.any())
+    assert paged._arrivals(cpu, 0, first) is b
+
+
+@pytest.mark.parametrize("merge", [False, True])
+def test_split_decode_launch_gets_output_partials_and_counters(monkeypatch,
+                                                               merge):
+    """What the split decode hands its one launch (a stand-in library
+    records it): partials always; with ``merge`` also the output, which
+    is returned, and a 128-byte line of zero counters a (slot, kv group)
+    of this (device, stream);
+    without, neither, and the partials are returned."""
+    calls = []
+
+    class Lib:
+        def kq_decode_paged_launch(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(paged, "_library", Lib)
+    monkeypatch.setattr(paged, "_cuda_only", lambda name, qc: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(
+                            cuda_stream=77))
+    monkeypatch.setattr(paged, "_ARRIVALS", {})
+    B, Hkv, m, n_pages, ps, Rk, Rv = 3, 2, 4, 6, 4, 8, 5
+    qc, kp, vp, bt, _, _ = _case(0, B, Hkv, m, n_pages, ps, Rk, Rv)
+    tq, tk, tv, tb = (t.to(torch.bfloat16) if t.is_floating_point() else t
+                      for t in _torch(qc, kp, vp, bt, None, None))
+    lens = torch.tensor([0, 5, 24], dtype=torch.int32)
+    res = paged._decode("kq_decode_paged_split", tq, tk, tv, lens, tb, 0.5,
+                        span=2, n_splits=3, merge=merge)
+    (args,) = calls
+    out_p, part_p, lse_p, count_p = args[7:11]
+    assert part_p is not None and lse_p is not None
+    assert args[11:14] == (B, Hkv * m, Hkv)
+    assert args[14:20] == (ps, n_pages, Rk, Rv, 2, 3)   # span 2, 3 splits
+    if merge:
+        assert res.shape == (B, Hkv * m, Rv) and res.dtype == torch.bfloat16
+        assert out_p == res.data_ptr()
+        count = paged._ARRIVALS[(tq.device, 77)]
+        assert count_p == count.data_ptr()
+        assert count.numel() == B * Hkv * paged.ARRIVAL_STRIDE
+        assert not bool(count.any())
+    else:
+        o_part, lse = res
+        assert out_p is None and count_p is None
+        assert o_part.shape == (B, Hkv, 3, m, Rv) and lse.shape == (B, Hkv,
+                                                                    3, m)
+        assert part_p == o_part.data_ptr() and lse_p == lse.data_ptr()
+        assert not paged._ARRIVALS
 
 
 # ---------------------------------------------------------------------------

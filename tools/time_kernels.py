@@ -7,9 +7,11 @@ turns: parent, change, change, parent).
     python3 tools/time_kernels.py LABEL
 
 Decode at 8 slots of tinyllama (H 32, Hkv 4, Rk 50, Rv 42, pages of 16,
-lengths 1..1024): K1, K3, K4 and K5 split with the merge, K5; K2 at the
-last chunk of a 1000-token prompt and at a first chunk; K6 at tinyllama's
-and llama2-7b's calibration batches.  Device ms per call by
+lengths 1..1024): K1, K3, K4 and K5 split with the merge (through
+``kq_decode_paged_attention(num_splits=8)``, whichever way the checkout
+merges), K5, the merge kernel alone on K4's partials; K2 at the last
+chunk of a 1000-token prompt and at a first chunk; K6 at tinyllama's and
+llama2-7b's calibration batches.  Device ms per call by
 ``chip_smoke.cuda_time_ms`` (CUDA events, L2 flushed before each of 100
 launches).  Needs the card; builds the kernels of the checkout it runs
 from.
@@ -28,9 +30,11 @@ def main(label: str) -> int:
 
     import chip_smoke as cs
     from repro_torch.kernels.flash import flash_attention
-    from repro_torch.kernels.kq_decode import (kq_decode_attention,
+    from repro_torch.kernels.kq_decode import (kq_combine_splits,
+                                               kq_decode_attention,
                                                kq_decode_paged_attention,
                                                kq_decode_paged_int8,
+                                               kq_decode_paged_split,
                                                kq_prefill_paged_attention)
     from repro_torch.serving import gather_pages
 
@@ -49,6 +53,9 @@ def main(label: str) -> int:
                                      rv)
     k8, v8, ks, vs = cs.int8_pools(kp.float(), vp.float())
     kd, vd = gather_pages(kp, bt), gather_pages(vp, bt)
+    o_p, lse_p = kq_decode_paged_split(qc, kp, vp, lens, bt, span=8,
+                                       n_splits=8, scale=scale)
+    out_c = torch.empty(B, H, rv, dtype=dt, device=dev)
     q2, kp2, vp2, bt2 = cs.paged_inputs(g, dev, dt, 1, H, Hkv, ps, T // ps,
                                         rk, rv, S=256)
     p0 = torch.tensor([768], dtype=torch.int32, device=dev)
@@ -68,6 +75,7 @@ def main(label: str) -> int:
         "K5split+merge": lambda: kq_decode_paged_attention(
             qc, k8, v8, lens, bt, scale=scale, num_splits=8, kscale=ks,
             vscale=vs),
+        "merge": lambda: kq_combine_splits(o_p, lse_p, out_c),
         "K2last": lambda: kq_prefill_paged_attention(
             q2, kp2, vp2, p0 + 232, p0, bt2, scale=scale),
         "K2first": lambda: kq_prefill_paged_attention(
