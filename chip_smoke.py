@@ -55,6 +55,27 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              in 8 splits (K4) and int8 pages in 8 splits (K5 split), beside
              3d's fp unsplit step (K1) in this one process, with each
              wrapper's launches per step (22 of K4 or K5 split, no merge);
+3j. preempt  (run after 3f, on phase 3's model and projections) the paged
+             engine with optimistic admission and with prefix sharing at
+             full width: ``ServeConfig(max_batch=8, max_seq_len=2048,
+             page_size=16, prefill_chunk=256, decode_splits=1)``.  (a) 24
+             requests of 128..768 prompt tokens and 128 new, priorities 0,
+             1 cycled, on a pool of ``POOL_3J`` pages (watermarks 0.9 /
+             0.05): reserve admission (the oracle), optimistic recompute
+             and optimistic swap; each optimistic run preempts, swap
+             restores as many as it saves, and the swap run's tokens equal
+             the reserve run's; the recompute run's agreement is printed
+             with the top-2 logit margin at each first differing token.
+             (b) 24 requests on one 1000-token system prompt with private
+             suffixes of 8..200 tokens, 64 new, the last four repeating
+             the first four, with and without ``share_prefix``, on fp and
+             on int8 pages: sharing shares pages, forks and hits whole
+             prompts, and prefills fewer tokens (fp: fewer K2 launches).
+             Every run: each request served in full, the pool whole but
+             for index pins, K1 and K2 (fp) or K5 (int8) once per layer
+             per decode step or chunk, and no plain version; peak pages,
+             slots held a step, decode tokens/s, prefill seconds, the
+             swapped bytes and the ms a swap-out and a swap-in take;
 3g. window   h2o-danube-1.8b at full width (24 layers, d_head 80, window
              4096, bf16, seeded random weights), KQ-SVD calibrated on
              16 x 512 tokens in batches of 4, on dense slots
@@ -128,7 +149,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              and reduced h2o-danube-1.8b (window 16) on dense slots with
              the full cache, KQ-SVD and the dense int8 cache, and reduced
              mamba2-2.7b (chunk 32, prompts of 1..70 tokens) on dense
-             slots, give identical greedy tokens; prefill,
+             slots, give identical greedy tokens; so do optimistic
+             recompute and swap on 11 pages, and int8 pages shared under
+             swap (prompts behind a common 13-token prefix), which also
+             equal the reserve engine's tokens and count the same
+             preemptions, swaps, shared pages and forks on both; prefill,
              ``LM.prefill_chunk`` and dense and paged ``decode_step``
              logits agree within 2e-4, and danube's prefill and ring
              decode logits and mamba2's prefill and decode logits too.
@@ -157,6 +182,10 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py:15-17
 # kernel and plain version read the same inputs and both accumulate in
 # float32, so in bfloat16 they also agree to two ulps of the output
 ULPS_BF16 = 8e-3
+# phase 3j (a): a pool tight enough that reserve admission holds slots
+# back and optimistic admission preempts (sized on the CPU with the same
+# scheduler: 2 preemptions in either mode)
+POOL_3J = 176
 SOURCES = ("kq_decode", "kq_paged", "flash", "ssd")
 # K7's kernels by name: bf16's three (csrc/ssd_tc.cuh), float32's one
 K7_KERNELS = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_scan_kernel",
@@ -577,6 +606,86 @@ def ptxas_summary(log: str) -> list:
     return out
 
 
+def serve_driven(eng, reqs, sync) -> dict:
+    """Drain ``reqs`` step by step, sampling the slots held after each
+    step, with the swap-out (copy to host, crc) and swap-in (crc check,
+    copy back) calls timed, each synced on both sides so a call's time is
+    its own, and the swapped bytes summed.
+    Returns the wall seconds, the mean slots held and the swap record."""
+    sw = {"out_s": 0.0, "in_s": 0.0, "n_out": 0, "n_in": 0, "bytes": 0}
+    out_fn, in_fn = eng._swap_out_slot, eng._swap_in_slot
+
+    def swap_out(b, n):
+        sync()
+        t0 = time.perf_counter()
+        st = out_fn(b, n)
+        sw["out_s"] += time.perf_counter() - t0
+        sw["n_out"] += 1
+        sw["bytes"] += sum(t.numel() * t.element_size()
+                           for layer in st["bufs"] for t in layer.values())
+        return st
+
+    def swap_in(b, st):
+        sync()
+        t0 = time.perf_counter()
+        in_fn(b, st)
+        sync()
+        sw["in_s"] += time.perf_counter() - t0
+        sw["n_in"] += 1
+
+    eng._swap_out_slot, eng._swap_in_slot = swap_out, swap_in
+    held = []
+    t0 = time.perf_counter()
+    eng.start(reqs)
+    while eng.step():
+        held.append(sum(r is not None for r in eng._slot_req))
+    sync()
+    return {"wall": time.perf_counter() - t0,
+            "held": sum(held) / max(len(held), 1), "swap": sw}
+
+
+def chunked_margin(eng, ctx, chunk: int = 256) -> float:
+    """Top-2 margin of the next-token logits after ``ctx``, prefilled in
+    ``chunk``-token chunks into pages of the engine's layout (the route a
+    recompute or an unshared prefill takes)."""
+    import numpy as np
+    import torch
+    ps = eng.sc.page_size
+    n = -(-len(ctx) // ps)
+    cache = eng.model.init_paged_cache(n + 1, ps, eng.ranks)
+    btab = torch.arange(1, n + 1, dtype=torch.int32,
+                        device=eng.device)[None]
+    for s0 in range(0, len(ctx), chunk):
+        k = min(chunk, len(ctx) - s0)
+        lg, cache = eng.model.prefill_chunk(
+            eng.params, cache, np.asarray(ctx[s0:s0 + k])[None], s0,
+            torch.full((1,), k, dtype=torch.int32, device=eng.device),
+            proj=eng.proj, block_table=btab)
+    top = torch.topk(lg[0, k - 1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def agreement(label: str, eng, reqs, oracle) -> int:
+    """Print how many requests' tokens equal the oracle's and, at each
+    other request's first differing token, the top-2 logit margin after
+    the oracle's context; returns the count that agree."""
+    import numpy as np
+    same, margins = 0, []
+    for r, o in zip(reqs, oracle):
+        if r.out_tokens == o.out_tokens:
+            same += 1
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(r.out_tokens,
+                                                  o.out_tokens)) if a != b)
+        ctx = np.concatenate([np.asarray(o.prompt, np.int32),
+                              np.asarray(o.out_tokens[:j], np.int32)])
+        margins.append(f"rid {r.rid} @ {j}: {chunked_margin(eng, ctx):.4f}")
+    print(f"  {label}: {same}/{len(reqs)} requests' tokens equal the "
+          f"oracle's; top-2 logit margin at the first differing token: "
+          f"{'; '.join(margins) or 'none differ'}")
+    return same
+
+
 def serve_report(label: str, eng, reqs, wall: float) -> None:
     n_tok = sum(len(r.out_tokens) for r in reqs)
     print(f"{label}: served {len(reqs)} requests (prompts "
@@ -902,7 +1011,144 @@ def main() -> int:
             f"{k} busy {v['busy_ms']:.3f} ms, idle {v['idle']:.3f}, "
             f"{v['launches']} launches, attention {v['attn_ms']:.4f} ms"
             for k, v in prof.items() if "busy_ms" in v))
-        del eng, peng, params, model, qmodel
+        del eng, peng, qmodel
+
+    # -- 3j: optimistic admission with preemption, and prefix sharing -------
+    with phase("3j serve tinyllama-1.1b, full width, KQ-SVD, paged: "
+               "optimistic admission with preempt-and-requeue (recompute, "
+               "swap), prefix sharing with copy-on-write"):
+        jbase = dict(max_seq_len=2048, max_batch=8, paged=True, page_size=16,
+                     chunked_prefill=True, prefill_chunk=256, decode_chunk=8,
+                     decode_splits=1)
+        j_launch = {"K1": 0, "K2": 0, "K5": 0}
+
+        def serve_3j(label, sc, reqs, quant):
+            """One drain: every request served in full, the pool whole (but
+            for index pins), the launches K1 / K2 (fp) or K5 (int8) once
+            per layer per decode step / chunk and no plain version."""
+            e = ServingEngine(cfg, params, sc, projections=mp)
+            zero_counts()
+            run = serve_driven(e, reqs, torch.cuda.synchronize)
+            got = {w.__name__: w.launches for w in wrappers if w.launches}
+            run.update(eng=e, reqs=reqs, launches=got)
+            bad = [r.rid for r in reqs if r.failed or not r.done
+                   or len(r.out_tokens) != r.max_new_tokens]
+            assert not bad, (label, bad)
+            pinned = e._pindex.n_pinned if e._pindex is not None else 0
+            assert e.pool.free_count + pinned == e.pool.n_pages, label
+            steps, chunks = e.n_decode_steps, e.n_prefill_chunks
+            if quant:
+                want = {"kq_decode_paged_int8": cfg.n_layers * steps}
+                assert plain_calls["kq_decode_paged_attention_int8_ref"] == 0
+            else:
+                want = {"kq_decode_paged_attention": cfg.n_layers * steps,
+                        "kq_prefill_paged_attention": cfg.n_layers * chunks}
+                assert plain_calls["chunk_decode_attention"] == 0
+            assert got == want, (label, got, want)
+            assert plain_calls["kq_decode_paged_attention_ref"] == 0 \
+                and plain_calls["kq_prefill_paged_attention_ref"] == 0, \
+                plain_calls
+            j_launch["K1"] += got.get("kq_decode_paged_attention", 0)
+            j_launch["K2"] += got.get("kq_prefill_paged_attention", 0)
+            j_launch["K5"] += got.get("kq_decode_paged_int8", 0)
+            n_tok = sum(len(r.out_tokens) for r in reqs)
+            sw = run["swap"]
+            print(f"  {label}: peak {e.peak_used_pages} of {e.pool.n_pages} "
+                  f"pages, {run['held']:.2f} slots held a step; "
+                  f"{n_tok} tokens in {run['wall']:.3f} s, decode "
+                  f"{n_tok / e.decode_seconds:.1f} tokens/s over {steps} "
+                  f"steps ({1e3 * e.decode_seconds / steps:.2f} ms/step), "
+                  f"prefill {e.prefill_seconds:.3f} s ({e.n_prefill_tokens} "
+                  f"tokens, {chunks} chunks); preempted {e.n_preempted} "
+                  f"{e.preempted_rids}, swapped out/in {e.n_swapped_out}/"
+                  f"{e.n_swapped_in}: {sw['bytes']} bytes, "
+                  f"{1e3 * sw['out_s'] / max(sw['n_out'], 1):.2f} ms a "
+                  f"swap-out, {1e3 * sw['in_s'] / max(sw['n_in'], 1):.2f} "
+                  f"ms a swap-in; shared pages {e.n_shared_pages} "
+                  f"({e.n_shared_tokens} tokens), full hits "
+                  f"{e.n_full_hits}, COW forks {e.n_cow_forks}, reclaimed "
+                  f"{e.n_reclaimed}; launches {got}", flush=True)
+            return run
+
+        # (a) oversubscription: worst cases sum far past the pool
+        print(f"on {smi}:")
+        rng = np.random.default_rng(3)
+        alens = rng.integers(128, 769, 24)
+        aprompts = [rng.integers(0, cfg.vocab_size, int(L)).astype(np.int32)
+                    for L in alens]
+        worst = sum(-(-(int(L) + 128) // 16) for L in alens)
+        print(f"(a) pool {POOL_3J} pages of 16 for 24 requests of "
+              f"{alens.min()}..{alens.max()} prompt tokens + 128 new, "
+              f"priorities 0, 1 cycled (worst cases {worst} pages); "
+              f"watermarks high 0.9, low 0.05")
+        arun = {}
+        for label, kw in (("reserve", {}),
+                          ("optimistic recompute",
+                           dict(admission="optimistic")),
+                          ("optimistic swap",
+                           dict(admission="optimistic",
+                                preempt_mode="swap"))):
+            sc = ServeConfig(**jbase, n_pages=POOL_3J, watermark_high=0.9,
+                             watermark_low=0.05, **kw)
+            arun[label] = serve_3j(label, sc, [
+                Request(rid=i, prompt=q, max_new_tokens=128, priority=i % 2)
+                for i, q in enumerate(aprompts)], quant=False)
+        oracle = arun["reserve"]["reqs"]
+        for label in ("optimistic recompute", "optimistic swap"):
+            assert arun[label]["eng"].n_preempted >= 1, label
+        sw_eng = arun["optimistic swap"]["eng"]
+        assert sw_eng.n_swapped_in == sw_eng.n_swapped_out >= 1
+        assert sw_eng.n_swap_fallbacks == 0
+        assert arun["reserve"]["eng"].n_preempted == 0
+        # swap restores the bytes: the reserve run's tokens exactly
+        assert [r.out_tokens for r in arun["optimistic swap"]["reqs"]] == \
+            [r.out_tokens for r in oracle]
+        agreement("optimistic swap", sw_eng,
+                  arun["optimistic swap"]["reqs"], oracle)
+        agreement("optimistic recompute", arun["optimistic recompute"]["eng"],
+                  arun["optimistic recompute"]["reqs"], oracle)
+
+        # (b) prefix sharing: a 1000-token system prompt (62.5 pages),
+        # private suffixes, four exact duplicates queued last
+        srng = np.random.default_rng(4)
+        system = srng.integers(0, cfg.vocab_size, 1000)
+        bprompts = [np.concatenate([system, srng.integers(
+            0, cfg.vocab_size, int(k))]).astype(np.int32)
+            for k in srng.integers(8, 201, 20)]
+        bprompts += [bprompts[i].copy() for i in range(4)]
+        print(f"(b) 24 requests: a 1000-token system prompt + private "
+              f"suffixes of {min(len(q) for q in bprompts) - 1000}.."
+              f"{max(len(q) for q in bprompts) - 1000} tokens, 64 new; "
+              f"requests 20..23 repeat 0..3; pool of {jbase['max_batch']} x "
+              f"{jbase['max_seq_len'] // 16} fp pages")
+        for quant in ("none", "int8"):
+            brun = {}
+            qname = "int8" if quant == "int8" else "fp"
+            for share in (False, True):
+                label = f"{qname} pages, sharing {'on' if share else 'off'}"
+                sc = ServeConfig(**jbase, cache_quant=quant,
+                                 share_prefix=share)
+                brun[share] = serve_3j(label, sc, [
+                    Request(rid=i, prompt=q, max_new_tokens=64)
+                    for i, q in enumerate(bprompts)], quant=quant == "int8")
+            on, off = brun[True]["eng"], brun[False]["eng"]
+            assert on.n_shared_pages > 0 and on.n_cow_forks >= 1 \
+                and on.n_full_hits >= 1, quant
+            assert on.n_prefill_tokens < off.n_prefill_tokens, quant
+            assert on.n_prefill_chunks < off.n_prefill_chunks, quant
+            k2 = [brun[x]["launches"].get("kq_prefill_paged_attention", 0)
+                  for x in (True, False)]
+            if quant == "none":
+                assert k2[0] < k2[1], k2
+            print(f"  {qname} pages: prefill tokens {on.n_prefill_tokens} "
+                  f"shared vs {off.n_prefill_tokens} not; K2 launches "
+                  f"{k2[0]} vs {k2[1]}; prefill {on.prefill_seconds:.3f} s "
+                  f"vs {off.prefill_seconds:.3f} s; peak pages "
+                  f"{on.peak_used_pages} vs {off.peak_used_pages}")
+            agreement(f"{qname} pages, sharing on", on,
+                      brun[True]["reqs"], brun[False]["reqs"])
+        print(f"3j launches: {j_launch}")
+        del params, model
 
     # -- 3g: the sliding-window ring cache -----------------------------------
     with phase("3g serve h2o-danube-1.8b, full width, KQ-SVD, dense slots, "
@@ -1172,6 +1418,12 @@ def main() -> int:
                "launches": q_launch["K5 split"],
                "launches_from": "phase 3e",
                "cluster_size": k4["cluster_size"], "shape": k4["shape"]}
+        # launches under phase 3j's runs (optimistic admission with
+        # preemption, prefix sharing; fp pages K1 and K2, int8 pages K5)
+        k1["launches_3j"] = j_launch["K1"]
+        k5["launches_3j"] = j_launch["K5"]
+        k2.update(launches_3j=j_launch["K2"])
+        k2f.update(launches_3j=j_launch["K2"])
         # the merge kernel: float32 split decode's second launch (bf16
         # merges in K4's and K5 split's own); its launches are phase 5's
         # float32 engines' (set there)
@@ -1588,23 +1840,32 @@ def main() -> int:
             return (float((out[0].double() - y64).abs().max())
                     if y64.numel() else 0.0)
 
-        def k7_shares(args, calls=10):
+        def k7_shares(args, calls=10, attempts=3):
             """Each of K7's kernels' device ms per launch (its recorded
             time over its recorded launches) and share of a call, from
-            torch.profiler over ``calls`` calls (L2 flushed before
-            each)."""
+            torch.profiler over ``calls`` calls (L2 flushed before each),
+            with the CPU and CUDA activities the other profiles trace.  A
+            trace that recorded none of K7's kernels (once in a card run
+            whose K7 launches and outputs were right) is taken again, up
+            to ``attempts`` traces."""
             from torch.profiler import ProfilerActivity, profile
             ssd_chunk_scan(*args, chunk=256, out_dtype=f32)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(calls):
-                    flush()
-                    ssd_chunk_scan(*args, chunk=256, out_dtype=f32)
-                torch.cuda.synchronize()
-            per = {e.key: (e.device_time_total / 1e3 / e.count, e.count)
-                   for e in prof.key_averages()
-                   if any(k in e.key for k in K7_KERNELS) and e.count}
-            total = sum(t for t, _ in per.values())
+            for attempt in range(attempts):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(calls):
+                        flush()
+                        ssd_chunk_scan(*args, chunk=256, out_dtype=f32)
+                    torch.cuda.synchronize()
+                per = {e.key: (e.device_time_total / 1e3 / e.count, e.count)
+                       for e in prof.key_averages()
+                       if any(k in e.key for k in K7_KERNELS)
+                       and e.device_time_total > 0}
+                total = sum(t for t, _ in per.values())
+                if total > 0:
+                    break
+                print(f"K7 profile {attempt + 1}: no K7 kernel recorded")
             assert total > 0, "the profiler saw no K7 kernel"
             print(f"K7 S=4096 bfloat16 under torch.profiler: "
                   f"{total:.4f} ms of kernels a call")
@@ -1786,6 +2047,54 @@ def main() -> int:
               f"identical on card and CPU in the engines: "
               f"{', '.join(layouts)}; merge kernel launches "
               f"{kq_combine_splits.launches} (float32 splits)")
+
+        # optimistic admission on 11 pages (worst cases up to 10): recompute
+        # and swap; and int8 pages shared under swap on 10 fp-page units,
+        # the prompts behind a common 13-token prefix, two of them repeated.
+        # Card = CPU, and both = the reserve engine on the same pages
+        sysp = np.random.default_rng(6).integers(
+            0, rcfg.vocab_size, 13).astype(np.int32)
+        sprompts = [np.concatenate([sysp, prompts[i]])
+                    for i in (0, 1, 2, 3, 0, 1, 4, 5, 6, 7, 8)]
+        opt = dict(chunked, n_pages=11, admission="optimistic",
+                   watermark_low=0.1)
+        more = {"optimistic recompute": (dict(opt), chunked, prompts),
+                "optimistic swap": (dict(opt, preempt_mode="swap"), chunked,
+                                    prompts),
+                "int8 pages shared, swap": (
+                    dict(chunked, n_pages=10, cache_quant="int8",
+                         share_prefix=True, admission="optimistic",
+                         preempt_mode="swap", watermark_low=0.1),
+                    dict(chunked, cache_quant="int8"), sprompts)}
+        names = ("n_preempted", "n_swapped_out", "n_swapped_in",
+                 "n_shared_pages", "n_cow_forks", "n_full_hits")
+        for kind, (kw, oracle_kw, ps_) in more.items():
+            got, counts = [], []
+            for m_, p_, kw_ in ((cpu_model, p_cpu, kw), (gpu_model, p_gpu, kw),
+                                (cpu_model, p_cpu, oracle_kw)):
+                e = ServingEngine(rcfg, p_, ServeConfig(
+                    max_seq_len=64, max_batch=4, decode_chunk=4, **kw_),
+                    projections=rmp, device=m_.device)
+                rs = [Request(rid=i, prompt=p, max_new_tokens=8)
+                      for i, p in enumerate(ps_)]
+                e.generate(rs)
+                pinned = e._pindex.n_pinned if e._pindex is not None else 0
+                assert e.pool.free_count + pinned == e.pool.n_pages, kind
+                assert all(r.done and not r.failed for r in rs), kind
+                got.append([r.out_tokens for r in rs])
+                counts.append({n: getattr(e, n) for n in names})
+            assert got[0] == got[1] == got[2], (kind, got)
+            assert counts[0] == counts[1], (kind, counts)
+            assert counts[1]["n_preempted"] >= 1, (kind, counts)
+            if kw.get("preempt_mode") == "swap":
+                assert counts[1]["n_swapped_in"] == \
+                    counts[1]["n_swapped_out"] >= 1, (kind, counts)
+            if kw.get("share_prefix"):
+                assert counts[1]["n_shared_pages"] > 0 \
+                    and counts[1]["n_cow_forks"] >= 1, (kind, counts)
+            print(f"{kind}: {len(ps_)} requests' greedy tokens identical on "
+                  f"card and CPU and equal to the reserve engine's; card "
+                  f"counts {counts[1]} (= CPU)")
 
         # reduced h2o-danube-1.8b, window 16: prefill of 20 tokens and 8
         # decode steps that wrap the ring, full cache and KQ-SVD; then the

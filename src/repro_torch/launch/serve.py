@@ -17,10 +17,13 @@ and the paged store (``--paged``, ``--page-size``, ``--n-pages``), with
 exact-length or chunked prefill (``--prefill-chunk``, which turns on
 paging, and ``--prefill-buckets``), quantized pages (``--cache-quant``)
 and split-KV decode (``--decode-splits``), both of which turn on paging
-too; a flag that asks for a path it does not have yet (token budget, shards,
-optimistic admission and preemption with its priorities, prefix sharing,
-audits, chaos) stops the run with an error naming it.  Runs on the CUDA
-device unless ``--device`` says otherwise.
+too; optimistic admission with preempt-and-requeue (``--admission``,
+``--preempt-mode``, ``--watermark-high``, ``--watermark-low``,
+``--priority``; it turns on paging) and prefix sharing with copy-on-write
+(``--share-prefix``, ``--prefix-index-capacity``; it turns on chunked
+prefill).  A flag that asks for a path it does not have yet (token
+budget, shards, audits, chaos) stops the run with an error naming it.
+Runs on the CUDA device unless ``--device`` says otherwise.
 """
 from __future__ import annotations
 
@@ -39,14 +42,10 @@ from repro_torch.models import build_model
 from repro_torch.serving import Request, ServingEngine
 from repro_torch.serving.page_layouts import FpLayout, get_layout
 
-# flags of the reference CLI whose paths later slices bring (priority
-# only orders preemption there); refused when given
-_NOT_PORTED = (
-    "shards", "max-batched-tokens", "admission", "preempt-mode",
-    "watermark-high", "watermark-low", "admit-window", "share-prefix",
-    "prefix-index-capacity", "priority", "audit", "chaos-seed",
-    "chaos-rate",
-)
+# flags of the reference CLI whose paths later slices bring; refused
+# when given
+_NOT_PORTED = ("shards", "max-batched-tokens", "audit", "chaos-seed",
+               "chaos-rate")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -90,6 +89,40 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="comma-separated padded chunk lengths (largest "
                          "must equal --prefill-chunk); empty derives by "
                          "doubling")
+    ap.add_argument("--admission", default="reserve",
+                    choices=["reserve", "optimistic"],
+                    help="paged admission policy: reserve = worst-case page "
+                         "reservation; optimistic = admit on the prompt "
+                         "footprint and preempt-and-requeue victims when "
+                         "the pool runs dry.  Implies --paged.")
+    ap.add_argument("--preempt-mode", default="recompute",
+                    choices=["recompute", "swap"],
+                    help="victim handling under --admission optimistic: "
+                         "recompute the cache from the generated tokens, "
+                         "or round-trip the pages through host memory")
+    ap.add_argument("--watermark-high", type=float, default=1.0,
+                    help="pool fraction optimistic admission may fill "
+                         "(headroom held back for decode growth)")
+    ap.add_argument("--watermark-low", type=float, default=0.0,
+                    help="extra pool fraction a preemption pass frees "
+                         "beyond the strict deficit (thrash guard)")
+    ap.add_argument("--admit-window", type=int, default=4,
+                    help="pending requests scanned for one that fits "
+                         "(avoids head-of-line blocking; 1 = strict FIFO)")
+    ap.add_argument("--share-prefix", action="store_true",
+                    help="cross-request prefix sharing with copy-on-write: "
+                         "admission maps cached prefix pages into the "
+                         "block table by reference instead of prefilling "
+                         "them again.  Implies --paged and chunked "
+                         "prefill.")
+    ap.add_argument("--prefix-index-capacity", type=int, default=512,
+                    help="max live prefix-index entries (each pins one "
+                         "page until reclaimed; LRU beyond this)")
+    ap.add_argument("--priority", default="",
+                    help="comma-separated Request.priority tiers, cycled "
+                         "over the requests (empty = all tier 0); under "
+                         "--admission optimistic, preemption evicts lower "
+                         "tiers first")
     ap.add_argument("--calib-seqs", type=int, default=8)
     ap.add_argument("--calib-len", type=int, default=64)
     ap.add_argument("--shared-frac", type=float, default=0.0,
@@ -107,9 +140,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     asked = ["--" + f for f in _NOT_PORTED
              if getattr(args, f.replace("-", "_")) is not None]
     if asked:
-        ap.error(f"{', '.join(asked)}: not ported yet (this slice serves "
-                 f"dense slots and the paged store with reserve "
-                 f"admission; see ROADMAP.md queue 1)")
+        ap.error(f"{', '.join(asked)}: not ported yet (see ROADMAP.md "
+                 f"queue 1: item 1, layers 3 and 4, and item 7)")
+    if args.share_prefix and not args.prefill_chunk:
+        print("--share-prefix prefills only the unshared tail: enabling "
+              "chunked prefill (--prefill-chunk 8)")
+        args.prefill_chunk = 8
     if args.prefill_buckets and not args.prefill_chunk:
         ap.error("--prefill-buckets requires --prefill-chunk")
     if args.cache_quant == "svdq" and not args.prefill_chunk:
@@ -127,6 +163,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.prefill_chunk and not args.paged:
         print("--prefill-chunk writes straight into pages: enabling "
               "--paged")
+        args.paged = True
+    if args.admission == "optimistic" and not args.paged:
+        print("--admission optimistic preempts pages: enabling --paged")
         args.paged = True
     return args
 
@@ -164,13 +203,22 @@ def main(argv=None) -> None:
                      page_size=args.page_size, n_pages=args.n_pages,
                      chunked_prefill=bool(args.prefill_chunk),
                      prefill_chunk=args.prefill_chunk or 512,
-                     prefill_buckets=buckets, cache_quant=args.cache_quant,
+                     prefill_buckets=buckets,
+                     admission=args.admission,
+                     preempt_mode=args.preempt_mode,
+                     watermark_high=args.watermark_high,
+                     watermark_low=args.watermark_low,
+                     admit_window=args.admit_window,
+                     share_prefix=args.share_prefix,
+                     prefix_index_capacity=args.prefix_index_capacity,
+                     cache_quant=args.cache_quant,
                      decode_splits=args.decode_splits)
     eng = ServingEngine(cfg, params, sc, projections=proj,
                         device=model.device)
     rng = np.random.default_rng(0)
     lens = rng.integers(min(4, args.prompt_len), args.prompt_len + 1,
                         args.requests)
+    tiers = [int(x) for x in args.priority.split(",") if x.strip()] or [0]
     common = rng.integers(0, cfg.vocab_size,
                           max(int(lens.max()), 1)).astype(np.int32)
 
@@ -182,6 +230,7 @@ def main(argv=None) -> None:
 
     reqs = [Request(rid=i, prompt=mk_prompt(i),
                     max_new_tokens=args.max_new_tokens,
+                    priority=tiers[i % len(tiers)],
                     deadline_steps=args.deadline_steps or None)
             for i in range(args.requests)]
     t0 = time.perf_counter()
@@ -202,6 +251,9 @@ def main(argv=None) -> None:
               f"{eng.pool.free_count} free after the drain; "
               f"{eng.n_prefill_chunks} prefill chunks at buckets "
               f"{sorted(eng.prefill_chunk_shapes)}")
+        print(f"admission={args.admission}: preemptions="
+              f"{eng.n_preempted} (swap out/in {eng.n_swapped_out}/"
+              f"{eng.n_swapped_in}), failed={eng.n_failed}")
         if args.cache_quant != "none":
             # the page layout's capacity story: packed vs fp bytes per
             # cached token at the served ranks
@@ -217,6 +269,13 @@ def main(argv=None) -> None:
                       f"{full} fp byte(s)/token -> {full / packed:.2f}x "
                       f"resident capacity ({eng.pool.n_pages} physical "
                       f"pages for {sc.total_pages} fp-page units)")
+        if args.share_prefix:
+            print(f"prefix sharing: {eng.n_shared_pages} page(s) / "
+                  f"{eng.n_shared_tokens} token(s) shared, "
+                  f"{eng.n_full_hits} whole-prompt hit(s), "
+                  f"{eng.n_cow_forks} COW fork(s), "
+                  f"{eng.n_reclaimed} index entr(ies) reclaimed; "
+                  f"peak pool occupancy {eng.peak_used_pages} page(s)")
     if eng.n_failed:
         kinds = ", ".join(f"{k}={n}" for k, n in eng.error_counts.items()
                           if n)

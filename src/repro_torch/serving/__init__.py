@@ -1,21 +1,25 @@
 """Serving of the port: the continuous-batching engine over dense slots
 or the paged store.
 
-``paged_cache`` is dependency-light (torch and numpy) and re-exported
-eagerly; the engine's symbols resolve lazily (PEP 562), as in the
-reference, so that lower layers (models, kernels) can import
+``paged_cache`` and ``faults`` are dependency-light (torch and numpy)
+and re-exported eagerly; the engine's symbols resolve lazily (PEP 562),
+as in the reference, so that lower layers (models, kernels) can import
 ``repro_torch.serving.paged_cache`` at module level without pulling
 ``engine`` -> ``models`` back in a cycle.
 """
+from repro_torch.serving.faults import SwapFailed, checksum
 from repro_torch.serving.paged_cache import (GARBAGE_PAGE, BlockTables,
                                              PagePool, PagePoolExhausted,
-                                             append_chunk, append_token,
-                                             gather_pages, pages_needed)
+                                             PrefixIndex, append_chunk,
+                                             append_token, copy_page,
+                                             gather_pages, pages_needed,
+                                             swap_in, swap_out)
 
 __all__ = ["ERROR_KINDS", "EngineStalledError", "Request", "RequestError",
            "ServingEngine", "sample_token", "GARBAGE_PAGE", "BlockTables",
-           "PagePool", "PagePoolExhausted", "append_chunk", "append_token",
-           "gather_pages", "pages_needed"]
+           "PagePool", "PagePoolExhausted", "PrefixIndex", "append_chunk",
+           "append_token", "copy_page", "gather_pages", "pages_needed",
+           "swap_in", "swap_out", "SwapFailed", "checksum"]
 
 _ENGINE_EXPORTS = ("ERROR_KINDS", "EngineStalledError", "Request",
                    "RequestError", "ServingEngine", "sample_token")

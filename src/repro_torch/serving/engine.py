@@ -9,12 +9,7 @@ two cache layouts:
   its slot;
 * **paged** (``paged=True``): every layer's cache is a pool of
   ``page_size``-token pages and one block table maps each slot's logical
-  pages to physical ones (``serving.paged_cache``).  Admission is the
-  reference's *reserve* policy: a request is admitted only when its worst
-  case (prompt + ``max_new_tokens``, capped at ``max_seq_len``) fits what
-  the pool has left after every admitted slot's own outstanding growth,
-  so no allocation can fail mid-serve; a request whose worst case
-  exceeds the whole pool fails with ``oversize``.  Pages are allocated
+  pages to physical ones (``serving.paged_cache``).  Pages are allocated
   for the prompt at admission and grown before each decode chunk, and
   freed when the request ends.  The prompt goes in either at its exact
   length (dense staging repaged into the pool) or, with
@@ -22,6 +17,41 @@ two cache layouts:
   bucket and written straight into the pages, ``prefill_chunks_per_step``
   chunks per step round-robin over the slots, while the other slots
   decode.
+
+Two paged admission policies (``ServeConfig.admission``), as in the
+reference:
+
+* **reserve** (the parity oracle): a request is admitted only when its
+  worst case (prompt + ``max_new_tokens``, capped at ``max_seq_len``)
+  fits what the pool has left after every admitted slot's own
+  outstanding growth, so no allocation can fail mid-serve;
+* **optimistic**: admission charges only the pages the prompt occupies
+  now, under the pool's high watermark.  When a decode chunk's growth
+  would run the pool dry, victims are preempted, lowest
+  ``Request.priority`` first and youngest admission within a tier (the
+  best-ranked slot never), until ``watermark_low`` slack is free too;
+  they requeue at the head of the pending queue and either *recompute*
+  their cache from their prompt plus the tokens they generated
+  (``preempt_mode="recompute"``) or *swap* it: their pages go to host
+  memory with a crc32 (``serving.faults.checksum``) and come back byte
+  for byte through a fresh block-table row, verified first.
+
+In either policy a request whose worst case exceeds the whole pool fails
+with ``oversize``, and admission scans an ``admit_window`` of the pending
+queue so a small request is not blocked behind a big one.
+
+Cross-request prefix sharing (``share_prefix``, with chunked prefill):
+pages are refcounted and a ``PrefixIndex`` maps chained digests of
+page-aligned token chunks to the pages that hold their cache entries.
+Admission maps the longest cached prefix into the slot's block table by
+reference, charging only the private tail, and prefill starts past it;
+an exact-duplicate prompt whose terminal logits are stored skips prefill
+altogether; chunks a sibling indexes after admission are matched late,
+at the chunk boundary.  A write into a page still shared (a decode chunk
+or a prefill chunk starting mid-page) copy-on-write forks it first, over
+every leaf of every layer.  A finished request's pages stay pinned by the
+index until reclaimed, least recently used first, under pool pressure,
+before anyone is preempted.
 
 ``step()`` admits pending requests into free slots, advances chunked
 prefills, runs one fused decode chunk over the slots that are fully
@@ -53,11 +83,15 @@ the dense int8 cache.
 
 Failure semantics follow the reference: a request fails with a
 structured ``RequestError`` (oversize, deadlines, ``cancel``, non-finite
-logits) and the rest of the batch keeps serving; a ``stall_steps``
-watchdog raises ``EngineStalledError`` instead of spinning.  Serving
-features of later slices (optimistic admission and preemption, prefix
-sharing, token budget, shards, audits, fault injection) raise
-``NotImplementedError`` at construction.
+logits, ``pool_exhausted`` once ``admission_retries`` backed-off retries
+of a failed admission allocation are spent, ``swap_failed`` when a swap
+fails verification and ``swap_fallback`` is off) and the rest of the
+batch keeps serving; a ``stall_steps`` watchdog raises
+``EngineStalledError`` instead of spinning (re-prefilling after a
+preemption is not progress).  Serving features of later slices (fault
+injection, audits, the token budget, shards) raise
+``NotImplementedError`` at construction, naming their ``ROADMAP.md``
+queue-1 entry.
 """
 from __future__ import annotations
 
@@ -74,9 +108,12 @@ from repro_torch.core.compressed import cache_footprint
 from repro_torch.device import DeviceLike, to_device
 from repro_torch.kernels.kq_decode.ops import default_decode_splits
 from repro_torch.models.model import build_model
+from repro_torch.serving.faults import SwapFailed, checksum
 from repro_torch.serving.page_layouts import FpLayout, get_layout
 from repro_torch.serving.paged_cache import (BlockTables, PagePool,
-                                             pages_needed)
+                                             PagePoolExhausted, PrefixIndex,
+                                             copy_page, pages_needed,
+                                             swap_in, swap_out)
 
 # the structured failure taxonomy: every terminal non-success outcome of
 # a request is exactly one of these
@@ -84,17 +121,14 @@ ERROR_KINDS = ("oversize", "deadline", "pool_exhausted", "swap_failed",
                "numerics", "cancelled")
 
 # ServeConfig features that belong to later slices of the port, with the
-# ROADMAP.md queue-1 item that brings each
+# ROADMAP.md queue-1 entry that brings each
 _LATER = (
-    ("admission", lambda sc: sc.admission != "reserve",
-     "item 6 (optimistic admission and preemption)"),
-    ("share_prefix", lambda sc: sc.share_prefix, "item 6 (prefix sharing)"),
     ("max_num_batched_tokens", lambda sc: sc.max_num_batched_tokens > 0,
-     "item 6 (token-budget scheduler)"),
-    ("audit", lambda sc: sc.audit, "item 6 (invariant audits)"),
+     "item 1, layer 4 (token-budget scheduler)"),
+    ("audit", lambda sc: sc.audit, "item 1, layer 3 (invariant audits)"),
     ("chaos_seed", lambda sc: sc.chaos_seed is not None,
-     "item 6 (fault injection)"),
-    ("shards", lambda sc: sc.shards > 1, "item 12 (sharded engine)"),
+     "item 1, layer 3 (fault injection)"),
+    ("shards", lambda sc: sc.shards > 1, "item 7 (sharded engine)"),
 )
 
 
@@ -132,6 +166,7 @@ class Request:
     rid: int
     prompt: np.ndarray                 # (S,) int32
     max_new_tokens: int = 16
+    priority: int = 0                  # preemption evicts lower tiers first
     deadline_steps: Optional[int] = None
     ttft_deadline_steps: Optional[int] = None
     out_tokens: List[int] = dataclasses.field(default_factory=list)
@@ -167,9 +202,13 @@ class ServingEngine:
     ``n_decode_steps`` (model decode steps run), ``n_prefill_tokens``,
     ``n_prefill_chunks`` and ``prefill_chunk_shapes`` (the buckets
     chunks ran at, over the engine's life), the paged ``pool`` and
-    ``peak_used_pages``, and the wall seconds spent in prefill
+    ``peak_used_pages``, the wall seconds spent in prefill
     (``prefill_seconds``, which ends each admission or prefill pass with
-    a device sync) and in decode chunks (``decode_seconds``)."""
+    a device sync) and in decode chunks (``decode_seconds``); preemption's
+    ``n_preempted``, ``preempted_rids``, ``n_swapped_out``,
+    ``n_swapped_in``, ``n_swap_fallbacks`` and ``n_retried``; sharing's
+    ``n_shared_pages``, ``n_shared_tokens``, ``n_full_hits``,
+    ``n_cow_forks`` and ``n_reclaimed``."""
 
     def __init__(self, cfg: ModelConfig, params, sc: ServeConfig,
                  projections: Optional[ModelProjections] = None,
@@ -178,8 +217,7 @@ class ServingEngine:
                  for name, asks, item in _LATER if asks(sc)]
         if later:
             raise NotImplementedError(
-                "the port serves dense slots and the paged store under "
-                "reserve admission; not yet ported: " + ", ".join(later))
+                "not yet ported: " + ", ".join(later))
         # the serve config owns the paged page layout: folded into the
         # model config so prefill, chunks and decode resolve the same
         # one; a full cache (no projections) has no compressed entries
@@ -286,12 +324,16 @@ class ServingEngine:
                                  f"{len(r.prompt)} exceeds max_seq_len {T}")
         self._pending: List[Request] = list(requests)
         self._all_requests: List[Request] = list(requests)
-        # paged bookkeeping per slot: the pages it may ever hold (its
-        # worst case, the growth cap) and the pages it holds
+        # paged bookkeeping per slot: the logical pages it may ever hold
+        # (its worst case, the growth cap), the pages it may newly
+        # allocate (its private tail: a shared prefix page exists once and
+        # is charged to nobody) and the pages it holds privately
         self._reserved = [0] * B
+        self._charged = [0] * B
         self._private = [0] * B
         self.pool: Optional[PagePool] = None
         self._btabs: Optional[BlockTables] = None
+        self._pindex: Optional[PrefixIndex] = None
         if sc.paged:
             # sized in physical pages: the fp-unit budget times the page
             # layout's capacity multiplier
@@ -300,8 +342,28 @@ class ServingEngine:
             self._btabs = BlockTables(B, sc.pages_per_seq, self.device)
             self._cache = self.model.init_paged_cache(
                 n_phys + 1, sc.page_size, self.ranks)
+            if sc.share_prefix:
+                # reset with the pool: its entries pin pool pages
+                self._pindex = PrefixIndex(sc.prefix_index_capacity)
         else:
             self._cache = self.model.init_cache(B, T, self.ranks)
+        # preemption: each slot's admission stamp (the youngest goes first
+        # within a priority tier) and the swapped-out requests' host
+        # buffers, crc and next-token logits, keyed by id(request)
+        self._stamp = [0] * B
+        self._admit_seq = 0
+        self._swapped: Dict[int, dict] = {}
+        # id(request) -> (failed admission allocations, step of the next
+        # try); id(request) -> prefill high watermark, since re-prefilling
+        # after a preemption is thrash, not progress, for the watchdog
+        self._retry: Dict[int, tuple] = {}
+        self._pf_best: Dict[int, int] = {}
+        # prefix sharing per slot: the chain digest at token _indexed_upto
+        # (its pages up to there are in the index), and its prompt's
+        # next-token logits, on the device, indexed when it finishes
+        self._chain_key = [PrefixIndex.ROOT] * B
+        self._indexed_upto = [0] * B
+        self._prompt_logits: List[Optional[torch.Tensor]] = [None] * B
         self.n_prefill_chunks = 0
         self.peak_used_pages = 0
         # chunked prefill: prompt tokens already written per slot (None =
@@ -318,6 +380,17 @@ class ServingEngine:
         self.n_prefill_tokens = 0
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
+        self.n_preempted = 0
+        self.preempted_rids: List[int] = []
+        self.n_swapped_out = 0
+        self.n_swapped_in = 0
+        self.n_swap_fallbacks = 0
+        self.n_retried = 0
+        self.n_shared_pages = 0
+        self.n_shared_tokens = 0
+        self.n_full_hits = 0
+        self.n_cow_forks = 0
+        self.n_reclaimed = 0
         # per-slot decode state: host arrays between chunks, device
         # tensors inside one; next-token logits stay on the device
         self._logits = torch.zeros((B, self.cfg.vocab_size),
@@ -328,6 +401,8 @@ class ServingEngine:
         self._done = np.ones(B, bool)
         self._trunc = np.zeros(B, bool)
         self._slot_req: List[Optional[Request]] = [None] * B
+        # the prompt a slot serves: the request's, plus the tokens a
+        # recompute victim generated before its preemption
         self._slot_prompt: List[Optional[np.ndarray]] = [None] * B
         self._started = True
 
@@ -342,14 +417,17 @@ class ServingEngine:
     # -- failure semantics --------------------------------------------------
 
     def _fail_request(self, r: Request, kind: str, detail: str = "") -> None:
-        """Terminally fail ``r`` and unwind it from the pending queue or
-        its slot; the rest of the batch is untouched."""
+        """Terminally fail ``r`` and unwind it from the pending queue, its
+        slot or the swap store; the rest of the batch is untouched."""
         r.error = RequestError(kind=kind, detail=detail,
                                step=self._step_count)
         r.done = True
         self.n_failed += 1
         self.error_counts[kind] += 1
         self._progress = True
+        self._retry.pop(id(r), None)
+        self._pf_best.pop(id(r), None)
+        self._swapped.pop(id(r), None)
         self._pending = [p for p in self._pending if p is not r]
         for b in range(self.sc.max_batch):
             if self._slot_req[b] is r:
@@ -358,8 +436,8 @@ class ServingEngine:
                 break
 
     def cancel(self, rid: int, detail: str = "cancelled by caller") -> bool:
-        """Cancel request ``rid`` whether pending or decoding.  Returns
-        whether a live request was cancelled."""
+        """Cancel request ``rid`` whether pending, prefilling, decoding or
+        swapped out.  Returns whether a live request was cancelled."""
         if not self._started:
             raise RuntimeError("call start(requests) first")
         for r in self._all_requests:
@@ -388,7 +466,8 @@ class ServingEngine:
 
     def _dump(self) -> str:
         lines = [f"step={self._step_count} "
-                 f"pending={[r.rid for r in self._pending]}"]
+                 f"pending={[r.rid for r in self._pending]} "
+                 f"swapped={len(self._swapped)}"]
         for b, r in enumerate(self._slot_req):
             if r is not None:
                 lines.append(f"slot {b}: rid={r.rid} pos={self._pos[b]} "
@@ -402,31 +481,67 @@ class ServingEngine:
     # -- admission ------------------------------------------------------------
 
     def _worst_case_pages(self, r: Request) -> int:
-        """Pages the request can ever occupy (truncation caps the
-        sequence at ``max_seq_len``)."""
+        """Pages the request can ever occupy (truncation caps the sequence
+        at ``max_seq_len``); unchanged by a preemption, since a recompute
+        victim's prompt grows by what its remaining budget shrinks."""
         sc = self.sc
         return pages_needed(min(len(r.prompt) + max(r.max_new_tokens, 0),
                                 sc.max_seq_len), sc.page_size)
 
-    def _fits_now(self, worst: int) -> bool:
-        """Reserve admission: every admitted slot may still grow by
-        ``reserved - private`` pages; the request's worst case must fit
-        what the pool has left after the live pages and that growth."""
-        outstanding = sum(r - p for r, p in zip(self._reserved,
-                                                self._private))
-        headroom = self.pool.n_pages - self.pool.used_count - outstanding
-        return worst <= headroom
+    @staticmethod
+    def _effective_prompt(r: Request) -> np.ndarray:
+        """What a (re)admission prefills: the prompt, plus the tokens
+        generated before a preemption."""
+        return np.concatenate([np.asarray(r.prompt, np.int32),
+                               np.asarray(r.out_tokens, np.int32)])
+
+    def _fits_now(self, r: Request, worst_private: int,
+                  shared: tuple) -> bool:
+        """Whether ``r`` can be admitted now.  ``worst_private`` and
+        ``shared = (n_pages, n_tokens, fork, self_pinned)`` count only its
+        private tail; index pins the request would take over itself
+        (``self_pinned``) are not reclaimable headroom.  Reserve: the
+        private worst case must fit what is left after the live pages
+        (less reclaimable pins) and every admitted slot's outstanding
+        growth (``charged - private``).  Optimistic: the pages the
+        effective prompt needs now, plus a possible fork, must be free and
+        keep the pool under its high watermark (an idle pool admits any
+        request that fits)."""
+        s_pages, _, s_fork, s_pin = shared
+        reclaimable = (self._pindex.reclaimable(self.pool) - s_pin
+                       if self._pindex is not None else 0)
+        if self.sc.admission == "reserve":
+            outstanding = sum(c - p for c, p in zip(self._charged,
+                                                    self._private))
+            headroom = (self.pool.n_pages
+                        - (self.pool.used_count - reclaimable)
+                        - outstanding)
+            return worst_private <= headroom
+        need = (pages_needed(len(r.prompt) + len(r.out_tokens),
+                             self.sc.page_size) - s_pages + s_fork)
+        avail = self.pool.free_count + reclaimable
+        eff_used = self.pool.used_count - reclaimable
+        if eff_used == 0:
+            return need <= avail
+        return need <= avail and eff_used + need <= self.pool.high_pages
 
     def _next_admissible(self) -> Optional[Request]:
         """Pop the first admissible pending request within the
         ``admit_window`` scan, so a small request is not blocked behind a
-        big one whose worst case does not fit yet.  Requests with no
-        tokens to generate are resolved (done) on the way; a request
-        whose worst case exceeds the whole pool fails (``oversize``)."""
+        big one whose worst case does not fit yet.  Requests backing off
+        after a failed allocation are passed over until their retry step;
+        requests with no tokens to generate are resolved (done) on the
+        way; a request whose worst case exceeds the whole pool fails
+        (``oversize``)."""
         sc = self.sc
         i = scanned = 0
         while i < len(self._pending) and scanned < sc.admit_window:
             r = self._pending[i]
+            rt = self._retry.get(id(r))
+            if rt is not None and self._step_count < rt[1]:
+                i += 1
+                scanned += 1
+                continue
             if r.max_new_tokens - len(r.out_tokens) <= 0:
                 r.done = True
                 self._pending.pop(i)
@@ -438,7 +553,9 @@ class ServingEngine:
                         r, "oversize", f"worst case {worst} pages exceeds "
                         f"the {self.pool.n_pages}-page pool")
                     continue
-                if not self._fits_now(worst):
+                shared = self._probe_share(r)
+                if not self._fits_now(r, worst - shared[0] + shared[2],
+                                      shared):
                     i += 1
                     scanned += 1
                     continue
@@ -447,36 +564,109 @@ class ServingEngine:
 
     def _admit(self) -> int:
         """Fill free slots from the pending queue; returns how many
-        requests were admitted.  Paged: allocate the prompt's pages and
-        charge the worst case.  Chunked prefill: queue the slot for
-        ``_prefill_step``.  Otherwise prefill the prompt alone at its
-        exact length and copy its cache into the slot (dense) or its
-        pages (paged)."""
+        requests were admitted.  Paged: map the longest cached prefix into
+        the block table by reference, allocate the private tail (on a
+        failed allocation roll back and retry with backoff, or fail with
+        ``pool_exhausted`` once ``admission_retries`` are spent) and
+        charge the private worst case; a swap victim skips the match and
+        has its pages restored, verified by checksum.  Chunked prefill:
+        queue the slot for ``_prefill_step`` from the first unshared token
+        (a whole-prompt match with stored logits activates it at once).
+        Otherwise prefill the effective prompt at its exact length and
+        copy its cache into the slot (dense) or its pages (paged)."""
         sc = self.sc
         t0 = time.perf_counter()
-        n = 0
+        occupied0 = sum(q is not None for q in self._slot_req)
+        ran = False
         for b in range(sc.max_batch):
             if self._slot_req[b] is not None:
                 continue
             r = self._next_admissible()
             if r is None:
                 break
-            prompt = np.concatenate([np.asarray(r.prompt, np.int32),
-                                     np.asarray(r.out_tokens, np.int32)])
+            prompt = self._effective_prompt(r)
             self._slot_req[b] = r
             self._slot_prompt[b] = prompt
-            n += 1
+            self._stamp[b] = self._admit_seq
+            self._admit_seq += 1
+            slog = None
+            shared_tokens = 0
             if sc.paged:
-                # reserve admission checked that these fit: no failure
+                ps = sc.page_size
+                shared: List[int] = []
+                full_tokens = fork = 0
+                chain = PrefixIndex.ROOT
+                if self._pindex is not None and id(r) not in self._swapped:
+                    hits, chain, full_tokens, slog = self._pindex.walk(
+                        prompt, ps)
+                    # the probe's rule, so the charge is what was checked
+                    kept, shared_tokens, fork, slog = self._cap_share(
+                        len(prompt), hits, slog)
+                    shared = [p for _, p, _ in kept]
+                    if shared:
+                        self._pindex.touch([k for k, _, _ in kept])
+                        self.pool.share(shared)
                 self._reserved[b] = self._worst_case_pages(r)
-                n_priv = pages_needed(len(prompt), sc.page_size)
-                self._btabs.assign(b, self.pool.alloc(n_priv))
+                self._charged[b] = self._reserved[b] - len(shared) + fork
+                n_priv = pages_needed(len(prompt), ps) - len(shared)
+                try:
+                    phys = self._alloc(n_priv)
+                except PagePoolExhausted:
+                    # the accounting said it fits, the pool disagrees:
+                    # roll back, retry after 1, 2, 4, ... steps (at most
+                    # 32), and fail once the retries are spent
+                    if shared:
+                        self.pool.free(shared)
+                    self._slot_req[b] = self._slot_prompt[b] = None
+                    self._reserved[b] = self._charged[b] = 0
+                    n_tries, _ = self._retry.get(id(r), (0, 0))
+                    if n_tries >= sc.admission_retries:
+                        self._fail_request(
+                            r, "pool_exhausted",
+                            f"admission allocation failed {n_tries + 1} "
+                            f"times (backoff spent)")
+                        continue
+                    self._retry[id(r)] = (
+                        n_tries + 1,
+                        self._step_count + min(1 << n_tries, 32))
+                    self.n_retried += 1
+                    self._pending.insert(0, r)
+                    break
+                self._retry.pop(id(r), None)
+                self.n_shared_pages += len(shared)
+                self.n_shared_tokens += shared_tokens
                 self._private[b] = n_priv
+                self._btabs.assign(b, shared + phys)
+                self._chain_key[b] = chain
+                self._indexed_upto[b] = full_tokens
+                st = self._swapped.pop(id(r), None)
+                if st is not None:
+                    try:
+                        self._swap_in_slot(b, st)
+                    except SwapFailed as e:
+                        if not sc.swap_fallback:
+                            self._release(b)
+                            self._fail_request(r, "swap_failed", str(e))
+                            continue
+                        # recompute: the pages just assigned cover the
+                        # effective prompt, which carries the generated
+                        # tokens
+                        self.n_swap_fallbacks += 1
+                    else:
+                        self._activate(b, r, st["logits"])
+                        self.n_swapped_in += 1
+                        continue
             if sc.chunked_prefill:
-                self._prefilled[b] = 0
+                if slog is not None:
+                    # the whole prompt and its next-token logits came from
+                    # the index: no prefill chunk at all
+                    self.n_full_hits += 1
+                    self._activate(b, r, slog)
+                else:
+                    self._prefilled[b] = shared_tokens
                 continue
-            max_len = (self._private[b] * sc.page_size if sc.paged
-                       else sc.max_seq_len)
+            max_len = (len(self._btabs.slot_pages[b]) * sc.page_size
+                       if sc.paged else sc.max_seq_len)
             plogits, slot_cache = self.model.prefill(
                 self.params, prompt[None], max_len, proj=self.proj)
             if sc.paged:
@@ -487,10 +677,11 @@ class ServingEngine:
                         layer[name][b].copy_(t[0])
             self._activate(b, r, plogits[0, -1])
             self.n_prefill_tokens += len(prompt)
-        if n and not sc.chunked_prefill:
+            ran = True
+        if ran:
             self._sync()
             self.prefill_seconds += time.perf_counter() - t0
-        return n
+        return sum(q is not None for q in self._slot_req) - occupied0
 
     def _paged_insert(self, b: int, slot_cache) -> None:
         """Cut a prefilled one-sequence cache, leaves (1, Hkv, n*ps, R),
@@ -508,34 +699,197 @@ class ServingEngine:
                     .transpose(0, 1).to(layer[name].dtype)
 
     def _activate(self, b: int, r: Request, last_logits) -> None:
-        """Arm slot ``b`` for decode once its prompt cache is in place."""
+        """Arm slot ``b`` for decode once its prompt cache is in place.
+        With sharing on, a device copy of the prompt's next-token logits
+        is kept for the index (no host sync)."""
         self._logits[b] = last_logits
         self._pos[b] = len(self._slot_prompt[b])
         self._emitted[b] = 0
+        # a resumed victim already emitted part of its budget
         self._max_new[b] = r.max_new_tokens - len(r.out_tokens)
         self._done[b] = False
         self._trunc[b] = False
+        if self._pindex is not None:
+            self._prompt_logits[b] = self._logits[b].clone()
 
-    def _release(self, b: int) -> None:
+    def _release(self, b: int, finished: bool = False) -> None:
+        """Free slot ``b``: a finished request first leaves its prompt's
+        tail in the prefix index; its page references then drop (pages
+        another slot or the index holds stay) and its row resets to the
+        garbage page."""
+        if finished and self._pindex is not None:
+            self._index_terminal(b)
         self._slot_req[b] = None
         self._slot_prompt[b] = None
         self._prefilled[b] = None
+        self._prompt_logits[b] = None
+        self._chain_key[b] = PrefixIndex.ROOT
+        self._indexed_upto[b] = 0
         if self.sc.paged:
-            # the slot's pages go back to the pool; its row to garbage
             self._btabs.release(b, self.pool)
-            self._reserved[b] = self._private[b] = 0
+            self._reserved[b] = self._charged[b] = self._private[b] = 0
+
+    # -- prefix sharing -------------------------------------------------------
+
+    def _cap_share(self, L: int, hits, logits):
+        """The one cap and fork rule of a prefix match, for the admission
+        probe and the admission alike: the match stops at ``L - 1`` tokens
+        unless stored logits serve the whole prompt, hit pages past the
+        cap are dropped, and a match ending mid-page predicts the fork its
+        first write needs.  Returns ``(kept, n_tokens, fork, logits)``."""
+        ps = self.sc.page_size
+        tokens = sum(n for _, _, n in hits)
+        if tokens == L and logits is None:
+            tokens = L - 1          # the last token recomputed for logits
+        kept = [h for j, h in enumerate(hits) if j * ps < tokens]
+        if tokens < L:
+            logits = None
+        fork = 1 if kept and tokens % ps else 0
+        return kept, tokens, fork, logits
+
+    def _probe_share(self, r: Request) -> tuple:
+        """What admission would share for ``r``, read only:
+        ``(n_pages, n_tokens, fork, self_pinned)``, ``self_pinned`` the
+        matched pages only the index pins now."""
+        if self._pindex is None or id(r) in self._swapped:
+            return 0, 0, 0, 0
+        prompt = self._effective_prompt(r)
+        hits, _, _, logits = self._pindex.walk(prompt, self.sc.page_size)
+        kept, tokens, fork, _ = self._cap_share(len(prompt), hits, logits)
+        self_pin = sum(1 for _, p, _ in kept if self.pool.ref(p) == 1)
+        return len(kept), tokens, fork, self_pin
+
+    def _alloc(self, n: int) -> List[int]:
+        """Pool allocation that first reclaims pages only the prefix index
+        pins (LRU): cached prefixes are cheaper to drop than live
+        sequences."""
+        if n <= 0:
+            return []
+        if self._pindex is not None and n > self.pool.free_count:
+            self.n_reclaimed += self._pindex.reclaim(self.pool, n)
+        return self.pool.alloc(n)
+
+    def _fork_candidates(self, b: int, lo: int, hi: int) -> List[int]:
+        """Logical pages of slot ``b`` that positions [lo, hi) write and
+        that are still shared (refcount > 1): each must be forked first."""
+        if self._pindex is None or hi <= lo:
+            return []
+        ps = self.sc.page_size
+        rows = self._btabs.rows[b]
+        last = min((hi - 1) // ps, len(self._btabs.slot_pages[b]) - 1)
+        return [j for j in range(lo // ps, last + 1)
+                if self.pool.ref(int(rows[j])) > 1]
+
+    def _cow_fork(self, b: int, j: int) -> None:
+        """Fork logical page ``j`` of slot ``b``: copy it into a fresh page
+        in every leaf of every layer (data, int8 scale and packed pools),
+        repoint the row (which drops the device export) and drop one
+        reference on the original, which the other sharers keep."""
+        old = int(self._btabs.rows[b, j])
+        new = self._alloc(1)[0]
+        for layer in self._cache:
+            for pool in layer.values():
+                copy_page(pool, old, new)
+        self._btabs.set_page(b, j, new)
+        self.pool.free([old])
+        self._private[b] += 1
+        self.n_cow_forks += 1
+
+    def _late_match(self, b: int) -> bool:
+        """At a chunk boundary, map in whole-page prompt chunks a sibling
+        has prefilled and indexed since this slot was admitted; the
+        slot's unwritten private page for each goes back to the pool.
+        Returns True when the match completed the prompt with stored
+        logits (the slot is then activated and runs no chunk)."""
+        if self._pindex is None:
+            return False
+        ps = self.sc.page_size
+        prompt = self._slot_prompt[b]
+        L = len(prompt)
+        start = self._prefilled[b]
+        while (start % ps == 0 and start == self._indexed_upto[b]
+               and start + ps <= L):
+            key = PrefixIndex.child_key(self._chain_key[b],
+                                        prompt[start: start + ps])
+            hit = self._pindex.get(key)
+            if hit is None or hit[0] == int(self._btabs.rows[b, start // ps]):
+                break
+            page, _, logits = hit
+            old = self._btabs.slot_pages[b][start // ps]
+            self.pool.share([page])
+            self._btabs.set_page(b, start // ps, page)
+            self.pool.free([old])
+            self._private[b] -= 1
+            self.n_shared_pages += 1
+            self.n_shared_tokens += ps
+            self._chain_key[b] = key
+            start += ps
+            self._indexed_upto[b] = start
+            if start == L:
+                if logits is not None:
+                    self._prefilled[b] = None
+                    self.n_full_hits += 1
+                    self._activate(b, self._slot_req[b], logits)
+                    return True
+                # no stored logits: recompute the last token (its write
+                # forks the shared page)
+                start -= 1
+                break
+        self._prefilled[b] = start
+        return False
+
+    def _index_terminal(self, b: int) -> None:
+        """Leave a finished slot's prompt tail in the index before its
+        references drop: the final partial-page chunk, if any, with the
+        prompt's next-token logits (attached to the last full page's entry
+        when the prompt ends on a page boundary)."""
+        prompt = self._slot_prompt[b]
+        if (self._prefilled[b] is not None or prompt is None
+                or self._prompt_logits[b] is None):
+            return                          # mid-prefill or never activated
+        ps = self.sc.page_size
+        k, rem = divmod(len(prompt), ps)
+        if self._indexed_upto[b] != k * ps:
+            return                          # full pages not all indexed
+        if rem:
+            key = PrefixIndex.child_key(self._chain_key[b], prompt[k * ps:])
+            self._pindex.insert(key, int(self._btabs.rows[b, k]), rem,
+                                self.pool, logits=self._prompt_logits[b])
+        elif self._chain_key[b] != PrefixIndex.ROOT:
+            self._pindex.attach_logits(self._chain_key[b],
+                                       self._prompt_logits[b])
 
     # -- chunked prefill ------------------------------------------------------
 
-    def _run_chunk(self, b: int) -> None:
-        """Run slot ``b``'s next prefill chunk, padded to its bucket,
-        through the model: its tokens, position, real-token count and the
-        slot's block-table row go to the device in one non-blocking copy.
-        The slot joins decode, with the logits of its last real token,
-        when its prompt is written."""
-        prompt = self._slot_prompt[b]
+    def _prep_chunk(self, b: int) -> Optional[int]:
+        """Ready slot ``b``'s next prefill chunk: late-bind shared chunks,
+        then fork any still-shared page the chunk writes (a chunk may
+        start mid-page, at the first unshared token).  Returns the chunk's
+        real-token count, or None when the slot runs no chunk: the late
+        match completed its prompt, or the pool was dry at the fork and
+        the slot was preempted."""
+        if self._late_match(b):
+            return None
         start = self._prefilled[b]
-        n = min(self.sc.prefill_chunk, len(prompt) - start)
+        n = min(self.sc.prefill_chunk, len(self._slot_prompt[b]) - start)
+        try:
+            for j in self._fork_candidates(b, start, start + n):
+                self._cow_fork(b, j)
+        except PagePoolExhausted:
+            self._preempt(b)
+            return None
+        return n
+
+    def _run_chunk(self, b: int, n: int) -> None:
+        """Run slot ``b``'s next ``n``-token prefill chunk, padded to its
+        bucket, through the model: its tokens, position, real-token count
+        and the slot's block-table row go to the device in one
+        non-blocking copy.  Pages the chunk completes join the prefix
+        index; the slot joins decode, with the logits of its last real
+        token, when its prompt is written."""
+        prompt = self._slot_prompt[b]
+        r = self._slot_req[b]
+        start = self._prefilled[b]
         bucket = self.sc.bucket_for(n)
         host = np.zeros(bucket + 2 + self.sc.pages_per_seq, np.int32)
         host[:n] = prompt[start: start + n]
@@ -550,10 +904,24 @@ class ServingEngine:
         self.n_prefill_chunks += 1
         self.n_prefill_tokens += n
         self._prefilled[b] = start + n
-        self._progress = True
+        # watchdog progress is new ground only: a preempted request's
+        # re-prefill is thrash
+        if start + n > self._pf_best.get(id(r), 0):
+            self._pf_best[id(r)] = start + n
+            self._progress = True
+        if self._pindex is not None:
+            ps = self.sc.page_size
+            while self._indexed_upto[b] + ps <= start + n:
+                j = self._indexed_upto[b] // ps
+                key = PrefixIndex.child_key(
+                    self._chain_key[b], prompt[j * ps: (j + 1) * ps])
+                self._pindex.insert(key, int(self._btabs.rows[b, j]), ps,
+                                    self.pool)
+                self._chain_key[b] = key
+                self._indexed_upto[b] += ps
         if start + n == len(prompt):
             self._prefilled[b] = None            # complete: join decode
-            self._activate(b, self._slot_req[b], logits[0, n - 1])
+            self._activate(b, r, logits[0, n - 1])
 
     def _prefill_step(self, budget: Optional[int] = None) -> int:
         """Advance in-flight chunked prefills by up to ``budget`` (default
@@ -572,7 +940,10 @@ class ServingEngine:
             b = (self._pf_next + off) % B
             if self._prefilled[b] is None:
                 continue
-            self._run_chunk(b)
+            n = self._prep_chunk(b)
+            if n is None:
+                continue
+            self._run_chunk(b, n)
             ran = True
             budget -= 1
         self._pf_next = (self._pf_next + 1) % B
@@ -581,20 +952,121 @@ class ServingEngine:
             self.prefill_seconds += time.perf_counter() - t0
         return budget
 
+    # -- preemption -----------------------------------------------------------
+
+    def _swap_out_slot(self, b: int, n_tokens: int) -> dict:
+        """Slot ``b``'s first ``n_tokens`` cache entries of every leaf of
+        every layer, copied to host memory (finished when this returns,
+        before the pages are released), with their crc: ``{"bufs": one
+        dict of CPU tensors per layer, "crc": int}``."""
+        row = self._btabs.rows[b].copy()
+        bufs = [{name: swap_out(pool, row, n_tokens)
+                 for name, pool in layer.items()} for layer in self._cache]
+        return {"bufs": bufs, "crc": checksum(bufs)}
+
+    def _swap_in_slot(self, b: int, st: dict) -> None:
+        """Restore a swapped-out cache through slot ``b``'s fresh row, byte
+        for byte, after checking the buffers' crc; raises ``SwapFailed``
+        when they do not match."""
+        if checksum(st["bufs"]) != st["crc"]:
+            raise SwapFailed("swap buffer failed checksum verification")
+        row = self._btabs.rows[b].copy()
+        for layer, bufs in zip(self._cache, st["bufs"]):
+            for name, pool in layer.items():
+                swap_in(pool, row, bufs[name])
+
+    def _preempt(self, b: int) -> None:
+        """Evict slot ``b`` and requeue its request at the head of the
+        pending queue.  Recompute (and any mid-prefill victim, which has
+        no decode state) relies on the generated tokens riding as prompt
+        suffix; swap first saves the slot's entries, their crc and its
+        next-token logits (a device copy)."""
+        r = self._slot_req[b]
+        if self.sc.preempt_mode == "swap" and self._prefilled[b] is None:
+            st = self._swap_out_slot(b, int(self._pos[b]))
+            st["logits"] = self._logits[b].clone()
+            self._swapped[id(r)] = st
+            self.n_swapped_out += 1
+        self._pending.insert(0, r)
+        self._release(b)
+        self._done[b] = True
+        self.n_preempted += 1
+        self.preempted_rids.append(r.rid)
+
+    def _preempt_for_headroom(self, live: np.ndarray,
+                              needs: Dict[int, int]) -> None:
+        """Free pages for this chunk's growth, cheapest first: pages only
+        the index pins are reclaimed (LRU), then victims are evicted by
+        (priority, stamp), lowest tier and youngest admission first, any
+        occupied slot but the best-ranked, which always runs: with the
+        oversize check at admission that guarantees progress.  Eviction
+        goes on until ``low_extra`` slack pages are free beyond the
+        deficit (thrash guard).  ``needs``: extra pages per live slot."""
+        deficit = sum(needs.values())
+        if self._pindex is not None and deficit > self.pool.free_count:
+            self.n_reclaimed += self._pindex.reclaim(self.pool, deficit)
+        if deficit <= self.pool.free_count:
+            return
+        cand = sorted((b for b in range(self.sc.max_batch)
+                       if self._slot_req[b] is not None),
+                      key=lambda b: (-self._slot_req[b].priority,
+                                     self._stamp[b]))
+        while len(cand) > 1 and (deficit + self.pool.low_extra
+                                 > self.pool.free_count):
+            b = cand.pop()
+            deficit -= needs.pop(b, 0)
+            self._preempt(b)
+            live[b] = False
+
     def _ensure_chunk_headroom(self, live: np.ndarray) -> None:
-        """Grow every decoding slot's pages to cover the next
-        ``decode_chunk`` tokens (capped at its worst case) before the
-        chunk runs: the decode chunk itself never allocates.  Reserve
-        admission guarantees the pages are there."""
+        """Before a decode chunk: give every decoding slot the pages its
+        next ``decode_chunk`` tokens need (capped at its worst case; the
+        chunk itself never allocates) and fork every still-shared page
+        they write into.  Reserve admission guarantees the pages (forks
+        are part of the charge); optimistic admission reclaims index pins
+        and preempts victims when the pool would run dry, and any
+        allocation that still fails preempts the slot that asked.
+        Mutates ``live``."""
         sc = self.sc
+        needs: Dict[int, int] = {}
+        grow: Dict[int, int] = {}
+        forks: Dict[int, List[int]] = {}
         for b in np.nonzero(live)[0]:
-            end = min(int(self._pos[b]) + sc.decode_chunk, sc.max_seq_len)
+            pos = int(self._pos[b])
+            end = min(pos + sc.decode_chunk, sc.max_seq_len)
             need = min(pages_needed(end, sc.page_size), self._reserved[b])
+            extra = need - len(self._btabs.slot_pages[b])
+            nf = self._fork_candidates(b, pos, end)
+            if extra > 0:
+                grow[b] = extra
+            if nf:
+                forks[b] = nf
+            if max(extra, 0) + len(nf):
+                needs[b] = max(extra, 0) + len(nf)
+        if sc.admission == "optimistic":
+            self._preempt_for_headroom(live, needs)
+        for b, pages in forks.items():
+            if not live[b]:
+                continue
+            try:
+                for j in pages:           # a sharer may have been evicted
+                    if self.pool.ref(int(self._btabs.rows[b, j])) > 1:
+                        self._cow_fork(b, j)
+            except PagePoolExhausted:
+                self._preempt(b)
+                live[b] = False
+        for b, extra in grow.items():
+            if not live[b]:
+                continue
             have = len(self._btabs.slot_pages[b])
-            if need > have:
-                self._btabs.assign(b, self.pool.alloc(need - have),
-                                   start=have)
-                self._private[b] += need - have
+            try:
+                phys = self._alloc(extra)
+            except PagePoolExhausted:
+                self._preempt(b)
+                live[b] = False
+                continue
+            self._btabs.assign(b, phys, start=have)
+            self._private[b] += extra
 
     # -- decode ---------------------------------------------------------------
 
@@ -685,7 +1157,9 @@ class ServingEngine:
             if self._done[b]:
                 r.done = True
                 r.truncated = bool(self._trunc[b])
-                self._release(b)
+                self._release(b, finished=True)
+                self._retry.pop(id(r), None)
+                self._pf_best.pop(id(r), None)
                 self.n_completed += 1
                 freed = True
         return freed
@@ -724,7 +1198,10 @@ class ServingEngine:
             return self._busy()
         btab = None
         if sc.paged:
+            # may preempt (optimistic admission): victims leave ``live``
             self._ensure_chunk_headroom(live)
+            if not live.any():
+                return self._busy()
             btab = self._btabs.device(live)
             self._note_pages()
         t0 = time.perf_counter()

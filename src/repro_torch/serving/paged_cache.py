@@ -20,15 +20,17 @@ pages, allocated on demand instead of ``max_seq_len`` per slot.
 * allocation is host-side and happens only at chunk boundaries, so the
   fused decode chunk never allocates.
 
-``PagePool``, ``pages_needed`` and ``BlockTables`` are host state (numpy);
-``append_token``, ``append_chunk`` and ``gather_pages`` work on torch
-tensors and write the pools in place (the reference returns new arrays).
-The prefix index and the page copy / swap primitives belong to prefix
-sharing and preemption, which this slice of the port does not have yet.
+``PagePool``, ``PrefixIndex``, ``pages_needed`` and ``BlockTables`` are
+host state (numpy); ``append_token``, ``append_chunk``, ``copy_page``,
+``swap_in`` and ``gather_pages`` work on torch tensors and write the pools
+in place (the reference returns new arrays); ``swap_out`` copies a slot's
+entries to host memory.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import hashlib
+from collections import OrderedDict
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -114,6 +116,165 @@ class PagePool:
                 self._free.append(p)
 
 
+class PrefixIndex:
+    """Host-side prefix index: token-chunk chains -> physical pages.
+
+    Each entry maps ``child_key(parent, chunk_tokens)``, a digest chained
+    over the page-aligned token chunks of a prompt, to the physical page
+    whose cache entries were computed for exactly that token prefix.
+    Entries pin their page with one pool reference, so a finished
+    request's prefix pages survive ``release`` for reuse until ``reclaim``
+    drops them under pool pressure (LRU; entries a live slot still shares
+    are skipped: dropping them frees nothing).
+
+    A *terminal* entry (the final, possibly partial, chunk of a served
+    prompt) may also carry the prompt's next-token ``logits`` (the engine
+    keeps them on the device), so an exact-duplicate prompt skips prefill
+    entirely."""
+
+    ROOT = b""
+
+    def __init__(self, capacity: int):
+        assert capacity >= 1
+        self.capacity = capacity
+        # key -> [page, n_tokens, logits]
+        self._entries: "OrderedDict[bytes, List]" = OrderedDict()
+
+    @staticmethod
+    def child_key(parent: bytes, tokens) -> bytes:
+        """Chained digest of one page-aligned token chunk: a function of
+        the *whole* token prefix, since the cache entries at position t
+        depend on every earlier token."""
+        raw = np.ascontiguousarray(np.asarray(tokens, np.int32))
+        return hashlib.sha1(parent + raw.tobytes()).digest()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @property
+    def n_pinned(self) -> int:
+        """Pages currently pinned by index references (one per entry)."""
+        return len(self._entries)
+
+    def insert(self, key: bytes, page: int, n_tokens: int, pool: PagePool,
+               logits: Any = None) -> bool:
+        """Pin ``page`` under ``key``; when the key is already cached, only
+        attach ``logits`` (if given) and bump it in the LRU order: the
+        caller's duplicate page stays private to its slot.  Returns whether
+        a new entry was created."""
+        assert page != GARBAGE_PAGE
+        hit = self._entries.get(key)
+        if hit is not None:
+            self._entries.move_to_end(key)
+            if logits is not None:
+                hit[2] = logits
+            return False
+        pool.share([page])
+        self._entries[key] = [page, n_tokens, logits]
+        while len(self._entries) > self.capacity:
+            _, (old_page, _, _) = self._entries.popitem(last=False)
+            pool.free([old_page])
+        return True
+
+    def attach_logits(self, key: bytes, logits: Any) -> None:
+        """Attach terminal next-token logits to an existing entry."""
+        hit = self._entries.get(key)
+        if hit is not None:
+            hit[2] = logits
+
+    def get(self, key: bytes) -> Optional[Tuple[int, int, Any]]:
+        """Single-entry lookup with LRU bump (no reference taken):
+        ``(page, n_tokens, logits)`` or None."""
+        hit = self._entries.get(key)
+        if hit is None:
+            return None
+        self._entries.move_to_end(key)
+        return hit[0], hit[1], hit[2]
+
+    def touch(self, keys) -> None:
+        """LRU-bump entries a caller is about to share."""
+        for k in keys:
+            if k in self._entries:
+                self._entries.move_to_end(k)
+
+    def walk(self, prompt: np.ndarray, page_size: int
+             ) -> Tuple[List[Tuple[bytes, int, int]], bytes, int, Any]:
+        """Longest cached prefix of ``prompt`` (read-only; no references).
+
+        Returns ``(hits, chain_key, full_tokens, logits)``: ``hits`` holds
+        ``(key, page, n_tokens)`` per matched chunk (full ``page_size``
+        chunks, then at most one shorter terminal chunk); ``chain_key`` and
+        ``full_tokens`` describe the page-aligned part of the match (the
+        parent for indexing the prompt's *next* full page); ``logits`` are
+        the stored next-token logits when the match covers the whole
+        prompt and its terminal entry carries them."""
+        L = len(prompt)
+        key = self.ROOT
+        hits: List[Tuple[bytes, int, int]] = []
+        logits = None
+        i = 0
+        while i + page_size <= L:
+            k2 = self.child_key(key, prompt[i: i + page_size])
+            e = self._entries.get(k2)
+            if e is None:
+                break
+            hits.append((k2, e[0], page_size))
+            key = k2
+            i += page_size
+            if i == L:
+                logits = e[2]
+        full_tokens = i
+        if i < L:
+            # terminal partial chunk, the longest stored prefix wins; the
+            # chain cannot continue past it (children hash whole pages)
+            for n in range(min(L - i, page_size - 1), 0, -1):
+                k2 = self.child_key(key, prompt[i: i + n])
+                e = self._entries.get(k2)
+                if e is not None:
+                    hits.append((k2, e[0], n))
+                    i += n
+                    if i == L:
+                        logits = e[2]
+                    break
+        return hits, key, full_tokens, logits
+
+    def match(self, prompt: np.ndarray, page_size: int, pool: PagePool
+              ) -> Tuple[List[int], int, int, bytes, Any]:
+        """``walk`` plus reference pinning and LRU bumps: returns
+        ``(pages, n_tokens, full_tokens, chain_key, logits)`` with one pool
+        reference taken per returned page (``free`` to unshare)."""
+        hits, chain_key, full_tokens, logits = self.walk(prompt, page_size)
+        pages = [p for _, p, _ in hits]
+        for k, _, _ in hits:
+            self._entries.move_to_end(k)
+        if pages:
+            pool.share(pages)
+        return (pages, sum(n for _, _, n in hits), full_tokens, chain_key,
+                logits)
+
+    def reclaimable(self, pool: PagePool) -> int:
+        """Pages a ``reclaim`` pass could free now: entries whose page only
+        the index pins (refcount 1)."""
+        return sum(1 for page, _, _ in self._entries.values()
+                   if pool.ref(page) == 1)
+
+    def reclaim(self, pool: PagePool, need_free: int) -> int:
+        """Drop LRU entries whose page only the index pins until
+        ``pool.free_count >= need_free`` or nothing reclaimable is left;
+        entries a live slot shares are kept.  Returns the entries
+        dropped."""
+        dropped = 0
+        for key in list(self._entries):
+            if pool.free_count >= need_free:
+                break
+            page = self._entries[key][0]
+            if pool.ref(page) == 1:
+                del self._entries[key]
+                pool.free([page])
+                dropped += 1
+        return dropped
+
+
 def pages_needed(n_tokens: int, page_size: int) -> int:
     """Pages required to hold ``n_tokens`` cache entries."""
     return -(-max(n_tokens, 0) // page_size)
@@ -131,8 +292,8 @@ class BlockTables:
         self.slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
         self.device_ = device
         # (live-mask key, tensor): the decode chunk re-exports the rows
-        # every step; they change only on assign / release, so the
-        # upload is skipped unless the rows or the mask moved
+        # every step; they change only on assign / set_page / release, so
+        # the upload is skipped unless the rows or the mask moved
         self._dev_cache: Optional[Tuple[Optional[bytes], torch.Tensor]] = None
 
     def assign(self, slot: int, pages: Sequence[int], start: int = 0
@@ -142,6 +303,16 @@ class BlockTables:
         assert start == len(self.slot_pages[slot])
         self.rows[slot, start: start + len(pages)] = pages
         self.slot_pages[slot].extend(pages)
+        self._dev_cache = None
+
+    def set_page(self, slot: int, logical: int, page: int) -> None:
+        """Point logical page ``logical`` of ``slot`` at another physical
+        page (a copy-on-write fork or a late prefix match rewrites the row
+        entry); the device copy is dropped with it, so no kernel reads the
+        old page through a stale table."""
+        assert logical < len(self.slot_pages[slot])
+        self.rows[slot, logical] = page
+        self.slot_pages[slot][logical] = page
         self._dev_cache = None
 
     def release(self, slot: int, pool: PagePool) -> None:
@@ -220,6 +391,40 @@ def append_chunk(pool: torch.Tensor, block_table: torch.Tensor,
     pool[phys.reshape(-1), :, (pos % ps).reshape(-1)] = \
         flat_vals.to(pool.dtype)
     return pool
+
+
+def copy_page(pool: torch.Tensor, src: int, dst: int) -> torch.Tensor:
+    """Copy physical page ``src`` to ``dst`` in place: the device half of a
+    copy-on-write fork (the host half repoints the writer's row at
+    ``dst``, so its appends land in the private copy while other sharers
+    keep reading ``src``).  pool: (P, ...)."""
+    pool[dst].copy_(pool[src])
+    return pool
+
+
+def swap_out(pool: torch.Tensor, row, n_tokens: int) -> torch.Tensor:
+    """A slot's first ``n_tokens`` cache entries copied to host memory:
+    only its occupied pages are gathered (``row``: the slot's block-table
+    row), so the copy is ``n_tokens`` wide, not ``max_seq_len``.  Returns a
+    CPU tensor (Hkv, n_tokens, R) in the pool's dtype; the copy has
+    finished when it returns, so the slot's pages may then be freed."""
+    ps = pool.shape[2]
+    occupied = pages_needed(n_tokens, ps)
+    idx = to_device(np.asarray(row[:occupied], np.int32), pool.device)
+    seq = gather_pages(pool, idx[None])[0, :, :n_tokens]
+    return seq.contiguous().to("cpu")
+
+
+def swap_in(pool: torch.Tensor, row, vals: torch.Tensor) -> torch.Tensor:
+    """Write a ``swap_out`` buffer back through a (fresh) block-table row,
+    in place: positions ``[0, n_tokens)`` via ``append_chunk`` in its
+    count form, a byte-exact restore.  vals: (Hkv, n_tokens, R)."""
+    n = vals.shape[1]
+    head = to_device(np.array([0, n], np.int32), pool.device)
+    row_t = to_device(np.asarray(row, np.int32), pool.device)
+    return append_chunk(pool, row_t[None], head[:1],
+                        vals.to(pool.device)[None],
+                        head[1:])
 
 
 def gather_pages(pool: torch.Tensor, block_table: torch.Tensor

@@ -3,8 +3,10 @@ split combine, K6 and K7) against its plain PyTorch version, bf16 split
 decode's in-launch merge against the two launches it replaces, and the
 reduced model on the card against the CPU on the dense and the paged
 chunked engines, also with int8 pages and split-KV decode, with the dense
-int8 cache, with the sliding-window ring cache and with mamba2's SSM
-state.  Marked
+int8 cache, under optimistic admission (recompute and swap), with int8
+prefix sharing under swap, with the sliding-window ring cache and with
+mamba2's SSM state, and a copy-on-write fork on the card copying every
+leaf byte for byte.  Marked
 ``cuda``; skips where there is no GPU.  Imports no JAX, so it also runs
 on a machine without it (``--noconftest``: the repository's conftest
 imports JAX):
@@ -460,13 +462,34 @@ def test_paged_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
             vb, lens, lens - 1, btab)
 
 
-@pytest.mark.parametrize("extra,cfg_kw", [
-    ({}, {}),
-    (dict(cache_quant="int8", decode_splits=0, max_seq_len=64), {}),
-    (dict(cache_quant="svdq", decode_splits=3), {}),
-    (dict(paged=False, chunked_prefill=False), {"cache_quant": "int8"}),
-], ids=["fp", "int8-dynamic-splits", "svdq-splits3", "dense-int8"])
-def test_reduced_paged_engine_card_matches_cpu(cuda, extra, cfg_kw):
+OPTIMISTIC = dict(n_pages=8, admission="optimistic", watermark_low=0.1)
+INT8_SHARE = dict(cache_quant="int8", share_prefix=True,
+                  admission="optimistic", preempt_mode="swap",
+                  watermark_low=0.1)
+
+
+@pytest.mark.parametrize("extra,cfg_kw,counts", [
+    ({}, {}, {}),
+    (dict(cache_quant="int8", decode_splits=0, max_seq_len=64), {}, {}),
+    (dict(cache_quant="svdq", decode_splits=3), {}, {}),
+    (dict(paged=False, chunked_prefill=False), {"cache_quant": "int8"}, {}),
+    (dict(OPTIMISTIC, preempt_mode="recompute"), {}, {"n_preempted": 2}),
+    (dict(OPTIMISTIC, preempt_mode="swap"), {},
+     {"n_preempted": 2, "n_swapped_out": 2, "n_swapped_in": 2}),
+    (dict(INT8_SHARE, n_pages=4), {},
+     {"n_shared_pages": 7, "n_preempted": 2, "n_swapped_in": 2}),
+    (dict(INT8_SHARE, n_pages=6), {},
+     {"n_shared_pages": 11, "n_cow_forks": 1, "n_full_hits": 1}),
+], ids=["fp", "int8-dynamic-splits", "svdq-splits3", "dense-int8",
+        "optimistic-recompute", "optimistic-swap", "int8-share-swap",
+        "int8-share-cow"])
+def test_reduced_paged_engine_card_matches_cpu(cuda, extra, cfg_kw, counts):
+    """The card's tokens equal the CPU's on each engine; under
+    preemption (8 pages of 4 for worst cases of up to 7) and int8 prefix
+    sharing with swap (prompts sharing a 13-token prefix, the last a
+    duplicate) they also equal the engine's without pressure or sharing,
+    and both sides count the same preemptions, swaps, shares and forks
+    (the CPU's counts, pinned)."""
     cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
                               **cfg_kw)
     cpu, gpu = build_model(cfg, "cpu"), build_model(cfg, cuda)
@@ -478,19 +501,66 @@ def test_reduced_paged_engine_card_matches_cpu(cuda, extra, cfg_kw):
     prompts = [np.random.default_rng(i).integers(
         0, cfg.vocab_size, L).astype(np.int32)
         for i, L in enumerate((5, 19, 9))]
+    if extra.get("share_prefix"):
+        pre = prompts[1][:13]
+        prompts = [np.concatenate([pre, t]) for t in (
+            prompts[0][:3], prompts[2][:5], prompts[0][:1], prompts[2][:5])]
+    base = dict(max_seq_len=32, max_batch=2, decode_chunk=4, paged=True,
+                page_size=4, chunked_prefill=True, prefill_chunk=8)
     served = []
-    for m, p in ((cpu, p_cpu), (gpu, p_gpu)):
-        eng = ServingEngine(cfg, p, ServeConfig(**{
-            **dict(max_seq_len=32, max_batch=2, decode_chunk=4, paged=True,
-                   page_size=4, chunked_prefill=True, prefill_chunk=8),
-            **extra}), projections=mp, device=m.device)
+    runs = [(cpu, p_cpu, extra), (gpu, p_gpu, extra)]
+    if counts:                          # the same requests, no pressure
+        runs.append((cpu, p_cpu, {k: v for k, v in extra.items()
+                                  if k == "cache_quant"}))
+    for m, p, kw in runs:
+        eng = ServingEngine(cfg, p, ServeConfig(**{**base, **kw}),
+                            projections=mp, device=m.device)
         rs = [Request(rid=i, prompt=q, max_new_tokens=6)
               for i, q in enumerate(prompts)]
         eng.generate(rs)
         if eng.pool is not None:
-            assert eng.pool.free_count == eng.pool.n_pages
+            pinned = eng._pindex.n_pinned if eng._pindex else 0
+            assert eng.pool.free_count + pinned == eng.pool.n_pages
+        if kw is extra:
+            for name, n in counts.items():
+                assert getattr(eng, name) == n, (m.device, name)
         served.append([r.out_tokens for r in rs])
     assert served[0] == served[1]
+    assert all(s == served[0] for s in served[2:])
+
+
+def test_cow_fork_on_card_copies_every_leaf(cuda):
+    """On the card a copy-on-write fork copies every leaf of every layer,
+    int8 codes and bf16 scale pools alike, byte for byte."""
+    cfg = get_config("tinyllama-1.1b").reduced()
+    model = build_model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    mp = calibrate_model(model, params,
+                         calibration_batches(cfg.vocab_size, 8, 32, batch=4),
+                         CompressionConfig(method="kqsvd", epsilon=0.1))
+    eng = ServingEngine(cfg, params, ServeConfig(
+        max_seq_len=32, max_batch=2, decode_chunk=4, paged=True,
+        page_size=4, chunked_prefill=True, prefill_chunk=8,
+        cache_quant="int8"), projections=mp)
+    eng.generate([Request(rid=i, prompt=np.arange(9 + i, dtype=np.int32),
+                          max_new_tokens=4) for i in range(2)])
+    (src,) = eng.pool.alloc(1)
+    eng._btabs.assign(0, [src])
+    eng.pool.share([src])
+    before = eng._btabs.device()
+    eng._cow_fork(0, 0)
+    dst = int(eng._btabs.rows[0, 0])
+    assert dst != src and eng._btabs.device() is not before
+    assert int(eng._btabs.device()[0, 0]) == dst
+    torch.cuda.synchronize()
+    names = set()
+    for layer in eng._cache:
+        for name, pool in layer.items():
+            names.add(name)
+            assert pool.device.type == "cuda"
+            assert torch.equal(pool[dst].view(torch.uint8),
+                               pool[src].view(torch.uint8)), name
+    assert names == {"kc", "kscale", "vc", "vscale"}
 
 
 def test_reduced_model_card_matches_cpu(cuda):

@@ -3,13 +3,30 @@ inputs: ``quantize_int8``, the nibble and crumb packers and every
 layout's ``encode`` byte for byte (bf16 scales by their bits), ``decode``
 value for value, the round-trip bound of tests/test_page_layouts.py, the
 SVDq bit allocations, and the hardware-independent page bytes of
-BENCH_decode.json."""
+BENCH_decode.json.  On int8 pages the engine's copy-on-write fork copies
+every leaf, scale pools too, byte for byte, and prefix sharing and swap
+give the tokens of the engine without them and of the reference's."""
+import dataclasses
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.config import CompressionConfig as JaxCompression
+from repro.config import ServeConfig as JaxServe
+from repro.configs import get_config as jax_config
+from repro.core.calibration import GramAccumulator
+from repro.models import build_model as jax_model
+from repro.serving import Request as JaxRequest
+from repro.serving import ServingEngine as JaxEngine
 from repro.serving import page_layouts as jl
+from repro_torch import bridge
+from repro_torch.config import ServeConfig
+from repro_torch.configs import get_config as torch_config
+from repro_torch.serving import Request, ServingEngine
 from repro_torch.serving import page_layouts as tl
 
 
@@ -160,3 +177,108 @@ def test_get_layout_matches_reference(quant, bits, kind):
     if quant == "svdq":
         assert lay.resolve_bits(3 if bits else 8) == \
             jl.get_layout(Cfg).resolve_bits(3 if bits else 8)
+
+
+@functools.lru_cache(maxsize=None)
+def models():
+    """Reduced tinyllama-1.1b and full-rank KQ-SVD projections solved by
+    the reference (tests/test_page_layouts.py's ``setup``), bridged."""
+    jcfg = jax_config("tinyllama-1.1b").reduced()
+    jm = jax_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    acc = GramAccumulator(len(jm.attn_layers))
+    for i in range(2):
+        toks = jax.random.randint(jax.random.PRNGKey(5 + i), (2, 32), 0,
+                                  jcfg.vocab_size)
+        acc.update_from_captures([jax.tree.map(np.asarray, c)
+                                  for c in jm.calibrate(jp, toks)])
+    mp = acc.solve(JaxCompression(method="kqsvd", rank_k=jcfg.d_head,
+                                  rank_v=jcfg.d_head),
+                   jm.group_output_weights(jp))
+    tp = bridge.params_from_jax(jax.tree.map(np.asarray, jp))
+    return (jcfg, jp, torch_config("tinyllama-1.1b").reduced(), tp, mp,
+            bridge.projections_from_jax(mp))
+
+
+QUANT_SC = dict(max_seq_len=32, max_batch=2, temperature=0.0,
+                decode_chunk=4, paged=True, page_size=4,
+                chunked_prefill=True, prefill_chunk=8, cache_quant="int8")
+
+
+def _reqs(cls, lens, seed=5, max_new=4, common=0):
+    vocab = models()[2].vocab_size
+    rng = np.random.default_rng(seed)
+    pre = rng.integers(0, vocab, common).astype(np.int32)
+    return [cls(rid=i, prompt=np.concatenate(
+                [pre, rng.integers(0, vocab, n).astype(np.int32)]),
+                max_new_tokens=max_new)
+            for i, n in enumerate(lens)]
+
+
+def _port(sc_kw, reqs):
+    _, _, tcfg, tp, _, tmp = models()
+    eng = ServingEngine(tcfg, tp, ServeConfig(**sc_kw), projections=tmp,
+                        device="cpu")
+    eng.generate(reqs)
+    return eng
+
+
+def test_cow_fork_copies_scale_pools_byte_exact():
+    """The engine's fork moves every leaf of every layer, the int8 data
+    pages and their bf16 scale pools, so the forked page is byte-identical
+    to its source; the row then points at the copy."""
+    eng = _port(QUANT_SC, _reqs(Request, [9, 7]))
+    (src,) = eng.pool.alloc(1)                  # a page the drain wrote
+    eng._btabs.assign(0, [src])
+    eng.pool.share([src])                       # shared: a fork is due
+    assert any(bool((layer[name][src] != 0).any())
+               for layer in eng._cache for name in layer)
+    eng._cow_fork(0, 0)
+    dst = int(eng._btabs.rows[0, 0])
+    assert dst != src and eng.pool.ref(src) == 1 and eng.n_cow_forks == 1
+    names = set()
+    for layer in eng._cache:
+        for name, pool in layer.items():
+            names.add(name)
+            assert pool.dtype in (torch.int8, torch.bfloat16, torch.float32)
+            assert torch.equal(pool[dst].view(torch.uint8),
+                               pool[src].view(torch.uint8)), name
+    assert {n for n in names if n.endswith("scale")}   # int8 took effect
+
+
+def test_shared_prefix_int8_matches_unshared():
+    """Prefix sharing and copy-on-write over int8 pages: the unshared
+    int8 engine's tokens, with pages shared, and the reference's tokens
+    (its Pallas route, the arithmetic of the port's K5)."""
+    lens, common = [3, 4, 2, 3], 12
+    r0 = _reqs(Request, lens, common=common)
+    _port(QUANT_SC, r0)
+    r1 = _reqs(Request, lens, common=common)
+    eng = _port(dict(QUANT_SC, share_prefix=True), r1)
+    assert [r.out_tokens for r in r1] == [r.out_tokens for r in r0]
+    assert eng.n_shared_pages > 0
+    jcfg, jp, _, _, jmp, _ = models()
+    jeng = JaxEngine(dataclasses.replace(jcfg, use_pallas=True), jp,
+                     JaxServe(**QUANT_SC, share_prefix=True),
+                     projections=jmp)
+    jr = _reqs(JaxRequest, lens, common=common)
+    jeng.generate(jr)
+    assert [r.out_tokens for r in r1] == [r.out_tokens for r in jr]
+    assert eng.n_shared_pages == jeng.n_shared_pages
+    assert eng.n_cow_forks == jeng.n_cow_forks
+
+
+def test_swap_int8_pages_matches_reserve():
+    """Swap preemption over int8 pages carries the scale pools with the
+    codes: the same tokens as the unpressured int8 engine (10 physical
+    pages from 6 fp-page units, three 14-token requests)."""
+    sc_kw = dict(QUANT_SC, n_pages=6, admission="optimistic",
+                 preempt_mode="swap", watermark_low=0.1)
+    r0 = _reqs(Request, [14, 13, 14], max_new=8)
+    _port(QUANT_SC, r0)
+    r1 = _reqs(Request, [14, 13, 14], max_new=8)
+    eng = _port(sc_kw, r1)
+    assert eng.pool.n_pages == 10
+    assert eng.n_swapped_out >= 1 and eng.n_swapped_in == eng.n_swapped_out
+    assert [r.out_tokens for r in r1] == [r.out_tokens for r in r0]
+    assert eng.pool.free_count == eng.pool.n_pages

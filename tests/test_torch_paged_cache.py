@@ -162,3 +162,69 @@ def test_gather_pages_matches_reference():
     got = tpc.gather_pages(torch.from_numpy(pool), torch.from_numpy(btab))
     assert tuple(got.shape) == (2, 2, 12, 5)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_copy_page_matches_reference():
+    rng = np.random.default_rng(3)
+    pool = _pool(rng)
+    want = jpc.copy_page(jnp.asarray(pool), 2, 5)
+    got = tpc.copy_page(torch.from_numpy(pool.copy()), 2, 5)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got.numpy()[5] == pool[2]).all()
+
+
+@pytest.mark.parametrize("n_tokens", [1, 3, 4, 5, 11])
+def test_swap_round_trip_matches_reference(n_tokens):
+    """``swap_out`` reads the reference's bytes, ``swap_in`` writes them
+    back through a fresh row as the reference does, and the round trip
+    restores the slot's entries exactly (page size 4)."""
+    rng = np.random.default_rng(n_tokens)
+    pool = _pool(rng, P=9)
+    row = np.array([3, 7, 1, 0], np.int32)
+    want = np.asarray(jpc.swap_out(jnp.asarray(pool), row, n_tokens))
+    got = tpc.swap_out(torch.from_numpy(pool), row, n_tokens)
+    assert got.device.type == "cpu" and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want)
+    fresh = np.array([5, 2, 8, 6], np.int32)
+    dst = np.full_like(pool, -1.0)
+    jin = np.asarray(jpc.swap_in(jnp.asarray(dst), fresh, want))
+    tin = tpc.swap_in(torch.from_numpy(dst.copy()), fresh, got).numpy()
+    np.testing.assert_array_equal(tin[1:], jin[1:])
+    back = tpc.gather_pages(torch.from_numpy(tin),
+                            torch.from_numpy(fresh[None]))[0, :, :n_tokens]
+    np.testing.assert_array_equal(back.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8, torch.uint8])
+def test_swap_round_trip_is_byte_exact_in_page_dtypes(dtype):
+    """bf16 pages, int8 codes and packed uint8 leaves round-trip bit for
+    bit, and the buffer's checksum is the reference's crc32 over its
+    bytes."""
+    from repro.serving.faults import checksum as jax_checksum
+    from repro_torch.serving.faults import checksum
+    g = torch.Generator().manual_seed(0)
+    pool = (torch.randn(9, 2, 4, 6, generator=g) * 50).to(dtype)
+    buf = tpc.swap_out(pool, np.array([4, 2, 0], np.int32), 7)
+    dst = torch.zeros_like(pool)
+    tpc.swap_in(dst, np.array([8, 1, 0], np.int32), buf)
+    assert torch.equal(dst[8], pool[4])
+    assert torch.equal(dst[1, :, :3], pool[2, :, :3])
+    raw = buf.view(torch.uint8).numpy()
+    assert checksum([{"k": buf}]) == jax_checksum([{"k": raw}])
+
+
+def test_set_page_clears_the_device_export():
+    """A copy-on-write fork or late match rewrites a row entry: the next
+    export carries the new page, so no kernel reads the old one."""
+    tt = tpc.BlockTables(2, 4, torch.device("cpu"))
+    tt.assign(0, [5, 2, 7])
+    tt.assign(1, [3])
+    live = np.array([True, True])
+    first = tt.device(live)
+    tt.set_page(0, 1, 6)
+    second = tt.device(live)
+    assert second is not first
+    assert second[0].tolist() == [5, 6, 7, 0] and tt.slot_pages[0][1] == 6
+    assert first[0, 1] == 2                       # the old export is stale
+    with pytest.raises(AssertionError):
+        tt.set_page(1, 1, 4)                      # past the slot's pages

@@ -187,9 +187,9 @@ def test_watchdog_raises_on_no_progress(monkeypatch):
 
 
 @pytest.mark.parametrize("later", [
-    dict(paged=True, page_size=4, max_seq_len=64, admission="optimistic"),
     dict(paged=True, page_size=4, max_seq_len=64, chunked_prefill=True,
-         prefill_chunk=8, share_prefix=True),
+         prefill_chunk=8, max_batch=8, shards=2),
+    dict(audit=True, audit_every=2),
     dict(paged=True, page_size=4, max_seq_len=64, chunked_prefill=True,
          prefill_chunk=8, max_num_batched_tokens=6),
     dict(audit=True), dict(chaos_seed=0)])
@@ -200,7 +200,7 @@ def test_later_slice_features_raise(later):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--admission", "optimistic"], ["--priority", "0,1"], ["--shards", "2"],
+    ["--audit"], ["--chaos-seed", "0"], ["--shards", "2"],
     ["--max-batched-tokens", "6", "--audit"]])
 def test_cli_refuses_flags_of_later_slices(flags, capsys):
     """The reference CLI's flags for paths the port lacks stop the run
@@ -212,6 +212,34 @@ def test_cli_refuses_flags_of_later_slices(flags, capsys):
     err = capsys.readouterr().err
     assert "not ported yet" in err
     assert all(f in err for f in flags if f.startswith("--"))
+
+
+def test_cli_serves_optimistic_swap_with_sharing(capsys):
+    """A CPU drive of the CLI with optimistic admission, swap, sharing and
+    two priority tiers on an oversubscribed pool: its implications and
+    report lines, every request served in full."""
+    from repro_torch.launch import serve as cli
+    cli.main(["--arch", "tinyllama-1.1b", "--reduced", "--method", "kqsvd",
+              "--requests", "8", "--prompt-len", "14", "--max-new-tokens",
+              "6", "--decode-chunk", "4", "--page-size", "4", "--n-pages",
+              "12", "--shared-frac", "0.5", "--admission", "optimistic",
+              "--preempt-mode", "swap", "--watermark-low", "0.1",
+              "--share-prefix", "--priority", "0,1", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "enabling chunked prefill (--prefill-chunk 8)" in out
+    assert "enabling --paged" in out
+    served = [ln for ln in out.splitlines() if ln.startswith("req ")]
+    assert len(served) == 8 and not any("failed" in ln for ln in served)
+    assert all(ln.count(",") == 5 for ln in served)      # 6 tokens each
+    line = next(ln for ln in out.splitlines()
+                if ln.startswith("admission=optimistic"))
+    n_pre = int(line.split("preemptions=")[1].split()[0])
+    swaps = line.split("swap out/in ")[1].split(")")[0].split("/")
+    assert n_pre >= 1 and swaps[0] == swaps[1] and int(swaps[0]) >= 1
+    assert "failed=0" in line
+    sharing = next(ln for ln in out.splitlines()
+                   if ln.startswith("prefix sharing:"))
+    assert int(sharing.split()[2]) > 0          # pages shared
 
 
 def test_cli_parses_ported_flags():
