@@ -76,6 +76,30 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              per decode step or chunk, and no plain version; peak pages,
              slots held a step, decode tokens/s, prefill seconds, the
              swapped bytes and the ms a swap-out and a swap-in take;
+3k. chaos    (after 3j, same model and projections) fault injection,
+             audits and the token budget at full width, one workload:
+             32 requests (``prompts_3k``: a 48-token system prompt, 24..64
+             private tokens, eight of them followed by their own leading
+             whole pages) of 48 new tokens on ``POOL_3K`` pages of 16
+             (watermarks 1.0 / ``WATERMARK_LOW_3K``), optimistic swap with
+             prefix sharing, 8 slots of 2048, chunks of 256.  (a) the
+             unfaulted oracle; (b) chaos at seed 0, rate 0.05, audits
+             every 2nd step: all seven recoverable points fire, the audits
+             number steps // 2, every request is served; (c) the token
+             budget of 512: every step's budget held, fused steps and
+             truncated chunks, each fused step that neither preempted nor
+             swapped launches its chunks' K2 before the decode chunk's K1
+             and syncs the host once (explicit syncs and torch's sync
+             debug mode); (d) the budget on int8 pages with dynamic splits
+             under chaos and audits: K5 and K5 split only; (e) a
+             ``nan_logits`` fault on its 3rd hit: one ``numerics``
+             failure.  K1 / K2 (or K5) launches per decode step or chunk,
+             no plain version, the pool whole but for index pins.  A CPU
+             run of the same scheduler (reduced tinyllama, float32) gives
+             (b)'s firings and (c)'s budget log and every count of both.
+             Printed: step walls (p50, max), decode ms/step and tokens/s,
+             prefill seconds, swaps, forks, reclaims, the fired points,
+             the ms an audit takes, (b)'s tokens against (a)'s;
 3g. window   h2o-danube-1.8b at full width (24 layers, d_head 80, window
              4096, bf16, seeded random weights), KQ-SVD calibrated on
              16 x 512 tokens in batches of 4, on dense slots
@@ -105,7 +129,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              device ms);
 4.  kernels  each kernel against its plain PyTorch version on the card at
              the main paths' shapes (the calibrated ranks; K2 at the last
-             chunk of a 1000-token prompt and at a first chunk; K6 at
+             chunk of a 1000-token prompt, at a first chunk and at a chunk
+             the token budget truncated, 248 tokens from position 504; K6 at
              tinyllama's calibration batch, at danube's windowed
              prefill, the plain one there at 4608 tokens, and at
              paper-llama2-7b's calibration batch, MHA at d_head 128) and
@@ -153,7 +178,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              recompute and swap on 11 pages, and int8 pages shared under
              swap (prompts behind a common 13-token prefix), which also
              equal the reserve engine's tokens and count the same
-             preemptions, swaps, shared pages and forks on both; prefill,
+             preemptions, swaps, shared pages and forks on both; so do
+             chaos with audits, the token budget on fp pages and the
+             budget on int8 pages under chaos, with the same firings and
+             budget logs on both and the legacy engine's tokens; prefill,
              ``LM.prefill_chunk`` and dense and paged ``decode_step``
              logits agree within 2e-4, and danube's prefill and ring
              decode logits and mamba2's prefill and decode logits too.
@@ -186,6 +214,11 @@ ULPS_BF16 = 8e-3
 # back and optimistic admission preempts (sized on the CPU with the same
 # scheduler: 2 preemptions in either mode)
 POOL_3J = 176
+# phase 3k: 32 requests behind a 48-token system prompt on a pool of 40
+# pages that victims thrash through (watermarks 1.0 / 0.5), sized on the
+# CPU with the same scheduler so that chaos at seed 0, rate 0.05 reaches
+# every recoverable point (swap_in first fires on its 176th hit)
+POOL_3K, WATERMARK_LOW_3K, NEW_3K = 40, 0.5, 48
 SOURCES = ("kq_decode", "kq_paged", "flash", "ssd")
 # K7's kernels by name: bf16's three (csrc/ssd_tc.cuh), float32's one
 K7_KERNELS = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_scan_kernel",
@@ -644,6 +677,76 @@ def serve_driven(eng, reqs, sync) -> dict:
             "held": sum(held) / max(len(held), 1), "swap": sw}
 
 
+def prompts_3k():
+    """Phase 3k's 32 prompts (token ids below 256, valid in the reduced
+    vocabulary too): a 48-token system prompt and 24..64 private tokens;
+    the first of each of eight pairs is followed by its own leading whole
+    pages past the system prompt, whose match then ends a page before its
+    last token and copy-on-write forks the page it shares."""
+    import numpy as np
+    rng = np.random.default_rng(8)
+    system = rng.integers(0, 256, 48)
+    out = []
+    for i in range(24):
+        q = np.concatenate([system, rng.integers(0, 256, int(
+            rng.integers(24, 65)))]).astype(np.int32)
+        out.append(q)
+        if i % 2 == 0 and i < 16:
+            out.append(q[:16 * ((len(q) - 1) // 16)].copy())
+    return out
+
+
+def drive_3k(eng, reqs, events=None) -> list:
+    """Drain ``reqs`` step by step.  Per step: its wall (a sync after the
+    step, outside it), the host syncs inside it (explicit
+    ``torch.cuda.synchronize`` calls, and the synchronizing copies that
+    torch's sync debug mode reports), whether it preempted or swapped, and
+    the attention launches in order (``events``, filled by the caller's
+    wrappers)."""
+    import warnings
+    import torch
+    sync = torch.cuda.synchronize
+    n = {"explicit": 0}
+
+    def counted(*a, **k):
+        n["explicit"] += 1
+        return sync(*a, **k)
+
+    def moved(e):
+        return (e.n_preempted, e.n_swapped_out, e.n_swapped_in,
+                e.n_swap_fallbacks)
+
+    steps = []
+    eng.start(reqs)
+    torch.cuda.synchronize = counted
+    try:
+        busy = True
+        while busy:
+            before, n["explicit"] = moved(eng), 0
+            if events is not None:
+                events.clear()
+            torch.cuda.set_sync_debug_mode("warn")
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                busy = eng.step()
+            torch.cuda.set_sync_debug_mode(0)
+            sync()
+            warned = sum("synchroniz" in str(x.message) for x in w)
+            steps.append({
+                "wall": time.perf_counter() - t0,
+                "syncs": n["explicit"] + warned,
+                "moved": moved(eng) != before,
+                "fused": bool(eng.budget_log and eng.budget_log[-1]["fused"]
+                              and eng.budget_log[-1]["step"]
+                              == eng._step_count),
+                "events": list(events) if events is not None else None})
+    finally:
+        torch.cuda.synchronize = sync
+        torch.cuda.set_sync_debug_mode(0)
+    return steps
+
+
 def chunked_margin(eng, ctx, chunk: int = 256) -> float:
     """Top-2 margin of the next-token logits after ``ctx``, prefilled in
     ``chunk``-token chunks into pages of the engine's layout (the route a
@@ -729,7 +832,9 @@ def main() -> int:
         kq_decode_paged_split, kq_prefill_paged_attention,
         kq_prefill_paged_attention_ref, resolve_splits)
     from repro_torch.models import build_model
-    from repro_torch.serving import Request, ServingEngine, gather_pages
+    from repro_torch.serving import (RECOVERABLE_POINTS, FaultInjector,
+                                     Request, ServingEngine, gather_pages)
+    from repro_torch.serving import invariants as invariants_mod
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     wrappers = (kq_decode_attention, kq_decode_paged_attention,
@@ -1148,7 +1253,211 @@ def main() -> int:
             agreement(f"{qname} pages, sharing on", on,
                       brun[True]["reqs"], brun[False]["reqs"])
         print(f"3j launches: {j_launch}")
-        del params, model
+
+    # -- 3k: fault injection, invariant audits, the token budget ------------
+    with phase("3k serve tinyllama-1.1b, full width, KQ-SVD, paged: chaos "
+               "with audits, the token budget with the fused prefill + "
+               "decode iteration, a terminal fault"):
+        kbase = dict(max_batch=8, max_seq_len=2048, page_size=16,
+                     prefill_chunk=256, decode_chunk=8, paged=True,
+                     chunked_prefill=True, n_pages=POOL_3K,
+                     watermark_high=1.0, watermark_low=WATERMARK_LOW_3K,
+                     admission="optimistic", preempt_mode="swap",
+                     share_prefix=True)
+        chaos = dict(chaos_seed=0, chaos_rate=0.05, audit=True,
+                     audit_every=2)
+        kprompts = prompts_3k()
+        print(f"on {smi}: {len(kprompts)} requests of "
+              f"{min(map(len, kprompts))}..{max(map(len, kprompts))} prompt "
+              f"tokens behind a 48-token system prompt, {NEW_3K} new; pool "
+              f"{POOL_3K} pages of 16, watermarks 1.0 / {WATERMARK_LOW_3K}; "
+              f"optimistic admission, swap, prefix sharing")
+        k_runs = {
+            "a": ("(a) oracle", kbase, None),
+            "b": ("(b) chaos + audits", dict(kbase, **chaos), None),
+            "c": ("(c) budget 512, fp pages",
+                  dict(kbase, max_num_batched_tokens=512), None),
+            "d": ("(d) budget 512, int8 pages, dynamic splits, chaos + "
+                  "audits", dict(kbase, max_num_batched_tokens=512,
+                                 cache_quant="int8", decode_splits=0,
+                                 **chaos), None),
+            "e": ("(e) nan_logits on its 3rd hit, audits",
+                  dict(kbase, **chaos),
+                  lambda: FaultInjector(0).add("nan_logits", nth=3))}
+        audit_s = []
+        audit_fn = invariants_mod.audit
+
+        def timed_audit(e):
+            t0 = time.perf_counter()
+            audit_fn(e)
+            audit_s.append(time.perf_counter() - t0)
+
+        # the attention launches of a step, in order
+        events: list = []
+        k2_fn = attention_mod.kq_prefill_paged_attention
+        k1_fn = attention_mod.kq_decode_paged_attention
+
+        def logged(name, fn):
+            def call(*a, **k):
+                events.append(name)
+                return fn(*a, **k)
+            return call
+
+        attention_mod.kq_prefill_paged_attention = logged("K2", k2_fn)
+        attention_mod.kq_decode_paged_attention = logged("K1", k1_fn)
+        invariants_mod.audit = timed_audit
+        k_launch = {"K1": 0, "K2": 0, "K5": 0, "K5 split": 0}
+        krun = {}
+        try:
+            for key, (label, kw, faults) in k_runs.items():
+                e = ServingEngine(cfg, params, ServeConfig(**kw),
+                                  projections=mp,
+                                  faults=faults() if faults else None)
+                reqs = [Request(rid=i, prompt=q, max_new_tokens=NEW_3K)
+                        for i, q in enumerate(kprompts)]
+                zero_counts()
+                audit_s.clear()
+                t0 = time.perf_counter()
+                steps = drive_3k(e, reqs, events)
+                wall = time.perf_counter() - t0
+                got = {w.__name__: w.launches for w in wrappers
+                       if w.launches}
+                krun[key] = dict(eng=e, reqs=reqs, steps=steps,
+                                 launches=got, audits=list(audit_s))
+                # a prefill chunk over int8 pages takes the plain chunk
+                # attention by design (K2 writes fp pages), as the
+                # reference takes lax there; no other plain version runs
+                chunk_plain = plain_calls.pop("chunk_decode_attention")
+                assert not any(plain_calls.values()), (label, plain_calls)
+                plain_calls["chunk_decode_attention"] = chunk_plain
+                assert chunk_plain == (cfg.n_layers * e.n_prefill_chunks
+                                       if key == "d" else 0), chunk_plain
+                pinned = e._pindex.n_pinned if e._pindex else 0
+                assert e.pool.free_count + pinned == e.pool.n_pages, label
+                failed = [r for r in reqs if r.failed]
+                if key == "e":
+                    assert len(failed) == 1 and \
+                        failed[0].error.kind == "numerics", failed
+                    assert e.faults.fired_log == [("nan_logits", 3)]
+                else:
+                    assert not failed, (label, failed)
+                assert all(r.done for r in reqs), label
+                assert all(len(r.out_tokens) == NEW_3K for r in reqs
+                           if not r.failed), label
+                n_steps, n_chunks = e.n_decode_steps, e.n_prefill_chunks
+                if key == "d":
+                    assert got.get("kq_decode_paged_int8", 0) > 0 and \
+                        got.get("kq_decode_paged_int8_split", 0) > 0, got
+                    assert got.get("kq_decode_paged_int8", 0) + got.get(
+                        "kq_decode_paged_int8_split", 0) == \
+                        cfg.n_layers * n_steps, got
+                    assert set(got) == {"kq_decode_paged_int8",
+                                        "kq_decode_paged_int8_split"}, got
+                else:
+                    assert got == {
+                        "kq_decode_paged_attention": cfg.n_layers * n_steps,
+                        "kq_prefill_paged_attention":
+                            cfg.n_layers * n_chunks}, (label, got)
+                k_launch["K1"] += got.get("kq_decode_paged_attention", 0)
+                k_launch["K2"] += got.get("kq_prefill_paged_attention", 0)
+                k_launch["K5"] += got.get("kq_decode_paged_int8", 0)
+                k_launch["K5 split"] += got.get(
+                    "kq_decode_paged_int8_split", 0)
+                walls = sorted(1e3 * x["wall"] for x in steps)
+                n_tok = sum(len(r.out_tokens) for r in reqs)
+                fired = e.faults.points_fired() if e.faults else ()
+                aud = (f"{e.n_audits} audits, "
+                       f"{1e3 * sum(audit_s) / max(len(audit_s), 1):.3f} "
+                       f"ms each" if e.sc.audit else "no audits")
+                print(f"  {label}: {e._step_count} steps, step wall p50 "
+                      f"{walls[len(walls) // 2]:.1f} ms, max "
+                      f"{walls[-1]:.1f} ms; decode "
+                      f"{1e3 * e.decode_seconds / n_steps:.2f} ms/step over "
+                      f"{n_steps} steps, {n_tok / e.decode_seconds:.1f} "
+                      f"tokens/s; prefill {e.prefill_seconds:.3f} s "
+                      f"({e.n_prefill_tokens} tokens, {n_chunks} chunks); "
+                      f"preempted {e.n_preempted}, swapped out/in "
+                      f"{e.n_swapped_out}/{e.n_swapped_in}, swap fallbacks "
+                      f"{e.n_swap_fallbacks}, retries {e.n_retried}; shared "
+                      f"pages {e.n_shared_pages}, COW forks "
+                      f"{e.n_cow_forks}, reclaimed {e.n_reclaimed}; fired "
+                      f"{len(e.faults.fired_log) if e.faults else 0} at "
+                      f"{list(fired)}; {aud}; wall {wall:.1f} s; launches "
+                      f"{got}", flush=True)
+        finally:
+            attention_mod.kq_prefill_paged_attention = k2_fn
+            attention_mod.kq_decode_paged_attention = k1_fn
+            invariants_mod.audit = audit_fn
+
+        # (b): every recoverable point, audits on every second step
+        b = krun["b"]["eng"]
+        assert set(b.faults.points_fired()) == set(RECOVERABLE_POINTS), \
+            b.faults.points_fired()
+        assert b.n_audits == b._step_count // 2 > 0, b.n_audits
+        agreement("(b) chaos + audits against (a)", b, krun["b"]["reqs"],
+                  krun["a"]["reqs"])
+        # (c): the budget's accounting, fused steps and truncated chunks;
+        # a fused step launches its chunks' K2, then the decode chunk's K1,
+        # and syncs once (steps that preempted or swapped copy to and from
+        # the host besides)
+        c = krun["c"]["eng"]
+        for ent in c.budget_log:
+            assert ent["n_decode"] <= 512 and \
+                ent["prefill_tokens"] <= 512 - ent["n_decode"], ent
+        assert c.n_fused_steps > 0 and c.n_truncated_chunks > 0
+        fused = [x for x in krun["c"]["steps"] if x["fused"]]
+        quiet = [x for x in fused if not x["moved"]]
+        assert len(fused) == c.n_fused_steps and quiet
+        for x in quiet:
+            assert x["syncs"] == 1, x["syncs"]
+            k2n = x["events"].count("K2")
+            assert k2n and k2n % cfg.n_layers == 0, x["events"]
+            assert x["events"] == ["K2"] * k2n + ["K1"] * (
+                len(x["events"]) - k2n), x["events"]
+        print(f"  (c): {c.n_fused_steps} fused steps, {len(quiet)} without "
+              f"preemption or swap: each 1 host sync (syncs per fused "
+              f"step {sorted({x['syncs'] for x in fused})}), K2 then K1; "
+              f"{c.n_truncated_chunks} truncated chunks; budget log "
+              f"n_decode <= 512, prefill tokens <= 512 - n_decode")
+        # audited against unaudited decode ms per step (the audit runs
+        # outside the decode chunk): (b) and (e) against (a)
+        ms = {k: 1e3 * v["eng"].decode_seconds / v["eng"].n_decode_steps
+              for k, v in krun.items()}
+        print(f"  decode ms/step unaudited (a) {ms['a']:.2f}, audited (b) "
+              f"{ms['b']:.2f}, (e) {ms['e']:.2f}; budget (c) {ms['c']:.2f} "
+              f"(its fused chunks inside)")
+
+        # the same scheduler on the CPU (reduced tinyllama, float32, no
+        # projections: fp pages either way): the scheduling does not
+        # depend on the weights (no EOS), so the firings, the budget log
+        # and every count must be the card's
+        t0 = time.perf_counter()
+        ccfg = get_config("tinyllama-1.1b").reduced()
+        cmodel = build_model(ccfg, "cpu")
+        cparams = cmodel.init(torch.Generator().manual_seed(0))
+        names = ("_step_count", "n_decode_steps", "n_prefill_chunks",
+                 "n_preempted", "n_swapped_out", "n_swapped_in",
+                 "n_swap_fallbacks", "n_retried", "n_shared_pages",
+                 "n_cow_forks", "n_reclaimed", "n_audits", "n_fused_steps",
+                 "n_truncated_chunks", "budget_log")
+        for key in ("b", "c"):
+            label, kw, _ = k_runs[key]
+            ce = ServingEngine(ccfg, cparams, ServeConfig(**kw),
+                               device="cpu")
+            ce.generate([Request(rid=i, prompt=q, max_new_tokens=NEW_3K)
+                         for i, q in enumerate(kprompts)])
+            card = krun[key]["eng"]
+            for name in names:
+                assert getattr(card, name) == getattr(ce, name), (key, name)
+            if ce.faults is not None:
+                assert card.faults.fired_log == ce.faults.fired_log, key
+        print(f"  CPU runs of (b) and (c) (reduced, float32, "
+              f"{time.perf_counter() - t0:.1f} s): (b) fired_log "
+              f"({len(b.faults.fired_log)} firings) and (c) budget log, "
+              f"{c.n_fused_steps} fused steps, {c.n_truncated_chunks} "
+              f"truncated chunks and every count equal the card's")
+        print(f"3k launches: {k_launch}")
+        del params, model, krun, b, c
 
     # -- 3g: the sliding-window ring cache -----------------------------------
     with phase("3g serve h2o-danube-1.8b, full width, KQ-SVD, dense slots, "
@@ -1336,9 +1645,10 @@ def main() -> int:
                     + B * 4 + pages_used * 4, 2 * live * H * (rk + rv))
 
         # K2 at the paged main path's prefill shapes: the last chunk of a
-        # 1000-token prompt, 232 real tokens in a 256 bucket, and a first
+        # 1000-token prompt, 232 real tokens in a 256 bucket, a first
         # chunk (pos0 0, 256 real), as every request's first of phase 3c's
-        # chunks is
+        # chunks is, and a chunk the token budget truncated (pos0 504,
+        # mid-page, 248 real tokens in a 256 bucket)
         k2_src = {"route": "cuda",
                   "source": "src/repro_torch/kernels/csrc/kq_paged.cu "
                             "(bf16 body: csrc/kq_prefill.cuh; float32: "
@@ -1351,7 +1661,9 @@ def main() -> int:
                   shape=dict(k2_shape, pos0=768, n_valid=232))
         k2f = dict(k2_src, name="kq_prefill_paged (K2), first chunk",
                    shape=dict(k2_shape, pos0=0, n_valid=256))
-        for row in (k2, k2f):
+        k2t = dict(k2_src, name="kq_prefill_paged (K2), truncated chunk",
+                   shape=dict(k2_shape, pos0=504, n_valid=248))
+        for row in (k2, k2f, k2t):
             S, pos0_v = row["shape"]["S"], row["shape"]["pos0"]
             n_valid = row["shape"]["n_valid"]
             plen = torch.tensor([pos0_v + n_valid], dtype=torch.int32,
@@ -1422,8 +1734,13 @@ def main() -> int:
         # preemption, prefix sharing; fp pages K1 and K2, int8 pages K5)
         k1["launches_3j"] = j_launch["K1"]
         k5["launches_3j"] = j_launch["K5"]
-        k2.update(launches_3j=j_launch["K2"])
-        k2f.update(launches_3j=j_launch["K2"])
+        for row in (k2, k2f, k2t):
+            row.update(launches_3j=j_launch["K2"], launches_3k=k_launch["K2"])
+        # and under phase 3k's five runs (chaos, audits, the token budget:
+        # fp pages K1 and K2, int8 pages K5 and K5 split)
+        k1["launches_3k"] = k_launch["K1"]
+        k5["launches_3k"] = k_launch["K5"]
+        k5s["launches_3k"] = k_launch["K5 split"]
         # the merge kernel: float32 split decode's second launch (bf16
         # merges in K4's and K5 split's own); its launches are phase 5's
         # float32 engines' (set there)
@@ -1950,8 +2267,8 @@ def main() -> int:
               f"255, 257, 4097; jamba's head at S 300 and 333 (chunk "
               f"100); G 2 of 4 heads; chunks of 1 and 17; S 0; h0 zero "
               f"and random; y in x's type and float32)")
-        kernels = [k1, k2, k2f, k3, k4, k5, k5s, kcomb, k6c, k6w, k6l,
-                   k7]
+        kernels = [k1, k2, k2f, k2t, k3, k4, k5, k5s, kcomb, k6c, k6w,
+                   k6l, k7]
 
     # -- 5: the port on the card against the port on the CPU ---------------
     with phase("5 card against CPU, reduced tinyllama-1.1b, "
@@ -2095,6 +2412,50 @@ def main() -> int:
             print(f"{kind}: {len(ps_)} requests' greedy tokens identical on "
                   f"card and CPU and equal to the reserve engine's; card "
                   f"counts {counts[1]} (= CPU)")
+
+        # chaos with sampled audits, and the token budget on fp pages and
+        # on int8 pages under chaos (the reference's paged-chaos,
+        # paged-budget and paged-quant legs): card = CPU in tokens, firings
+        # and budget log, and both = the legacy engine on the same pages
+        leg = dict(share_prefix=True, admission="optimistic",
+                   preempt_mode="swap", watermark_low=0.1, chaos_seed=0,
+                   chaos_rate=0.25, audit=True, audit_every=2)
+        legs = {"chaos + audits": (dict(chunked, n_pages=13, **leg),
+                                   chunked),
+                "budget 6, fp pages": (dict(chunked,
+                                            max_num_batched_tokens=6),
+                                       chunked),
+                "budget 6, int8 pages, dynamic splits, chaos + audits": (
+                    dict(chunked, n_pages=10, cache_quant="int8",
+                         decode_splits=0, max_num_batched_tokens=6, **leg),
+                    dict(chunked, cache_quant="int8"))}
+        for kind, (kw, oracle_kw) in legs.items():
+            got = []
+            for m_, p_, kw_ in ((cpu_model, p_cpu, kw), (gpu_model, p_gpu, kw),
+                                (cpu_model, p_cpu, oracle_kw)):
+                e = ServingEngine(rcfg, p_, ServeConfig(
+                    max_seq_len=64, max_batch=4, decode_chunk=4, **kw_),
+                    projections=rmp, device=m_.device)
+                rs = [Request(rid=i, prompt=p, max_new_tokens=8)
+                      for i, p in enumerate(sprompts)]
+                e.generate(rs)
+                pinned = e._pindex.n_pinned if e._pindex is not None else 0
+                assert e.pool.free_count + pinned == e.pool.n_pages, kind
+                assert all(r.done and not r.failed for r in rs), kind
+                got.append(([r.out_tokens for r in rs],
+                            e.faults.fired_log if e.faults else [],
+                            e.budget_log, e.n_audits))
+            assert got[0] == got[1], (kind, got[:2])
+            assert got[1][0] == got[2][0], (kind, got)
+            if kw.get("chaos_seed") is not None:
+                assert got[1][1] and got[1][3] > 0, (kind, got[1])
+            if kw.get("max_num_batched_tokens"):
+                assert any(x["fused"] for x in got[1][2]), kind
+            print(f"{kind}: {len(sprompts)} requests' greedy tokens "
+                  f"identical on card and CPU and equal to the legacy "
+                  f"engine's; fired_log ({len(got[1][1])} firings), budget "
+                  f"log ({len(got[1][2])} steps) and {got[1][3]} audits "
+                  f"equal on both")
 
         # reduced h2o-danube-1.8b, window 16: prefill of 20 tokens and 8
         # decode steps that wrap the ring, full cache and KQ-SVD; then the

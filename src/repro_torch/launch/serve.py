@@ -21,9 +21,12 @@ too; optimistic admission with preempt-and-requeue (``--admission``,
 ``--preempt-mode``, ``--watermark-high``, ``--watermark-low``,
 ``--priority``; it turns on paging) and prefix sharing with copy-on-write
 (``--share-prefix``, ``--prefix-index-capacity``; it turns on chunked
-prefill).  A flag that asks for a path it does not have yet (token
-budget, shards, audits, chaos) stops the run with an error naming it.
-Runs on the CUDA device unless ``--device`` says otherwise.
+prefill), the token-budget scheduler with the fused prefill + decode
+iteration (``--max-batched-tokens``; it turns on chunked prefill), fault
+injection (``--chaos-seed``, ``--chaos-rate``) and invariant audits
+(``--audit``).  ``--shards``, whose path the port does not have yet,
+stops the run with an error naming it.  Runs on the CUDA device unless
+``--device`` says otherwise.
 """
 from __future__ import annotations
 
@@ -44,8 +47,7 @@ from repro_torch.serving.page_layouts import FpLayout, get_layout
 
 # flags of the reference CLI whose paths later slices bring; refused
 # when given
-_NOT_PORTED = ("shards", "max-batched-tokens", "audit", "chaos-seed",
-               "chaos-rate")
+_NOT_PORTED = ("shards",)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -89,6 +91,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="comma-separated padded chunk lengths (largest "
                          "must equal --prefill-chunk); empty derives by "
                          "doubling")
+    ap.add_argument("--max-batched-tokens", type=int, default=0,
+                    help="global per-step token budget: each decoding "
+                         "slot charges 1 token, prefill chunks fill the "
+                         "remainder (the last chunk truncated to it) and "
+                         "one chunk fuses with the decode chunk.  0 = "
+                         "legacy per-request scheduling.  Implies chunked "
+                         "prefill (and so --paged).")
     ap.add_argument("--admission", default="reserve",
                     choices=["reserve", "optimistic"],
                     help="paged admission policy: reserve = worst-case page "
@@ -130,6 +139,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "prefix")
     ap.add_argument("--deadline-steps", type=int, default=0,
                     help="per-request total step budget; 0 = unbounded")
+    ap.add_argument("--audit", action="store_true",
+                    help="cross-check pool refcounts / free list / block "
+                         "tables / page layouts after every engine step "
+                         "(invariants.audit)")
+    ap.add_argument("--chaos-seed", type=int, default=None,
+                    help="arm a seeded chaos FaultInjector: every "
+                         "recoverable fault point fires with probability "
+                         "--chaos-rate per hit, reproducibly")
+    ap.add_argument("--chaos-rate", type=float, default=0.05,
+                    help="per-hit fault probability under --chaos-seed")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain PyTorch versions of the kernels)")
@@ -141,7 +160,11 @@ def parse_args(argv=None) -> argparse.Namespace:
              if getattr(args, f.replace("-", "_")) is not None]
     if asked:
         ap.error(f"{', '.join(asked)}: not ported yet (see ROADMAP.md "
-                 f"queue 1: item 1, layers 3 and 4, and item 7)")
+                 f"queue 1, item 7)")
+    if args.max_batched_tokens and not args.prefill_chunk:
+        print("--max-batched-tokens schedules prefill at chunk "
+              "granularity: enabling chunked prefill (--prefill-chunk 8)")
+        args.prefill_chunk = 8
     if args.share_prefix and not args.prefill_chunk:
         print("--share-prefix prefills only the unshared tail: enabling "
               "chunked prefill (--prefill-chunk 8)")
@@ -211,6 +234,10 @@ def main(argv=None) -> None:
                      admit_window=args.admit_window,
                      share_prefix=args.share_prefix,
                      prefix_index_capacity=args.prefix_index_capacity,
+                     audit=args.audit,
+                     chaos_seed=args.chaos_seed,
+                     chaos_rate=args.chaos_rate,
+                     max_num_batched_tokens=args.max_batched_tokens,
                      cache_quant=args.cache_quant,
                      decode_splits=args.decode_splits)
     eng = ServingEngine(cfg, params, sc, projections=proj,
@@ -245,6 +272,16 @@ def main(argv=None) -> None:
         print(f"req {r.rid} (prompt {len(r.prompt):3d}): "
               f"{r.out_tokens}{note}")
     print(f"capacity gain vs full cache: {eng.capacity_gain():.2f}x")
+    if args.chaos_seed is not None and eng.faults is not None:
+        fired = eng.faults.points_fired()
+        print(f"chaos(seed={args.chaos_seed}, rate={args.chaos_rate}): "
+              f"{len(eng.faults.fired_log)} fault(s) fired at "
+              f"{list(fired) or 'no points'}; "
+              f"retries={eng.n_retried}, "
+              f"swap fallbacks={eng.n_swap_fallbacks}")
+    if args.audit:
+        print(f"audits: {eng.n_audits} pass(es), every "
+              f"{sc.audit_every} step(s), none failed")
     if eng.pool is not None:
         print(f"page pool: {eng.pool.n_pages} pages of {sc.page_size} "
               f"tokens, peak {eng.peak_used_pages} used, "
@@ -280,6 +317,25 @@ def main(argv=None) -> None:
         kinds = ", ".join(f"{k}={n}" for k, n in eng.error_counts.items()
                           if n)
         print(f"failures: {eng.n_failed} ({kinds})")
+    if args.max_batched_tokens:
+        # how the per-step budget split between decode charges and
+        # prefill fill, and how often a chunk fused with the decode chunk
+        log = eng.budget_log
+        dec = sum(e["n_decode"] for e in log)
+        pf = sum(e["prefill_tokens"] for e in log)
+        print(f"token budget {args.max_batched_tokens}/step over "
+              f"{len(log)} step(s): {dec} decode + {pf} prefill "
+              f"token(s) scheduled, {eng.n_fused_steps} fused "
+              f"iteration(s), {eng.n_truncated_chunks} chunk(s) "
+              f"truncated at the residual budget")
+        for e in log[:12]:
+            print(f"  step {e['step']:3d}: budget={e['budget']:3d} "
+                  f"decode={e['n_decode']:2d} "
+                  f"prefill={e['prefill_tokens']:3d} "
+                  f"admitted={e['admitted']}"
+                  + ("  [fused]" if e["fused"] else ""))
+        if len(log) > 12:
+            print(f"  ... {len(log) - 12} more step(s)")
     n_tok = sum(len(r.out_tokens) for r in reqs)
     print(f"device {model.device}: {n_tok} tokens in {wall:.3f} s "
           f"(prefill {eng.prefill_seconds:.3f} s, decode "

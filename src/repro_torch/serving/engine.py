@@ -81,17 +81,29 @@ worst-case reservation are sized from ``int(total_pages * capacity_x)``
 physical pages.  ``ModelConfig.cache_quant = "int8"`` without pages is
 the dense int8 cache.
 
+Token-budget scheduling (``ServeConfig.max_num_batched_tokens > 0``), as
+in the reference: every ``step()`` spends one token budget, decode charges
+first (one token per decoding slot), then admission while occupied slots
+stay within the budget, then prefill chunks round-robin into the residual,
+the last one truncated to it.  One staged chunk fuses with the decode
+chunk: its K2 launches, then the decode chunk's K1 / K5 launches, on one
+stream with no host sync between them; the step's one sync is the decode
+chunk's read-back.  A slot whose prompt completes between the step's
+live-mask snapshot and its decode chunk is armed after the chunk (its
+logits queued on the device), so it joins decode the next step.
+
 Failure semantics follow the reference: a request fails with a
 structured ``RequestError`` (oversize, deadlines, ``cancel``, non-finite
 logits, ``pool_exhausted`` once ``admission_retries`` backed-off retries
 of a failed admission allocation are spent, ``swap_failed`` when a swap
-fails verification and ``swap_fallback`` is off) and the rest of the
-batch keeps serving; a ``stall_steps`` watchdog raises
-``EngineStalledError`` instead of spinning (re-prefilling after a
-preemption is not progress).  Serving features of later slices (fault
-injection, audits, the token budget, shards) raise
-``NotImplementedError`` at construction, naming their ``ROADMAP.md``
-queue-1 entry.
+fails and ``swap_fallback`` is off) and the rest of the batch keeps
+serving; a ``stall_steps`` watchdog raises ``EngineStalledError`` instead
+of spinning (re-prefilling after a preemption is not progress).  A
+``FaultInjector`` (``faults=``, or ``ServeConfig.chaos_seed``) forces the
+rare paths at the reference's eight fault points, and
+``ServeConfig.audit`` runs ``invariants.audit`` every ``audit_every``-th
+step.  Sharded serving raises ``NotImplementedError`` at construction,
+naming its ``ROADMAP.md`` queue-1 entry.
 """
 from __future__ import annotations
 
@@ -108,7 +120,8 @@ from repro_torch.core.compressed import cache_footprint
 from repro_torch.device import DeviceLike, to_device
 from repro_torch.kernels.kq_decode.ops import default_decode_splits
 from repro_torch.models.model import build_model
-from repro_torch.serving.faults import SwapFailed, checksum
+from repro_torch.serving import invariants
+from repro_torch.serving.faults import FaultInjector, SwapFailed, checksum
 from repro_torch.serving.page_layouts import FpLayout, get_layout
 from repro_torch.serving.paged_cache import (BlockTables, PagePool,
                                              PagePoolExhausted, PrefixIndex,
@@ -123,11 +136,6 @@ ERROR_KINDS = ("oversize", "deadline", "pool_exhausted", "swap_failed",
 # ServeConfig features that belong to later slices of the port, with the
 # ROADMAP.md queue-1 entry that brings each
 _LATER = (
-    ("max_num_batched_tokens", lambda sc: sc.max_num_batched_tokens > 0,
-     "item 1, layer 4 (token-budget scheduler)"),
-    ("audit", lambda sc: sc.audit, "item 1, layer 3 (invariant audits)"),
-    ("chaos_seed", lambda sc: sc.chaos_seed is not None,
-     "item 1, layer 3 (fault injection)"),
     ("shards", lambda sc: sc.shards > 1, "item 7 (sharded engine)"),
 )
 
@@ -208,11 +216,22 @@ class ServingEngine:
     ``n_preempted``, ``preempted_rids``, ``n_swapped_out``,
     ``n_swapped_in``, ``n_swap_fallbacks`` and ``n_retried``; sharing's
     ``n_shared_pages``, ``n_shared_tokens``, ``n_full_hits``,
-    ``n_cow_forks`` and ``n_reclaimed``."""
+    ``n_cow_forks`` and ``n_reclaimed``; the audits run, ``n_audits``;
+    the token budget's ``budget_log`` (one entry a step), ``n_fused_steps``
+    and ``n_truncated_chunks``.  Under the token budget a step with a
+    decode chunk syncs only at its read-back: its chunk dispatches count
+    in ``prefill_seconds`` as host time, and the fused chunk's device time
+    in ``decode_seconds``.
+
+    ``faults``: a ``FaultInjector`` kept across drains (the caller owns
+    its schedule); without one, ``ServeConfig.chaos_seed`` builds
+    ``FaultInjector.chaos(chaos_seed, chaos_rate)`` afresh at every
+    ``start()``, so each drain reproduces from the config."""
 
     def __init__(self, cfg: ModelConfig, params, sc: ServeConfig,
                  projections: Optional[ModelProjections] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 faults: Optional[FaultInjector] = None):
         later = [f"{name} (ROADMAP.md queue 1 {item})"
                  for name, asks, item in _LATER if asks(sc)]
         if later:
@@ -246,6 +265,8 @@ class ServingEngine:
         self._dynamic_splits = sc.paged and sc.decode_splits == 0
         self._decode_splits = sc.decode_splits if sc.paged else 1
         self.prefill_chunk_shapes: set = set()
+        self._faults_arg = faults
+        self.faults: Optional[FaultInjector] = None
         self._started = False
 
     def _capacity_multiplier(self) -> float:
@@ -318,12 +339,22 @@ class ServingEngine:
         ``requests``; ``step()`` then serves them."""
         sc = self.sc
         B, T = sc.max_batch, sc.max_seq_len
-        for r in requests:
-            if len(r.prompt) > T:
-                raise ValueError(f"request {r.rid}: prompt length "
-                                 f"{len(r.prompt)} exceeds max_seq_len {T}")
+        # the token budget fails an overlong prompt at admission instead
+        # (kind oversize): one request cannot abort the batch
+        if not sc.max_num_batched_tokens:
+            for r in requests:
+                if len(r.prompt) > T:
+                    raise ValueError(
+                        f"request {r.rid}: prompt length {len(r.prompt)} "
+                        f"exceeds max_seq_len {T}")
         self._pending: List[Request] = list(requests)
         self._all_requests: List[Request] = list(requests)
+        if self._faults_arg is not None:
+            self.faults = self._faults_arg
+        elif sc.chaos_seed is not None:
+            self.faults = FaultInjector.chaos(sc.chaos_seed, sc.chaos_rate)
+        else:
+            self.faults = None
         # paged bookkeeping per slot: the logical pages it may ever hold
         # (its worst case, the growth cap), the pages it may newly
         # allocate (its private tail: a shared prefix page exists once and
@@ -339,6 +370,7 @@ class ServingEngine:
             # layout's capacity multiplier
             n_phys = self._pool_pages()
             self.pool = PagePool(n_phys, sc.watermark_high, sc.watermark_low)
+            self.pool.faults = self.faults
             self._btabs = BlockTables(B, sc.pages_per_seq, self.device)
             self._cache = self.model.init_paged_cache(
                 n_phys + 1, sc.page_size, self.ranks)
@@ -391,6 +423,15 @@ class ServingEngine:
         self.n_full_hits = 0
         self.n_cow_forks = 0
         self.n_reclaimed = 0
+        self.n_audits = 0
+        self.budget_log: List[dict] = []
+        self.n_fused_steps = 0
+        self.n_truncated_chunks = 0
+        # token budget only: while a list, _activate queues (slot,
+        # request, device logits) instead of arming the slot, so a slot
+        # completing after the step's live-mask snapshot is not decoded
+        # through its garbage row by this step's decode chunk
+        self._activation_queue: Optional[list] = None
         # per-slot decode state: host arrays between chunks, device
         # tensors inside one; next-token logits stay on the device
         self._logits = torch.zeros((B, self.cfg.vocab_size),
@@ -414,7 +455,20 @@ class ServingEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _occupied(self) -> int:
+        return sum(q is not None for q in self._slot_req)
+
+    def _decodable(self) -> np.ndarray:
+        """Slots admitted and fully prefilled; mid-prefill slots hold their
+        pages and join decode when their last chunk lands."""
+        return np.array([r is not None and pf is None for r, pf in
+                         zip(self._slot_req, self._prefilled)])
+
     # -- failure semantics --------------------------------------------------
+
+    def _fires(self, point: str) -> bool:
+        """One hit at a fault point (never fires without an injector)."""
+        return self.faults is not None and self.faults.fires(point)
 
     def _fail_request(self, r: Request, kind: str, detail: str = "") -> None:
         """Terminally fail ``r`` and unwind it from the pending queue, its
@@ -463,20 +517,6 @@ class ServingEngine:
                     r, "deadline",
                     f"incomplete after {r.deadline_steps} steps "
                     f"({len(r.out_tokens)}/{r.max_new_tokens} tokens)")
-
-    def _dump(self) -> str:
-        lines = [f"step={self._step_count} "
-                 f"pending={[r.rid for r in self._pending]} "
-                 f"swapped={len(self._swapped)}"]
-        for b, r in enumerate(self._slot_req):
-            if r is not None:
-                lines.append(f"slot {b}: rid={r.rid} pos={self._pos[b]} "
-                             f"done={bool(self._done[b])} "
-                             f"prefilled={self._prefilled[b]}")
-        if self.pool is not None:
-            lines.append(f"pool: {self.pool.used_count}/"
-                         f"{self.pool.n_pages} pages used")
-        return "\n".join("    " + ln for ln in lines)
 
     # -- admission ------------------------------------------------------------
 
@@ -531,7 +571,8 @@ class ServingEngine:
         big one whose worst case does not fit yet.  Requests backing off
         after a failed allocation are passed over until their retry step;
         requests with no tokens to generate are resolved (done) on the
-        way; a request whose worst case exceeds the whole pool fails
+        way; a request whose worst case exceeds the whole pool, or (under
+        the token budget) whose prompt exceeds ``max_seq_len``, fails
         (``oversize``)."""
         sc = self.sc
         i = scanned = 0
@@ -545,6 +586,13 @@ class ServingEngine:
             if r.max_new_tokens - len(r.out_tokens) <= 0:
                 r.done = True
                 self._pending.pop(i)
+                continue
+            if sc.max_num_batched_tokens and len(r.prompt) > sc.max_seq_len:
+                # the worst case is capped at max_seq_len, so the pool
+                # check below cannot catch an overlong prompt
+                self._fail_request(
+                    r, "oversize", f"prompt length {len(r.prompt)} exceeds "
+                    f"max_seq_len {sc.max_seq_len}")
                 continue
             if sc.paged:
                 worst = self._worst_case_pages(r)
@@ -562,23 +610,28 @@ class ServingEngine:
             return self._pending.pop(i)
         return None
 
-    def _admit(self) -> int:
+    def _admit(self, limit: Optional[int] = None) -> int:
         """Fill free slots from the pending queue; returns how many
-        requests were admitted.  Paged: map the longest cached prefix into
-        the block table by reference, allocate the private tail (on a
-        failed allocation roll back and retry with backoff, or fail with
-        ``pool_exhausted`` once ``admission_retries`` are spent) and
-        charge the private worst case; a swap victim skips the match and
-        has its pages restored, verified by checksum.  Chunked prefill:
+        requests were admitted, at most ``limit`` (the token budget's cap
+        on occupied slots; None = every free slot).  Paged: map the
+        longest cached prefix into the block table by reference, allocate
+        the private tail (on a failed allocation roll back and retry with
+        backoff, or fail with ``pool_exhausted`` once
+        ``admission_retries`` are spent) and charge the private worst
+        case; a swap victim skips the match and has its pages restored,
+        verified by checksum (a ``swap_in`` fault fails the restore).
+        Chunked prefill:
         queue the slot for ``_prefill_step`` from the first unshared token
         (a whole-prompt match with stored logits activates it at once).
         Otherwise prefill the effective prompt at its exact length and
         copy its cache into the slot (dense) or its pages (paged)."""
         sc = self.sc
         t0 = time.perf_counter()
-        occupied0 = sum(q is not None for q in self._slot_req)
+        occupied0 = self._occupied()
         ran = False
         for b in range(sc.max_batch):
+            if limit is not None and self._occupied() - occupied0 >= limit:
+                break
             if self._slot_req[b] is not None:
                 continue
             r = self._next_admissible()
@@ -642,6 +695,8 @@ class ServingEngine:
                 st = self._swapped.pop(id(r), None)
                 if st is not None:
                     try:
+                        if self._fires("swap_in"):
+                            raise SwapFailed("injected swap_in fault")
                         self._swap_in_slot(b, st)
                     except SwapFailed as e:
                         if not sc.swap_fallback:
@@ -681,7 +736,7 @@ class ServingEngine:
         if ran:
             self._sync()
             self.prefill_seconds += time.perf_counter() - t0
-        return sum(q is not None for q in self._slot_req) - occupied0
+        return self._occupied() - occupied0
 
     def _paged_insert(self, b: int, slot_cache) -> None:
         """Cut a prefilled one-sequence cache, leaves (1, Hkv, n*ps, R),
@@ -701,7 +756,13 @@ class ServingEngine:
     def _activate(self, b: int, r: Request, last_logits) -> None:
         """Arm slot ``b`` for decode once its prompt cache is in place.
         With sharing on, a device copy of the prompt's next-token logits
-        is kept for the index (no host sync)."""
+        is kept for the index (no host sync).  While the token budget's
+        activation queue is open the call is deferred: a device clone of
+        the logits is queued and the slot is armed after the step's
+        decode chunk."""
+        if self._activation_queue is not None:
+            self._activation_queue.append((b, r, last_logits.clone()))
+            return
         self._logits[b] = last_logits
         self._pos[b] = len(self._slot_prompt[b])
         self._emitted[b] = 0
@@ -766,7 +827,10 @@ class ServingEngine:
         if n <= 0:
             return []
         if self._pindex is not None and n > self.pool.free_count:
-            self.n_reclaimed += self._pindex.reclaim(self.pool, n)
+            # a prefix_reclaim fault reclaims nothing this pass: the
+            # caller's exhaustion handling (retry, preempt) takes over
+            if not self._fires("prefix_reclaim"):
+                self.n_reclaimed += self._pindex.reclaim(self.pool, n)
         return self.pool.alloc(n)
 
     def _fork_candidates(self, b: int, lo: int, hi: int) -> List[int]:
@@ -786,6 +850,8 @@ class ServingEngine:
         repoint the row (which drops the device export) and drop one
         reference on the original, which the other sharers keep."""
         old = int(self._btabs.rows[b, j])
+        if self._fires("copy_page"):
+            raise PagePoolExhausted("injected copy_page fault")
         new = self._alloc(1)[0]
         for layer in self._cache:
             for pool in layer.values():
@@ -861,38 +927,49 @@ class ServingEngine:
 
     # -- chunked prefill ------------------------------------------------------
 
-    def _prep_chunk(self, b: int) -> Optional[int]:
-        """Ready slot ``b``'s next prefill chunk: late-bind shared chunks,
-        then fork any still-shared page the chunk writes (a chunk may
-        start mid-page, at the first unshared token).  Returns the chunk's
-        real-token count, or None when the slot runs no chunk: the late
-        match completed its prompt, or the pool was dry at the fork and
-        the slot was preempted."""
+    def _prep_chunk(self, b: int, cap: Optional[int] = None
+                    ) -> Optional[tuple]:
+        """Stage slot ``b``'s next prefill chunk on the host: late-bind
+        shared chunks, size the chunk (``cap`` truncates it to the token
+        budget's residual), fork any still-shared page it writes (a chunk
+        may start mid-page, at the first unshared token) and pick its
+        bucket.  Returns ``(b, request, start, n, bucket)``, or None when
+        the slot runs no chunk: the late match completed its prompt, a
+        ``prefill_delay`` fault held it back, the pool was dry at the fork
+        (the slot was preempted) or no bucket holds the chunk (the request
+        failed with ``oversize``)."""
+        sc = self.sc
         if self._late_match(b):
             return None
+        if self._fires("prefill_delay"):
+            return None
+        r = self._slot_req[b]
         start = self._prefilled[b]
-        n = min(self.sc.prefill_chunk, len(self._slot_prompt[b]) - start)
+        n = min(sc.prefill_chunk, len(self._slot_prompt[b]) - start)
+        if cap is not None and n > cap:
+            n = cap
+            self.n_truncated_chunks += 1
         try:
             for j in self._fork_candidates(b, start, start + n):
                 self._cow_fork(b, j)
         except PagePoolExhausted:
             self._preempt(b)
             return None
-        return n
+        try:
+            bucket = sc.bucket_for(n)
+        except ValueError as e:
+            self._fail_request(r, "oversize", str(e))
+            return None
+        return b, r, start, n, bucket
 
-    def _run_chunk(self, b: int, n: int) -> None:
-        """Run slot ``b``'s next ``n``-token prefill chunk, padded to its
-        bucket, through the model: its tokens, position, real-token count
-        and the slot's block-table row go to the device in one
-        non-blocking copy.  Pages the chunk completes join the prefix
-        index; the slot joins decode, with the logits of its last real
-        token, when its prompt is written."""
-        prompt = self._slot_prompt[b]
-        r = self._slot_req[b]
-        start = self._prefilled[b]
-        bucket = self.sc.bucket_for(n)
+    def _launch_chunk(self, prep: tuple) -> torch.Tensor:
+        """Run a staged chunk, padded to its bucket, through the model: its
+        tokens, position, real-token count and the slot's block-table row
+        go to the device in one non-blocking copy.  Returns the logits of
+        its last real token, on the device."""
+        b, _, start, n, bucket = prep
         host = np.zeros(bucket + 2 + self.sc.pages_per_seq, np.int32)
-        host[:n] = prompt[start: start + n]
+        host[:n] = self._slot_prompt[b][start: start + n]
         host[bucket: bucket + 2] = start, n
         host[bucket + 2:] = self._btabs.rows[b]
         dev = to_device(host, self.device)
@@ -900,6 +977,15 @@ class ServingEngine:
             self.params, self._cache, dev[None, :bucket],
             dev[bucket: bucket + 1], dev[bucket + 1: bucket + 2],
             proj=self.proj, block_table=dev[None, bucket + 2:])
+        return logits[0, n - 1]
+
+    def _finish_chunk(self, prep: tuple, last: torch.Tensor) -> None:
+        """Host bookkeeping after a chunk's launch (standalone or fused):
+        advance the slot's prefill, count watchdog progress, index the
+        pages the chunk completed, and arm the slot for decode with
+        ``last`` when its prompt is written."""
+        b, r, start, n, bucket = prep
+        prompt = self._slot_prompt[b]
         self.prefill_chunk_shapes.add(bucket)
         self.n_prefill_chunks += 1
         self.n_prefill_tokens += n
@@ -921,7 +1007,7 @@ class ServingEngine:
                 self._indexed_upto[b] += ps
         if start + n == len(prompt):
             self._prefilled[b] = None            # complete: join decode
-            self._activate(b, r, logits[0, n - 1])
+            self._activate(b, r, last)
 
     def _prefill_step(self, budget: Optional[int] = None) -> int:
         """Advance in-flight chunked prefills by up to ``budget`` (default
@@ -940,10 +1026,10 @@ class ServingEngine:
             b = (self._pf_next + off) % B
             if self._prefilled[b] is None:
                 continue
-            n = self._prep_chunk(b)
-            if n is None:
+            prep = self._prep_chunk(b)
+            if prep is None:
                 continue
-            self._run_chunk(b, n)
+            self._finish_chunk(prep, self._launch_chunk(prep))
             ran = True
             budget -= 1
         self._pf_next = (self._pf_next + 1) % B
@@ -975,18 +1061,36 @@ class ServingEngine:
             for name, pool in layer.items():
                 swap_in(pool, row, bufs[name])
 
+    def _corrupt_swap(self, bufs: list) -> list:
+        """The buffers with one byte of their first leaf (in ``checksum``'s
+        order) flipped by the ``swap_corrupt`` stream, as the reference
+        flips its first leaf."""
+        first = sorted(bufs[0])[0]
+        layer0 = dict(bufs[0])
+        layer0[first] = self.faults.corrupt("swap_corrupt", layer0[first])
+        return [layer0] + bufs[1:]
+
     def _preempt(self, b: int) -> None:
         """Evict slot ``b`` and requeue its request at the head of the
         pending queue.  Recompute (and any mid-prefill victim, which has
         no decode state) relies on the generated tokens riding as prompt
         suffix; swap first saves the slot's entries, their crc and its
-        next-token logits (a device copy)."""
+        next-token logits (a device copy).  A failed swap-out (a
+        ``swap_out`` fault) saves nothing and the victim recomputes; a
+        ``swap_corrupt`` fault flips a byte after the crc was taken."""
         r = self._slot_req[b]
         if self.sc.preempt_mode == "swap" and self._prefilled[b] is None:
-            st = self._swap_out_slot(b, int(self._pos[b]))
-            st["logits"] = self._logits[b].clone()
-            self._swapped[id(r)] = st
-            self.n_swapped_out += 1
+            try:
+                if self._fires("swap_out"):
+                    raise SwapFailed("injected swap_out fault")
+                st = self._swap_out_slot(b, int(self._pos[b]))
+                if self._fires("swap_corrupt"):
+                    st["bufs"] = self._corrupt_swap(st["bufs"])
+                st["logits"] = self._logits[b].clone()
+                self._swapped[id(r)] = st
+                self.n_swapped_out += 1
+            except SwapFailed:
+                self.n_swap_fallbacks += 1
         self._pending.insert(0, r)
         self._release(b)
         self._done[b] = True
@@ -1004,7 +1108,8 @@ class ServingEngine:
         deficit (thrash guard).  ``needs``: extra pages per live slot."""
         deficit = sum(needs.values())
         if self._pindex is not None and deficit > self.pool.free_count:
-            self.n_reclaimed += self._pindex.reclaim(self.pool, deficit)
+            if not self._fires("prefix_reclaim"):
+                self.n_reclaimed += self._pindex.reclaim(self.pool, deficit)
         if deficit <= self.pool.free_count:
             return
         cand = sorted((b for b in range(self.sc.max_batch)
@@ -1078,7 +1183,12 @@ class ServingEngine:
 
         Returns host arrays: tokens and emit masks (N, B) and a per-slot
         flag of finite next-token logits; positions, counts and the
-        done/truncated masks are written back to the host state."""
+        done/truncated masks are written back to the host state.  The
+        state goes in by a non-blocking copy, so the chunk queues behind
+        work already on the stream (a fused prefill chunk) without a
+        sync.  A ``nan_logits`` fault poisons the lowest live slot's
+        next-token logits on the device before the finiteness check, as
+        the reference's harvest does."""
         sc = self.sc
         T, N, eos = sc.max_seq_len, sc.decode_chunk, sc.eos_token
         dev = self.device
@@ -1090,9 +1200,9 @@ class ServingEngine:
                                  T - self._pos)[act].max(initial=0))
         n_model = max(0, min(N, n_model))
         n_splits = self._live_splits(live)
-        state = torch.as_tensor(np.stack([
+        state = to_device(np.stack([
             self._pos, self._emitted, self._max_new, self._done,
-            self._trunc]).astype(np.int64), device=dev)   # one copy in
+            self._trunc]).astype(np.int64), dev)          # one copy in
         pos, emitted, max_new = state[0], state[1], state[2]
         done, trunc = state[3].bool(), state[4].bool()
         logits = self._logits
@@ -1122,7 +1232,9 @@ class ServingEngine:
                 self.n_decode_steps += 1
             pos = torch.where(done, pos, pos + 1)
         self._logits = logits
-        finite = torch.isfinite(logits).all(dim=-1)
+        if self._fires("nan_logits"):
+            self._logits[int(np.nonzero(live)[0][0])] = float("nan")
+        finite = torch.isfinite(self._logits).all(dim=-1)
         B = sc.max_batch
         host = torch.cat([torch.stack(toks).reshape(-1),
                           torch.stack(emits).reshape(-1).long(),
@@ -1167,33 +1279,38 @@ class ServingEngine:
     def step(self) -> bool:
         """One scheduling iteration: admit, advance chunked prefills, one
         fused decode chunk over the fully prefilled slots, harvest, then
-        refill freed slots in the same step.  Deadlines are
-        checked first and the no-progress watchdog after.  Returns
-        whether work remains."""
+        refill freed slots in the same step (under the token budget,
+        ``_step_inner_budget``).  Deadlines are checked first, the audit
+        runs after every ``audit_every``-th step (``ServeConfig.audit``,
+        counted in ``n_audits``) and the no-progress watchdog last.
+        Returns whether work remains."""
         if not self._started:
             raise RuntimeError("call start(requests) first")
         self._step_count += 1
         self._progress = False
         self._check_deadlines()
         busy = self._step_inner()
+        if self.sc.audit and self._step_count % self.sc.audit_every == 0:
+            invariants.audit(self)
+            self.n_audits += 1
         if busy and not self._progress:
             self._no_progress += 1
             if (self.sc.stall_steps
                     and self._no_progress >= self.sc.stall_steps):
-                raise EngineStalledError(self._no_progress, self._dump())
+                raise EngineStalledError(self._no_progress,
+                                         invariants.scheduler_dump(self))
         else:
             self._no_progress = 0
         return busy
 
     def _step_inner(self) -> bool:
         sc = self.sc
+        if sc.max_num_batched_tokens:
+            return self._step_inner_budget()
         self._admit()
         self._note_pages()
         pf_budget = self._prefill_step() if sc.chunked_prefill else 0
-        # decodable = admitted and fully prefilled; mid-prefill slots hold
-        # their pages and join decode when their last chunk lands
-        live = np.array([r is not None and pf is None for r, pf in
-                         zip(self._slot_req, self._prefilled)])
+        live = self._decodable()
         if not live.any():
             return self._busy()
         btab = None
@@ -1213,6 +1330,80 @@ class ServingEngine:
             self._admit()
             if sc.chunked_prefill and pf_budget:
                 self._prefill_step(pf_budget)
+        return self._busy()
+
+    def _step_inner_budget(self) -> bool:
+        """One token-budget iteration (the reference's
+        ``_step_inner_budget``).  The budget is spent in a fixed order:
+        (1) one token per decodable slot, after ``_ensure_chunk_headroom``;
+        (2) admission while occupied slots stay within the budget, each a
+        future decode charge; (3) prefill chunks round-robin into the
+        residual, the last truncated to it.  The first staged chunk fuses
+        with the decode chunk (its K2 launches, then the decode chunk's,
+        on one stream; the read-back is the step's one sync); the others,
+        and every chunk of a step with nothing to decode, run standalone.
+        Activations between the live-mask snapshot and the decode chunk
+        are queued and armed after it, skipping slots unwound meanwhile.
+        Each step appends ``{step, budget, n_decode, prefill_tokens,
+        admitted, fused}`` to ``budget_log``."""
+        sc = self.sc
+        B = sc.max_batch
+        budget = sc.max_num_batched_tokens
+        live = self._decodable()
+        if live.any():
+            self._ensure_chunk_headroom(live)
+        n_decode = int(live.sum())
+        residual = max(budget - n_decode, 0)
+        self._activation_queue = queue = []
+        n_admitted = self._admit(limit=max(budget - self._occupied(), 0))
+        self._note_pages()
+        t0 = time.perf_counter()
+        preps: List[tuple] = []
+        spent = 0
+        for off in range(B):
+            if residual - spent <= 0:
+                break
+            b = (self._pf_next + off) % B
+            if self._prefilled[b] is None:
+                continue
+            prep = self._prep_chunk(b, cap=residual - spent)
+            if prep is None:
+                continue
+            preps.append(prep)
+            spent += prep[3]
+        self._pf_next = (self._pf_next + 1) % B
+        fused = preps.pop(0) if live.any() and preps else None
+        for prep in preps:
+            self._finish_chunk(prep, self._launch_chunk(prep))
+        freed = False
+        if live.any():
+            btab = self._btabs.device(live)
+            self._note_pages()
+            t1 = time.perf_counter()
+            self.prefill_seconds += t1 - t0
+            last = self._launch_chunk(fused) if fused is not None else None
+            toks_np, emits_np, finite = self._decode_chunk(live, btab)
+            self.decode_seconds += time.perf_counter() - t1
+            if fused is not None:
+                self._finish_chunk(fused, last)
+                self.n_fused_steps += 1
+            freed = self._harvest(live, toks_np, emits_np, finite)
+        elif preps:
+            self._sync()
+            self.prefill_seconds += time.perf_counter() - t0
+        # the armed slots join decode next step, charged there
+        self._activation_queue = None
+        for qb, qr, qlog in queue:
+            if self._slot_req[qb] is qr:
+                self._activate(qb, qr, qlog)
+        self.budget_log.append({
+            "step": self._step_count, "budget": budget,
+            "n_decode": n_decode, "prefill_tokens": spent,
+            "admitted": n_admitted, "fused": fused is not None})
+        if freed and self._pending:
+            # same-step refill under the same cap; its prefill starts next
+            # step (this step's residual is spent)
+            self._admit(limit=max(budget - self._occupied(), 0))
         return self._busy()
 
     def _note_pages(self) -> None:

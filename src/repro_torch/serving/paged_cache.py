@@ -52,7 +52,8 @@ class PagePool:
     pages.  Watermarks, as fractions of the pool: ``high_pages`` caps how
     full optimistic admission may pack the pool (``can_admit``);
     ``low_extra`` is the slack a preemption pass frees beyond the strict
-    deficit."""
+    deficit.  ``faults``: an optional ``FaultInjector`` whose
+    ``page_alloc`` point ``alloc`` hits (the engine attaches its own)."""
 
     def __init__(self, n_pages: int, high_watermark: float = 1.0,
                  low_watermark: float = 0.0):
@@ -64,6 +65,7 @@ class PagePool:
         self._refs = np.zeros(n_pages + 1, np.int32)
         self.high_pages = max(1, int(round(high_watermark * n_pages)))
         self.low_extra = int(round(low_watermark * n_pages))
+        self.faults = None
 
     @property
     def free_count(self) -> int:
@@ -86,7 +88,13 @@ class PagePool:
 
     def alloc(self, n: int) -> List[int]:
         """Pop ``n`` pages at refcount 1; raises ``PagePoolExhausted``
-        (allocating none) if fewer than ``n`` are free."""
+        (allocating none) if fewer than ``n`` are free, or when a request
+        for pages (``n > 0``) hits an armed ``page_alloc`` fault."""
+        if n and self.faults is not None and self.faults.fires(
+                "page_alloc"):
+            raise PagePoolExhausted(
+                f"injected page_alloc fault (need {n}, "
+                f"{len(self._free)} free)")
         if n > len(self._free):
             raise PagePoolExhausted(
                 f"need {n} pages, {len(self._free)} free"

@@ -4,9 +4,11 @@ decode's in-launch merge against the two launches it replaces, and the
 reduced model on the card against the CPU on the dense and the paged
 chunked engines, also with int8 pages and split-KV decode, with the dense
 int8 cache, under optimistic admission (recompute and swap), with int8
-prefix sharing under swap, with the sliding-window ring cache and with
-mamba2's SSM state, and a copy-on-write fork on the card copying every
-leaf byte for byte.  Marked
+prefix sharing under swap, under fault injection, under the token
+budget, with the sliding-window ring cache and with mamba2's SSM state;
+a copy-on-write fork on the card copying every leaf byte for byte, a
+budget step's fused chunk launching K2 before the decode chunk's K1 with
+one host sync, and the NaN quarantine of a device logit row.  Marked
 ``cuda``; skips where there is no GPU.  Imports no JAX, so it also runs
 on a machine without it (``--noconftest``: the repository's conftest
 imports JAX):
@@ -38,7 +40,9 @@ from repro_torch.kernels.kq_decode import (
 from repro_torch.kernels.kq_decode import paged as paged_mod
 from repro_torch.serving.page_layouts import quantize_int8
 from repro_torch.models import build_model
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.models import attention as attention_mod
+from repro_torch.serving import (RECOVERABLE_POINTS, FaultInjector, Request,
+                                 ServingEngine, checksum)
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # test_kernels.py
@@ -561,6 +565,170 @@ def test_cow_fork_on_card_copies_every_leaf(cuda):
             assert torch.equal(pool[dst].view(torch.uint8),
                                pool[src].view(torch.uint8)), name
     assert names == {"kc", "kscale", "vc", "vscale"}
+
+
+def _shared_prompts(vocab):
+    """Four prompts behind a common 13-token prefix (as the int8 sharing
+    cases above), and two fresh ones."""
+    rng = np.random.default_rng(3)
+    pre = rng.integers(0, vocab, 13)
+    return [np.concatenate([pre, rng.integers(0, vocab, k)]).astype(
+        np.int32) for k in (3, 5, 1, 5)] + [
+        rng.integers(0, vocab, k).astype(np.int32) for k in (11, 14)]
+
+
+def _card_and_cpu(cuda, quant=False):
+    cfg = get_config("tinyllama-1.1b").reduced()
+    cpu, gpu = build_model(cfg, "cpu"), build_model(cfg, cuda)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    mp = calibrate_model(cpu, p_cpu,
+                         calibration_batches(cfg.vocab_size, 8, 32, batch=4),
+                         CompressionConfig(method="kqsvd", epsilon=0.1))
+    return cfg, ((cpu, p_cpu), (gpu, tree_to(p_cpu, cuda))), mp
+
+
+CHAOS_SC = dict(max_seq_len=32, max_batch=4, decode_chunk=4, paged=True,
+                page_size=4, chunked_prefill=True, prefill_chunk=8,
+                n_pages=9, admission="optimistic", preempt_mode="swap",
+                watermark_low=0.1, share_prefix=True, audit=True)
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_chaos_on_card_matches_cpu(cuda, quant):
+    """Every recoverable point armed on its first hits, on CUDA tensors:
+    the card fires what the CPU fires, hit for hit, recovers the same way
+    (swap buffers corrupted in host memory fail their crc and recompute)
+    and gives the CPU's tokens, which are the unfaulted engine's."""
+    cfg, sides, mp = _card_and_cpu(cuda)
+    prompts = _shared_prompts(cfg.vocab_size)
+    # int8 pages: 5 fp-page units buy 8 physical pages, as tight
+    sc = dict(CHAOS_SC, cache_quant=quant,
+              n_pages=5 if quant == "int8" else CHAOS_SC["n_pages"])
+    out = []
+    for (m, p), faults in ((sides[0], True), (sides[1], True),
+                           (sides[0], False)):
+        inj = None
+        if faults:
+            inj = FaultInjector(0)
+            for i, point in enumerate(RECOVERABLE_POINTS):
+                inj.add(point, nth=1 + i % 2)
+        eng = ServingEngine(cfg, p, ServeConfig(**sc), projections=mp,
+                            device=m.device, faults=inj)
+        rs = [Request(rid=i, prompt=q, max_new_tokens=6)
+              for i, q in enumerate(prompts)]
+        eng.generate(rs)
+        assert all(r.done and not r.failed for r in rs)
+        assert eng.pool.free_count + eng._pindex.n_pinned == \
+            eng.pool.n_pages
+        out.append(([r.out_tokens for r in rs],
+                     inj.fired_log if inj else None,
+                     eng.n_swap_fallbacks, eng.n_audits, eng.n_preempted))
+    assert out[0] == out[1]
+    assert out[1][0] == out[2][0]
+    assert out[1][1] and out[1][2] >= 1
+    # a swap buffer in pinned host memory: one byte flipped, the crc
+    # catches it
+    buf = torch.arange(64, dtype=torch.float32).reshape(4, 16).pin_memory()
+    bad = FaultInjector(2).corrupt("swap_corrupt", buf)
+    assert bad.device.type == "cpu" and bad.shape == buf.shape
+    assert int((bad.view(torch.uint8) != buf.view(torch.uint8)).sum()) == 1
+    assert checksum([bad]) != checksum([buf])
+
+
+def test_budget_fused_step_launches_k2_then_k1_with_one_sync(cuda):
+    """Under the token budget a fused step launches its chunks' K2, then
+    the decode chunk's K1, on one stream, and syncs the host once (its
+    read-back); the budget log, fused steps and tokens equal the CPU's."""
+    import warnings
+    cfg, sides, mp = _card_and_cpu(cuda)
+    prompts = _shared_prompts(cfg.vocab_size) + [np.arange(
+        20, dtype=np.int32) % cfg.vocab_size]
+    sc = dict(max_seq_len=32, max_batch=4, decode_chunk=4, paged=True,
+              page_size=4, chunked_prefill=True, prefill_chunk=8,
+              max_num_batched_tokens=8)
+    results = []
+    events = []
+    k2, k1 = (attention_mod.kq_prefill_paged_attention,
+              attention_mod.kq_decode_paged_attention)
+
+    def logged(name, fn):
+        def call(*a, **k):
+            events.append(name)
+            return fn(*a, **k)
+        return call
+
+    sync = torch.cuda.synchronize
+    n_explicit = [0]
+
+    def counted(*a, **k):
+        n_explicit[0] += 1
+        return sync(*a, **k)
+
+    fused_seen = 0
+    for m, p in sides:
+        eng = ServingEngine(cfg, p, ServeConfig(**sc), projections=mp,
+                            device=m.device)
+        rs = [Request(rid=i, prompt=q, max_new_tokens=6)
+              for i, q in enumerate(prompts)]
+        eng.start(rs)
+        on_card = m.device.type == "cuda"
+        busy = True
+        while busy:
+            events.clear()
+            n_explicit[0] = 0
+            if on_card:
+                attention_mod.kq_prefill_paged_attention = logged("K2", k2)
+                attention_mod.kq_decode_paged_attention = logged("K1", k1)
+                torch.cuda.synchronize = counted
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as w:
+                    warnings.simplefilter("always")
+                    busy = eng.step()
+            finally:
+                if on_card:
+                    torch.cuda.set_sync_debug_mode(0)
+                    torch.cuda.synchronize = sync
+                    attention_mod.kq_prefill_paged_attention = k2
+                    attention_mod.kq_decode_paged_attention = k1
+            if on_card and eng.budget_log[-1]["fused"]:
+                fused_seen += 1
+                syncs = n_explicit[0] + sum(
+                    "synchroniz" in str(x.message) for x in w)
+                assert syncs == 1, (eng._step_count, syncs)
+                n2 = events.count("K2")
+                assert n2 and n2 % cfg.n_layers == 0, events
+                assert events == ["K2"] * n2 + ["K1"] * (len(events) - n2)
+        results.append(([r.out_tokens for r in rs], eng.budget_log,
+                        eng.n_fused_steps, eng.n_truncated_chunks))
+    assert fused_seen == results[1][2] > 0
+    assert results[0] == results[1]
+
+
+def test_nan_logits_quarantine_on_card(cuda):
+    """A ``nan_logits`` fault poisons the lowest live slot's logit row on
+    the device; the guard fails that request (``numerics``), its pages go
+    back, and the other request gives the CPU's unfaulted tokens."""
+    cfg, sides, mp = _card_and_cpu(cuda)
+    prompts = _shared_prompts(cfg.vocab_size)[4:]
+    sc = dict(max_seq_len=32, max_batch=2, decode_chunk=4, paged=True,
+              page_size=4, chunked_prefill=True, prefill_chunk=8)
+    out = []
+    for (m, p), nan in ((sides[1], True), (sides[0], False)):
+        eng = ServingEngine(cfg, p, ServeConfig(**sc), projections=mp,
+                            device=m.device,
+                            faults=FaultInjector(0).add("nan_logits", nth=1)
+                            if nan else None)
+        rs = [Request(rid=i, prompt=q, max_new_tokens=6)
+              for i, q in enumerate(prompts)]
+        eng.generate(rs)
+        if nan:
+            assert eng._logits.device.type == "cuda"
+            assert rs[0].failed and rs[0].error.kind == "numerics"
+            assert rs[0].out_tokens == [] and not rs[1].failed
+            assert eng.pool.free_count == eng.pool.n_pages
+        out.append(rs[1].out_tokens)
+    assert out[0] == out[1]
 
 
 def test_reduced_model_card_matches_cpu(cuda):

@@ -5,7 +5,9 @@ value for value, the round-trip bound of tests/test_page_layouts.py, the
 SVDq bit allocations, and the hardware-independent page bytes of
 BENCH_decode.json.  On int8 pages the engine's copy-on-write fork copies
 every leaf, scale pools too, byte for byte, and prefix sharing and swap
-give the tokens of the engine without them and of the reference's."""
+give the tokens of the engine without them and of the reference's; a
+swap buffer corrupted in its data or its scale leaves fails its one crc
+and the victim recomputes, with the same tokens."""
 import dataclasses
 import functools
 
@@ -20,13 +22,15 @@ from repro.config import ServeConfig as JaxServe
 from repro.configs import get_config as jax_config
 from repro.core.calibration import GramAccumulator
 from repro.models import build_model as jax_model
+from repro.serving import FaultInjector as JaxInjector
 from repro.serving import Request as JaxRequest
 from repro.serving import ServingEngine as JaxEngine
 from repro.serving import page_layouts as jl
 from repro_torch import bridge
 from repro_torch.config import ServeConfig
 from repro_torch.configs import get_config as torch_config
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving import (FaultInjector, Request, ServingEngine,
+                                 checksum)
 from repro_torch.serving import page_layouts as tl
 
 
@@ -282,3 +286,48 @@ def test_swap_int8_pages_matches_reserve():
     assert eng.n_swapped_out >= 1 and eng.n_swapped_in == eng.n_swapped_out
     assert [r.out_tokens for r in r1] == [r.out_tokens for r in r0]
     assert eng.pool.free_count == eng.pool.n_pages
+
+
+def test_corrupted_swap_scale_bytes_degrade_to_recompute():
+    """int8 data and scale leaves ride one crc: a byte flipped in either
+    fails swap-in verification.  Under a ``swap_corrupt`` fault the victim
+    recomputes, with the tokens of the unfaulted run, and the firings,
+    fallbacks and tokens equal the reference's (its Pallas route)."""
+    sc_kw = dict(QUANT_SC, n_pages=6, admission="optimistic",
+                 preempt_mode="swap", watermark_low=0.1, audit=True)
+    r0 = _reqs(Request, [14, 13, 14], max_new=8)
+    base = _port(sc_kw, r0)
+    assert base.n_swapped_out > 0          # the pool does oversubscribe
+    _, _, tcfg, tp, _, tmp = models()
+    eng = ServingEngine(tcfg, tp, ServeConfig(**sc_kw), projections=tmp,
+                        device="cpu",
+                        faults=FaultInjector(0).add("swap_corrupt", nth=1))
+    r1 = _reqs(Request, [14, 13, 14], max_new=8)
+    eng.generate(r1)
+    assert eng.faults.points_fired() == ("swap_corrupt",)
+    assert eng.n_swap_fallbacks > 0        # the crc caught the flip
+    assert [r.out_tokens for r in r1] == [r.out_tokens for r in r0]
+    assert eng.pool.free_count == eng.pool.n_pages
+    jcfg, jp, _, _, jmp, _ = models()
+    jeng = JaxEngine(dataclasses.replace(jcfg, use_pallas=True), jp,
+                     JaxServe(**sc_kw), projections=jmp,
+                     faults=JaxInjector(0).add("swap_corrupt", nth=1))
+    jr = _reqs(JaxRequest, [14, 13, 14], max_new=8)
+    jeng.generate(jr)
+    assert [r.out_tokens for r in r1] == [r.out_tokens for r in jr]
+    assert eng.faults.fired_log == jeng.faults.fired_log
+    assert (eng.n_swap_fallbacks, eng.n_swapped_out, eng.n_swapped_in) == \
+        (jeng.n_swap_fallbacks, jeng.n_swapped_out, jeng.n_swapped_in)
+    # one slot's swap buffers: a flipped byte in a data leaf or in a
+    # scale leaf each breaks the crc
+    eng.start(_reqs(Request, [14], max_new=8))
+    while eng._prefilled[0] is not None or eng._slot_req[0] is None:
+        eng.step()
+    st = eng._swap_out_slot(0, int(eng._pos[0]))
+    assert set(st["bufs"][0]) == {"kc", "kscale", "vc", "vscale"}
+    assert checksum(st["bufs"]) == st["crc"]
+    for name in ("kc", "vscale"):
+        bufs = [dict(layer) for layer in st["bufs"]]
+        bufs[1][name] = FaultInjector(7).corrupt("swap_corrupt",
+                                                 bufs[1][name])
+        assert checksum(bufs) != st["crc"], name

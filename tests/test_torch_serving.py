@@ -194,24 +194,45 @@ def test_watchdog_raises_on_no_progress(monkeypatch):
          prefill_chunk=8, max_num_batched_tokens=6),
     dict(audit=True), dict(chaos_seed=0)])
 def test_later_slice_features_raise(later):
+    """Only sharded serving is still refused at construction, naming its
+    ROADMAP.md entry; audits, chaos and the token budget build and
+    serve."""
     _, _, tcfg, tp, _, _ = models()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(tcfg, tp, ServeConfig(**later), device="cpu")
+    if later.get("shards", 1) > 1:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ServingEngine(tcfg, tp, ServeConfig(**later), device="cpu")
+        return
+    eng = ServingEngine(tcfg, tp, ServeConfig(**{"max_seq_len": 64,
+                                                 **later}), device="cpu")
+    reqs = [Request(rid=i, prompt=np.arange(4 + i, dtype=np.int32),
+                    max_new_tokens=3) for i in range(2)]
+    eng.generate(reqs)
+    assert all(r.done and not r.failed and len(r.out_tokens) == 3
+               for r in reqs)
 
 
 @pytest.mark.parametrize("flags", [
     ["--audit"], ["--chaos-seed", "0"], ["--shards", "2"],
     ["--max-batched-tokens", "6", "--audit"]])
 def test_cli_refuses_flags_of_later_slices(flags, capsys):
-    """The reference CLI's flags for paths the port lacks stop the run
-    with an error naming each of them."""
+    """The reference CLI's flag for the path the port lacks (``--shards``)
+    stops the run with an error naming it; the flags of the audits, chaos
+    and the token budget parse (the budget turning on chunked prefill)."""
     from repro_torch.launch.serve import parse_args
-    with pytest.raises(SystemExit) as exc:
-        parse_args(["--arch", "tinyllama-1.1b", *flags])
-    assert exc.value.code != 0
-    err = capsys.readouterr().err
-    assert "not ported yet" in err
-    assert all(f in err for f in flags if f.startswith("--"))
+    argv = ["--arch", "tinyllama-1.1b", *flags]
+    if "--shards" in flags:
+        with pytest.raises(SystemExit) as exc:
+            parse_args(argv)
+        assert exc.value.code != 0
+        err = capsys.readouterr().err
+        assert "not ported yet" in err and "--shards" in err
+        return
+    args = parse_args(argv)
+    assert args.audit == ("--audit" in flags)
+    assert args.chaos_seed == (0 if "--chaos-seed" in flags else None)
+    if "--max-batched-tokens" in flags:
+        assert args.max_batched_tokens == 6 and args.prefill_chunk == 8
+        assert args.paged
 
 
 def test_cli_serves_optimistic_swap_with_sharing(capsys):
@@ -240,6 +261,26 @@ def test_cli_serves_optimistic_swap_with_sharing(capsys):
     sharing = next(ln for ln in out.splitlines()
                    if ln.startswith("prefix sharing:"))
     assert int(sharing.split()[2]) > 0          # pages shared
+
+
+def test_cli_serves_chaos_audit_budget(capsys):
+    """A CPU drive of the CLI with chaos, audits and the token budget: the
+    reference CLI's chaos and budget lines, every request served."""
+    from repro_torch.launch import serve as cli
+    cli.main(["--arch", "tinyllama-1.1b", "--reduced", "--method", "kqsvd",
+              "--requests", "8", "--prompt-len", "14", "--max-new-tokens",
+              "6", "--decode-chunk", "4", "--paged", "--prefill-chunk", "8",
+              "--page-size", "4", "--chaos-seed", "0", "--audit",
+              "--max-batched-tokens", "6", "--device", "cpu"])
+    out = capsys.readouterr().out
+    served = [ln for ln in out.splitlines() if ln.startswith("req ")]
+    assert len(served) == 8 and not any("failed" in ln for ln in served)
+    assert "chaos(seed=0, rate=0.05): " in out
+    audits = next(ln for ln in out.splitlines() if ln.startswith("audits:"))
+    assert int(audits.split()[1]) > 0
+    budget = next(ln for ln in out.splitlines()
+                  if ln.startswith("token budget 6/step"))
+    assert " 0 fused" not in budget and " 0 chunk(s) truncated" not in budget
 
 
 def test_cli_parses_ported_flags():
