@@ -59,15 +59,17 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              engine with optimistic admission and with prefix sharing at
              full width: ``ServeConfig(max_batch=8, max_seq_len=2048,
              page_size=16, prefill_chunk=256, decode_splits=1)``.  (a) 24
-             requests of 128..768 prompt tokens and 128 new, priorities 0,
-             1 cycled, on a pool of ``POOL_3J`` pages (watermarks 0.9 /
-             0.05): reserve admission (the oracle), optimistic recompute
-             and optimistic swap; each optimistic run preempts, swap
+             requests of 128..768 prompt tokens and ``NEW_3J_A`` (96) new,
+             priorities 0, 1 cycled, on a pool of ``POOL_3J`` pages
+             (watermarks 0.9 / 0.05): reserve admission (the oracle),
+             optimistic recompute and optimistic swap; each optimistic
+             run preempts, swap
              restores as many as it saves, and the swap run's tokens equal
              the reserve run's; the recompute run's agreement is printed
              with the top-2 logit margin at each first differing token.
              (b) 24 requests on one 1000-token system prompt with private
-             suffixes of 8..200 tokens, 64 new, the last four repeating
+             suffixes of 8..200 tokens, ``NEW_3J_B`` (16) new, the last
+             four repeating
              the first four, with and without ``share_prefix``, on fp and
              on int8 pages: sharing shares pages, forks and hits whole
              prompts, and prefills fewer tokens (fp: fewer K2 launches).
@@ -100,6 +102,30 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              Printed: step walls (p50, max), decode ms/step and tokens/s,
              prefill seconds, swaps, forks, reclaims, the fired points,
              the ms an audit takes, (b)'s tokens against (a)'s;
+3l. train    smollm-360m at full width (32 layers, d_model 960, 15 / 5
+             heads of 64, m = 3, d_ff 2560, vocab 49152, tied
+             embeddings, bf16, seeded random init): ``Trainer`` with
+             AdamW (float32 moments), remat "nothing", 20 steps of 8 x 512
+             Zipf tokens, a checkpoint every 10 steps in a temporary
+             directory the phase removes, and a failure injected once at
+             step 13 that the trainer retries from step 10: one retry, 20
+             steps done, the loss falling, a fresh ``Trainer`` resuming at
+             step 20; K6 32 x 2 launches a step executed (forward and
+             remat recompute), its plain backward (``flash_attention_
+             backward``) 32 calls a step, the plain forward never.
+             Printed: ms a step (p50, max), training tokens/s, peak device
+             memory, checkpoint bytes and the ms to save (the blocking
+             host copy, the write on its thread) and to restore; one
+             profiled step (busy, idle share, launches, K6's and the plain
+             backward's shares of the busy time, the backward's device
+             span).  Then ``make_calibrate_step`` on the trained
+             params (16 x 512 tokens in batches of 4, K6 32 x 4), its
+             Grams held to the host ``GramAccumulator`` path at rtol 2e-4,
+             atol 2e-3, the KQ-SVD solve at epsilon 0.1, and the paged
+             engine with chunked prefill (pages of 16, 256 of them, chunks
+             of 256) serving 16 requests of 32..1000 prompt tokens and 32
+             new: K1 32 x decode steps, K2 32 x chunks, no plain version,
+             the pool whole (the first served model with m = 3);
 3g. window   h2o-danube-1.8b at full width (24 layers, d_head 80, window
              4096, bf16, seeded random weights), KQ-SVD calibrated on
              16 x 512 tokens in batches of 4, on dense slots
@@ -184,7 +210,14 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              budget logs on both and the legacy engine's tokens; prefill,
              ``LM.prefill_chunk`` and dense and paged ``decode_step``
              logits agree within 2e-4, and danube's prefill and ring
-             decode logits and mamba2's prefill and decode logits too.
+             decode logits and mamba2's prefill and decode logits too; a
+             float32 train step of reduced tinyllama (K6 and its plain
+             backward on the card) gives the CPU's loss (rtol 1e-5),
+             gradients (within 1e-4 of each leaf's max-abs) and params
+             after one AdamW step (elements whose |g| is below 1e-6 of
+             their leaf's max left out and counted); reduced smollm-360m
+             (tied embeddings) gives the same greedy tokens on the dense
+             and the paged chunked KQ-SVD engines.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
@@ -195,8 +228,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -214,6 +250,13 @@ ULPS_BF16 = 8e-3
 # back and optimistic admission preempts (sized on the CPU with the same
 # scheduler: 2 preemptions in either mode)
 POOL_3J = 176
+# phase 3j (a): new tokens a request (128 until the phase 4 rows at phase
+# 3l's shapes came in; 96 still preempts twice in either optimistic mode
+# on the CPU sizing run, and saves some 400 decode steps of the three)
+NEW_3J_A = 96
+# phase 3j (b): new tokens a request (64 until phase 3l came in; 16 keeps
+# the script inside its time, and the sharing counts are the prompts')
+NEW_3J_B = 16
 # phase 3k: 32 requests behind a 48-token system prompt on a pool of 40
 # pages that victims thrash through (watermarks 1.0 / 0.5), sized on the
 # CPU with the same scheduler so that chaos at seed 0, rate 0.05 reaches
@@ -589,6 +632,68 @@ def profile_prefill(label: str, model, params, tokens,
               f"  ({t / busy:.3f} of busy)")
 
 
+def profile_train_step(label: str, trainer, state, batch) -> dict:
+    """Where one training step's time goes (after two warm-up steps, from
+    ``state``, which it leaves as it is): the profiled step's synced host
+    wall (profiler overhead included) and its device busy time from
+    ``torch.profiler`` (sum of kernel times), so the idle share reads
+    both from one step; launches, K6's kernels' share of the busy time and the plain
+    backward's (the kernels launched inside its ``flash_attention_backward``
+    range), and the kernels that take the most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        out = trainer.train_step(state["params"], state["opt"], batch)
+        float(out[2]["loss"])
+        return out
+    for _ in range(2):
+        step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    cuda_t = torch.autograd.DeviceType.CUDA
+    name = "flash_attention_backward"
+    # the backward's range shows on the device timeline too (a user
+    # annotation spanning its kernels and the gaps between them): not a
+    # kernel, so out of the busy sum
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in events
+            if e.device_time_total > 0 and e.key != name
+            and getattr(e, "device_type", None) == cuda_t]
+    busy = sum(r[1] for r in rows)
+    if not busy:
+        print(f"{label}, profiled host wall: {wall:.3f} ms; the profiler "
+              f"saw no device time")
+        return {"wall_ms": wall}
+    k6 = [r for r in rows if "flash_" in r[0] and "_kernel" in r[0]]
+    k6_ms, k6_n = sum(r[1] for r in k6), sum(r[2] for r in k6)
+    # the backward's kernels: the device time of its host range (the
+    # kernels its ops launched); its device-side annotation gives the span
+    rng_ = [e for e in events if e.key == name]
+    span = sum(e.device_time_total for e in rng_
+               if getattr(e, "device_type", None) == cuda_t) / 1e3
+    bwd_ms = sum(e.device_time_total for e in rng_
+                 if getattr(e, "device_type", None) != cuda_t) / 1e3
+    launches = sum(r[2] for r in rows)
+    print(f"{label}, profiled host wall: {wall:.3f} ms; device busy "
+          f"{busy:.3f} ms ({launches} launches); idle share "
+          f"{max(0.0, 1 - busy / wall):.3f}; K6 {k6_ms:.3f} ms in {k6_n} "
+          f"launches ({k6_ms / busy:.3f} of busy); plain backward "
+          f"{bwd_ms:.3f} ms of kernels ({bwd_ms / busy:.3f} of busy) over "
+          f"a device span of {span:.3f} ms")
+    for name, t, n in sorted(rows, key=lambda r: -r[1])[:8]:
+        print(f"  {t:8.4f} ms  {n:5d} launches  {name[:80]}"
+              f"  ({t / busy:.3f} of busy)")
+    return {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall,
+            "launches": launches, "k6_ms": k6_ms, "bwd_ms": bwd_ms,
+            "bwd_span_ms": span}
+
+
 def ptxas_summary(log: str) -> list:
     """``nvcc -Xptxas -v`` condensed: registers and spilled bytes for each
     instantiation of the kernels, as ``f32[/int8]/rows/cols: regs+spill``
@@ -810,14 +915,24 @@ def main() -> int:
               "runs on an NVIDIA GPU", file=sys.stderr)
         return 2
 
-    from repro_torch.config import CompressionConfig, ServeConfig
+    from repro_torch.config import CompressionConfig, ServeConfig, TrainConfig
     from repro_torch.configs import get_config
-    from repro_torch.core.calibration import calibrate_model
-    from repro_torch.data import calibration_batches
+    from repro_torch.core.calibration import (GramAccumulator,
+                                              accumulator_from_grams,
+                                              calibrate_model,
+                                              make_calibrate_step)
+    from repro_torch.data import DataConfig, batches, calibration_batches
     from repro_torch.device import tree_to
     from repro_torch.kernels import build
     from repro_torch.kernels.flash import flash as flash_mod
-    from repro_torch.kernels.flash import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash import (flash_attention,
+                                           flash_attention_backward,
+                                           flash_attention_ref)
+    from repro_torch import optim as optim_mod
+    from repro_torch.train import Trainer
+    from repro_torch.train.steps import (make_loss_fn, make_train_step,
+                                         value_and_grad)
+    from repro_torch.tree import leaves as tree_leaves
     from repro_torch.kernels.ssd import ssd as ssd_mod
     from repro_torch.kernels.ssd import (ssd_chunk_scan, ssd_chunk_scan_plain,
                                          ssd_chunk_scan_ref)
@@ -1181,9 +1296,10 @@ def main() -> int:
         alens = rng.integers(128, 769, 24)
         aprompts = [rng.integers(0, cfg.vocab_size, int(L)).astype(np.int32)
                     for L in alens]
-        worst = sum(-(-(int(L) + 128) // 16) for L in alens)
+        worst = sum(-(-(int(L) + NEW_3J_A) // 16) for L in alens)
         print(f"(a) pool {POOL_3J} pages of 16 for 24 requests of "
-              f"{alens.min()}..{alens.max()} prompt tokens + 128 new, "
+              f"{alens.min()}..{alens.max()} prompt tokens + {NEW_3J_A} "
+              f"new, "
               f"priorities 0, 1 cycled (worst cases {worst} pages); "
               f"watermarks high 0.9, low 0.05")
         arun = {}
@@ -1196,7 +1312,8 @@ def main() -> int:
             sc = ServeConfig(**jbase, n_pages=POOL_3J, watermark_high=0.9,
                              watermark_low=0.05, **kw)
             arun[label] = serve_3j(label, sc, [
-                Request(rid=i, prompt=q, max_new_tokens=128, priority=i % 2)
+                Request(rid=i, prompt=q, max_new_tokens=NEW_3J_A,
+                        priority=i % 2)
                 for i, q in enumerate(aprompts)], quant=False)
         oracle = arun["reserve"]["reqs"]
         for label in ("optimistic recompute", "optimistic swap"):
@@ -1223,7 +1340,8 @@ def main() -> int:
         bprompts += [bprompts[i].copy() for i in range(4)]
         print(f"(b) 24 requests: a 1000-token system prompt + private "
               f"suffixes of {min(len(q) for q in bprompts) - 1000}.."
-              f"{max(len(q) for q in bprompts) - 1000} tokens, 64 new; "
+              f"{max(len(q) for q in bprompts) - 1000} tokens, {NEW_3J_B} "
+              f"new; "
               f"requests 20..23 repeat 0..3; pool of {jbase['max_batch']} x "
               f"{jbase['max_seq_len'] // 16} fp pages")
         for quant in ("none", "int8"):
@@ -1234,7 +1352,7 @@ def main() -> int:
                 sc = ServeConfig(**jbase, cache_quant=quant,
                                  share_prefix=share)
                 brun[share] = serve_3j(label, sc, [
-                    Request(rid=i, prompt=q, max_new_tokens=64)
+                    Request(rid=i, prompt=q, max_new_tokens=NEW_3J_B)
                     for i, q in enumerate(bprompts)], quant=quant == "int8")
             on, off = brun[True]["eng"], brun[False]["eng"]
             assert on.n_shared_pages > 0 and on.n_cow_forks >= 1 \
@@ -1459,6 +1577,185 @@ def main() -> int:
         print(f"3k launches: {k_launch}")
         del params, model, krun, b, c
 
+    # -- 3l: train, then calibrate on the device and serve the trained model
+    with phase("3l train smollm-360m, full width (20 steps, one retry from "
+               "the checkpoint), calibrate on the device, serve paged"):
+        scfg = get_config("smollm-360m")
+        assert (scfg.n_layers, scfg.d_model, scfg.n_heads, scfg.n_kv_heads,
+                scfg.d_head, scfg.d_ff, scfg.vocab_size, scfg.tie_embeddings,
+                scfg.dtype, scfg.remat_policy) == (
+            32, 960, 15, 5, 64, 2560, 49152, True, "bfloat16", "nothing")
+        L = scfg.n_layers
+        tc = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=20,
+                         checkpoint_every=10)
+        dc = DataConfig(vocab_size=scfg.vocab_size, seq_len=512,
+                        batch_size=8)
+        ckdir = tempfile.mkdtemp(prefix="chip_smoke_3l_")
+        try:
+            fired = []
+
+            def failure_hook(step):
+                if step == 13 and not fired:
+                    fired.append(step)
+                    raise RuntimeError("injected node failure at step 13")
+
+            trainer = Trainer(scfg, tc, ckpt_dir=ckdir,
+                              failure_hook=failure_hook)
+            io = {"save": [], "write": []}
+            save_fn, write_fn = trainer.ckpt.save, trainer.ckpt._write
+
+            def timed(fn, key):
+                def call(*args, **kw):
+                    t0 = time.perf_counter()
+                    fn(*args, **kw)
+                    io[key].append(time.perf_counter() - t0)
+                return call
+            trainer.ckpt.save = timed(save_fn, "save")
+            trainer.ckpt._write = timed(write_fn, "write")
+            state = trainer.init_state()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            flash_attention_backward.launches = 0
+            t0 = time.perf_counter()
+            rep = trainer.run(batches(dc), 20, state=state)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            done = len(rep.step_times)       # executed steps, retry's too
+            k6_train = flash_attention.launches
+            bwd = flash_attention_backward.launches
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            assert rep.retries == 1 and rep.steps_done == 20, rep
+            assert done == 23, done          # steps 10-12 run twice
+            assert rep.losses[-1] < rep.losses[0], rep.losses
+            # forward and remat recompute; the hook fires before the step
+            assert k6_train == L * 2 * done, (k6_train, done)
+            assert bwd == L * done, (bwd, done)
+            assert plain_calls["flash_attention_ref"] == 0, plain_calls
+            trainer.ckpt.wait()
+            assert trainer.ckpt.list_steps() == [10, 20]
+            step_dir = os.path.join(ckdir, "step_00000020")
+            ck_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                           for f in os.listdir(step_dir))
+            fresh = Trainer(scfg, tc, ckpt_dir=ckdir)
+            restore_fn, restore_s = fresh.ckpt.restore, []
+
+            def timed_restore(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = restore_fn(*args, **kw)
+                torch.cuda.synchronize()
+                restore_s.append(time.perf_counter() - t0)
+                return out
+            fresh.ckpt.restore = timed_restore
+            assert fresh.resume_or_init()["step"] == 20
+            restore_ms = restore_s[0] * 1e3
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+        ms = np.asarray(rep.step_times) * 1e3
+        tok = dc.batch_size * dc.seq_len
+        print(f"trained {rep.steps_done} steps ({done} executed, "
+              f"{rep.retries} retry from step 10 after the failure at step "
+              f"13) in {train_s:.1f} s: loss {rep.losses[0]:.4f} -> "
+              f"{rep.final_loss:.4f}; ms per step p50 "
+              f"{np.percentile(ms, 50):.2f}, max {ms.max():.2f} (first "
+              f"{ms[0]:.2f}); {tok / np.percentile(ms, 50) * 1e3:.0f} "
+              f"training tokens/s at the p50; peak device memory "
+              f"{peak_gib:.2f} GiB; stragglers {rep.straggler_steps}")
+        print(f"launches: K6 {k6_train} = {L} x 2 x {done} executed steps "
+              f"(forward and remat recompute), its plain backward {bwd} = "
+              f"{L} x {done}, its plain forward "
+              f"{plain_calls['flash_attention_ref']}")
+        print(f"checkpoint: {ck_bytes} bytes a step (params bf16, AdamW "
+              f"moments f32); save blocks {1e3 * np.mean(io['save']):.1f} "
+              f"ms (host copy), writes {1e3 * np.mean(io['write']):.1f} ms "
+              f"on its thread ({len(io['save'])} saves); restore "
+              f"{restore_ms:.1f} ms; a fresh Trainer resumes at step 20")
+        model, params = trainer.model, trainer.state["params"]
+        prof["train"] = profile_train_step(
+            "smollm-360m train step (8 x 512 tokens, remat nothing)",
+            trainer, trainer.state, next(batches(dc, start=40)))
+
+        # calibrate the trained params on the device, against the host
+        zero_counts()
+        calib = calibration_batches(scfg.vocab_size, 16, 512, batch=4)
+        init_grams, cal_step = make_calibrate_step(model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grams = init_grams(scfg.d_head, scfg.d_head, scfg.n_kv_heads)
+        for bt in calib:
+            grams = cal_step(params, grams, bt)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        k6_cal = flash_attention.launches
+        assert k6_cal == L * len(calib), k6_cal
+        t0 = time.perf_counter()
+        host = GramAccumulator(L)
+        for bt in calib:
+            host.update_from_captures(model.calibrate(params, bt))
+        host_s = time.perf_counter() - t0
+        acc = accumulator_from_grams(grams)
+        worst = 0.0
+        for li in range(L):
+            for name in ("g_k", "g_q", "g_v"):
+                a_, b_ = getattr(acc.layers[li], name), getattr(
+                    host.layers[li], name)
+                np.testing.assert_allclose(a_, b_, rtol=2e-4, atol=2e-3)
+                worst = max(worst, float(np.abs(a_ - b_).max()))
+        assert acc.layers[0].tokens == host.layers[0].tokens == 16 * 512
+        t0 = time.perf_counter()
+        smp = acc.solve(CompressionConfig(method="kqsvd", epsilon=0.1),
+                        model.group_output_weights(params))
+        solve_s = time.perf_counter() - t0
+        print(f"calibrated on {len(calib)} x {calib[0].shape} tokens: "
+              f"device Grams {dev_s:.2f} s (K6 {k6_cal} = {L} x "
+              f"{len(calib)}), host path {host_s:.2f} s, max |device - "
+              f"host| {worst:.3g} (rtol 2e-4, atol 2e-3); solve "
+              f"{solve_s:.2f} s; ranks k={smp.ranks_k} v={smp.ranks_v} "
+              f"(padded Rk={smp.rank_k} Rv={smp.rank_v})")
+
+        # serve the trained, compressed model: paged, chunked prefill, m=3
+        ssc = ServeConfig(max_seq_len=1024, max_batch=8, paged=True,
+                          page_size=16, n_pages=256, chunked_prefill=True,
+                          prefill_chunk=256, decode_chunk=8)
+        seng = ServingEngine(scfg, params, ssc, projections=smp)
+        rng = np.random.default_rng(6)
+        slens = np.concatenate([[32, 1000], rng.integers(32, 1001, 14)])
+        sreqs = [Request(rid=i, prompt=rng.integers(
+            0, scfg.vocab_size, int(n)).astype(np.int32), max_new_tokens=32)
+            for i, n in enumerate(slens)]
+        zero_counts()
+        t0 = time.perf_counter()
+        seng.generate(sreqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bad = [r.rid for r in sreqs if r.failed or not r.done
+               or len(r.out_tokens) != min(32, 1024 - len(r.prompt) + 1)]
+        assert not bad, f"requests not served in full: {bad}"
+        assert seng.pool.free_count == seng.pool.n_pages
+        assert kq_decode_paged_attention.launches == \
+            L * seng.n_decode_steps, kq_decode_paged_attention.launches
+        assert kq_prefill_paged_attention.launches == \
+            L * seng.n_prefill_chunks, kq_prefill_paged_attention.launches
+        assert not any(plain_calls.values()), plain_calls
+        assert flash_attention.launches == 0
+        serve_report("smollm-360m paged (m = 3)", seng, sreqs, wall)
+        print(f"capacity gain {seng.capacity_gain():.2f}x; K1 "
+              f"{kq_decode_paged_attention.launches} = {L} x "
+              f"{seng.n_decode_steps}, K2 "
+              f"{kq_prefill_paged_attention.launches} = {L} x "
+              f"{seng.n_prefill_chunks}; no plain version")
+        k6_launches["phase 3l"] = k6_train + k6_cal
+        # phase 4 holds K1, K2 and K6 at this phase's shapes: the solved
+        # (padded) ranks, the first 8 requests' lengths at their last
+        # decode step, and the launches counted here
+        s3l = {"Rk": smp.rank_k, "Rv": smp.rank_v,
+               "lengths": [min(int(n) + 31, ssc.max_seq_len)
+                           for n in slens[:8]],
+               "K1": kq_decode_paged_attention.launches,
+               "K2": kq_prefill_paged_attention.launches}
+        del seng, trainer, fresh, model, params, grams, host, acc, state
+
     # -- 3g: the sliding-window ring cache -----------------------------------
     with phase("3g serve h2o-danube-1.8b, full width, KQ-SVD, dense slots, "
                "window 4096"):
@@ -1614,8 +1911,71 @@ def main() -> int:
                     live * Hkv * (rk + rv) * isz + B * H * (rk + rv) * isz
                     + B * 4, 2 * live * H * (rk + rv))
 
-        # K1 at the paged main path's decode shapes: pages of 16
+        # K1 at the paged main path's decode shapes (pages of 16) and K2 at
+        # its prefill shapes, each on random pools of its row's shape
         ps, n_pages = 16, T // 16
+
+        def measure_k1(row, label, H_, Hkv_, rk_, rv_, el):
+            """K1 for slots of lengths ``el`` against its plain version,
+            timed beside SDPA, in both types."""
+            B_, m_ = len(el), H_ // Hkv_
+            live_, used = int(el.sum()), int(((el + ps - 1) // ps).sum())
+            emask = (torch.arange(T, device=dev)[None, :]
+                     < el[:, None])[:, None, None, :]
+            for dt_name in ("bfloat16", "float32"):
+                dt = getattr(torch, dt_name)
+                qc, kp, vp, btab = paged_inputs(g, dev, dt, B_, H_, Hkv_, ps,
+                                                n_pages, rk_, rv_)
+                kx = gather_pages(kp, btab).repeat_interleave(m_, dim=1)
+                vx = gather_pages(vp, btab).repeat_interleave(m_, dim=1)
+                isz = qc.element_size()
+                measure(row, label, dt_name,
+                        lambda: kq_decode_paged_attention(qc, kp, vp, el,
+                                                          btab, scale=scale),
+                        lambda: kq_decode_paged_attention_ref(
+                            qc, kp, vp, el, btab, scale=scale),
+                        lambda: sdpa(qc[:, :, None], kx, vx, attn_mask=emask,
+                                     scale=scale)[:, :, 0],
+                        flush,
+                        live_ * Hkv_ * (rk_ + rv_) * isz
+                        + B_ * H_ * (rk_ + rv_) * isz + B_ * 4 + used * 4,
+                        2 * live_ * H_ * (rk_ + rv_))
+
+        def measure_k2(row, label, H_, Hkv_, rk_, rv_):
+            """K2 for one chunk at ``row``'s (S, pos0, n_valid) against its
+            plain version, timed beside SDPA, in both types."""
+            m_ = H_ // Hkv_
+            S, pos0_v = row["shape"]["S"], row["shape"]["pos0"]
+            n_valid = row["shape"]["n_valid"]
+            plen = torch.tensor([pos0_v + n_valid], dtype=torch.int32,
+                                device=dev)
+            pos0 = torch.tensor([pos0_v], dtype=torch.int32, device=dev)
+            qpos = pos0_v + torch.arange(S, device=dev)
+            t = torch.arange(T, device=dev)
+            cmask = ((t[None, :] <= qpos[:, None])
+                     & (t[None, :] < int(plen)))[None, None]   # (1,1,S,T)
+            seen = torch.minimum(qpos + 1, plen.long())        # keys per row
+            for dt_name in ("bfloat16", "float32"):
+                dt = getattr(torch, dt_name)
+                qc, kp, vp, btab = paged_inputs(g, dev, dt, 1, H_, Hkv_, ps,
+                                                n_pages, rk_, rv_, S=S)
+                kx = gather_pages(kp, btab).repeat_interleave(m_, dim=1)
+                vx = gather_pages(vp, btab).repeat_interleave(m_, dim=1)
+                isz = qc.element_size()
+                measure(row, f"{label} pos0={pos0_v} n_valid={n_valid}",
+                        dt_name,
+                        lambda: kq_prefill_paged_attention(
+                            qc, kp, vp, plen, pos0, btab, scale=scale),
+                        lambda: kq_prefill_paged_attention_ref(
+                            qc, kp, vp, plen, pos0, btab, scale=scale),
+                        lambda: sdpa(qc, kx, vx, attn_mask=cmask,
+                                     scale=scale),
+                        flush,
+                        int(plen) * Hkv_ * (rk_ + rv_) * isz
+                        + H_ * S * (rk_ + rv_) * isz + 8
+                        + -(-int(plen) // ps) * 4,
+                        2 * int(seen.sum()) * H_ * (rk_ + rv_))
+
         k1 = {"name": "kq_decode_paged (K1)", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/kq_paged.cu "
                         "(bf16 body: csrc/kq_decode_tc.cuh; float32: "
@@ -1625,30 +1985,13 @@ def main() -> int:
               "shape": {"B": B, "H": H, "Hkv": Hkv, "page_size": ps,
                         "n_pages": n_pages, "Rk": rk, "Rv": rv,
                         "lengths": lengths.tolist()}}
+        measure_k1(k1, "K1", H, Hkv, rk, rv, lengths)
         pages_used = int(((lengths + ps - 1) // ps).sum())
-        for dt_name in ("bfloat16", "float32"):
-            dt = getattr(torch, dt_name)
-            qc, kp, vp, btab = paged_inputs(g, dev, dt, B, H, Hkv, ps,
-                                            n_pages, rk, rv)
-            kx = gather_pages(kp, btab).repeat_interleave(m, dim=1)
-            vx = gather_pages(vp, btab).repeat_interleave(m, dim=1)
-            isz = qc.element_size()
-            measure(k1, "K1", dt_name,
-                    lambda: kq_decode_paged_attention(qc, kp, vp, lengths,
-                                                      btab, scale=scale),
-                    lambda: kq_decode_paged_attention_ref(
-                        qc, kp, vp, lengths, btab, scale=scale),
-                    lambda: sdpa(qc[:, :, None], kx, vx, attn_mask=mask,
-                                 scale=scale)[:, :, 0],
-                    flush,
-                    live * Hkv * (rk + rv) * isz + B * H * (rk + rv) * isz
-                    + B * 4 + pages_used * 4, 2 * live * H * (rk + rv))
 
-        # K2 at the paged main path's prefill shapes: the last chunk of a
-        # 1000-token prompt, 232 real tokens in a 256 bucket, a first
-        # chunk (pos0 0, 256 real), as every request's first of phase 3c's
-        # chunks is, and a chunk the token budget truncated (pos0 504,
-        # mid-page, 248 real tokens in a 256 bucket)
+        # K2: the last chunk of a 1000-token prompt, 232 real tokens in a
+        # 256 bucket, a first chunk (pos0 0, 256 real), as every request's
+        # first of phase 3c's chunks is, and a chunk the token budget
+        # truncated (pos0 504, mid-page, 248 real tokens in a 256 bucket)
         k2_src = {"route": "cuda",
                   "source": "src/repro_torch/kernels/csrc/kq_paged.cu "
                             "(bf16 body: csrc/kq_prefill.cuh; float32: "
@@ -1664,36 +2007,30 @@ def main() -> int:
         k2t = dict(k2_src, name="kq_prefill_paged (K2), truncated chunk",
                    shape=dict(k2_shape, pos0=504, n_valid=248))
         for row in (k2, k2f, k2t):
-            S, pos0_v = row["shape"]["S"], row["shape"]["pos0"]
-            n_valid = row["shape"]["n_valid"]
-            plen = torch.tensor([pos0_v + n_valid], dtype=torch.int32,
-                                device=dev)
-            pos0 = torch.tensor([pos0_v], dtype=torch.int32, device=dev)
-            qpos = pos0_v + torch.arange(S, device=dev)
-            t = torch.arange(T, device=dev)
-            cmask = ((t[None, :] <= qpos[:, None])
-                     & (t[None, :] < int(plen)))[None, None]   # (1,1,S,T)
-            seen = torch.minimum(qpos + 1, plen.long())        # keys per row
-            for dt_name in ("bfloat16", "float32"):
-                dt = getattr(torch, dt_name)
-                qc, kp, vp, btab = paged_inputs(g, dev, dt, 1, H, Hkv, ps,
-                                                n_pages, rk, rv, S=S)
-                kx = gather_pages(kp, btab).repeat_interleave(m, dim=1)
-                vx = gather_pages(vp, btab).repeat_interleave(m, dim=1)
-                isz = qc.element_size()
-                measure(row, f"K2 pos0={pos0_v} n_valid={n_valid}",
-                        dt_name,
-                        lambda: kq_prefill_paged_attention(
-                            qc, kp, vp, plen, pos0, btab, scale=scale),
-                        lambda: kq_prefill_paged_attention_ref(
-                            qc, kp, vp, plen, pos0, btab, scale=scale),
-                        lambda: sdpa(qc, kx, vx, attn_mask=cmask,
-                                     scale=scale),
-                        flush,
-                        int(plen) * Hkv * (rk + rv) * isz
-                        + H * S * (rk + rv) * isz + 8
-                        + -(-int(plen) // ps) * 4,
-                        2 * int(seen.sum()) * H * (rk + rv))
+            measure_k2(row, "K2", H, Hkv, rk, rv)
+
+        # K1 and K2 at phase 3l's serving shapes: smollm-360m's 15 query
+        # heads over 5 kv heads (m = 3, the first odd group on the decode
+        # path), the ranks its KQ-SVD solved, its first 8 requests' lengths
+        # at their last decode step, pages of 16; K2 at the last chunk of
+        # its 1000-token prompt
+        sH, sHkv = 15, 5
+        s_shape = {"H": sH, "Hkv": sHkv, "page_size": ps,
+                   "n_pages": n_pages, "Rk": s3l["Rk"], "Rv": s3l["Rv"]}
+        k1s = {"name": "kq_decode_paged (K1), smollm-360m m = 3",
+               "route": "cuda", "source": k1["source"],
+               "replaces": k1["replaces"], "launches": s3l["K1"],
+               "launches_from": "phase 3l",
+               "cluster_size": cluster(ps * n_pages),
+               "shape": dict(s_shape, B=8, lengths=s3l["lengths"])}
+        measure_k1(k1s, "K1 smollm-360m m=3", sH, sHkv, s3l["Rk"],
+                   s3l["Rv"], torch.tensor(s3l["lengths"], dtype=torch.int32,
+                                           device=dev))
+        k2s = dict(k2_src, name="kq_prefill_paged (K2), smollm-360m m = 3",
+                   launches=s3l["K2"], launches_from="phase 3l",
+                   shape=dict(s_shape, B=1, S=256, pos0=768, n_valid=232))
+        measure_k2(k2s, "K2 smollm-360m m=3", sH, sHkv, s3l["Rk"],
+                   s3l["Rv"])
 
         # K4, K5 (unsplit and split) and the split merge at the paged
         # main path's decode shapes (pages of 16), 8 splits of 8 pages.
@@ -1994,8 +2331,9 @@ def main() -> int:
         # K6 at tinyllama's calibration batch (causal), at danube's
         # windowed prefill (6000 tokens for the kernel and the library
         # call, the plain version's comparison at 4608: its f32 scores
-        # would hold 4.6 GB at 6000) and at paper-llama2-7b's calibration
-        # batch (MHA, d_head 128).  Bound: 4 d_head flops per (query, key)
+        # would hold 4.6 GB at 6000), at paper-llama2-7b's calibration
+        # batch (MHA, d_head 128) and at smollm-360m's training batch
+        # (phase 3l: m = 3).  Bound: 4 d_head flops per (query, key)
         # pair of the band per head, against q, k, v and out moved once.
         def band_pairs(S, W):
             if not W or W >= S:
@@ -2011,8 +2349,10 @@ def main() -> int:
                   "source": "src/repro_torch/kernels/csrc/flash.cu",
                   "replaces": "src/repro/kernels/flash/flash.py:29",
                   "launches": k6_launches["phase 3"]
-                  + k6_launches["phase 3g"],
-                  "launches_from": "phases 3 and 3g"}
+                  + k6_launches["phase 3g"] + k6_launches["phase 3l"],
+                  "launches_from": "phases 3, 3g and 3l (training: "
+                                   "forward and remat recompute, then "
+                                   "calibration)"}
         k6c = dict(k6_src, name="flash (K6), tinyllama-1.1b calibration "
                                 "batch",
                    shape={"B": 4, "H": 32, "Hkv": 4, "S": 512, "dh": 64,
@@ -2025,7 +2365,11 @@ def main() -> int:
                                 "batch",
                    shape={"B": 4, "H": 32, "Hkv": 32, "S": 512, "dh": 128,
                           "window": 0})
-        for row, S_long in ((k6c, None), (k6w, 6000), (k6l, None)):
+        k6t = dict(k6_src, name="flash (K6), smollm-360m training batch",
+                   shape={"B": 8, "H": 15, "Hkv": 5, "S": 512, "dh": 64,
+                          "window": 0})
+        for row, S_long in ((k6c, None), (k6w, 6000), (k6l, None),
+                            (k6t, None)):
             sh = row["shape"]
             B_, H_, Hkv_, S_, dh_, W_ = (sh[k] for k in
                                          ("B", "H", "Hkv", "S", "dh",
@@ -2267,8 +2611,8 @@ def main() -> int:
               f"255, 257, 4097; jamba's head at S 300 and 333 (chunk "
               f"100); G 2 of 4 heads; chunks of 1 and 17; S 0; h0 zero "
               f"and random; y in x's type and float32)")
-        kernels = [k1, k2, k2f, k2t, k3, k4, k5, k5s, kcomb, k6c, k6w,
-                   k6l, k7]
+        kernels = [k1, k1s, k2, k2f, k2t, k2s, k3, k4, k5, k5s, kcomb, k6c,
+                   k6w, k6l, k6t, k7]
 
     # -- 5: the port on the card against the port on the CPU ---------------
     with phase("5 card against CPU, reduced tinyllama-1.1b, "
@@ -2559,6 +2903,88 @@ def main() -> int:
               f"(tol 2e-4) over prefill + 8 decode steps of {len(mprompts)} "
               f"prompts of 1..70 tokens; their greedy tokens identical on "
               f"card and CPU in the dense-slot engine")
+
+        # reduced tinyllama, float32: one training step on the card
+        # against the CPU (K6 forward and its plain backward on the card):
+        # loss, every gradient leaf within 1e-4 of its max-abs, and the
+        # params after one AdamW step; elements whose |g| is below 1e-6 of
+        # their leaf's max are left out and counted (Adam's first update
+        # is g / (|g| + 1e-8), about sign(g)); just above that cut the
+        # update still moves with the 1e-8, so those are held within 5% of
+        # lr, the ones at 1e-4 of the max or more within 1e-5 + 1e-6
+        ttc = TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                          total_steps=10, checkpoint_every=0)
+        trng = np.random.default_rng(8)
+        tb = {k: trng.integers(0, rcfg.vocab_size, (4, 32)).astype(np.int32)
+              for k in ("tokens", "labels")}
+        got = []
+        for m_, p_ in ((cpu_model, p_cpu), (gpu_model, p_gpu)):
+            zero_counts()
+            flash_attention_backward.launches = 0
+            met, g_ = value_and_grad(make_loss_fn(m_, ttc), p_, tb)
+            p2, _, met2 = make_train_step(m_, ttc)(
+                p_, optim_mod.init_state(p_, ttc), tb)
+            got.append((float(met["loss"]), float(met2["loss"]),
+                        tree_to(g_, "cpu"), tree_to(p2, "cpu"), met2["lr"]))
+        # the card's two steps: K6 forward and remat recompute each, the
+        # plain backward once a layer a step, the plain forward never
+        assert flash_attention.launches == rcfg.n_layers * 2 * 2
+        assert flash_attention_backward.launches == rcfg.n_layers * 2
+        assert plain_calls["flash_attention_ref"] == 0
+        (lc, lc2, gc, pc, lr), (lg, lg2, gg, pg, _) = got
+        np.testing.assert_allclose([lg, lg2], [lc, lc2], rtol=1e-5)
+        gworst, left_out = 0.0, 0
+        for (path, a_), (_, b_), (_, c_), (_, d_) in zip(
+                tree_leaves(gg), tree_leaves(gc), tree_leaves(pg),
+                tree_leaves(pc)):
+            scale = float(b_.abs().max())
+            err = float((a_ - b_).abs().max())
+            assert err <= 1e-4 * scale, (path, err, scale)
+            gworst = max(gworst, err / max(scale, 1e-30))
+            keep = b_.abs() >= 1e-6 * b_.abs().max()
+            far = b_.abs() >= 1e-4 * b_.abs().max()
+            left_out += int((~keep).sum())
+            np.testing.assert_allclose(c_[keep].numpy(), d_[keep].numpy(),
+                                       rtol=1e-5, atol=0.05 * lr)
+            np.testing.assert_allclose(c_[far].numpy(), d_[far].numpy(),
+                                       rtol=1e-5, atol=1e-6)
+        print(f"train step (reduced tinyllama, float32): loss card {lg:.6f} "
+              f"cpu {lc:.6f}; gradients within {gworst:.3g} of each leaf's "
+              f"max-abs (tol 1e-4); params after one AdamW step equal, "
+              f"{left_out} elements with |g| < 1e-6 x max left out; K6 "
+              f"{flash_attention.launches} launches and its plain backward "
+              f"{flash_attention_backward.launches} calls on the card for "
+              f"two steps")
+
+        # reduced smollm-360m (tied embeddings): the dense and the paged
+        # chunked engines with KQ-SVD give the same greedy tokens on card
+        # and CPU
+        sr = get_config("smollm-360m").reduced()
+        scpu, sgpu = build_model(sr, "cpu"), build_model(sr, dev)
+        sp_cpu = scpu.init(torch.Generator().manual_seed(0))
+        sp_gpu = tree_to(sp_cpu, dev)
+        assert "lm_head" not in sp_cpu
+        srmp = calibrate_model(
+            scpu, sp_cpu, calibration_batches(sr.vocab_size, 8, 32, batch=4),
+            CompressionConfig(method="kqsvd", epsilon=0.1))
+        sprompts_r = [np.random.default_rng(40 + i).integers(
+            0, sr.vocab_size, L).astype(np.int32)
+            for i, L in enumerate((5, 17, 30, 9))]
+        for kind, kw in (("dense", {}), ("paged chunked", chunked)):
+            out = []
+            for m_, p_ in ((scpu, sp_cpu), (sgpu, sp_gpu)):
+                e = ServingEngine(sr, p_, ServeConfig(
+                    max_seq_len=64, max_batch=3, decode_chunk=4, **kw),
+                    projections=srmp, device=m_.device)
+                rs = [Request(rid=i, prompt=p, max_new_tokens=10)
+                      for i, p in enumerate(sprompts_r)]
+                e.generate(rs)
+                assert all(r.done and len(r.out_tokens) == 10 for r in rs)
+                out.append([r.out_tokens for r in rs])
+            assert out[0] == out[1], (kind, out)
+        print(f"smollm-360m (reduced, tied embeddings): {len(sprompts_r)} "
+              f"requests' greedy tokens identical on card and CPU in the "
+              f"dense and the paged chunked KQ-SVD engines")
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -11,6 +11,9 @@ Reference layout (``repro/models/model.py:76-106``): ``embed``,
 layers and ``steps = {"layers": (layer, ...)}`` whose leaves are stacked
 on a leading step axis.  Port layout (``repro_torch.models.model``): the
 same top-level tensors and ``layers``, a list with one dict per layer.
+``opt_state_from_jax`` brings the reference's AdamW and Adafactor states
+across the same way, so a train step can start from one state in both
+packages.
 """
 from __future__ import annotations
 
@@ -70,3 +73,26 @@ def projections_from_jax(mp) -> ModelProjections:
                             a_v=arr(mp.a_v), c_v=arr(mp.c_v),
                             ranks_k=list(mp.ranks_k),
                             ranks_v=list(mp.ranks_v), method=mp.method)
+
+
+def opt_state_from_jax(jstate: Dict[str, Any], device="cpu"
+                       ) -> Dict[str, Any]:
+    """The reference's optimizer state (as numpy) -> the port's.
+
+    AdamW ``{"m", "v", "step"}``: the moment trees mirror the params and
+    unstack as ``params_from_jax`` does.  Adafactor ``{"slots", "step"}``:
+    the port keeps the reference's stacked layout
+    (``repro_torch.optim.adafactor``), so the slots of ``steps/layers/0``
+    become ``slots["layers"]`` as they are, stacked."""
+    step = torch.tensor(int(np.asarray(jstate["step"])), dtype=torch.int32)
+    if "slots" not in jstate:
+        return {"m": params_from_jax(jstate["m"], device),
+                "v": params_from_jax(jstate["v"], device), "step": step}
+    slots = jstate["slots"]
+    if slots.get("prefix") or len(slots["steps"]["layers"]) != 1:
+        raise NotImplementedError("only dense stacks, one layer per step")
+    out = {k: _tree(slots[k], lambda a: to_tensor(a, device))
+           for k in ("embed", "final_norm", "lm_head") if k in slots}
+    out["layers"] = _tree(slots["steps"]["layers"][0],
+                          lambda a: to_tensor(a, device))
+    return {"slots": out, "step": step}

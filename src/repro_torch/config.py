@@ -7,11 +7,14 @@ value means the same thing in both packages.  Every architecture is a
 (smoke-test) variants come from ``ModelConfig.reduced()``.
 
 Knobs that only steer the reference's XLA/TPU lowering (``use_pallas``,
-``scan_layers``, ``remat_policy``, ``attn_block_*``,
-``causal_block_skip``) are kept for parity of the dataclass but do not
-change what the port computes: on a CUDA device the hand-written kernels
-always run.  Serving features this port does not have yet are rejected
-when ``repro_torch.serving.ServingEngine`` is constructed.
+``scan_layers``, ``attn_block_*``, ``causal_block_skip``) are kept for
+parity of the dataclass but do not change what the port computes: on a
+CUDA device the hand-written kernels always run.  ``remat_policy`` maps
+to ``torch.utils.checkpoint`` per layer in ``LM.train_logits``.  Serving
+features this port does not have yet are rejected when
+``repro_torch.serving.ServingEngine`` is constructed; ``TrainConfig``'s
+``fsdp`` and ``grad_reduce_dtype`` (the reference's sharding knobs) route
+nothing on one device.
 """
 from __future__ import annotations
 
@@ -318,6 +321,34 @@ def _count_params(cfg: ModelConfig, active_only: bool) -> int:
                 total += 3 * D * (mo.dense_residual_ff or cfg.d_ff)
     total += D                                      # final norm
     return total
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer, schedule, loss and checkpoint settings of a training
+    run (the reference's ``TrainConfig``, field for field)."""
+
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    optimizer: str = "adamw"            # adamw | adafactor
+    adam_dtype: str = "float32"         # moment dtype ("bfloat16" to shrink)
+    grad_accum: int = 1                 # microbatch steps per update
+    grad_reduce_dtype: str = "bfloat16" # reference's FSDP reduce type
+    z_loss: float = 1e-4
+    seed: int = 0
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3
+    fsdp: bool = True                   # reference's ZeRO-3 switch
 
 
 # ---------------------------------------------------------------------------

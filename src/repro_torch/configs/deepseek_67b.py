@@ -1,0 +1,21 @@
+"""DeepSeek-67B — dense llama-architecture.
+
+[arXiv:2401.02954; hf] 95L d_model=8192 64H (GQA kv=8) d_ff=22016
+vocab=102400.
+"""
+from repro_torch.config import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="deepseek-67b",
+        family="dense",
+        n_layers=95,
+        d_model=8192,
+        n_heads=64,
+        n_kv_heads=8,
+        d_head=128,
+        d_ff=22016,
+        vocab_size=102400,
+        source="arXiv:2401.02954; hf",
+    )

@@ -9,7 +9,10 @@ and SVDs them.  We instead accumulate the d x d Gram matrices
 per (layer, kv-head) in float64 on the host, which is exact for every
 solver in ``projections.py`` and needs O(heads * d^2) memory instead of
 O(T * d).  The captures arrive as host numpy arrays: the torch ``LM``
-copies them off the device before they get here.
+copies them off the device before they get here.  ``make_calibrate_step``
+is the device-side alternative: float32 Grams summed on the card from
+captures that stay there (each batch's products in float64), handed to
+the same solver by ``accumulator_from_grams``.
 
 Interface contract with the model: ``model.calibrate(params, tokens)``
 returns per-attention-layer captures ``{"k": (B,Hkv,T,dk), "q": (B,H,T,dk),
@@ -23,6 +26,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.config import CompressionConfig
 from repro_torch.core.projections import (Factors, KeyProjection,
@@ -183,6 +187,71 @@ def _stack_pad_rows(layers: List[List[np.ndarray]], R: int) -> np.ndarray:
             heads.append(np.pad(M, ((0, pad), (0, 0))) if pad else M)
         out.append(np.stack(heads))
     return np.stack(out)
+
+
+# ---------------------------------------------------------------------------
+# Device-side calibration step
+# ---------------------------------------------------------------------------
+
+
+def make_calibrate_step(model):
+    """Gram accumulation on the model's device: ``(init_grams,
+    calibrate_step)``.
+
+    ``calibrate_step(params, grams, tokens) -> grams`` where ``grams`` is
+    ``{"g_k", "g_q", "g_v": (L_attn, Hkv, d, d) float32, "tokens": ()
+    float32}`` on ``model.device``.  The captures never leave the device
+    (``model.calibrate(..., host=False)``); each step adds their Grams,
+    ``torch.einsum`` over batch and time, O(L * H * d^2) bytes whatever
+    the sequence length.  A batch's products are taken in float64 and
+    rounded once into the float32 sums: one float32 product over the
+    thousands of rows of a full-width batch rounds a near-zero
+    off-diagonal entry by some 1e-3 (smollm-360m's trained params on the
+    card), past the reference test's atol of 2e-3 against the host path.
+    A new dict comes back; the one given is not written.  The host
+    ``GramAccumulator`` path (float64) is the oracle, and
+    ``accumulator_from_grams`` hands these sums to its solver."""
+    def init_grams(dk: int, dv: int, hkv: int):
+        L = len(model.attn_layers)
+
+        def zeros(d):
+            return torch.zeros((L, hkv, d, d), dtype=torch.float32,
+                               device=model.device)
+        return {"g_k": zeros(dk), "g_q": zeros(dk), "g_v": zeros(dv),
+                "tokens": torch.zeros((), dtype=torch.float32,
+                                      device=model.device)}
+
+    @torch.no_grad()
+    def calibrate_step(params, grams, tokens):
+        captures = model.calibrate(params, tokens, host=False)
+        g_k, g_q, g_v = [], [], []
+        for cap in captures:
+            k, q, v = (cap[n].double() for n in ("k", "q", "v"))
+            B, Hkv, T, dk = k.shape
+            qg = q.reshape(B, Hkv, q.shape[1] // Hkv, T, dk)
+            g_k.append(torch.einsum("bhtd,bhte->hde", k, k).float())
+            g_q.append(torch.einsum("bhmtd,bhmte->hde", qg, qg).float())
+            g_v.append(torch.einsum("bhtd,bhte->hde", v, v).float())
+        B, T = tokens.shape[0], tokens.shape[-1]
+        return {"g_k": grams["g_k"] + torch.stack(g_k),
+                "g_q": grams["g_q"] + torch.stack(g_q),
+                "g_v": grams["g_v"] + torch.stack(g_v),
+                "tokens": grams["tokens"] + B * T}
+
+    return init_grams, calibrate_step
+
+
+def accumulator_from_grams(grams) -> GramAccumulator:
+    """Adopt device-accumulated Grams into the host solver path (float64
+    copies on the host)."""
+    L = grams["g_k"].shape[0]
+    acc = GramAccumulator(L)
+    for l in range(L):
+        acc.layers[l] = LayerGrams(
+            **{n: grams[n][l].double().cpu().numpy()
+               for n in ("g_k", "g_q", "g_v")},
+            tokens=int(grams["tokens"]))
+    return acc
 
 
 # ---------------------------------------------------------------------------

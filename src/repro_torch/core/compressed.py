@@ -3,13 +3,16 @@
 The compressed cache stores, per attention layer and kv head,
 ``kc = K @ A_k`` (R dims) and ``vc = V @ A_v`` (Rv dims) instead of the
 d-dimensional keys/values.  These helpers convert between representations
-and account for bytes (the serving engine's ``capacity_gain``).
+and account for bytes (the serving engine's ``capacity_gain``, the
+projections' own weight bytes).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+
+from repro_torch.core.calibration import ModelProjections
 
 
 def compress_kv(k: torch.Tensor, v: torch.Tensor,
@@ -55,3 +58,12 @@ def cache_footprint(n_kv_heads: int, d_head: int, rank_k: int, rank_v: int,
     full = n_kv_heads * 2 * d_head * itemsize
     comp = n_kv_heads * (rank_k + rank_v) * itemsize
     return CacheFootprint(full, comp)
+
+
+def projection_param_bytes(p: ModelProjections, itemsize: int = 2) -> int:
+    """Bytes the solved projections take as weights: ``A_k`` and ``B_q``,
+    and ``A_v`` and ``C_v`` where the value path is compressed."""
+    total = p.a_k.size + p.b_q.size
+    if p.a_v is not None:
+        total += p.a_v.size + p.c_v.size
+    return total * itemsize

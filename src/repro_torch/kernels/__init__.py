@@ -13,10 +13,13 @@ kq_decode/  compressed-cache attention, CUDA C++ over one kernel body
                 (csrc/kq_paged.cu)
 flash/      K6  causal GQA flash attention with an optional sliding
                 window (csrc/flash.cu), under every exact-length prefill
-                and calibration batch
+                and calibration batch, and under autograd in training
+                (its backward plain PyTorch)
 ssd/        K7  the Mamba-2 SSD chunk scan with an initial and a final
                 state (csrc/ssd.cu), under every prefill of an SSM layer
+                and under autograd in its training forward
 
 ``build`` compiles the CUDA sources with ``nvcc`` at first use; importing
-this package builds nothing.
+this package builds nothing.  A failure to build, load or launch a kernel
+raises ``build.KernelError``.
 """

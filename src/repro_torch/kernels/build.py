@@ -31,12 +31,20 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel could not be built, loaded or launched.
+
+    A ``RuntimeError``, so callers that catch those still do; the trainer,
+    which retries a step's transient ``RuntimeError`` from its last
+    checkpoint, re-raises this one: a broken kernel fails every retry."""
+
+
 def nvcc() -> str:
     """Path of the CUDA compiler; raises when there is none."""
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found: the CUDA kernels of repro_torch are built at first "
         "use on a machine with the CUDA toolkit")
 
@@ -80,7 +88,7 @@ def build(name: str) -> str:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if res.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"kernel build failed: {out.name}: nvcc exited "
+        raise KernelError(f"kernel build failed: {out.name}: nvcc exited "
                            f"{res.returncode}\n{res.stdout}")
     os.replace(tmp, out)
     return res.stdout
@@ -99,6 +107,10 @@ def load(name: str) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is None:
             build(name)
-            lib = ctypes.CDLL(str(library_path(name)))
+            try:
+                lib = ctypes.CDLL(str(library_path(name)))
+            except OSError as e:
+                raise KernelError(f"kernel library {name} failed to load: "
+                                  f"{e}") from e
             _loaded[name] = lib
         return lib

@@ -17,6 +17,11 @@ its 16-byte copies need), so the caller's transposed views need no copy.
 It is built for the (q/k, v) head widths of ``HEAD_DIMS``, which match
 the source's ``FLASH_PAIRS``.  Every launch adds one to
 ``flash_attention.launches``.
+
+``flash_attention_train`` runs it under autograd (``FlashAttention``);
+its backward, ``flash_attention_backward``, is plain PyTorch with a
+counter of its own, as the reference has no backward kernel: it is not
+the plain version of the forward, which never runs on a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash.ref import flash_attention_ref
+from repro_torch.kernels.flash.ref import (NEG_INF, attention_mask,
+                                           flash_attention_ref)
 
 # (dh, dv) the kernel is built for: the reduced configs, the reference's
 # sweep, tinyllama, danube, phi-3-vision, llama2-7b, then reduced and
@@ -103,9 +109,97 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         dh, dv, int(window or 0), int(bool(causal)), float(scale),
         _DTYPES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"flash kernel launch failed: cudaError {err}")
+        raise build.KernelError(f"flash kernel launch failed: cudaError {err}")
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool = True, window: int = 0,
+                             scale: Optional[float] = None,
+                             block_q: int = 128):
+    """Gradients of ``flash_attention`` in plain PyTorch: (dq, dk, dv) in
+    the inputs' types, for the output gradient ``dout``.
+
+    The reference has no backward kernel: its gradient is XLA's autodiff
+    of the lax ``blockwise_attention``.  This is that gradient, written
+    out.  Per block of ``block_q`` queries it recomputes the scores over
+    the keys the block can see, their row LSE, P = exp(S - LSE) under the
+    same causal / window mask and the block's output O = P V, then dP =
+    dO V^T, dS = P * (dP - rowsum(dO * O)), dQ = dS K * scale, dK += dS^T
+    Q * scale and dV += P^T dO (the group's m query heads summed into
+    their kv head), all in float32.  The forward's output is not read:
+    O is recomputed in float32, so a bfloat16 output's rounding does not
+    reach the gradient.  Memory is bounded by a block's (m, block_q,
+    keys) scores, not by S^2.  Each call adds one to
+    ``flash_attention_backward.launches``."""
+    with torch.profiler.record_function("flash_attention_backward"):
+        B, H, S, dh = q.shape
+        Hkv, Sk = k.shape[1], k.shape[2]
+        m = H // Hkv
+        scale = scale or 1.0 / math.sqrt(dh)
+        qg = q.reshape(B, Hkv, m, S, dh).float()
+        dog = dout.reshape(B, Hkv, m, S, -1).float()
+        kf, vf = k.float(), v.float()
+        dq = torch.empty_like(qg)
+        dk = torch.zeros_like(kf)
+        dv = torch.zeros_like(vf)
+        for i0 in range(0, S, block_q):
+            i1 = min(S, i0 + block_q)
+            lo = max(0, i0 - window + 1) if window else 0
+            hi = min(Sk, i1) if causal else Sk
+            mask = attention_mask(torch.arange(i0, i1, device=q.device),
+                                  torch.arange(lo, hi, device=q.device),
+                                  causal=causal, window=window)
+            qi, doi = qg[:, :, :, i0:i1], dog[:, :, :, i0:i1]
+            kj, vj = kf[:, :, lo:hi], vf[:, :, lo:hi]
+            s = torch.einsum("bgmqd,bgtd->bgmqt", qi, kj) * scale
+            s = s.masked_fill(~mask, NEG_INF)
+            p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+            o = torch.einsum("bgmqt,bgte->bgmqe", p, vj)
+            dp = torch.einsum("bgmqe,bgte->bgmqt", doi, vj)
+            ds = p * (dp - (doi * o).sum(dim=-1, keepdim=True))
+            dq[:, :, :, i0:i1] = torch.einsum("bgmqt,bgtd->bgmqd", ds,
+                                              kj) * scale
+            dk[:, :, lo:hi] += torch.einsum("bgmqt,bgmqd->bgtd", ds,
+                                            qi) * scale
+            dv[:, :, lo:hi] += torch.einsum("bgmqt,bgmqe->bgte", p, doi)
+    flash_attention_backward.launches += 1
+    return (dq.reshape(B, H, S, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+flash_attention_backward.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """K6 under autograd: the forward is ``flash_attention`` (the kernel on
+    a CUDA tensor, the plain version on a CPU one), the backward
+    ``flash_attention_backward``.  Saves q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        """The output of ``flash_attention``."""
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, scale=scale)
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        """dq, dk, dv from ``flash_attention_backward``."""
+        dq, dk, dv = flash_attention_backward(*ctx.saved_tensors, dout,
+                                              **ctx.opts)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """``flash_attention`` with gradients (``FlashAttention``): the
+    training forward of ``attn_train``."""
+    return FlashAttention.apply(q, k, v, causal, int(window or 0), scale)

@@ -11,12 +11,27 @@ import torch
 NEG_INF = -1e30
 
 
+def attention_mask(qpos: torch.Tensor, kpos: torch.Tensor, *,
+                   causal: bool = True, window: int = 0) -> torch.Tensor:
+    """(Sq, Sk) bool: the query at position ``qpos[s]`` sees the key at
+    ``kpos[t]`` when ``kpos[t] <= qpos[s]`` (causal) and ``qpos[s] -
+    kpos[t] < window`` (``window`` > 0)."""
+    qpos, kpos = qpos[:, None], kpos[None, :]
+    mask = (kpos <= qpos if causal
+            else torch.ones(qpos.shape[0], kpos.shape[1], dtype=torch.bool,
+                            device=qpos.device))
+    if window:
+        mask = mask & (qpos - kpos < window)
+    return mask
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
-                        scale: Optional[float] = None) -> torch.Tensor:
-    """Masked GQA attention in f32.  q: (B,H,S,dh); k/v: (B,Hkv,S,*) ->
-    (B,H,S,dv) in q's type.  Query s sees key t when ``t <= s`` (causal)
-    and ``s - t < window`` (``window`` > 0); query head h reads kv head
+                        scale: Optional[float] = None,
+                        pos0_q: int = 0) -> torch.Tensor:
+    """Masked GQA attention in f32.  q: (B,H,Sq,dh); k/v: (B,Hkv,Sk,*) ->
+    (B,H,Sq,dv) in q's type.  Query s sits at position ``pos0_q + s`` and
+    key t at t (``attention_mask``); query head h reads kv head
     ``h // (H // Hkv)``."""
     B, H, S, dh = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -24,12 +39,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = scale or 1.0 / math.sqrt(dh)
     qg = q.reshape(B, Hkv, m, S, dh).float()
     s = torch.einsum("bgmsd,bgtd->bgmst", qg, k.float()) * scale
-    qpos = torch.arange(S, device=q.device)[:, None]
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    mask = (kpos <= qpos if causal
-            else torch.ones(S, Sk, dtype=torch.bool, device=q.device))
-    if window:
-        mask = mask & (qpos - kpos < window)
+    mask = attention_mask(torch.arange(S, device=q.device) + pos0_q,
+                          torch.arange(Sk, device=q.device), causal=causal,
+                          window=window)
     s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgmst,bgtd->bgmsd", p, v.float())

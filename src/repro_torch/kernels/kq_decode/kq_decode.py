@@ -86,7 +86,8 @@ def kq_decode_attention(qc: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
         out.data_ptr(), B, H, Hkv, T, Rk, Rv, float(scale),
         _DTYPES[qc.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"kq_decode kernel launch failed: cudaError {err}")
+        raise build.KernelError(
+            f"kq_decode kernel launch failed: cudaError {err}")
     kq_decode_attention.launches += 1
     return out
 

@@ -141,7 +141,8 @@ def _check(name: str, qc: torch.Tensor, kc_pool: torch.Tensor,
 
 def _launched(name: str, err: int) -> None:
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+        raise build.KernelError(
+            f"{name} kernel launch failed: cudaError {err}")
 
 
 def _cuda_only(name: str, qc: torch.Tensor) -> None:

@@ -44,6 +44,18 @@ def ssd_chunk_scan_plain(x: torch.Tensor, a: torch.Tensor, dt: torch.Tensor,
     sums over a chunk of 256 (cum reaches hundreds) drift apart by some
     1e-4 and move y by some 1e-3 through the exps.  The reference sums in
     float32 in order."""
+    y, h = chunk_scan_f32(x, a, dt, B, C, chunk=chunk, h0=h0)
+    return y.to(out_dtype or x.dtype), h
+
+
+def chunk_scan_f32(x: torch.Tensor, a: torch.Tensor, dt: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128,
+                   h0: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked algorithm of ``ssd_chunk_scan_plain``, y in float32:
+    differentiable, so ``ssd_chunk_scan_backward`` takes its gradient
+    (the counterpart of XLA's autodiff of the reference's lax
+    ``_ssd_chunked``)."""
     Bsz, nh, S, hd = x.shape
     rep = nh // B.shape[1]
     n = B.shape[-1]
@@ -67,9 +79,8 @@ def ssd_chunk_scan_plain(x: torch.Tensor, a: torch.Tensor, dt: torch.Tensor,
         h = (h * torch.exp(cum[..., -1])[..., None, None]
              + (Bc * wj[..., None]).transpose(-1, -2) @ xc)
         ys.append(y)
-    y = (torch.cat(ys, dim=2) if ys
-         else torch.zeros_like(xf))
-    return y.to(out_dtype or x.dtype), h
+    y = torch.cat(ys, dim=2) if ys else torch.zeros_like(xf)
+    return y, h
 
 
 def ssd_chunk_scan_ref(x: torch.Tensor, a: torch.Tensor, dt: torch.Tensor,

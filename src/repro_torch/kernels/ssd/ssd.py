@@ -19,6 +19,10 @@ through their strides (the last dim of x, B and C contiguous), so the
 model's (B, S, nh, hd) views need no copy.  Every call that launches
 adds one to ``ssd_chunk_scan.launches``, whatever number of kernels the
 body runs.
+
+``ssd_chunk_scan_train`` runs it under autograd (``SSDChunkScan``); its
+backward, ``ssd_chunk_scan_backward``, is plain PyTorch with a counter
+of its own, as the reference has no backward kernel.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ssd.ref import ssd_chunk_scan_plain
+from repro_torch.kernels.ssd.ref import chunk_scan_f32, ssd_chunk_scan_plain
 
 # (head_dim, d_state) the kernel is built for: the reference kernel sweep
 # and SSM tests, the reduced configs, mamba2-2.7b and jamba
@@ -136,9 +140,71 @@ def ssd_chunk_scan(x: torch.Tensor, a: torch.Tensor, dt: torch.Tensor,
         err = lib.ssd_launch(*ptrs, *strides, Bsz, nh, G, S, hd, n, chunk,
                              stream)
     if err != 0:
-        raise RuntimeError(f"ssd kernel launch failed: cudaError {err}")
+        raise build.KernelError(f"ssd kernel launch failed: cudaError {err}")
     ssd_chunk_scan.launches += 1
     return y, h
 
 
 ssd_chunk_scan.launches = 0
+
+
+def ssd_chunk_scan_backward(x, a, dt, B, C, h0, dy, dh, *, chunk: int = 128):
+    """Gradients of ``ssd_chunk_scan`` in plain PyTorch: (dx, da, ddt, dB,
+    dC, dh0) in the inputs' types (dh0 None without ``h0``), for the
+    output gradients ``dy`` (of y) and ``dh`` (of the final state).
+
+    The reference has no backward kernel: its gradient is XLA's autodiff
+    of the lax ``_ssd_chunked``.  This recomputes the same chunked
+    algorithm in float32 (``ref.chunk_scan_f32``) under autograd and
+    differentiates it; it is not the forward's plain version, which never
+    runs on a CUDA tensor.  Each call adds one to
+    ``ssd_chunk_scan_backward.launches``."""
+    with torch.enable_grad(), torch.profiler.record_function(
+            "ssd_chunk_scan_backward"):
+        ins = [t.detach().requires_grad_() for t in (x, a, dt, B, C)]
+        if h0 is not None:
+            ins.append(h0.detach().requires_grad_())
+        y, h = chunk_scan_f32(*ins[:5], chunk=chunk,
+                              h0=ins[5] if h0 is not None else None)
+        grads = torch.autograd.grad((y, h), ins, (dy.float(), dh.float()),
+                                    allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g.to(t.dtype)
+             for g, t in zip(grads, ins)]
+    ssd_chunk_scan_backward.launches += 1
+    return (*grads[:5], grads[5] if h0 is not None else None)
+
+
+ssd_chunk_scan_backward.launches = 0
+
+
+class SSDChunkScan(torch.autograd.Function):
+    """K7 under autograd: the forward is ``ssd_chunk_scan`` (the kernels on
+    CUDA tensors, the plain version on CPU ones), the backward
+    ``ssd_chunk_scan_backward``.  Saves the inputs."""
+
+    @staticmethod
+    def forward(ctx, x, a, dt, B, C, h0, chunk, out_dtype):
+        """y and the final state, from ``ssd_chunk_scan``."""
+        y, h = ssd_chunk_scan(x, a, dt, B, C, chunk=chunk, h0=h0,
+                              out_dtype=out_dtype)
+        ctx.save_for_backward(x, a, dt, B, C, h0)
+        ctx.chunk = chunk
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        """The inputs' gradients from ``ssd_chunk_scan_backward``."""
+        x, a, dt, B, C, h0 = ctx.saved_tensors
+        grads = ssd_chunk_scan_backward(x, a, dt, B, C, h0, dy, dh,
+                                        chunk=ctx.chunk)
+        return (*grads, None, None)
+
+
+def ssd_chunk_scan_train(x: torch.Tensor, a: torch.Tensor, dt: torch.Tensor,
+                         B: torch.Tensor, C: torch.Tensor, *,
+                         chunk: int = 128, h0: Optional[torch.Tensor] = None,
+                         out_dtype: Optional[torch.dtype] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ssd_chunk_scan`` with gradients (``SSDChunkScan``): the SSM
+    layer's full-sequence forward."""
+    return SSDChunkScan.apply(x, a, dt, B, C, h0, chunk, out_dtype)

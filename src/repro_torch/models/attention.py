@@ -7,8 +7,10 @@ compressed queries ``(B, H, R)``.
 
 * full-sequence causal attention, with the sliding window where the
   config has one, runs in K6 (``repro_torch.kernels.flash``) under
-  ``attn_prefill`` and ``attn_calibrate``: what the reference's lax
-  ``blockwise_attention`` computes there;
+  ``attn_prefill`` and ``attn_calibrate``, and under autograd in
+  ``attn_train``: what the reference's lax ``blockwise_attention``
+  computes there (``reference_attention``, K6's plain version, and
+  ``blockwise_attention`` over it are its plain counterparts, for tests);
 * ``decode_attention`` is one-token attention over a full cache, and
   ``chunk_decode_attention`` a chunk of queries over one;
 * ``split_decode_attention``, ``int8_decode_attention`` and
@@ -53,7 +55,8 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.kernels.flash import flash_attention
+from repro_torch.kernels.flash import (flash_attention, flash_attention_ref,
+                                       flash_attention_train)
 from repro_torch.kernels.kq_decode import (kq_decode_attention,
                                            kq_decode_paged_attention,
                                            kq_prefill_paged_attention)
@@ -281,6 +284,50 @@ def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("bhse,hed->bsd"): o (B,H,S,e), wo (H,e,D) -> (B,S,D)."""
     B, H, S, e = o.shape
     return o.transpose(1, 2).reshape(B, S, H * e) @ wo.reshape(H * e, -1)
+
+
+# the reference's O(S^2)-memory oracle is K6's plain version: f32 scores
+# and values, the output in q's type (the reference's is in v's)
+reference_attention = flash_attention_ref
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                        block_q: int = 512, scale: Optional[float] = None):
+    """The reference's lax ``blockwise_attention`` as plain blocks: q:
+    (B,H,S,dh), k/v: (B,Hkv,S,*).  Each block of ``block_q`` queries
+    attends the keys it can see, so memory is bounded by a block's
+    scores; a block size that does not divide S falls back to one block,
+    as there."""
+    S = q.shape[2]
+    bq = min(block_q, S)
+    if S % bq:
+        return reference_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+    outs = []
+    for i0 in range(0, S, bq):
+        lo = max(0, i0 - window + 1) if window else 0
+        hi = i0 + bq if causal else S
+        # keys [lo, hi) at positions lo..: shift the queries to match
+        outs.append(reference_attention(
+            q[:, :, i0:i0 + bq], k[:, :, lo:hi], v[:, :, lo:hi],
+            causal=causal, window=window, scale=scale, pos0_q=i0 - lo))
+    return torch.cat(outs, dim=2)
+
+
+def attn_train(p, x: torch.Tensor, cfg: ModelConfig,
+               pos0: int = 0) -> torch.Tensor:
+    """Full-sequence causal attention with gradients (training): K6 under
+    autograd (``flash_attention_train``; its backward plain PyTorch).
+    Pad query heads (``qhead_pad``) have their outputs zeroed, so their
+    weights' gradients stay zero, as in the reference."""
+    S = x.shape[1]
+    q, k, v = _qkv(p, x, cfg, torch.arange(S, device=x.device) + pos0)
+    out = flash_attention_train(q, k, v, window=cfg.sliding_window)
+    mask = head_mask(cfg)
+    if mask is not None:
+        out = out * torch.as_tensor(mask, dtype=out.dtype,
+                                    device=out.device)[None, :, None, None]
+    return _out(out, p["wo"])
 
 
 def attn_calibrate(p, x: torch.Tensor, cfg: ModelConfig

@@ -59,7 +59,9 @@ def apply_layer(p: Dict, x: torch.Tensor, cfg: ModelConfig, layer_idx: int,
                 valid: Optional[torch.Tensor] = None, num_splits: int = 1):
     """Returns ``(x, new_cache, captures)``.
 
-    ``mode``: ``calibrate`` (captures q/k/v), ``prefill`` (builds a
+    ``mode``: ``train`` (full-sequence causal attention with gradients:
+    K6 under autograd; an SSM layer's forward with K7 under autograd),
+    ``calibrate`` (captures q/k/v), ``prefill`` (builds a
     ``max_len`` cache), ``decode`` (one token per sequence at ``pos``,
     written into ``cache`` in place) or ``chunk`` (a prefill chunk
     starting at ``pos``, ``valid`` marking its real tokens, written into
@@ -75,16 +77,18 @@ def apply_layer(p: Dict, x: torch.Tensor, cfg: ModelConfig, layer_idx: int,
         raise NotImplementedError(
             f"paged cache / chunked prefill supports plain attention "
             f"layers only (got {kind})")
-    if mode not in ("calibrate", "prefill", "decode", "chunk"):
+    if mode not in ("train", "calibrate", "prefill", "decode", "chunk"):
         raise ValueError(f"unknown mode {mode!r}")
     if kind == "ssm":
-        if mode == "calibrate":
+        if mode in ("train", "calibrate"):
             y, _ = ssm_mod.ssm_forward(p["ssm"], h, cfg.ssm)
         elif mode == "prefill":
             y, new_cache = ssm_mod.ssm_forward(p["ssm"], h, cfg.ssm,
                                                return_state=True)
         else:
             y, new_cache = ssm_mod.ssm_decode(p["ssm"], h, cache, cfg.ssm)
+    elif mode == "train":
+        y = attn_mod.attn_train(p["attn"], h, cfg)
     elif mode == "calibrate":
         y, captures = attn_mod.attn_calibrate(p["attn"], h, cfg)
     elif mode == "prefill":

@@ -26,7 +26,12 @@ Public entry points:
     prefill_chunk(params, cache, tokens, pos0, valid, proj, block_table)
                                                 -> (logits, cache)
         (one bucket-padded prompt chunk into the paged cache)
-    calibrate(params, tokens)                   -> per-layer host captures
+    train_logits(params, batch)                 -> (logits, aux)
+        (full-sequence logits with gradients: K6 and K7 under autograd,
+        each layer rematerialized in the backward as ``cfg.remat_policy``
+        says; aux holds the reference's MoE keys, zero here)
+    calibrate(params, tokens, host=True)        -> per-layer captures
+        (host numpy arrays; ``host=False`` keeps them on the device)
     group_output_weights(params)                -> stacked W^O per kv group
 
 The model runs on ``torch.device("cuda")`` unless it is given another
@@ -34,10 +39,12 @@ device; with no device and no GPU it raises.  Logits are float32.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -45,6 +52,43 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.blocks import apply_layer, init_layer, step_layout
 from repro_torch.models.layers import dtype_of, init_rms, rms_norm
+
+
+AUX_KEYS = ("load_balance", "router_z", "dropped_frac")
+# matrix products whose outputs the "dots" remat policy keeps (the
+# reference's ``dots_saveable``); everything else is recomputed
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _zero_aux(device) -> Dict[str, torch.Tensor]:
+    """The reference's aux losses, zero: the dense and SSM families have
+    no MoE router (``n_moe`` counts MoE layers)."""
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in AUX_KEYS + ("n_moe",)}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    policies = torch_checkpoint.CheckpointPolicy
+    return (policies.MUST_SAVE if op in _DOT_OPS
+            else policies.PREFER_RECOMPUTE)
+
+
+def remat_options(policy: str) -> Dict[str, Any]:
+    """``torch.utils.checkpoint`` options for ``cfg.remat_policy``, one
+    checkpoint per layer as the reference's ``jax.checkpoint`` wraps each
+    scan step; None for ``"none"`` (no remat).  ``"nothing"`` and
+    ``"full"`` (and any other name, as in the reference) recompute the
+    whole layer; ``"dots"`` keeps the matrix products' outputs through
+    torch's selective-checkpoint policy."""
+    if policy == "none":
+        return None
+    opts = {"use_reentrant": False, "preserve_rng_state": False}
+    if policy == "dots":
+        opts["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _dots_policy)
+    return opts
 
 
 class LM:
@@ -160,12 +204,36 @@ class LM:
         x = rms_norm(x, params["final_norm"], self.cfg.rms_eps)
         return self._logits(params, x), cache
 
-    def calibrate(self, params, tokens) -> List[Dict[str, np.ndarray]]:
-        """Per-attention-layer post-RoPE captures ``{"k", "q", "v"}`` as
+    def train_logits(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+        """Full-sequence logits (B, S, V) float32 and the aux losses (the
+        reference's keys, zero for these families), differentiable in
+        ``params``: attention runs K6 and an SSM layer K7 under autograd.
+        Each layer is checkpointed as ``cfg.remat_policy`` says
+        (``remat_options``); remat changes no number."""
+        x = params["embed"][self._tokens(batch)]
+        opts = remat_options(self.cfg.remat_policy)
+        for i, lp in enumerate(params["layers"]):
+            if opts is None:
+                x = self._train_layer(lp, x, i)
+            else:
+                x = torch_checkpoint.checkpoint(self._train_layer, lp, x, i,
+                                                **opts)
+        x = rms_norm(x, params["final_norm"], self.cfg.rms_eps)
+        return self._logits(params, x), _zero_aux(self.device)
+
+    def _train_layer(self, lp, x, i):
+        return apply_layer(lp, x, self.cfg, i, "train")[0]
+
+    def calibrate(self, params, tokens, host: bool = True) -> List[Dict]:
+        """Per-attention-layer post-RoPE captures ``{"k", "q", "v"}``:
         host float32 numpy arrays (``GramAccumulator.update`` takes host
-        arrays); empty for an attention-free stack."""
+        arrays), or with ``host=False`` the tensors on the model's device,
+        in the model's type (``make_calibrate_step`` sums their Grams
+        there); empty for an attention-free stack."""
         x = params["embed"][self._tokens(tokens)]
         _, _, captures = self._run_stack(params, x, "calibrate")
+        if not host:
+            return captures
         return [{name: t.detach().float().cpu().numpy()
                  for name, t in cap.items()} for cap in captures]
 

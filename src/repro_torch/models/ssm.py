@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import SSMConfig
-from repro_torch.kernels.ssd import ssd_chunk_scan
+from repro_torch.kernels.ssd import ssd_chunk_scan, ssd_chunk_scan_train
 from repro_torch.models.layers import init_dense, rms_norm
 
 
@@ -107,12 +107,15 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, h0=None):
     xh: (B,S,nh,hd); dt: (B,S,nh) (already softplus'ed); A: (nh,)
     negative; Bm/Cm: (B,S,G,S_st); h0: optional carried state.  Returns y
     (B,S,nh,hd) float32 and the final state (B,nh,S_st,hd) float32.  The
-    kernel reads the (B,S,...) tensors through transposed views."""
+    kernel reads the (B,S,...) tensors through transposed views.  Where an
+    input needs a gradient (the training forward) K7 runs under autograd
+    (``ssd_chunk_scan_train``), else the wrapper alone."""
     a = dt * A[None, None, :]                                 # (B,S,nh) <= 0
-    y, h = ssd_chunk_scan(xh.transpose(1, 2), a.transpose(1, 2),
-                          dt.transpose(1, 2), Bm.transpose(1, 2),
-                          Cm.transpose(1, 2), chunk=chunk, h0=h0,
-                          out_dtype=torch.float32)
+    args = [t.transpose(1, 2) for t in (xh, a, dt, Bm, Cm)]
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in args + [h0])
+    scan = ssd_chunk_scan_train if grad else ssd_chunk_scan
+    y, h = scan(*args, chunk=chunk, h0=h0, out_dtype=torch.float32)
     return y.transpose(1, 2), h
 
 

@@ -1,0 +1,22 @@
+"""Optimizers of the port: AdamW (bf16-moment option) and Adafactor
+(factored second moments), with the reference's warmup + cosine schedule.
+Torch counterparts of ``repro.optim``: functional updates on the port's
+parameter trees, float32 math."""
+from repro_torch.config import TrainConfig
+from repro_torch.optim import adafactor, adamw
+from repro_torch.optim.schedule import learning_rate
+
+__all__ = ["TrainConfig", "adafactor", "adamw", "learning_rate",
+           "init_state", "apply_updates"]
+
+
+def init_state(params, tc: TrainConfig):
+    """The optimizer state ``tc.optimizer`` names, for ``params``."""
+    mod = adafactor if tc.optimizer == "adafactor" else adamw
+    return mod.init_state(params, tc)
+
+
+def apply_updates(params, grads, state, tc: TrainConfig, lr):
+    """One update: ``(new_params, new_state, metrics)``."""
+    mod = adafactor if tc.optimizer == "adafactor" else adamw
+    return mod.apply_updates(params, grads, state, tc, lr)

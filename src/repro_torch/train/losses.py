@@ -1,0 +1,51 @@
+"""Cross-entropy with z-loss and ignore-index masking; MoE aux mixing.
+
+Torch counterpart of ``repro.train.losses``, the same arithmetic in
+float32.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+IGNORE = -100
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_weight: float = 0.0) -> Tuple[torch.Tensor, Dict]:
+    """logits (B,S,V) float32, labels (B,S) integer (IGNORE masks).
+    Returns the mean negative log-likelihood over unmasked tokens (plus
+    ``z_weight`` times the mean squared log-partition) and metrics
+    ``ce``, ``tokens`` and, with a z-loss, ``z_loss``."""
+    labels = labels.long()
+    mask = (labels != IGNORE).float()
+    safe = labels.masked_fill(labels == IGNORE, 0)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    denom = mask.sum().clamp_min(1.0)
+    loss = nll.sum() / denom
+    metrics = {"ce": loss, "tokens": mask.sum()}
+    if z_weight:
+        zl = z_weight * ((lse * mask) ** 2).sum() / denom
+        loss = loss + zl
+        metrics["z_loss"] = zl
+    return loss, metrics
+
+
+def total_loss(logits, labels, aux, train_cfg, moe_cfg=None):
+    """``cross_entropy`` with the config's z-loss, plus the MoE router's
+    load-balance and z losses when the model has a MoE config (no family
+    the port carries yet has one, so that branch waits for ``moe.py``)."""
+    loss, metrics = cross_entropy(logits, labels, train_cfg.z_loss)
+    if moe_cfg is not None and aux is not None:
+        n = aux["n_moe"].clamp_min(1.0)
+        lb = aux["load_balance"] / n
+        rz = aux["router_z"] / n
+        loss = loss + moe_cfg.router_aux_weight * lb \
+            + moe_cfg.router_z_weight * rz
+        metrics.update({"moe_lb": lb, "moe_rz": rz,
+                        "moe_dropped": aux["dropped_frac"] / n})
+    metrics["loss"] = loss
+    return loss, metrics

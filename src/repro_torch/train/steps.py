@@ -1,0 +1,114 @@
+"""Step functions of the port (shared by the trainer and the CLI).
+
+Torch counterpart of ``repro.train.steps``.  ``make_train_step``: loss ->
+grads (with optional gradient accumulation over microbatches, the
+accumulator float32) -> clipped update.  Gradients come back in the
+parameter type; the update is functional (``repro_torch.optim``).
+
+``make_prefill_step`` / ``make_decode_step``: serving steps, full-cache
+or KQ-SVD-compressed variants.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch import optim
+from repro_torch.config import TrainConfig
+from repro_torch.models.model import LM
+from repro_torch.optim.schedule import learning_rate
+from repro_torch.train.losses import total_loss
+from repro_torch.tree import leaves, tree_map, unflatten
+
+
+def make_loss_fn(model: LM, tc: TrainConfig) -> Callable:
+    """``loss_fn(params, batch) -> (loss, metrics)``; ``batch`` holds
+    ``tokens`` and ``labels`` (host arrays or tensors)."""
+    cfg = model.cfg
+
+    def loss_fn(params, batch):
+        logits, aux = model.train_logits(params, batch)
+        labels = torch.as_tensor(batch["labels"], device=model.device)
+        return total_loss(logits, labels, aux, tc, cfg.moe)
+
+    return loss_fn
+
+
+def value_and_grad(loss_fn, params, batch):
+    """``(metrics, grads)``: ``loss_fn``'s metrics (detached) and the
+    gradient tree of its loss at ``params``, in the parameters' types
+    (the caller's tensors are not marked: autograd runs on detached
+    aliases of them)."""
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, metrics = loss_fn(live, batch)
+    grads = torch.autograd.grad(loss, [p for _, p in leaves(live)])
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return metrics, unflatten(params, grads)
+
+
+def make_train_step(model: LM, tc: TrainConfig) -> Callable:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: metrics ``loss`` (and ``ce``, ``tokens``, ``z_loss`` without
+    accumulation), ``grad_norm`` and ``lr``.  With ``tc.grad_accum`` > 1
+    the batch splits into that many microbatches on its leading axis,
+    their gradients summed in float32, divided and cast to the parameter
+    type, as the reference's ``lax.scan`` does."""
+    loss_fn = make_loss_fn(model, tc)
+
+    def train_step(params, opt_state, batch):
+        if tc.grad_accum > 1:
+            n = tc.grad_accum
+            g_acc = tree_map(lambda p: torch.zeros(p.shape,
+                                                   dtype=torch.float32,
+                                                   device=p.device), params)
+            loss_sum = torch.zeros((), dtype=torch.float32,
+                                   device=model.device)
+            for i in range(n):
+                mb = {k: v[i * (len(v) // n):(i + 1) * (len(v) // n)]
+                      for k, v in batch.items()}
+                m, g = value_and_grad(loss_fn, params, mb)
+                g_acc = tree_map(lambda a, b: a + b.float(), g_acc, g)
+                loss_sum = loss_sum + m["loss"]
+            grads = tree_map(lambda g, p: (g / n).to(p.dtype), g_acc, params)
+            metrics = {"loss": loss_sum / n}
+        else:
+            metrics, grads = value_and_grad(loss_fn, params, batch)
+        lr = learning_rate(tc, opt_state["step"])
+        params, opt_state, om = optim.apply_updates(
+            params, grads, opt_state, tc, lr)
+        metrics = dict(metrics)
+        metrics.update(om)
+        metrics["lr"] = lr
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_prefill_step(model: LM, max_len: int,
+                      compressed: bool = False) -> Callable:
+    """``prefill_step(params, batch)`` (or ``(params, proj, batch)``
+    compressed) -> ``(logits, cache)``."""
+    if compressed:
+        def prefill_step_c(params, proj, batch):
+            return model.prefill(params, batch, max_len, proj=proj)
+        return prefill_step_c
+
+    def prefill_step(params, batch):
+        return model.prefill(params, batch, max_len)
+
+    return prefill_step
+
+
+def make_decode_step(model: LM, compressed: bool = False) -> Callable:
+    """``decode_step(params, cache, tokens, pos)`` (or ``(params, proj,
+    cache, tokens, pos)`` compressed) -> ``(logits, cache)``."""
+    if compressed:
+        def decode_step_c(params, proj, cache, tokens, pos):
+            return model.decode_step(params, cache, tokens, pos, proj=proj)
+        return decode_step_c
+
+    def decode_step(params, cache, tokens, pos):
+        return model.decode_step(params, cache, tokens, pos)
+
+    return decode_step

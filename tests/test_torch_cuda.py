@@ -8,7 +8,10 @@ prefix sharing under swap, under fault injection, under the token
 budget, with the sliding-window ring cache and with mamba2's SSM state;
 a copy-on-write fork on the card copying every leaf byte for byte, a
 budget step's fused chunk launching K2 before the decode chunk's K1 with
-one host sync, and the NaN quarantine of a device logit row.  Marked
+one host sync, and the NaN quarantine of a device logit row; K6 and K7
+under autograd (the kernel forward, the plain backward) against autograd
+through their plain versions, a bfloat16 checkpoint of card tensors, and
+a trainer whose kernel build fails raising at once.  Marked
 ``cuda``; skips where there is no GPU.  Imports no JAX, so it also runs
 on a machine without it (``--noconftest``: the repository's conftest
 imports JAX):
@@ -26,9 +29,14 @@ from repro_torch.configs import get_config
 from repro_torch.core.calibration import calibrate_model
 from repro_torch.data import calibration_batches
 from repro_torch.device import tree_to
-from repro_torch.kernels.flash import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash import (flash_attention,
+                                       flash_attention_backward,
+                                       flash_attention_ref,
+                                       flash_attention_train)
 from repro_torch.kernels.flash.flash import HEAD_DIMS
-from repro_torch.kernels.ssd import ssd_chunk_scan, ssd_chunk_scan_plain
+from repro_torch.kernels.ssd import (ssd_chunk_scan, ssd_chunk_scan_backward,
+                                     ssd_chunk_scan_plain,
+                                     ssd_chunk_scan_train)
 from repro_torch.kernels.kq_decode import (
     combine_split_partials, kq_combine_splits, kq_decode_attention,
     kq_decode_attention_ref, kq_decode_paged_attention,
@@ -1007,3 +1015,122 @@ def test_reduced_mamba2_engine_card_matches_cpu(cuda):
         served.append([r.out_tokens for r in rs])
     assert ssd_chunk_scan.launches == before + cfg.n_layers * len(prompts)
     assert served[0] == served[1]
+
+
+def _grads(fn, inputs, seed):
+    """Gradients of a fixed random projection of ``fn``'s outputs (the
+    same projection for every ``fn`` given the same seed)."""
+    ins = [t.detach().clone().requires_grad_() for t in inputs]
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    g = torch.Generator(device=ins[0].device).manual_seed(seed)
+    loss = sum((o.float() * torch.randn(o.shape, generator=g,
+                                        device=o.device)).sum()
+               for o in outs)
+    return torch.autograd.grad(loss, ins)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 16])
+@pytest.mark.parametrize("m", [1, 3, 8])
+def test_k6_autograd_matches_plain_version(cuda, m, window, dtype):
+    """K6 under autograd: the kernel's forward (one launch), the plain
+    blocked backward (one call, S 200 over blocks of 128 queries), against
+    autograd through the plain version; gradients at the kernel tolerance
+    and, in bf16, within two ulps (both are float32 arithmetic rounded
+    once)."""
+    B, Hkv, S, dh = 2, 2, 200, 64
+    q, k, v = _flash_inputs(cuda, dtype, B, Hkv * m, Hkv, S, dh,
+                            seed=m + window)
+    f0, b0 = flash_attention.launches, flash_attention_backward.launches
+    got = _grads(lambda *t: flash_attention_train(*t, window=window),
+                 (q, k, v), 7)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == f0 + 1
+    assert flash_attention_backward.launches == b0 + 1
+    want = _grads(lambda *t: flash_attention_ref(*t, window=window),
+                  (q, k, v), 7)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        _close_ulps(a, b, dtype)
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["h0=0", "h0"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_autograd_matches_plain_version(cuda, dtype, with_h0):
+    """K7 under autograd: the kernel's forward (y in float32, as the model
+    asks), the plain backward (one call), against autograd through the
+    plain version: S 300 in chunks of 128, two groups of four heads."""
+    B, nh, G, S, hd, n = 2, 8, 2, 300, 16, 16
+    ins = list(_ssd_inputs(cuda, dtype, B, nh, G, S, hd, n, seed=3))
+    if with_h0:
+        ins.append(torch.randn(B, nh, n, hd, device=cuda))
+
+    def run(fn):
+        def f(*t):
+            return fn(*t[:5], chunk=128, h0=t[5] if with_h0 else None,
+                      out_dtype=torch.float32)
+        return f
+    f0, b0 = ssd_chunk_scan.launches, ssd_chunk_scan_backward.launches
+    got = _grads(run(ssd_chunk_scan_train), ins, 9)
+    torch.cuda.synchronize()
+    assert ssd_chunk_scan.launches == f0 + 1
+    assert ssd_chunk_scan_backward.launches == b0 + 1
+    want = _grads(run(ssd_chunk_scan_plain), ins, 9)
+    for a, b in zip(got, want):
+        _close_ulps(a, b, a.dtype)
+
+
+def test_bf16_checkpoint_of_card_tensors(cuda, tmp_path):
+    """A tree of bfloat16, float32 and int32 tensors on the card: the
+    async save copies them to the host before returning, and restore puts
+    every leaf back on the card, bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.tree import leaves
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"w": torch.randn(64, 96, generator=g, device=cuda).to(
+                torch.bfloat16),
+            "layers": [{"m": torch.randn(7, generator=g, device=cuda)}],
+            "step": torch.tensor(5, dtype=torch.int32)}
+    want = {k: v for k, v in leaves(tree)}
+    want = {k: v.clone() for k, v in want.items()}
+    m = CheckpointManager(str(tmp_path), async_save=True)
+    m.save(5, tree)
+    tree["w"].add_(1.0)                     # after save: not in the file
+    m.wait()
+    out, meta = m.restore(tree)
+    assert meta["step"] == 5
+    for path, t in leaves(out):
+        assert t.device == want[path].device and t.dtype == want[path].dtype
+        assert torch.equal(t, want[path]), path
+
+
+def test_trainer_does_not_retry_a_failed_kernel_build(cuda, tmp_path,
+                                                      monkeypatch):
+    """With a checkpoint to go back to, a kernel that no longer builds
+    (an nvcc flag it refuses, a fresh build directory) raises
+    ``KernelError`` out of ``Trainer.run`` on the first attempt."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.data import DataConfig, batches
+    from repro_torch.kernels import build
+    from repro_torch.train import Trainer
+    cfg = get_config("smollm-360m").reduced()
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10,
+                     checkpoint_every=1)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, batch_size=2)
+    ckpt = str(tmp_path / "ckpt")
+    rep = Trainer(cfg, tc, ckpt_dir=ckpt, device=cuda).run(batches(dc), 2)
+    assert rep.steps_done == 2
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(build, "NVCC_FLAGS",
+                        build.NVCC_FLAGS + ("--no-such-flag",))
+    attempts = {"n": 0}
+
+    def hook(step):
+        attempts["n"] += 1
+
+    tr = Trainer(cfg, tc, ckpt_dir=ckpt, device=cuda, failure_hook=hook)
+    with pytest.raises(build.KernelError, match="kernel build failed"):
+        tr.run(batches(dc), 5)
+    assert attempts["n"] == 1

@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch``
-loads neither ``jax`` nor anything of the reference package, and an entry
-point given no device on a machine without a GPU raises instead of
-running on the CPU."""
+loads neither ``jax`` nor anything of the reference package nor
+``ml_dtypes``, and an entry point given no device on a machine without a
+GPU raises instead of running on the CPU."""
 import os
 import subprocess
 import sys
@@ -28,7 +28,7 @@ def test_every_module_imports_without_jax_or_reference():
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib')) or m == 'repro'\n"
-        "             or m.startswith('repro.'))\n"
+        "             or m.startswith(('repro.', 'ml_dtypes')))\n"
         "assert not bad, bad\n"
         "print(' '.join(names))\n")
     res = _run(code)
@@ -45,7 +45,18 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.models.ssm",
             "repro_torch.kernels.ssd",
             "repro_torch.kernels.ssd.ref",
-            "repro_torch.kernels.ssd.ssd"} <= set(names)
+            "repro_torch.kernels.ssd.ssd",
+            "repro_torch.configs.smollm_360m",
+            "repro_torch.configs.deepseek_67b",
+            "repro_torch.core.theory",
+            "repro_torch.optim.adamw",
+            "repro_torch.optim.adafactor",
+            "repro_torch.optim.schedule",
+            "repro_torch.train.losses",
+            "repro_torch.train.steps",
+            "repro_torch.train.trainer",
+            "repro_torch.checkpoint.manager",
+            "repro_torch.launch.train"} <= set(names)
 
 
 def test_entry_points_without_device_raise_without_gpu():
@@ -55,9 +66,12 @@ def test_entry_points_without_device_raise_without_gpu():
         "from repro_torch.config import ServeConfig\n"
         "from repro_torch.models import LM\n"
         "from repro_torch.serving import ServingEngine\n"
+        "from repro_torch.config import TrainConfig\n"
+        "from repro_torch.train import Trainer\n"
         "cfg = get_config('tinyllama-1.1b').reduced()\n"
         "for make in (lambda: LM(cfg),\n"
-        "             lambda: ServingEngine(cfg, {}, ServeConfig())):\n"
+        "             lambda: ServingEngine(cfg, {}, ServeConfig()),\n"
+        "             lambda: Trainer(cfg, TrainConfig())):\n"
         "    try:\n"
         "        make()\n"
         "    except RuntimeError as e:\n"
@@ -75,3 +89,18 @@ def test_cli_without_device_fails_without_gpu():
                "--arch", "tinyllama-1.1b", "--reduced")
     assert res.returncode != 0
     assert "CUDA" in res.stderr
+
+
+def test_train_cli_without_device_fails_without_gpu():
+    res = _run("from repro_torch.launch.train import main; main()",
+               "--arch", "smollm-360m", "--reduced", "--steps", "1")
+    assert res.returncode != 0
+    assert "CUDA" in res.stderr
+
+
+def test_train_cli_on_cpu():
+    res = _run("from repro_torch.launch.train import main; main()",
+               "--arch", "smollm-360m", "--reduced", "--steps", "3",
+               "--seq-len", "16", "--batch", "2", "--device", "cpu")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("device cpu: steps=3 loss")

@@ -1,7 +1,9 @@
 """The port's LM against the reference's on bridged weights: prefill and
 decode logits with the full and the KQ-SVD-compressed cache, lock-step
 and with per-sequence positions, within 2e-4 (the bar of
-test_models_smoke.py and test_compression_e2e.py)."""
+test_models_smoke.py and test_compression_e2e.py); query-head padding,
+parameter counts, one train step per carried arch, and the device-side
+calibration step against the host path."""
 import dataclasses
 import functools
 
@@ -20,7 +22,8 @@ from repro_torch.configs import get_config as torch_config
 from repro_torch.models import build_model as torch_model
 
 TOL = dict(rtol=2e-4, atol=2e-4)
-ARCHS = ["tinyllama-1.1b", "paper-llama2-7b"]     # reduced: m=2 and m=1
+# reduced: m=2, m=1, m=2 with tied embeddings, m=2 at deepseek's shape
+ARCHS = ["tinyllama-1.1b", "paper-llama2-7b", "smollm-360m", "deepseek-67b"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -148,3 +151,152 @@ def test_compressed_cache_ops_match_reference():
         4, 64, 50, 42)
     assert (mine.full_bytes, mine.compressed_bytes, mine.ratio) == (
         ref.full_bytes, ref.compressed_bytes, ref.ratio)
+
+
+def test_qhead_padding_exact():
+    """qhead_pad: the padded model == the unpadded one (same weights, pad
+    query heads zero), in the training logits, and the pad heads'
+    weights get zero gradients (reference test_attention.py:71)."""
+    from repro_torch.train.steps import value_and_grad
+    cfg = torch_config("tinyllama-1.1b").reduced()     # H=4, Hkv=2, m=2
+    cfg_p = dataclasses.replace(cfg, qhead_pad=8)      # m_p = 4
+    m0, mp = torch_model(cfg, "cpu"), torch_model(cfg_p, "cpu")
+    p0 = m0.init(torch.Generator().manual_seed(0))
+    pp = mp.init(torch.Generator().manual_seed(1))
+    Hkv, m, m_p = cfg.n_kv_heads, 2, 4
+    for lp, l0 in zip(pp["layers"], p0["layers"]):
+        a, a0 = lp["attn"], l0["attn"]
+        a["wq"] = torch.zeros_like(a["wq"])
+        a["wo"] = torch.zeros_like(a["wo"])
+        for g in range(Hkv):
+            for j in range(m):
+                a["wq"][:, g * m_p + j] = a0["wq"][:, g * m + j]
+                a["wo"][g * m_p + j] = a0["wo"][g * m + j]
+        a["wk"], a["wv"] = a0["wk"], a0["wv"]
+        for k in ("ln1", "ln2", "ffn"):
+            lp[k] = l0[k]
+    for k in ("embed", "final_norm", "lm_head"):
+        if k in p0:
+            pp[k] = p0[k]
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 16))
+    l0_, _ = m0.train_logits(p0, {"tokens": toks})
+    lp_, _ = mp.train_logits(pp, {"tokens": toks})
+    np.testing.assert_allclose(lp_.detach().numpy(), l0_.detach().numpy(),
+                               rtol=2e-5, atol=2e-5)
+    from repro_torch.config import TrainConfig
+    from repro_torch.train.steps import make_loss_fn
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+    _, g = value_and_grad(make_loss_fn(mp, TrainConfig()), pp, batch)
+    pad = torch.as_tensor([h % m_p >= m for h in range(Hkv * m_p)])
+    for lg in g["layers"]:
+        assert not lg["attn"]["wq"][:, pad].any()
+        assert not lg["attn"]["wo"][pad].any()
+
+
+def test_param_counts_match_assignment():
+    """Every carried arch: the port's config count equals the
+    reference's, within 15% of the assignment's size, and equals the
+    elements of the port's init at full width (shapes only, under
+    FakeTensorMode), but for mamba2-2.7b, where the config's formula
+    counts a second norm gain per layer that a pure SSM layer lacks and
+    not its D skip."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import list_archs
+    from repro_torch.tree import leaves
+    expected = {"mamba2-2.7b": 2.7e9, "deepseek-67b": 67e9,
+                "tinyllama-1.1b": 1.1e9, "smollm-360m": 0.36e9,
+                "h2o-danube-1.8b": 1.8e9, "paper-llama2-7b": 6.7e9}
+    assert set(list_archs()) == set(expected)
+    for arch, target in expected.items():
+        cfg = torch_config(arch)
+        n = cfg.param_count()
+        assert n == jax_config(arch).param_count(), arch
+        assert abs(n - target) / target < 0.15, (arch, n, target)
+        with FakeTensorMode():
+            p = torch_model(cfg, "cpu").init(torch.Generator())
+            n_init = sum(x.numel() for _, x in leaves(p))
+        if cfg.ssm is not None and cfg.d_ff == 0:
+            nh = cfg.ssm.n_heads(cfg.d_model)
+            n_init += cfg.n_layers * (cfg.d_model - nh)
+        assert n_init == n, (arch, n_init, n)
+
+
+@pytest.mark.parametrize("arch", ARCHS + ["h2o-danube-1.8b", "mamba2-2.7b"])
+def test_one_train_step(arch):
+    """One train step per carried arch (reference
+    test_models_smoke.py::test_one_train_step): finite loss and gradient
+    norm, and the params moved."""
+    from repro_torch import optim
+    from repro_torch.config import TrainConfig
+    from repro_torch.train.steps import make_train_step
+    cfg = torch_config(arch).reduced()
+    model = torch_model(cfg, "cpu")
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=10,
+                     checkpoint_every=0)
+    params = model.init(torch.Generator().manual_seed(0))
+    B, S = 2, 32
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
+    batch = {"tokens": toks, "labels": np.zeros((B, S), np.int32)}
+    params2, _, metrics = make_train_step(model, tc)(
+        params, optim.init_state(params, tc), batch)
+    assert np.isfinite(float(metrics["loss"]))
+    assert np.isfinite(float(metrics["grad_norm"]))
+    from repro_torch.tree import leaves
+    delta = sum(float((a.float() - b.float()).abs().max())
+                for (_, a), (_, b) in zip(leaves(params), leaves(params2)))
+    assert delta > 0
+
+
+def test_device_calibrate_step_matches_host():
+    """make_calibrate_step's float32 Grams summed from captures that stay
+    on the device == the host GramAccumulator path (float64), at the
+    reference test's tolerances (tests/test_calibration.py:72)."""
+    from repro_torch.core.calibration import GramAccumulator as Acc
+    from repro_torch.core.calibration import (accumulator_from_grams,
+                                              make_calibrate_step)
+    cfg = torch_config("tinyllama-1.1b").reduced()
+    model = torch_model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    init_grams, step = make_calibrate_step(model)
+    grams = init_grams(cfg.d_head, cfg.d_head, cfg.n_kv_heads)
+    host = Acc(len(model.attn_layers))
+    rng = np.random.default_rng(40)
+    for _ in range(3):
+        toks = rng.integers(0, cfg.vocab_size, (2, 32))
+        grams = step(params, grams, toks)
+        host.update_from_captures(model.calibrate(params, toks))
+    assert grams["g_k"].dtype == torch.float32
+    dev = accumulator_from_grams(grams)
+    for l in range(len(model.attn_layers)):
+        for name in ("g_k", "g_q", "g_v"):
+            np.testing.assert_allclose(getattr(dev.layers[l], name),
+                                       getattr(host.layers[l], name),
+                                       rtol=2e-4, atol=2e-3)
+    assert dev.layers[0].tokens == host.layers[0].tokens == 3 * 2 * 32
+
+
+@pytest.mark.parametrize("causal,window,block", [
+    (True, 0, 8), (True, 5, 8), (False, 0, 16), (False, 7, 8),
+    (True, 0, 12)])                   # 12 does not divide S: one block
+def test_reference_and_blockwise_attention_match(causal, window, block):
+    """The port's plain ``reference_attention`` and ``blockwise_attention``
+    against the reference's on the same arrays (GQA m = 3), and against
+    each other."""
+    from repro.models import attention as jattn
+    from repro_torch.models import attention as tattn
+    rng = np.random.default_rng(block + window)
+    q = rng.normal(size=(2, 6, 32, 16)).astype(np.float32)
+    k, v = (rng.normal(size=(2, 2, 32, 16)).astype(np.float32)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    ref = tattn.reference_attention(*map(torch.as_tensor, (q, k, v)), **kw)
+    np.testing.assert_allclose(
+        ref.numpy(), np.asarray(jattn.reference_attention(q, k, v, **kw)),
+        **TOL)
+    blk = tattn.blockwise_attention(*map(torch.as_tensor, (q, k, v)),
+                                    block_q=block, **kw)
+    jblk = jattn.blockwise_attention(*map(jnp.asarray, (q, k, v)),
+                                     block_q=block, block_k=block, **kw)
+    np.testing.assert_allclose(blk.numpy(), np.asarray(jblk), **TOL)
+    np.testing.assert_allclose(blk.numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-5)
