@@ -153,13 +153,40 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              where its time goes; and one 4096-token prefill, with K7's
              share of its device time (all of its kernels, and each one's
              device ms);
+3m. moe/mla  (after 3i) the MoE and MLA families at full width, seeded
+             random bf16 weights, each model freed before the next is
+             built.  (a) deepseek-v2-lite-16b at full depth (27 layers,
+             d_model 2048, 16 heads, MLA kv_lora 512 + rope 64, 64 experts
+             top 6 + 2 shared of 1408, a dense first layer of 10944, 15.7 B
+             parameters): device calibration on 16 x 512 tokens in batches
+             of 4 and the solve at epsilon 0.1 on the latent (Hkv 1, m 16,
+             ``c_v`` 32768 wide), then the dense-slot engine (8 slots of
+             1024) serving 16 requests of 32..512 prompt tokens and 32 new.
+             Counts zeroed before the calibration and read after the
+             drain: K6 = 27 x (4 + 16), at (192, 128) with H = Hkv = 16; no
+             K1-K5, K7 or plain attention.  Printed: ranks, capacity gain
+             against the raw latent + rope cache (576 a token), decode ms a
+             step, prefill s, peak memory, the MoE ``dropped_frac`` of one
+             profiled 512-token prefill, and a profiled decode step (8 slots
+             at 512) with the MoE FFN's share of busy time.  (b) arctic-480b
+             at full width cut to 2 of its 35 layers (128 experts of 4864
+             top 2 beside a dense residual FFN, 56 query heads padded to 64
+             over 8 kv heads: m 8; 27.7 B parameters): calibration on 16 x
+             512 (K6 2 x 4 at d_head 128), then 3c's paged engine (pages of
+             16, 256 of them, chunks of 256) serving 16 requests of 32..1000
+             and 32 new on fp pages (K1 = 2 x decode steps, K2 = 2 x
+             chunks, nothing else) and on int8 pages with dynamic splits
+             (K5 + K5 split = 2 x decode steps, nothing else), every request
+             done and the pool whole; a profiled fp decode step;
 4.  kernels  each kernel against its plain PyTorch version on the card at
              the main paths' shapes (the calibrated ranks; K2 at the last
              chunk of a 1000-token prompt, at a first chunk and at a chunk
              the token budget truncated, 248 tokens from position 504; K6 at
              tinyllama's calibration batch, at danube's windowed
-             prefill, the plain one there at 4608 tokens, and at
-             paper-llama2-7b's calibration batch, MHA at d_head 128) and
+             prefill, the plain one there at 4608 tokens, at
+             paper-llama2-7b's calibration batch, MHA at d_head 128, and
+             at deepseek-v2-lite's, MLA's (192, 128) with H = Hkv = 16; K1,
+             K5 and K2's last chunk at arctic's m 8 and ranks) and
              on edge cases: for K1, K2, K4 and K5 page sizes 4, 16, 64;
              lengths 0, 1, ps-1, ps, ps+1, 1023; splits 1, 2, 3, 8 with
              empty trailing splits; shuffled block tables; chunks at
@@ -217,7 +244,14 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              after one AdamW step (elements whose |g| is below 1e-6 of
              their leaf's max left out and counted); reduced smollm-360m
              (tied embeddings) gives the same greedy tokens on the dense
-             and the paged chunked KQ-SVD engines.
+             and the paged chunked KQ-SVD engines; so do reduced
+             deepseek-v2-lite on dense slots (full and KQ-SVD) and reduced
+             arctic on fp pages and int8 pages with dynamic splits; a
+             float32 deepseek-v2-lite train step gives the CPU's loss, MoE
+             aux losses and gradients; and ``moe_ffn`` in decode mode at
+             64 experts top 6 and 128 top 2 (narrow widths, 8 slots, two
+             dead) gives the CPU's keep mask and outputs where capacity
+             binds.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
@@ -228,6 +262,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -566,14 +601,21 @@ def profile_decode(label: str, model, params, proj, ranks, dev, paged: bool,
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
+    events = prof.key_averages()
+    cuda_t = torch.autograd.DeviceType.CUDA
+    # the MoE FFN's profiler range: its device-side annotation is not a
+    # kernel (out of the busy sum); its host range's device time is the
+    # time of the kernels launched inside it
     rows = [(e.key, e.device_time_total / 1e3 / steps, e.count // steps)
-            for e in prof.key_averages() if e.device_time_total > 0
-            and getattr(e, "device_type", None)
-            == torch.autograd.DeviceType.CUDA]
+            for e in events if e.device_time_total > 0
+            and e.key != "moe_ffn"
+            and getattr(e, "device_type", None) == cuda_t]
     busy = sum(r[1] for r in rows)
     attn = sum(r[1] for r in rows if any(
         k in r[0] for k in ("attend_kernel", "decode_tc_kernel",
                             "combine_kernel")))
+    moe = sum(e.device_time_total for e in events if e.key == "moe_ffn"
+              and getattr(e, "device_type", None) != cuda_t) / 1e3 / steps
     launches = sum(r[2] for r in rows)
     if not busy:
         print(f"{label} decode step, synced host wall: {wall:.3f} ms; the "
@@ -582,12 +624,15 @@ def profile_decode(label: str, model, params, proj, ranks, dev, paged: bool,
     print(f"{label} decode step, synced host wall: {wall:.3f} ms; device "
           f"busy {busy:.3f} ms ({len(rows)} kernel kinds, {launches} "
           f"launches); idle share {1 - busy / wall:.3f}; attention kernels "
-          f"{attn:.4f} ms ({attn / busy:.3f} of busy)")
+          f"{attn:.4f} ms ({attn / busy:.3f} of busy)"
+          + (f"; MoE FFN kernels {moe:.4f} ms ({moe / busy:.3f} of busy)"
+             if moe else ""))
     for name, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"  {ms:8.4f} ms/step  {n:5d} launches/step  {name[:80]}"
               f"  ({ms / busy:.3f} of busy)")
     return {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall,
-            "launches": launches, "attn_ms": attn, "steps": 3 + 2 * steps}
+            "launches": launches, "attn_ms": attn, "moe_ms": moe,
+            "steps": 3 + 2 * steps}
 
 
 def profile_prefill(label: str, model, params, tokens,
@@ -1867,6 +1912,218 @@ def main() -> int:
                         K7_KERNELS)
         del mparams, mmodel
 
+    # -- 3m: the MoE and MLA families ---------------------------------------
+    with phase("3m serve deepseek-v2-lite-16b (full width and depth, MLA + "
+               "MoE, dense slots) and arctic-480b (full width, 2 of 35 "
+               "layers, MoE, pages)"):
+        t_3m = time.perf_counter()
+        # (a) deepseek-v2-lite-16b: 27 layers, the first dense
+        dcfg = get_config("deepseek-v2-lite-16b")
+        dmodel = build_model(dcfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dparams = dmodel.init(gen)
+        n_dp = sum(t.numel() for _, t in tree_leaves(dparams))
+        assert n_dp == dcfg.param_count(), (n_dp, dcfg.param_count())
+        print(f"deepseek-v2-lite-16b: {n_dp} parameters "
+              f"({2 * n_dp / 1e9:.1f} GB in bf16), {dcfg.n_layers} layers, "
+              f"built in {time.perf_counter() - t0:.1f} s")
+        zero_counts()
+        t0 = time.perf_counter()
+        dcalib = calibration_batches(dcfg.vocab_size, 16, 512, batch=4)
+        init_grams, cal_step = make_calibrate_step(dmodel)
+        lora = dcfg.mla.kv_lora_rank
+        grams = init_grams(lora, lora, 1)          # the latent, Hkv 1
+        for bt in dcalib:
+            grams = cal_step(dparams, grams, bt)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dmp = accumulator_from_grams(grams).solve(
+            CompressionConfig(method="kqsvd", epsilon=0.1),
+            dmodel.group_output_weights(dparams))
+        solve_s = time.perf_counter() - t0
+        del grams
+        assert dmp.c_v.shape[-1] == dcfg.n_heads * dcfg.d_model  # 32768
+        rope = dcfg.mla.qk_rope_dim
+        latent_gain = (lora + rope) / (dmp.rank_k + dmp.rank_v + rope)
+        print(f"calibrated on {len(dcalib)} x {dcalib[0].shape} tokens: "
+              f"device Grams {dev_s:.2f} s, solve {solve_s:.2f} s; ranks "
+              f"k={dmp.ranks_k} v={dmp.ranks_v} (padded Rk={dmp.rank_k} "
+              f"Rv={dmp.rank_v}); capacity gain against the raw latent + "
+              f"rope cache ({lora} + {rope} per token): {latent_gain:.3f}x")
+        dsc = ServeConfig(max_seq_len=1024, max_batch=8, decode_chunk=8)
+        deng = ServingEngine(dcfg, dparams, dsc, projections=dmp)
+        rng = np.random.default_rng(7)
+        dlens = np.concatenate([[32, 512], rng.integers(32, 513, 14)])
+        dreqs = [Request(rid=i, prompt=rng.integers(
+            0, dcfg.vocab_size, int(n)).astype(np.int32), max_new_tokens=32)
+            for i, n in enumerate(dlens)]
+        t0 = time.perf_counter()
+        deng.generate(dreqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        d_launch = {w.__name__: w.launches for w in wrappers}
+        k6_launches["phase 3m deepseek"] = d_launch.pop("flash_attention")
+        bad = [r.rid for r in dreqs if r.failed or r.truncated or not r.done
+               or len(r.out_tokens) != 32]
+        assert not bad, f"requests not served in full: {bad}"
+        assert k6_launches["phase 3m deepseek"] == dcfg.n_layers * (
+            len(dcalib) + len(dreqs)), (k6_launches, len(dreqs))
+        assert not any(d_launch.values()), f"K1-K5 or K7 ran: {d_launch}"
+        assert not any(plain_calls.values()), plain_calls
+        assert set(deng._cache[1]) == {"cc", "ccv", "kr"}
+        serve_report("deepseek-v2-lite dense slots", deng, dreqs, wall)
+        d_peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"K6 launches {k6_launches['phase 3m deepseek']} = "
+              f"{dcfg.n_layers} x ({len(dcalib)} calibration batches + "
+              f"{len(dreqs)} prefills), at (192, 128) with H = Hkv = "
+              f"{dcfg.n_heads}; K1-K5 and the plain attention never; the "
+              f"engine's capacity_gain {deng.capacity_gain():.2f}x (the "
+              f"reference's formula); peak device memory {d_peak:.2f} GiB")
+        print(f"req 1 (prompt 512) tokens: {dreqs[1].out_tokens}")
+        # one profiled 512-token prefill: the MoE layers' dropped share
+        x = dparams["embed"][torch.as_tensor(dreqs[1].prompt[None],
+                                             device=dev).long()]
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as dprof:
+            _, _, _, paux = dmodel._run_stack(dparams, x, "prefill",
+                                              proj=deng.proj, max_len=512)
+            torch.cuda.synchronize()
+        pev = dprof.key_averages()
+        p_busy = sum(e.device_time_total for e in pev
+                     if e.key != "moe_ffn" and getattr(e, "device_type", None)
+                     == torch.autograd.DeviceType.CUDA) / 1e3
+        p_moe = sum(e.device_time_total for e in pev if e.key == "moe_ffn"
+                    and getattr(e, "device_type", None)
+                    != torch.autograd.DeviceType.CUDA) / 1e3
+        d_dropped = float(paux["dropped_frac"] / paux["n_moe"])
+        print(f"profiled prefill of 512 tokens: MoE dropped_frac "
+              f"{d_dropped:.4f} (mean of {int(paux['n_moe'])} MoE layers, "
+              f"C = {math.ceil(6 * 512 * 2 / 64)} slots an expert); device "
+              f"busy {p_busy:.3f} ms, MoE FFN kernels {p_moe:.3f} ms")
+        prof["deepseek"] = profile_decode(
+            "deepseek-v2-lite dense MLA, 8 slots at position 512", dmodel,
+            dparams, deng.proj, (dmp.rank_k, dmp.rank_v), dev, paged=False)
+        s3m = {"deepseek": {
+            "ranks": (dmp.rank_k, dmp.rank_v), "latent_gain": latent_gain,
+            "decode_ms": 1e3 * deng.decode_seconds / deng.n_decode_steps,
+            "prefill_s": deng.prefill_seconds, "peak_gib": d_peak,
+            "dropped": d_dropped}}
+        del deng, dparams, dmodel, x, dprof, paux
+        torch.cuda.empty_cache()
+
+        # (b) arctic-480b at full width, its depth cut to 2 of 35 layers
+        afull = get_config("arctic-480b")
+        acfg = dataclasses.replace(afull, n_layers=2)
+        amodel = build_model(acfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        aparams = amodel.init(gen)
+        n_ap = sum(t.numel() for _, t in tree_leaves(aparams))
+        print(f"arctic-480b cut to {acfg.n_layers} of {afull.n_layers} "
+              f"layers at full width (d_model {acfg.d_model}, 128 experts "
+              f"of {acfg.moe.expert_ff}, top 2, dense residual, 56 query "
+              f"heads padded to 64 over 8 kv heads): {acfg.param_count()} "
+              f"parameters by the config's count, {n_ap} held with the pad "
+              f"heads ({2 * n_ap / 1e9:.1f} GB in bf16; the full depth "
+              f"{afull.param_count()}), built in "
+              f"{time.perf_counter() - t0:.1f} s; device memory "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        zero_counts()
+        t0 = time.perf_counter()
+        acalib = calibration_batches(acfg.vocab_size, 16, 512, batch=4)
+        init_grams, cal_step = make_calibrate_step(amodel)
+        grams = init_grams(acfg.d_head, acfg.d_head, acfg.n_kv_heads)
+        for bt in acalib:
+            grams = cal_step(aparams, grams, bt)
+        torch.cuda.synchronize()
+        amp = accumulator_from_grams(grams).solve(
+            CompressionConfig(method="kqsvd", epsilon=0.1),
+            amodel.group_output_weights(aparams))
+        del grams
+        assert flash_attention.launches == acfg.n_layers * len(acalib)
+        k6_launches["phase 3m arctic"] = flash_attention.launches
+        print(f"calibrated on {len(acalib)} x {acalib[0].shape} tokens in "
+              f"{time.perf_counter() - t0:.1f} s (K6 "
+              f"{flash_attention.launches} = {acfg.n_layers} x "
+              f"{len(acalib)} at d_head 128, 64 padded heads); ranks "
+              f"k={amp.ranks_k} v={amp.ranks_v} (padded Rk={amp.rank_k} "
+              f"Rv={amp.rank_v})")
+        apsc = ServeConfig(max_seq_len=1024, max_batch=8, paged=True,
+                           page_size=16, n_pages=256, chunked_prefill=True,
+                           prefill_chunk=256, decode_chunk=8)
+        rng = np.random.default_rng(8)
+        alens = np.concatenate([[32, 1000], rng.integers(32, 1001, 14)])
+        aprompts = [rng.integers(0, acfg.vocab_size, int(n)).astype(np.int32)
+                    for n in alens]
+        a_launch = {}
+        for label, sc_ in (("fp", apsc),
+                           ("int8", dataclasses.replace(
+                               apsc, cache_quant="int8", decode_splits=0))):
+            aeng = ServingEngine(acfg, aparams, sc_, projections=amp)
+            areqs = [Request(rid=i, prompt=p_, max_new_tokens=32)
+                     for i, p_ in enumerate(aprompts)]
+            zero_counts()
+            t0 = time.perf_counter()
+            aeng.generate(areqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {w.__name__: w.launches for w in wrappers}
+            bad = [r.rid for r in areqs if r.failed or not r.done
+                   or len(r.out_tokens) != min(32, 1024 - len(r.prompt) + 1)]
+            assert not bad, f"{label}: requests not served in full: {bad}"
+            assert aeng.pool.free_count == aeng.pool.n_pages, label
+            L = acfg.n_layers
+            steps_, chunks_ = aeng.n_decode_steps, aeng.n_prefill_chunks
+            if label == "fp":
+                assert got["kq_decode_paged_attention"] == L * steps_, got
+                assert got["kq_prefill_paged_attention"] == L * chunks_, got
+                assert sum(got.values()) == L * (steps_ + chunks_), got
+                assert not any(plain_calls.values()), plain_calls
+            else:
+                k5 = (got["kq_decode_paged_int8"]
+                      + got["kq_decode_paged_int8_split"])
+                assert k5 == L * steps_, got
+                assert got["kq_decode_paged_int8_split"] > 0, got
+                assert k5 == sum(got.values()), got
+                assert plain_calls["kq_decode_paged_attention_int8_ref"] \
+                    == plain_calls["kq_decode_paged_partials_ref"] == 0, \
+                    plain_calls
+            a_launch[label] = dict(got, steps=steps_, chunks=chunks_)
+            serve_report(f"arctic paged {label}", aeng, areqs, wall)
+            print(f"  launches {({k: v for k, v in got.items() if v})} over "
+                  f"{steps_} decode steps and {chunks_} chunks of "
+                  f"{L} layers; pool {aeng.pool.n_pages} pages, peak "
+                  f"{aeng.peak_used_pages}, whole after the drain; peak "
+                  f"device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            s3m[f"arctic {label}"] = {
+                "decode_ms": 1e3 * aeng.decode_seconds / steps_,
+                "prefill_s": aeng.prefill_seconds,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            if label == "fp":
+                aproj = aeng.proj
+            del aeng
+        prof["arctic"] = profile_decode(
+            "arctic paged fp, 8 slots at position 512", amodel, aparams,
+            aproj, (amp.rank_k, amp.rank_v), dev, paged=True)
+        s3m["arctic"] = {"ranks": (amp.rank_k, amp.rank_v),
+                         "lengths": [min(int(n) + 31, 1024)
+                                     for n in alens[:8]],
+                         "launches": a_launch}
+        del aparams, amodel, aproj
+        torch.cuda.empty_cache()
+        print(f"phase 3m: {time.perf_counter() - t_3m:.1f} s; " + "; ".join(
+            f"{k}: decode {d['decode_ms']:.2f} ms/step, prefill "
+            f"{d['prefill_s']:.3f} s, peak {d['peak_gib']:.2f} GiB"
+            for k, d in s3m.items() if "decode_ms" in d))
+
     # -- 4: each kernel against its plain version ------------------------
     with phase("4 kernels against their plain versions"):
         H, Hkv, m = cfg.n_heads, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
@@ -1915,10 +2172,12 @@ def main() -> int:
         # its prefill shapes, each on random pools of its row's shape
         ps, n_pages = 16, T // 16
 
-        def measure_k1(row, label, H_, Hkv_, rk_, rv_, el):
+        def measure_k1(row, label, H_, Hkv_, rk_, rv_, el, scale_=None):
             """K1 for slots of lengths ``el`` against its plain version,
-            timed beside SDPA, in both types."""
+            timed beside SDPA, in both types (``scale_``: the model's
+            softmax scale, tinyllama's by default)."""
             B_, m_ = len(el), H_ // Hkv_
+            sc_ = scale if scale_ is None else scale_
             live_, used = int(el.sum()), int(((el + ps - 1) // ps).sum())
             emask = (torch.arange(T, device=dev)[None, :]
                      < el[:, None])[:, None, None, :]
@@ -1931,20 +2190,22 @@ def main() -> int:
                 isz = qc.element_size()
                 measure(row, label, dt_name,
                         lambda: kq_decode_paged_attention(qc, kp, vp, el,
-                                                          btab, scale=scale),
+                                                          btab, scale=sc_),
                         lambda: kq_decode_paged_attention_ref(
-                            qc, kp, vp, el, btab, scale=scale),
+                            qc, kp, vp, el, btab, scale=sc_),
                         lambda: sdpa(qc[:, :, None], kx, vx, attn_mask=emask,
-                                     scale=scale)[:, :, 0],
+                                     scale=sc_)[:, :, 0],
                         flush,
                         live_ * Hkv_ * (rk_ + rv_) * isz
                         + B_ * H_ * (rk_ + rv_) * isz + B_ * 4 + used * 4,
                         2 * live_ * H_ * (rk_ + rv_))
 
-        def measure_k2(row, label, H_, Hkv_, rk_, rv_):
+        def measure_k2(row, label, H_, Hkv_, rk_, rv_, scale_=None):
             """K2 for one chunk at ``row``'s (S, pos0, n_valid) against its
-            plain version, timed beside SDPA, in both types."""
+            plain version, timed beside SDPA, in both types (``scale_`` as
+            in ``measure_k1``)."""
             m_ = H_ // Hkv_
+            sc_ = scale if scale_ is None else scale_
             S, pos0_v = row["shape"]["S"], row["shape"]["pos0"]
             n_valid = row["shape"]["n_valid"]
             plen = torch.tensor([pos0_v + n_valid], dtype=torch.int32,
@@ -1965,11 +2226,11 @@ def main() -> int:
                 measure(row, f"{label} pos0={pos0_v} n_valid={n_valid}",
                         dt_name,
                         lambda: kq_prefill_paged_attention(
-                            qc, kp, vp, plen, pos0, btab, scale=scale),
+                            qc, kp, vp, plen, pos0, btab, scale=sc_),
                         lambda: kq_prefill_paged_attention_ref(
-                            qc, kp, vp, plen, pos0, btab, scale=scale),
+                            qc, kp, vp, plen, pos0, btab, scale=sc_),
                         lambda: sdpa(qc, kx, vx, attn_mask=cmask,
-                                     scale=scale),
+                                     scale=sc_),
                         flush,
                         int(plen) * Hkv_ * (rk_ + rv_) * isz
                         + H_ * S * (rk_ + rv_) * isz + 8
@@ -2031,6 +2292,71 @@ def main() -> int:
                    shape=dict(s_shape, B=1, S=256, pos0=768, n_valid=232))
         measure_k2(k2s, "K2 smollm-360m m=3", sH, sHkv, s3l["Rk"],
                    s3l["Rv"])
+
+        # K1, K5 and K2 at phase 3m's arctic-480b shapes: 56 query heads
+        # padded to 64 over 8 kv heads (m 8, the int8 pages' group limit),
+        # d_head 128 (scale 1/sqrt(128)), the ranks its KQ-SVD solved, its
+        # first 8 requests' lengths at their last decode step, pages of 16;
+        # K2 at the last chunk of its 1000-token prompt
+        a3m = s3m["arctic"]
+        aH, aHkv, arc_scale = 64, 8, 128 ** -0.5
+        (ark, arv), alens_ = a3m["ranks"], a3m["lengths"]
+        a_shape = {"H": aH, "Hkv": aHkv, "page_size": ps,
+                   "n_pages": n_pages, "Rk": ark, "Rv": arv}
+        ael = torch.tensor(alens_, dtype=torch.int32, device=dev)
+        k1a = {"name": "kq_decode_paged (K1), arctic-480b m = 8",
+               "route": "cuda", "source": k1["source"],
+               "replaces": k1["replaces"],
+               "launches": a3m["launches"]["fp"]["kq_decode_paged_attention"],
+               "launches_from": "phase 3m (arctic, fp pages)",
+               "cluster_size": cluster(ps * n_pages),
+               "shape": dict(a_shape, B=8, lengths=alens_)}
+        measure_k1(k1a, "K1 arctic m=8", aH, aHkv, ark, arv, ael, arc_scale)
+        k2a = dict(k2_src, name="kq_prefill_paged (K2), arctic-480b m = 8",
+                   launches=a3m["launches"]["fp"][
+                       "kq_prefill_paged_attention"],
+                   launches_from="phase 3m (arctic, fp pages)",
+                   shape=dict(a_shape, B=1, S=256, pos0=768, n_valid=232))
+        measure_k2(k2a, "K2 arctic m=8", aH, aHkv, ark, arv, arc_scale)
+        k5a = {"name": "kq_decode_paged_int8 (K5), arctic-480b m = 8",
+               "route": "cuda", "source": k1["source"],
+               "replaces": "src/repro/kernels/kq_decode/paged.py:63 "
+                           "(quant=True)",
+               "launches": a3m["launches"]["int8"]["kq_decode_paged_int8"],
+               "launches_split": a3m["launches"]["int8"][
+                   "kq_decode_paged_int8_split"],
+               "launches_from": "phase 3m (arctic, int8 pages, dynamic "
+                                "splits: K5 and K5 split)",
+               "cluster_size": cluster(ps * n_pages),
+               "shape": dict(a_shape, B=8, lengths=alens_)}
+        a_live = int(ael.sum())
+        a_used = int(((ael + ps - 1) // ps).sum())
+        a_mask = (torch.arange(T, device=dev)[None, :]
+                  < ael[:, None])[:, None, None, :]
+        for dt_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dt_name)
+            qc, kp, vp, btab = paged_inputs(g, dev, dt, 8, aH, aHkv, ps,
+                                            n_pages, ark, arv)
+            k8, v8, ks8, vs8 = int8_pools(kp.float(), vp.float())
+            kdx = (gather_pages(k8, btab).float()
+                   * gather_pages(ks8, btab).float()).to(dt) \
+                .repeat_interleave(aH // aHkv, dim=1)
+            vdx = (gather_pages(v8, btab).float()
+                   * gather_pages(vs8, btab).float()).to(dt) \
+                .repeat_interleave(aH // aHkv, dim=1)
+            isz = qc.element_size()
+            measure(k5a, "K5 arctic m=8", dt_name,
+                    lambda: kq_decode_paged_int8(
+                        qc, k8, v8, ks8, vs8, ael, btab, scale=arc_scale),
+                    lambda: plain_decode(qc, k8, v8, ael, btab, arc_scale, 1,
+                                         ks8, vs8),
+                    lambda: sdpa(qc[:, :, None], kdx, vdx, attn_mask=a_mask,
+                                 scale=arc_scale)[:, :, 0],
+                    flush,
+                    a_live * aHkv * (ark + arv + 2 * 2)
+                    + 8 * aH * (ark + arv) * isz + 8 * 4 + a_used * 4,
+                    2 * a_live * aH * (ark + arv))
+            del qc, kp, vp, btab, k8, v8, ks8, vs8, kdx, vdx
 
         # K4, K5 (unsplit and split) and the split merge at the paged
         # main path's decode shapes (pages of 16), 8 splits of 8 pages.
@@ -2419,6 +2745,32 @@ def main() -> int:
                           f"{bound:.6f} ms (operations: {flops} flops); "
                           f"max |kernel - library| {lib_err:.3g}")
                     del q, k, v, mask
+        # K6 at deepseek-v2-lite's calibration batch: MLA's materialised
+        # heads, q/k of width 192 (nope 128 + rope 64) and v of 128, H =
+        # Hkv = 16, causal, scale 1/sqrt(192).  Bound: 2 (dh + dv) flops
+        # per causal (query, key) pair per head, against q, k, v and out
+        # moved once.
+        k6m = dict(k6_src, name="flash (K6), deepseek-v2-lite-16b (MLA) "
+                                "calibration batch",
+                   launches=k6_launches["phase 3m deepseek"],
+                   launches_from="phase 3m (deepseek-v2-lite: 27 x (4 "
+                                 "calibration batches + 16 prefills))",
+                   shape={"B": 4, "H": 16, "Hkv": 16, "S": 512, "dh": 192,
+                          "dv": 128, "window": 0})
+        for dt_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dt_name)
+            isz = torch.finfo(dt).bits // 8
+            q, k = (torch.randn(4, 16, 512, 192, generator=g, device=dev)
+                    .to(dt) for _ in range(2))
+            v = torch.randn(4, 16, 512, 128, generator=g, device=dev).to(dt)
+            mscale = 192 ** -0.5
+            measure(k6m, "K6 MLA (192, 128) S=512", dt_name,
+                    lambda: flash_attention(q, k, v, scale=mscale),
+                    lambda: flash_attention_ref(q, k, v, scale=mscale),
+                    lambda: sdpa(q, k, v, is_causal=True, scale=mscale),
+                    flush, 4 * 16 * 512 * (2 * 192 + 2 * 128) * isz,
+                    2 * (192 + 128) * band_pairs(512, 0) * 4 * 16)
+            del q, k, v
         # K6 edge cases: sequence lengths around a tile, every window
         # edge, groups m (3: rows that do not tile a block in whole
         # positions) and every (d_head, d_v) pair the kernel takes
@@ -2611,12 +2963,13 @@ def main() -> int:
               f"255, 257, 4097; jamba's head at S 300 and 333 (chunk "
               f"100); G 2 of 4 heads; chunks of 1 and 17; S 0; h0 zero "
               f"and random; y in x's type and float32)")
-        kernels = [k1, k1s, k2, k2f, k2t, k2s, k3, k4, k5, k5s, kcomb, k6c,
-                   k6w, k6l, k6t, k7]
+        kernels = [k1, k1s, k1a, k2, k2f, k2t, k2s, k2a, k3, k4, k5, k5a,
+                   k5s, kcomb, k6c, k6w, k6l, k6t, k6m, k7]
 
     # -- 5: the port on the card against the port on the CPU ---------------
     with phase("5 card against CPU, reduced tinyllama-1.1b, "
-               "h2o-danube-1.8b and mamba2-2.7b, float32"):
+               "h2o-danube-1.8b, mamba2-2.7b, smollm-360m, "
+               "deepseek-v2-lite-16b and arctic-480b, float32"):
         rcfg = get_config("tinyllama-1.1b").reduced()
         cpu_model = build_model(rcfg, "cpu")
         gpu_model = build_model(rcfg, dev)
@@ -2985,6 +3338,115 @@ def main() -> int:
         print(f"smollm-360m (reduced, tied embeddings): {len(sprompts_r)} "
               f"requests' greedy tokens identical on card and CPU in the "
               f"dense and the paged chunked KQ-SVD engines")
+
+        # the MoE and MLA families, reduced, float32: deepseek-v2-lite on
+        # dense slots (the latent full and KQ-SVD), arctic on fp pages and
+        # on int8 pages with dynamic splits, each card = CPU token for token
+        mprompts_r = [np.random.default_rng(50 + i).integers(
+            0, 256, L).astype(np.int32) for i, L in enumerate((5, 17, 30, 9,
+                                                              22))]
+        fam = {}
+        for arch, kinds in (("deepseek-v2-lite-16b",
+                             (("dense full", {}, False),
+                              ("dense KQ-SVD", {}, True))),
+                            ("arctic-480b",
+                             (("fp pages", chunked, True),
+                              ("int8 pages, dynamic splits", dict(
+                                  chunked, cache_quant="int8",
+                                  decode_splits=0), True)))):
+            fcfg = get_config(arch).reduced()
+            fcpu, fgpu = build_model(fcfg, "cpu"), build_model(fcfg, dev)
+            fp_cpu = fcpu.init(torch.Generator().manual_seed(0))
+            fp_gpu = tree_to(fp_cpu, dev)
+            fmp = calibrate_model(
+                fcpu, fp_cpu,
+                calibration_batches(fcfg.vocab_size, 8, 32, batch=4),
+                CompressionConfig(method="kqsvd", epsilon=0.1))
+            for kind, kw, comp in kinds:
+                out = []
+                for m_, p_ in ((fcpu, fp_cpu), (fgpu, fp_gpu)):
+                    zero_counts()
+                    e = ServingEngine(fcfg, p_, ServeConfig(
+                        max_seq_len=64, max_batch=3, decode_chunk=4, **kw),
+                        projections=fmp if comp else None,
+                        device=m_.device)
+                    rs = [Request(rid=i, prompt=p, max_new_tokens=8)
+                          for i, p in enumerate(mprompts_r)]
+                    e.generate(rs)
+                    assert all(r.done and len(r.out_tokens) == 8 for r in rs)
+                    if e.pool is not None:
+                        assert e.pool.free_count == e.pool.n_pages
+                    out.append([r.out_tokens for r in rs])
+                assert out[0] == out[1], (arch, kind, out)
+                fam[f"{arch} {kind}"] = sum(len(t) for t in out[1])
+            if arch == "deepseek-v2-lite-16b":
+                # one float32 train step (MLA under K6 and its plain
+                # backward, the MoE router's aux losses in the loss):
+                # loss and gradients card = CPU
+                ttc = TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                                  total_steps=10, checkpoint_every=0)
+                tb = {k: np.random.default_rng(9).integers(
+                    0, fcfg.vocab_size, (2, 32)).astype(np.int32)
+                    for k in ("tokens", "labels")}
+                mets, grads = [], []
+                for m_, p_ in ((fcpu, fp_cpu), (fgpu, fp_gpu)):
+                    met, g_ = value_and_grad(make_loss_fn(m_, ttc), p_, tb)
+                    mets.append({k: float(v) for k, v in met.items()})
+                    grads.append(tree_to(g_, "cpu"))
+                for k in ("loss", "moe_lb", "moe_rz", "moe_dropped"):
+                    np.testing.assert_allclose(mets[1][k], mets[0][k],
+                                               rtol=1e-5, atol=1e-6)
+                mg_worst = 0.0
+                for (path, a_), (_, b_) in zip(tree_leaves(grads[1]),
+                                               tree_leaves(grads[0])):
+                    sc_ = float(b_.abs().max())
+                    err = float((a_ - b_).abs().max())
+                    assert err <= 1e-4 * sc_, (path, err, sc_)
+                    mg_worst = max(mg_worst, err / max(sc_, 1e-30))
+            del fcpu, fgpu, fp_cpu, fp_gpu
+        print(f"reduced deepseek-v2-lite (dense slots, full and KQ-SVD) and "
+              f"arctic (fp pages, int8 pages with dynamic splits): greedy "
+              f"tokens identical on card and CPU ({fam}); a float32 "
+              f"deepseek-v2-lite train step: loss and MoE aux losses within "
+              f"1e-5, gradients within {mg_worst:.3g} of each leaf's "
+              f"max-abs (tol 1e-4)")
+
+        # at the full configs' expert counts and top-k, narrow widths:
+        # moe_ffn's keep mask and outputs in decode mode (8 slots, two of
+        # them dead) on the card equal the CPU's, where capacity binds
+        from repro_torch.config import MoEConfig
+        from repro_torch.models import moe as moe_mod
+        for label, mo in (("deepseek-v2-lite E 64 top 6", MoEConfig(
+                n_experts=64, top_k=6, expert_ff=32, n_shared_experts=2)),
+                          ("arctic E 128 top 2", MoEConfig(
+                              n_experts=128, top_k=2, expert_ff=32,
+                              dense_residual=True, dense_residual_ff=32))):
+            mp_cpu = moe_mod.init_moe(torch.Generator().manual_seed(3), 64,
+                                      mo, torch.float32, "cpu")
+            mp_gpu = tree_to(mp_cpu, dev)
+            g5 = torch.Generator().manual_seed(4)
+            xm = (torch.randn(64, generator=g5)
+                  + 0.3 * torch.randn(8, 1, 64, generator=g5))
+            live = torch.ones(8, 1, dtype=torch.bool)
+            live[[2, 5]] = False
+            res = []
+            for p_, dv_ in ((mp_cpu, "cpu"), (mp_gpu, dev)):
+                x_ = xm.to(dv_)
+                y_, aux_ = moe_mod.moe_ffn(p_, x_, mo, "decode",
+                                           token_mask=live.to(dv_))
+                keep_ = moe_mod.route(p_, x_, mo, "decode",
+                                      token_mask=live.to(dv_))["keep"]
+                res.append((y_.cpu(), keep_.cpu(),
+                            float(aux_["dropped_frac"])))
+            (yc, kc, dc), (yg, kg, dg) = res
+            assert torch.equal(kc, kg), f"{label}: keep masks differ"
+            np.testing.assert_allclose(yg.numpy(), yc.numpy(), rtol=1e-5,
+                                       atol=1e-5)
+            assert dc == dg and dc > 0, (label, dc, dg)
+            print(f"moe_ffn {label}, decode, 8 slots (2 dead): C = "
+                  f"{moe_mod._capacity(8, mo, 'decode')}, dropped_frac "
+                  f"{dg:.4f}; keep masks equal on card and CPU, outputs "
+                  f"within {float((yg - yc).abs().max()):.3g} (tol 1e-5)")
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -10,7 +10,8 @@ Reference layout (``repro/models/model.py:76-106``): ``embed``,
 ``final_norm``, optional ``lm_head``, a ``prefix`` list of unrolled
 layers and ``steps = {"layers": (layer, ...)}`` whose leaves are stacked
 on a leading step axis.  Port layout (``repro_torch.models.model``): the
-same top-level tensors and ``layers``, a list with one dict per layer.
+same top-level tensors and ``layers``, a list with one dict per layer,
+the prefix layers first.
 ``opt_state_from_jax`` brings the reference's AdamW and Adafactor states
 across the same way, so a train step can start from one state in both
 packages.
@@ -43,23 +44,28 @@ def _tree(node, fn):
     return fn(node)
 
 
-def params_from_jax(jparams: Dict[str, Any], device="cpu") -> Dict[str, Any]:
-    """The reference's ``LM.init`` pytree (as numpy) -> the port's params.
-
-    Only dense stacks: no unrolled prefix, one layer per scan step."""
-    if jparams.get("prefix"):
-        raise NotImplementedError("unrolled prefix layers belong to "
-                                  "non-dense families, not ported yet")
+def _layers(jparams: Dict[str, Any], device) -> list:
+    """The reference's ``prefix`` layers, then its stacked ``steps``
+    unstacked, one layer dict each, in layer order."""
     step_layers = jparams["steps"]["layers"]
     if len(step_layers) != 1:
         raise NotImplementedError("multi-layer scan steps (hybrid stacks) "
                                   "are not ported yet")
     stacked = step_layers[0]
     n = np.asarray(stacked["ln1"]).shape[0]
+    prefix = [_tree(layer, lambda a: to_tensor(a, device))
+              for layer in jparams.get("prefix") or []]
+    return prefix + [_tree(stacked, lambda a, i=i: to_tensor(
+        np.asarray(a)[i], device)) for i in range(n)]
+
+
+def params_from_jax(jparams: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """The reference's ``LM.init`` pytree (as numpy) -> the port's params:
+    the unrolled ``prefix`` layers (DeepSeek-V2's dense first layer) come
+    first in ``layers``, then the scan steps, one layer each."""
     out = {k: to_tensor(jparams[k], device)
            for k in ("embed", "final_norm", "lm_head") if k in jparams}
-    out["layers"] = [_tree(stacked, lambda a, i=i: to_tensor(
-        np.asarray(a)[i], device)) for i in range(n)]
+    out["layers"] = _layers(jparams, device)
     return out
 
 
@@ -83,16 +89,21 @@ def opt_state_from_jax(jstate: Dict[str, Any], device="cpu"
     unstack as ``params_from_jax`` does.  Adafactor ``{"slots", "step"}``:
     the port keeps the reference's stacked layout
     (``repro_torch.optim.adafactor``), so the slots of ``steps/layers/0``
-    become ``slots["layers"]`` as they are, stacked."""
+    become ``slots["layers"]`` as they are, stacked, and the unrolled
+    prefix layers' slots ``slots["prefix"]``, one dict a layer."""
     step = torch.tensor(int(np.asarray(jstate["step"])), dtype=torch.int32)
     if "slots" not in jstate:
         return {"m": params_from_jax(jstate["m"], device),
                 "v": params_from_jax(jstate["v"], device), "step": step}
     slots = jstate["slots"]
-    if slots.get("prefix") or len(slots["steps"]["layers"]) != 1:
-        raise NotImplementedError("only dense stacks, one layer per step")
+    if len(slots["steps"]["layers"]) != 1:
+        raise NotImplementedError("multi-layer scan steps (hybrid stacks) "
+                                  "are not ported yet")
     out = {k: _tree(slots[k], lambda a: to_tensor(a, device))
            for k in ("embed", "final_norm", "lm_head") if k in slots}
+    if slots.get("prefix"):
+        out["prefix"] = [_tree(layer, lambda a: to_tensor(a, device))
+                         for layer in slots["prefix"]]
     out["layers"] = _tree(slots["steps"]["layers"][0],
                           lambda a: to_tensor(a, device))
     return {"slots": out, "step": step}

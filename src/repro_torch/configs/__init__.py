@@ -2,10 +2,12 @@
 
 Each module defines ``config() -> ModelConfig`` with the same numbers as
 the reference's module of the same name.  The port carries the
-dense-family configs, h2o-danube-1.8b's sliding window included, and
-the SSM family's mamba2-2.7b; the other families come with their slices
-(ROADMAP.md queue 1, models off the main path).  deepseek-67b (about
-134 GB in bf16) runs reduced only on one card.
+dense-family configs, h2o-danube-1.8b's sliding window included, the
+SSM family's mamba2-2.7b, the MLA + MoE family's deepseek-v2-lite-16b
+and the MoE family's arctic-480b; the hybrid, audio and VLM families
+come with their slices (ROADMAP.md queue 1, models off the main path).
+deepseek-67b (about 134 GB in bf16) runs reduced only on one card, and
+arctic-480b (about 960 GB) at full width with its depth cut.
 """
 from __future__ import annotations
 
@@ -26,6 +28,12 @@ _ARCH_MODULES = {
     "deepseek-67b": "deepseek_67b",
     # attention-free SSM (Mamba-2 SSD): K7 under every prefill
     "mamba2-2.7b": "mamba2_2_7b",
+    # MLA (latent cache, absorbed decode) + MoE with shared experts and a
+    # dense first layer: K6 at (192, 128)
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    # 128 experts top-2 beside a dense residual FFN; 56 query heads
+    # padded to 64 (m 8): K1, K2, K5 on pages
+    "arctic-480b": "arctic_480b",
 }
 
 _cache: Dict[str, ModelConfig] = {}

@@ -10,9 +10,12 @@
 The flags are the reference CLI's (``python -m repro.launch.serve``).
 ``--arch`` takes tinyllama-1.1b, paper-llama2-7b, h2o-danube-1.8b
 (sliding window: a ring cache on dense slots; its paged store is refused,
-as in the reference) and mamba2-2.7b (attention-free: no calibration,
+as in the reference), mamba2-2.7b (attention-free: no calibration,
 whatever ``--method`` says, as in the reference; SSM state on dense
-slots, K7 under every prefill).  The port serves the dense-slot cache
+slots, K7 under every prefill), deepseek-v2-lite-16b (MLA and MoE: the
+latent cache, compressed by KQ-SVD, on dense slots; its paged store is
+refused, as in the reference) and arctic-480b (MoE beside a dense
+residual FFN, served on dense slots or pages).  The port serves the dense-slot cache
 and the paged store (``--paged``, ``--page-size``, ``--n-pages``), with
 exact-length or chunked prefill (``--prefill-chunk``, which turns on
 paging, and ``--prefill-buckets``), quantized pages (``--cache-quant``)

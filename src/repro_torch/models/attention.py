@@ -81,13 +81,16 @@ def batched_positions(pos, batch: int, device) -> torch.Tensor:
 
 
 def scatter_time(cache: torch.Tensor, val: torch.Tensor,
-                 slot: torch.Tensor) -> torch.Tensor:
+                 slot: torch.Tensor, axis: int = 1) -> torch.Tensor:
     """Write one time slot per sequence, in place.
 
-    cache: (B, Hkv, T, R) (or (B, Hkv, T), a scale plane); val: the same
-    with T = 1; slot: (B,) destination index of each sequence."""
+    cache: (B, ...); val: the same with the time axis of size 1; slot:
+    (B,) destination index of each sequence; ``axis`` is the time axis
+    within a batch element: 1 for (B, Hkv, T, R) caches (and (B, Hkv, T)
+    scale planes), 0 for MLA's (B, T, R)."""
     rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, :, slot] = val[:, :, 0].to(cache.dtype)
+    index = (rows,) + (slice(None),) * axis + (slot,)
+    cache[index] = val.select(axis + 1, 0).to(cache.dtype)
     return cache
 
 

@@ -1,75 +1,121 @@
-"""Decoder blocks of the dense and SSM families, pre-norm.
+"""Decoder blocks of the dense, SSM, MoE and MLA families, pre-norm.
 
-Torch counterpart of ``repro.models.blocks`` for ``family="dense"``
-stacks (attention + SwiGLU) and ``family="ssm"`` stacks (Mamba-2 SSD, no
-FFN when ``d_ff == 0``).  The reference groups layers into ``lax.scan``
-steps; the port runs a Python loop over a list of per-layer parameter
-dicts, so every step is one layer and there is no unrolled prefix.
+Torch counterpart of ``repro.models.blocks``: a mixer (attention, MLA or
+a Mamba-2 SSD layer) and an FFN (SwiGLU, or a mixture of experts), each
+behind its RMSNorm.  The reference groups layers into ``lax.scan`` steps
+behind an unrolled prefix of heterogeneous leading layers (DeepSeek-V2's
+dense first layer); the port runs a Python loop over a list of per-layer
+parameter dicts, the prefix layers first, so every step is one layer.
 
-Layer dict: ``{"ln1", "attn": {wq, wk, wv, wo} | "ssm": {in_proj, conv,
-a_log, dt_bias, d_skip, norm, out_proj}[, "ln2", "ffn": {wi, wg, wo}]}``.
+Layer dict: ``{"ln1", "attn": {wq, wk, wv, wo} | MLA {wq, wd, wuk, wuv,
+wo} | "ssm": {in_proj, conv, a_log, dt_bias, d_skip, norm, out_proj}[,
+"ln2", "ffn": {wi, wg, wo} | MoE {router, wi_e, wg_e, wo_e[, shared][,
+residual]}]}``.  The FFN is absent when ``d_ff == 0`` and the layer is
+not MoE (pure Mamba-2).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import init_rms, init_swiglu, rms_norm, swiglu
+from repro_torch.models.moe import init_moe, moe_ffn
 
 
 def step_layout(cfg: ModelConfig) -> Tuple[List[int], List[List[int]]]:
-    """(prefix_layer_ids, steps): no prefix and one layer per step for the
-    families this slice of the port runs, dense attention + SwiGLU and
-    pure SSM."""
-    ported = (cfg.moe is None and cfg.mla is None and cfg.hybrid is None
-              and not cfg.inputs_embeds
-              and (cfg.family == "dense" and cfg.ssm is None and cfg.d_ff > 0
-                   or cfg.family == "ssm" and cfg.ssm is not None))
-    if not ported:
+    """(prefix_layer_ids, steps): the ``first_k_dense`` layers of a MoE
+    stack form the unrolled prefix, as in the reference, and every other
+    layer is a step of its own.  Hybrid stacks (multi-layer steps) and
+    the audio and VLM stubs (``inputs_embeds``) are not ported yet and
+    raise."""
+    if (cfg.hybrid is not None or cfg.inputs_embeds
+            or cfg.family in ("hybrid", "audio", "vlm")):
         raise NotImplementedError(
-            f"{cfg.name}: only plain dense attention + SwiGLU stacks and "
-            f"pure SSM stacks are ported so far (family {cfg.family!r}; "
-            f"ROADMAP.md queue 1, models off the main path)")
-    return [], [[i] for i in range(cfg.n_layers)]
+            f"{cfg.name}: hybrid stacks and the audio / VLM stubs are not "
+            f"ported yet (family {cfg.family!r}; ROADMAP.md queue 1, item "
+            f"5, models off the main path)")
+    prefix = []
+    if cfg.moe is not None and cfg.moe.first_k_dense:
+        prefix = list(range(cfg.moe.first_k_dense))
+    return prefix, [[i] for i in range(cfg.n_layers) if i not in prefix]
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, layer_idx: int,
                dtype, device) -> Dict:
-    """Init one layer's params for its kind: attention or SSM with its
-    norm, and SwiGLU with its norm when ``d_ff`` > 0."""
-    p = {"ln1": init_rms(cfg.d_model, dtype, device)}
-    if cfg.layer_kinds()[layer_idx] == "ssm":
+    """Init one layer's params for its kind: attention, MLA or SSM with
+    its norm, then a MoE FFN or a SwiGLU (``first_dense_ff`` wide in a
+    MoE stack's leading dense layers) with its norm, unless the layer has
+    no FFN."""
+    kind = cfg.layer_kinds()[layer_idx]
+    fk = cfg.ffn_kind(layer_idx)
+    p: Dict[str, Any] = {"ln1": init_rms(cfg.d_model, dtype, device)}
+    if kind == "ssm":
         p["ssm"] = ssm_mod.init_ssm(gen, cfg.d_model, cfg.ssm, dtype, device)
+    elif kind == "mla":
+        p["attn"] = mla_mod.init_mla(gen, cfg, dtype, device)
     else:
         p["attn"] = attn_mod.init_attention(gen, cfg, dtype, device)
-    if cfg.d_ff > 0:
+    if fk == "moe" or cfg.d_ff > 0:
         p["ln2"] = init_rms(cfg.d_model, dtype, device)
-        p["ffn"] = init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype, device)
+        if fk == "moe":
+            p["ffn"] = init_moe(gen, cfg.d_model, cfg.moe, dtype, device)
+        else:
+            ff = cfg.d_ff
+            if cfg.moe is not None and layer_idx < cfg.moe.first_k_dense:
+                ff = cfg.moe.first_dense_ff or cfg.d_ff
+            p["ffn"] = init_swiglu(gen, cfg.d_model, ff, dtype, device)
     return p
+
+
+def _ffn_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig, layer_idx: int,
+               mode: str, token_mask: Optional[torch.Tensor] = None):
+    """Post-mixer FFN with its residual: ``(x, aux)``, aux the MoE
+    router's statistics (empty for a SwiGLU or no FFN).  ``token_mask``
+    (decode and chunk modes only) as ``apply_layer`` takes it."""
+    if "ffn" not in p:
+        return x, {}
+    h = rms_norm(x, p["ln2"], cfg.rms_eps)
+    if cfg.ffn_kind(layer_idx) != "moe":
+        return x + swiglu(p["ffn"], h), {}
+    if token_mask is not None and token_mask.ndim == 1:
+        # the count form of a budget-truncated chunk: MoE routing takes
+        # the expanded per-token prefix mask
+        token_mask = (torch.arange(x.shape[1], device=x.device)[None, :]
+                      < token_mask[:, None])
+    y, aux = moe_ffn(p["ffn"], h, cfg.moe, mode, token_mask=token_mask)
+    return x + y, aux
 
 
 def apply_layer(p: Dict, x: torch.Tensor, cfg: ModelConfig, layer_idx: int,
                 mode: str, cache: Optional[Dict] = None, pos=None,
                 proj: Optional[Dict] = None, max_len: int = 0,
                 block_table: Optional[torch.Tensor] = None,
-                valid: Optional[torch.Tensor] = None, num_splits: int = 1):
-    """Returns ``(x, new_cache, captures)``.
+                token_mask: Optional[torch.Tensor] = None,
+                num_splits: int = 1):
+    """Returns ``(x, new_cache, captures, aux)``.
 
     ``mode``: ``train`` (full-sequence causal attention with gradients:
     K6 under autograd; an SSM layer's forward with K7 under autograd),
-    ``calibrate`` (captures q/k/v), ``prefill`` (builds a
-    ``max_len`` cache), ``decode`` (one token per sequence at ``pos``,
-    written into ``cache`` in place) or ``chunk`` (a prefill chunk
-    starting at ``pos``, ``valid`` marking its real tokens, written into
-    the paged ``cache`` in place).  ``block_table`` (B, n_pages) selects
-    the paged cache in ``decode`` and is required in ``chunk``.  An SSM
-    layer runs ``ssm_forward`` in ``prefill`` (returning its state) and
-    ``calibrate`` (capturing nothing), and ``ssm_decode`` in ``decode``
-    (its state updated in place); it has no paged cache and no chunks."""
+    ``calibrate`` (captures q/k/v; MLA's latent as k/v), ``prefill``
+    (builds a ``max_len`` cache), ``decode`` (one token per sequence at
+    ``pos``, written into ``cache`` in place) or ``chunk`` (a prefill
+    chunk starting at ``pos``, written into the paged ``cache`` in
+    place).  ``token_mask`` marks live tokens: in ``decode`` the (B, 1)
+    live slots, in ``chunk`` the chunk's real tokens, (B, S) bool or a
+    (B,) count of them (a budget-truncated chunk), which the attention
+    takes as it is and MoE routing as the expanded prefix mask, so dead
+    slots and padding take no expert capacity.  ``block_table`` (B,
+    n_pages) selects the paged cache in ``decode`` and is required in
+    ``chunk``; both belong to attention layers only, as in the reference.
+    An SSM layer runs ``ssm_forward`` in ``prefill`` (returning its state)
+    and ``calibrate`` (capturing nothing), and ``ssm_decode`` in
+    ``decode`` (its state updated in place).  ``aux`` holds a MoE layer's
+    router statistics, else nothing."""
     kind = cfg.layer_kinds()[layer_idx]
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
     new_cache = captures = None
@@ -87,6 +133,17 @@ def apply_layer(p: Dict, x: torch.Tensor, cfg: ModelConfig, layer_idx: int,
                                                return_state=True)
         else:
             y, new_cache = ssm_mod.ssm_decode(p["ssm"], h, cache, cfg.ssm)
+    elif kind == "mla":
+        if mode == "train":
+            y = mla_mod.mla_train(p["attn"], h, cfg)
+        elif mode == "calibrate":
+            y, captures = mla_mod.mla_calibrate(p["attn"], h, cfg)
+        elif mode == "prefill":
+            y, new_cache = mla_mod.mla_prefill(p["attn"], h, cfg, max_len,
+                                               proj)
+        else:
+            y, new_cache = mla_mod.mla_decode(p["attn"], h, cache, pos, cfg,
+                                              proj)
     elif mode == "train":
         y = attn_mod.attn_train(p["attn"], h, cfg)
     elif mode == "calibrate":
@@ -99,8 +156,25 @@ def apply_layer(p: Dict, x: torch.Tensor, cfg: ModelConfig, layer_idx: int,
                                             proj, block_table, num_splits)
     else:
         y, new_cache = attn_mod.attn_prefill_chunk(
-            p["attn"], h, cache, pos, cfg, proj, block_table, valid)
+            p["attn"], h, cache, pos, cfg, proj, block_table, token_mask)
     x = x + y
-    if "ffn" in p:
-        x = x + swiglu(p["ffn"], rms_norm(x, p["ln2"], cfg.rms_eps))
-    return x, new_cache, captures
+    x, aux = _ffn_apply(p, x, cfg, layer_idx, mode,
+                        token_mask if mode in ("decode", "chunk") else None)
+    return x, new_cache, captures, aux
+
+
+def init_layer_cache(cfg: ModelConfig, layer_idx: int, batch: int,
+                     max_len: int, ranks: Tuple[int, int], dtype, device,
+                     paged: bool = False) -> Dict[str, torch.Tensor]:
+    """Empty decode-cache dict for one layer: attention (``paged``: the
+    pool leaves of the configured page layout), MLA's (B, T, R) leaves,
+    or an SSM layer's zeroed state."""
+    kind = cfg.layer_kinds()[layer_idx]
+    if kind == "attn":
+        return attn_mod.make_attn_cache(cfg, batch, max_len, ranks, dtype,
+                                        device, paged)
+    if kind == "mla":
+        return mla_mod.make_mla_cache(cfg, batch, max_len, ranks, dtype,
+                                      device)
+    return ssm_mod.make_ssm_state(cfg.ssm, cfg.d_model, batch, dtype,
+                                  device)

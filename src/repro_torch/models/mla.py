@@ -1,0 +1,201 @@
+"""Multi-head Latent Attention (DeepSeek-V2) with latent-cache compression.
+
+Torch counterpart of ``repro.models.mla``.  MLA stores one trained
+low-rank latent ``c = x W_d`` (``kv_lora_rank`` wide) and a shared rotary
+key ``k_r`` per token.  Decode uses the absorbed form, attention over the
+latent with per-head absorbed queries: a GQA group of ``H`` query heads
+over one kv head, so KQ-SVD compresses the latent after the fact
+
+    cc  = c A_k   (rank R  < kv_lora)   for the scores,
+    ccv = c A_v   (rank Rv < kv_lora)   for the values,
+    q'' = (q_nope W_uk^T) B_q,  out = (p ccv) C_v  (C_v absorbs W_uv W_o).
+
+The rope sub-cache (``qk_rope_dim``) stays exact.
+
+Full-sequence attention (``mla_train``, ``mla_calibrate``,
+``mla_prefill``) materialises per-head keys ``[c W_uk, k_r]`` of width
+``nope + rope`` and values ``c W_uv``, and runs causal attention with
+scale ``1/sqrt(nope + rope)``: what the reference's lax
+``blockwise_attention`` computes there, so on the card it is K6 at
+(192, 128) with ``H = Hkv`` (under autograd in ``mla_train``), on the
+CPU K6's plain version.  Decode is plain PyTorch, as the reference's is
+plain jnp: no kernel exists for it.  Caches are ``(B, T, R)`` leaves,
+the time axis 1 (``c`` or ``cc``/``ccv``, and ``kr``), written in place
+through ``scatter_time(..., axis=0)``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels.flash import flash_attention, flash_attention_train
+from repro_torch.models.attention import (NEG_INF, _out, _project,
+                                          batched_positions, scatter_time)
+from repro_torch.models.layers import apply_rope, init_dense
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype,
+             device) -> Dict[str, torch.Tensor]:
+    """Down / up projections, the decoupled rope path and the output
+    projection."""
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    lora = m.kv_lora_rank
+    return {
+        "wq": init_dense(gen, (D, H, qk), D, dtype, device),
+        "wd": init_dense(gen, (D, lora + m.qk_rope_dim), D, dtype, device),
+        "wuk": init_dense(gen, (lora, H, m.qk_nope_dim), lora, dtype,
+                          device),
+        "wuv": init_dense(gen, (lora, H, m.v_head_dim), lora, dtype, device),
+        "wo": init_dense(gen, (H, m.v_head_dim, D), H * m.v_head_dim, dtype,
+                         device),
+    }
+
+
+def _scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim)
+
+
+def _mla_project(p, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor):
+    """x: (B,S,D) -> q_nope (B,H,S,nope), q_rope (B,H,S,rope), c
+    (B,S,lora), k_rope (B,1,S,rope), rope applied at ``positions``."""
+    m = cfg.mla
+    q = _project(x, p["wq"])
+    q_nope = q[..., :m.qk_nope_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_dim:], positions, cfg.rope_theta)
+    down = x @ p["wd"]
+    c = down[..., :m.kv_lora_rank]
+    k_rope = apply_rope(down[..., m.kv_lora_rank:][:, None], positions,
+                        cfg.rope_theta)
+    return q_nope, q_rope, c, k_rope
+
+
+def _full_attention(p, x: torch.Tensor, cfg: ModelConfig, projected,
+                    attend) -> torch.Tensor:
+    """Causal attention over materialised per-head keys and values:
+    ``attend`` is K6 (``flash_attention``) or K6 under autograd."""
+    q_nope, q_rope, c, k_rope = projected
+    H = cfg.n_heads
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([_project(c, p["wuk"]), k_rope.expand(-1, H, -1, -1)],
+                  dim=-1)
+    v = _project(c, p["wuv"])
+    return _out(attend(q, k, v, scale=_scale(cfg)), p["wo"])
+
+
+def mla_train(p, x: torch.Tensor, cfg: ModelConfig,
+              pos0: int = 0) -> torch.Tensor:
+    """Full-sequence MLA with gradients: K6 under autograd."""
+    positions = torch.arange(x.shape[1], device=x.device) + pos0
+    return _full_attention(p, x, cfg, _mla_project(p, x, cfg, positions),
+                           flash_attention_train)
+
+
+def mla_calibrate(p, x: torch.Tensor, cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Output and the latent-compression captures, the Hkv = 1 GQA form:
+    k = v = the latent ``c`` (B,1,S,lora), q the absorbed queries
+    ``q_nope W_uk^T`` (B,H,S,lora)."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    projected = _mla_project(p, x, cfg, positions)
+    y = _full_attention(p, x, cfg, projected, flash_attention)
+    q_nope, _, c, _ = projected
+    q_abs = torch.einsum("bhse,lhe->bhsl", q_nope, p["wuk"])
+    return y, {"k": c[:, None], "q": q_abs, "v": c[:, None]}
+
+
+def mla_group_output_weights(p, cfg: ModelConfig) -> np.ndarray:
+    """Absorbed ``W_vo = W_uv W_o`` stacked over heads: (1, lora, H*D)
+    float64 on the host.  The products run in float64 on the params'
+    device, one matrix product per head (a numpy einsum over the full
+    width takes seconds a layer on the host)."""
+    wuv = p["wuv"].detach().double()                         # (lora, H, dv)
+    wo = p["wo"].detach().double()                           # (H, dv, D)
+    w_vo = torch.bmm(wuv.transpose(0, 1), wo).transpose(0, 1)  # (lora,H,D)
+    return w_vo.reshape(1, wuv.shape[0], -1).cpu().numpy()
+
+
+def make_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   proj_rank: Tuple[int, int] = (0, 0),
+                   dtype=torch.bfloat16, device=None
+                   ) -> Dict[str, torch.Tensor]:
+    """Zeroed (B, T, R) decode cache: compressed ``cc``/``ccv`` with
+    KQ-SVD ranks, else the raw latent ``c``; and the rope keys ``kr``."""
+    m = cfg.mla
+    rk, rv = proj_rank
+
+    def zeros(width):
+        return torch.zeros((batch, max_len, width), dtype=dtype,
+                           device=device)
+    cache = ({"cc": zeros(rk), "ccv": zeros(rv)} if rk
+             else {"c": zeros(m.kv_lora_rank)})
+    cache["kr"] = zeros(m.qk_rope_dim)
+    return cache
+
+
+def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig, max_len: int,
+                proj: Optional[Dict] = None):
+    """Full-prompt MLA (K6 on the card): the output and a length-
+    ``max_len`` cache holding the prompt's (compressed) latent and rope
+    keys at [0, S)."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)
+    projected = _mla_project(p, x, cfg, positions)
+    y = _full_attention(p, x, cfg, projected, flash_attention)
+    _, _, c, k_rope = projected
+    ranks = ((proj["a_k"].shape[-1], proj["a_v"].shape[-1]) if proj
+             else (0, 0))
+    cache = make_mla_cache(cfg, B, max_len, ranks, x.dtype, x.device)
+    if proj is not None:
+        cache["cc"][:, :S] = (c @ proj["a_k"][0]).to(cache["cc"].dtype)
+        cache["ccv"][:, :S] = (c @ proj["a_v"][0]).to(cache["ccv"].dtype)
+    else:
+        cache["c"][:, :S] = c.to(cache["c"].dtype)
+    cache["kr"][:, :S] = k_rope[:, 0].to(cache["kr"].dtype)
+    return y, cache
+
+
+def mla_decode(p, x: torch.Tensor, cache: Dict, pos, cfg: ModelConfig,
+               proj: Optional[Dict] = None):
+    """One-token absorbed-form decode.  x: (B,1,D); pos: (B,) index of
+    each new token (a scalar broadcasts).  Writes the token's (compressed)
+    latent and rope key into ``cache`` in place and attends positions
+    ``<= pos[b]``; returns ``(y (B,1,D), cache)``."""
+    B = x.shape[0]
+    H = cfg.n_heads
+    scale = _scale(cfg)
+    pos = batched_positions(pos, B, x.device)
+    q_nope, q_rope, c_new, kr_new = _mla_project(p, x, cfg,
+                                                 pos[:, None, None])
+    q_abs = torch.einsum("bhe,lhe->bhl", q_nope[:, :, 0], p["wuk"])
+    kr = scatter_time(cache["kr"], kr_new[:, 0], pos, axis=0)
+    T = kr.shape[1]
+    valid = torch.arange(T, device=x.device)[None, :] <= pos[:, None]
+    s_rope = torch.einsum("bhe,bte->bht", q_rope[:, :, 0].float(),
+                          kr.float())
+
+    def attend(q, keys, vals):
+        s = torch.einsum("bhr,btr->bht", q.float(), keys.float())
+        s = ((s + s_rope) * scale).masked_fill(~valid[:, None, :], NEG_INF)
+        prob = torch.softmax(s, dim=-1)
+        return torch.einsum("bht,btr->bhr", prob.to(vals.dtype), vals)
+
+    if proj is not None:
+        cc = scatter_time(cache["cc"], c_new @ proj["a_k"][0], pos, axis=0)
+        ccv = scatter_time(cache["ccv"], c_new @ proj["a_v"][0], pos,
+                           axis=0)
+        agg = attend(q_abs @ proj["b_q"][0], cc, ccv)
+        c_v = proj["c_v"][0].reshape(-1, H, cfg.d_model)     # (Rv,H,D)
+        y = torch.einsum("bhr,rhd->bd", agg, c_v)[:, None]
+    else:
+        cc = scatter_time(cache["c"], c_new, pos, axis=0)
+        agg = attend(q_abs, cc, cc)
+        v = torch.einsum("bhl,lhe->bhe", agg, p["wuv"])
+        y = torch.einsum("bhe,hed->bd", v, p["wo"])[:, None]
+    return y.to(x.dtype), cache

@@ -1,35 +1,39 @@
 """The language model: embed -> blocks -> norm -> head, in PyTorch.
 
-Torch counterpart of ``repro.models.model.LM`` for the dense and the
-SSM families.  Parameters are a plain dict of tensors on the model's
+Torch counterpart of ``repro.models.model.LM`` for the dense, SSM, MoE
+and MLA families.  Parameters are a plain dict of tensors on the model's
 device:
 
     {"embed": (V, D), "final_norm": (D,), "lm_head": (D, V),
      "layers": [layer dict, ...]}            (see ``blocks``)
 
-which is the reference's pytree with its stacked ``steps`` unstacked into
-a list (``repro_torch.bridge`` converts one into the other).  Caches are
-lists with one dict per layer (an SSM layer's holds its conv tail and SSM
-state), runtime projections lists with one dict per attention layer.
+which is the reference's pytree with its unrolled ``prefix`` layers first
+and its stacked ``steps`` unstacked after them, one list in layer order
+(``repro_torch.bridge`` converts one into the other).  Caches are lists
+with one dict per layer (an SSM layer's holds its conv tail and SSM
+state, an MLA layer's its (B, T, R) latent and rope keys), runtime
+projections lists with one dict per attention or MLA layer.
 
 Public entry points:
     init(gen)                                   -> params
     prefill(params, batch, max_len, proj)       -> (logits, cache)
-        (full-sequence attention in K6 on the card; a sliding window
-        makes the cache a ring of min(max_len, window) slots; an SSM
-        layer runs K7 and keeps only its state)
-    decode_step(params, cache, tokens, pos, proj, block_table, num_splits)
-                                                -> (logits, cache)
+        (full-sequence attention in K6 on the card, MLA's at (192, 128);
+        a sliding window makes the cache a ring of min(max_len, window)
+        slots; an SSM layer runs K7 and keeps only its state)
+    decode_step(params, cache, tokens, pos, proj, block_table,
+                token_mask, num_splits)         -> (logits, cache)
         (pos: per-sequence (B,) positions; scalars broadcast; the cache
         is updated in place and returned; a block table selects the
-        paged cache, ``num_splits`` > 1 split-KV decoding over it)
+        paged cache, ``num_splits`` > 1 split-KV decoding over it;
+        ``token_mask`` (B,) live slots, the only ones MoE routing counts)
     prefill_chunk(params, cache, tokens, pos0, valid, proj, block_table)
                                                 -> (logits, cache)
         (one bucket-padded prompt chunk into the paged cache)
     train_logits(params, batch)                 -> (logits, aux)
         (full-sequence logits with gradients: K6 and K7 under autograd,
         each layer rematerialized in the backward as ``cfg.remat_policy``
-        says; aux holds the reference's MoE keys, zero here)
+        says; aux sums the MoE layers' router statistics, ``n_moe``
+        counts those layers)
     calibrate(params, tokens, host=True)        -> per-layer captures
         (host numpy arrays; ``host=False`` keeps them on the device)
     group_output_weights(params)                -> stacked W^O per kv group
@@ -49,8 +53,9 @@ from torch.utils import checkpoint as torch_checkpoint
 from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.blocks import apply_layer, init_layer, step_layout
+from repro_torch.models import mla as mla_mod
+from repro_torch.models.blocks import (apply_layer, init_layer,
+                                       init_layer_cache, step_layout)
 from repro_torch.models.layers import dtype_of, init_rms, rms_norm
 
 
@@ -62,10 +67,23 @@ _DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
 
 
 def _zero_aux(device) -> Dict[str, torch.Tensor]:
-    """The reference's aux losses, zero: the dense and SSM families have
-    no MoE router (``n_moe`` counts MoE layers)."""
+    """The reference's aux sums at zero (``n_moe`` counts MoE layers)."""
     return {k: torch.zeros((), dtype=torch.float32, device=device)
             for k in AUX_KEYS + ("n_moe",)}
+
+
+def _add_aux(acc: Dict[str, torch.Tensor], aux: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+    """``acc`` plus one layer's router statistics; a layer without a
+    router adds nothing, and ``acc`` stays empty until one has (no zeros
+    are made on the device for a stack without MoE)."""
+    if not aux:
+        return acc
+    if not acc:
+        acc = _zero_aux(aux["load_balance"].device)
+    out = {k: acc[k] + aux[k] if k in aux else acc[k] for k in AUX_KEYS}
+    out["n_moe"] = acc["n_moe"] + (1.0 if "load_balance" in aux else 0.0)
+    return out
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -136,23 +154,27 @@ class LM:
         return x.float() @ head.float()
 
     def _run_stack(self, params, x, mode, cache=None, pos=None, proj=None,
-                   max_len: int = 0, block_table=None, valid=None,
+                   max_len: int = 0, block_table=None, token_mask=None,
                    num_splits: int = 1):
+        """Every layer in order: ``(x, caches, captures, aux)``, aux the
+        MoE layers' summed router statistics (empty without MoE)."""
         caches, captures, attn_ord = [], [], 0
+        aux: Dict[str, torch.Tensor] = {}
         for i, lp in enumerate(params["layers"]):
             lproj = None
             if self.kinds[i] != "ssm":
                 if proj is not None:
                     lproj = proj[attn_ord]
                 attn_ord += 1
-            x, nc, caps = apply_layer(
+            x, nc, caps, la = apply_layer(
                 lp, x, self.cfg, i, mode,
                 cache[i] if cache is not None else None, pos, lproj,
-                max_len, block_table, valid, num_splits)
+                max_len, block_table, token_mask, num_splits)
             caches.append(nc)
             if caps is not None:
                 captures.append(caps)
-        return x, caches, captures
+            aux = _add_aux(aux, la)
+        return x, caches, captures, aux
 
     # -- public entry points -------------------------------------------------
 
@@ -160,8 +182,8 @@ class LM:
         """Full-prompt prefill: last-token logits (B, 1, V) + a populated
         cache of length ``max_len``."""
         x = params["embed"][self._tokens(batch)]
-        x, cache, _ = self._run_stack(params, x, "prefill", proj=proj,
-                                      max_len=max_len)
+        x, cache, _, _ = self._run_stack(params, x, "prefill", proj=proj,
+                                         max_len=max_len)
         x = rms_norm(x[:, -1:], params["final_norm"], self.cfg.rms_eps)
         return self._logits(params, x), cache
 
@@ -172,75 +194,92 @@ class LM:
 
         tokens: (B, S) chunk whose first token sits at position
         ``pos0[b]``; ``valid``: (B, S) bool of real (non-padding) tokens,
-        a contiguous prefix per row, or a (B,) count of them.  The chunk's
-        (compressed) entries are written through ``block_table`` into the
-        page pools in place; its queries attend the written pages.
+        a contiguous prefix per row, or a (B,) count of them, which is
+        also the token mask of MoE routing (padding takes no expert
+        capacity).  The chunk's (compressed) entries are written through
+        ``block_table`` into the page pools in place; its queries attend
+        the written pages.
         Returns logits (B, S, V) — rows past a sequence's last real token
         are garbage, so callers take the last real row — and ``cache``."""
         tokens = self._tokens(tokens)
         pos0 = attn_mod.batched_positions(pos0, tokens.shape[0], self.device)
         valid = torch.as_tensor(valid, device=self.device)
         x = params["embed"][tokens]
-        x, cache, _ = self._run_stack(params, x, "chunk", cache=cache,
-                                      pos=pos0, proj=proj,
-                                      block_table=block_table, valid=valid)
+        x, cache, _, _ = self._run_stack(params, x, "chunk", cache=cache,
+                                         pos=pos0, proj=proj,
+                                         block_table=block_table,
+                                         token_mask=valid)
         x = rms_norm(x, params["final_norm"], self.cfg.rms_eps)
         return self._logits(params, x), cache
 
     def decode_step(self, params, cache, tokens, pos, proj=None,
-                    block_table=None, num_splits: int = 1):
+                    block_table=None, token_mask=None, num_splits: int = 1):
         """tokens: (B, 1); pos: (B,) index of each new token (a scalar
         broadcasts).  ``block_table``: (B, n_pages) int32, present iff
-        ``cache`` is paged; ``num_splits`` > 1 splits each slot's page
-        chain (split-KV decode).  Returns logits (B, 1, V) and ``cache``,
-        updated in place."""
+        ``cache`` is paged; ``token_mask``: (B,) bool of live slots, the
+        only ones MoE routing gives expert capacity; ``num_splits`` > 1
+        splits each slot's page chain (split-KV decode).  Returns logits
+        (B, 1, V) and ``cache``, updated in place."""
         tokens = self._tokens(tokens)
         pos = attn_mod.batched_positions(pos, tokens.shape[0], self.device)
         x = params["embed"][tokens]
-        x, cache, _ = self._run_stack(params, x, "decode", cache=cache,
-                                      pos=pos, proj=proj,
-                                      block_table=block_table,
-                                      num_splits=num_splits)
+        tm = (torch.as_tensor(token_mask, device=self.device)[:, None]
+              if token_mask is not None else None)
+        x, cache, _, _ = self._run_stack(params, x, "decode", cache=cache,
+                                         pos=pos, proj=proj,
+                                         block_table=block_table,
+                                         token_mask=tm,
+                                         num_splits=num_splits)
         x = rms_norm(x, params["final_norm"], self.cfg.rms_eps)
         return self._logits(params, x), cache
 
     def train_logits(self, params, batch) -> Tuple[torch.Tensor, Dict]:
-        """Full-sequence logits (B, S, V) float32 and the aux losses (the
-        reference's keys, zero for these families), differentiable in
-        ``params``: attention runs K6 and an SSM layer K7 under autograd.
-        Each layer is checkpointed as ``cfg.remat_policy`` says
-        (``remat_options``); remat changes no number."""
+        """Full-sequence logits (B, S, V) float32 and the aux sums (the
+        MoE layers' router statistics, summed, and ``n_moe``; zero for a
+        stack without MoE), differentiable in ``params``: attention and
+        MLA run K6 and an SSM layer K7 under autograd.  Each layer is
+        checkpointed as ``cfg.remat_policy`` says (``remat_options``);
+        remat changes no number."""
         x = params["embed"][self._tokens(batch)]
         opts = remat_options(self.cfg.remat_policy)
+        aux: Dict[str, torch.Tensor] = {}
         for i, lp in enumerate(params["layers"]):
             if opts is None:
-                x = self._train_layer(lp, x, i)
+                x, la = self._train_layer(lp, x, i)
             else:
-                x = torch_checkpoint.checkpoint(self._train_layer, lp, x, i,
-                                                **opts)
+                x, la = torch_checkpoint.checkpoint(self._train_layer, lp, x,
+                                                    i, **opts)
+            aux = _add_aux(aux, la)
         x = rms_norm(x, params["final_norm"], self.cfg.rms_eps)
-        return self._logits(params, x), _zero_aux(self.device)
+        return self._logits(params, x), aux or _zero_aux(self.device)
 
     def _train_layer(self, lp, x, i):
-        return apply_layer(lp, x, self.cfg, i, "train")[0]
+        x, _, _, aux = apply_layer(lp, x, self.cfg, i, "train")
+        return x, aux
 
     def calibrate(self, params, tokens, host: bool = True) -> List[Dict]:
-        """Per-attention-layer post-RoPE captures ``{"k", "q", "v"}``:
-        host float32 numpy arrays (``GramAccumulator.update`` takes host
-        arrays), or with ``host=False`` the tensors on the model's device,
-        in the model's type (``make_calibrate_step`` sums their Grams
-        there); empty for an attention-free stack."""
+        """Per-attention-layer post-RoPE captures ``{"k", "q", "v"}`` (an
+        MLA layer's latent as k and v with one kv head, its absorbed
+        queries as q): host float32 numpy arrays
+        (``GramAccumulator.update`` takes host arrays), or with
+        ``host=False`` the tensors on the model's device, in the model's
+        type (``make_calibrate_step`` sums their Grams there); empty for
+        an attention-free stack."""
         x = params["embed"][self._tokens(tokens)]
-        _, _, captures = self._run_stack(params, x, "calibrate")
+        _, _, captures, _ = self._run_stack(params, x, "calibrate")
         if not host:
             return captures
         return [{name: t.detach().float().cpu().numpy()
                  for name, t in cap.items()} for cap in captures]
 
     def group_output_weights(self, params) -> List[np.ndarray]:
-        """Stacked per-group output weights for the value-path solve."""
-        return [attn_mod.group_output_weights(params["layers"][i]["attn"],
-                                              self.cfg)
+        """Stacked per-group output weights for the value-path solve: W^O
+        per kv group, an MLA layer's absorbed ``W_uv W_o`` (1, lora,
+        H*D)."""
+        return [(mla_mod.mla_group_output_weights
+                 if self.kinds[i] == "mla" else
+                 attn_mod.group_output_weights)(params["layers"][i]["attn"],
+                                                self.cfg)
                 for i in self.attn_layers]
 
     # -- caches & projections ------------------------------------------------
@@ -252,14 +291,13 @@ class LM:
         page-pool leaves from the configured page layout.  An SSM layer's
         dict is its zeroed state, ``{"conv": (batch, conv_dim, K-1)`` in
         the model dtype, ``"s": (batch, nh, d_state, head_dim)`` float32},
-        whatever ``max_len``."""
+        whatever ``max_len``; an MLA layer's its (batch, max_len, R)
+        latent (``c``, or ``cc``/``ccv`` at the KQ-SVD ranks) and rope
+        keys ``kr``."""
         dtype = dtype or self.dtype
-        return [ssm_mod.make_ssm_state(self.cfg.ssm, self.cfg.d_model, batch,
-                                       dtype, self.device)
-                if kind == "ssm" else
-                attn_mod.make_attn_cache(self.cfg, batch, max_len, ranks,
-                                         dtype, self.device, paged)
-                for kind in self.kinds]
+        return [init_layer_cache(self.cfg, i, batch, max_len, ranks, dtype,
+                                 self.device, paged)
+                for i in range(self.cfg.n_layers)]
 
     def init_paged_cache(self, n_phys_pages: int, page_size: int,
                          ranks: Tuple[int, int] = (0, 0), dtype=None
@@ -271,7 +309,7 @@ class LM:
         of the page layout ``cfg.cache_quant`` selects.  A sliding window
         raises ``NotImplementedError``, as in the reference: its ring
         cache lives on dense slots; so does a stack with non-attention
-        layers."""
+        layers (SSM, MLA)."""
         kinds = set(self.kinds)
         if kinds != {"attn"}:
             raise NotImplementedError(
@@ -286,7 +324,8 @@ class LM:
     def projections_pytree(self, mp, dtype=None
                            ) -> List[Dict[str, torch.Tensor]]:
         """Solved ``ModelProjections`` -> runtime projections: one dict of
-        ``a_k``/``b_q``[/``a_v``/``c_v``] tensors per attention layer."""
+        ``a_k``/``b_q``[/``a_v``/``c_v``] tensors per attention or MLA
+        layer, in layer order."""
         dtype = dtype or self.dtype
         arrays = {"a_k": mp.a_k, "b_q": mp.b_q}
         if mp.a_v is not None:

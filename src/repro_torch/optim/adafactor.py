@@ -12,9 +12,11 @@ the RMS clip is taken over all layers of a leaf at once.  The port holds
 one dict per layer, so this module stacks the layer leaves by name
 (``tree.stack_layers``), updates the stacked leaves exactly as the
 reference does, and unstacks the result: per-layer statistics would give
-other numbers.  The state keeps that stacked layout: ``{"slots": the
-stacked params' tree with a slot {"vr", "vc", "m"} or {"v", "m"} at each
-leaf, "step"}``, the reference's own slot shapes.  Functional, as the
+other numbers.  Leading layers of another structure (DeepSeek-V2's dense
+first layer) are the reference's unrolled prefix and keep per-layer
+statistics under ``prefix``.  The state keeps that layout: ``{"slots":
+the stacked params' tree with a slot {"vr", "vc", "m"} or {"v", "m"} at
+each leaf, "step"}``, the reference's own slot shapes.  Functional, as the
 reference is: new params and a new state, the old ones untouched.
 """
 from __future__ import annotations

@@ -69,6 +69,11 @@ page a prefill is filling; the table is uploaded only when it changed.
 With KQ-SVD projections the decode attention runs in K3 over dense slots
 and in K1 over pages, and a prefill chunk's attention in K2.
 
+Every decode step passes the slots still active as its token mask and a
+prefill chunk its count of real tokens, so MoE routing gives no expert
+capacity to a finished or empty slot or to a chunk's padding.  An MLA
+stack (its (B, T, R) latent caches) serves on dense slots only.
+
 ``decode_splits`` > 1 splits each slot's page chain across blocks in the
 paged decode (split-KV: K4, and K5 over int8 pages); 0 derives the split
 count for each decode chunk from the live slots' deepest host position,
@@ -1223,11 +1228,12 @@ class ServingEngine:
             done = done | full
             if i < n_model:
                 # finished slots decode a harmless write into their own,
-                # soon released, lane
+                # soon released, lane; MoE routing counts active ones only
                 lg, self._cache = self.model.decode_step(
                     self.params, self._cache, nxt[:, None],
                     pos.clamp(max=T - 1), proj=self.proj,
-                    block_table=block_table, num_splits=n_splits)
+                    block_table=block_table, token_mask=~done,
+                    num_splits=n_splits)
                 logits = lg[:, 0]
                 self.n_decode_steps += 1
             pos = torch.where(done, pos, pos + 1)

@@ -36,8 +36,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def total_loss(logits, labels, aux, train_cfg, moe_cfg=None):
     """``cross_entropy`` with the config's z-loss, plus the MoE router's
-    load-balance and z losses when the model has a MoE config (no family
-    the port carries yet has one, so that branch waits for ``moe.py``)."""
+    load-balance and z losses, each averaged over the ``n_moe`` MoE
+    layers, when the model has a MoE config (``moe_cfg``), with metrics
+    ``moe_lb``, ``moe_rz`` and ``moe_dropped``."""
     loss, metrics = cross_entropy(logits, labels, train_cfg.z_loss)
     if moe_cfg is not None and aux is not None:
         n = aux["n_moe"].clamp_min(1.0)

@@ -9,11 +9,13 @@ helpers walk them by path, the way the reference walks its JAX pytrees:
     tree_map(fn, tree, *rest) -> the same structure, fn on each leaf
     path_key(path)            -> "layers/0/attn/wq" (checkpoint keys)
     stack_layers(params)      -> "layers" as one dict of (L, ...) leaves
+                                 (a heterogeneous "prefix" apart)
     unstack_layers(st, like)  -> back to a list of per-layer dicts
 
-``stack_layers`` gives the reference's own layout of a homogeneous stack
-(its ``steps/layers/0`` leaves carry a leading layer axis), which is what
-Adafactor's statistics and update clip are taken over.
+``stack_layers`` gives the reference's own layout of a stack (its
+``steps/layers/0`` leaves carry a leading layer axis, its unrolled
+``prefix`` layers do not), which is what Adafactor's statistics and
+update clip are taken over.
 """
 from __future__ import annotations
 
@@ -66,23 +68,46 @@ def path_key(path: Path) -> str:
     return SEP.join(str(p) for p in path)
 
 
+def prefix_len(layers: Sequence) -> int:
+    """How many leading layers differ in structure (leaf paths and
+    shapes) from the last one: the reference's unrolled prefix, such as
+    DeepSeek-V2's dense first layer before its MoE layers; 0 for a
+    homogeneous stack."""
+    def signature(layer):
+        return [(path, tuple(x.shape)) for path, x in leaves(layer)]
+    last = signature(layers[-1])
+    n = 0
+    while n < len(layers) and signature(layers[n]) != last:
+        n += 1
+    return n
+
+
 def stack_layers(params):
     """``params`` with its ``layers`` list replaced by one layer dict whose
-    leaves are the per-layer leaves stacked on a new leading axis; a tree
-    without a ``layers`` list comes back as it is."""
-    if not isinstance(params.get("layers"), list):
+    leaves are the per-layer leaves stacked on a new leading axis, the
+    reference's ``steps/layers/0``; leading layers of another structure
+    (``prefix_len``) stay unstacked under ``prefix``, as the reference's
+    unrolled prefix does.  A tree without a ``layers`` list comes back as
+    it is."""
+    layers = params.get("layers")
+    if not isinstance(layers, list):
         return params
+    n = prefix_len(layers)
     out = dict(params)
-    out["layers"] = tree_map(lambda *xs: torch.stack(xs), *params["layers"])
+    if n:
+        out["prefix"] = list(layers[:n])
+    out["layers"] = tree_map(lambda *xs: torch.stack(xs), *layers[n:])
     return out
 
 
 def unstack_layers(stacked, like):
-    """Inverse of ``stack_layers(like)``: views of the stacked leaves, one
-    layer dict per layer of ``like``."""
+    """Inverse of ``stack_layers(like)``: the prefix layers, then views of
+    the stacked leaves, one layer dict per layer of ``like``."""
     if not isinstance(like.get("layers"), list):
         return stacked
-    out = dict(stacked)
-    out["layers"] = [tree_map(lambda x, i=i: x[i], stacked["layers"])
-                     for i in range(len(like["layers"]))]
+    out = {k: v for k, v in stacked.items() if k != "prefix"}
+    prefix = list(stacked.get("prefix", []))
+    out["layers"] = prefix + [
+        tree_map(lambda x, i=i: x[i], stacked["layers"])
+        for i in range(len(like["layers"]) - len(prefix))]
     return out

@@ -6,6 +6,9 @@ chunked engines, also with int8 pages and split-KV decode, with the dense
 int8 cache, under optimistic admission (recompute and swap), with int8
 prefix sharing under swap, under fault injection, under the token
 budget, with the sliding-window ring cache and with mamba2's SSM state;
+MoE dispatch at deepseek-v2-lite's and arctic's expert counts (keep
+masks equal where capacity binds) and reduced deepseek-v2-lite's MLA
+prefill, decode and dense-slot engine on the card against the CPU;
 a copy-on-write fork on the card copying every leaf byte for byte, a
 budget step's fused chunk launching K2 before the decode chunk's K1 with
 one host sync, and the NaN quarantine of a device logit row; K6 and K7
@@ -1134,3 +1137,92 @@ def test_trainer_does_not_retry_a_failed_kernel_build(cuda, tmp_path,
     with pytest.raises(build.KernelError, match="kernel build failed"):
         tr.run(batches(dc), 5)
     assert attempts["n"] == 1
+
+
+@pytest.mark.parametrize("E,K,masked", [(64, 6, False), (64, 6, True),
+                                        (128, 2, False), (128, 2, True)])
+def test_moe_dispatch_card_matches_cpu(cuda, E, K, masked):
+    """``moe_ffn`` in decode mode at deepseek-v2-lite's (64 experts, top 6)
+    and arctic's (128, top 2) routing, narrow widths, 8 slots whose
+    tokens crowd the same experts, so capacity drops choices: the keep
+    mask and the aux values equal the CPU's, the outputs within 1e-5
+    (float32), with and without dead slots."""
+    from repro_torch.config import MoEConfig
+    from repro_torch.models import moe as moe_mod
+    mo = MoEConfig(n_experts=E, top_k=K, expert_ff=32,
+                   n_shared_experts=2 if K == 6 else 0,
+                   dense_residual=K == 2, dense_residual_ff=32)
+    p = moe_mod.init_moe(torch.Generator().manual_seed(3), 64, mo,
+                         torch.float32, "cpu")
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(64, generator=g) + 0.3 * torch.randn(8, 1, 64,
+                                                         generator=g)
+    mask = None
+    if masked:
+        mask = torch.ones(8, 1, dtype=torch.bool)
+        mask[[2, 5]] = False
+    got = []
+    for dev in ("cpu", cuda):
+        pd = tree_to(p, dev)
+        md = None if mask is None else mask.to(dev)
+        y, aux = moe_mod.moe_ffn(pd, x.to(dev), mo, "decode", token_mask=md)
+        keep = moe_mod.route(pd, x.to(dev), mo, "decode",
+                             token_mask=md)["keep"]
+        got.append((y.cpu(), keep.cpu(), {k: float(v)
+                                          for k, v in aux.items()}))
+    (yc, kc, ac), (yg, kg, ag) = got
+    assert torch.equal(kc, kg)
+    assert not kc.all()                       # capacity binds
+    torch.testing.assert_close(yg, yc, rtol=1e-5, atol=1e-5)
+    for k in ac:
+        assert abs(ag[k] - ac[k]) <= 1e-5 * max(1.0, abs(ac[k])), k
+
+
+@pytest.mark.parametrize("compressed", [False, True])
+def test_mla_decode_card_matches_cpu(cuda, compressed):
+    """Reduced deepseek-v2-lite (MLA + MoE, float32): prefill (K6 at
+    (24, 16) on the card) and four decode steps at per-sequence
+    positions, the latent full or KQ-SVD-compressed: logits within 2e-4
+    of the CPU's, the caches' leaves too; then the dense-slot engine's
+    greedy tokens equal."""
+    cfg = get_config("deepseek-v2-lite-16b").reduced()
+    cpu, gpu = build_model(cfg, "cpu"), build_model(cfg, cuda)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    p_gpu = tree_to(p_cpu, cuda)
+    mp = None
+    if compressed:
+        mp = calibrate_model(cpu, p_cpu, calibration_batches(
+            cfg.vocab_size, 4, 32, batch=2),
+            CompressionConfig(method="kqsvd", epsilon=0.1))
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 20))
+    outs = []
+    before = flash_attention.launches
+    for m, p in ((cpu, p_cpu), (gpu, p_gpu)):
+        proj = m.projections_pytree(mp) if mp is not None else None
+        lg, cache = m.prefill(p, toks[:, :14], 24, proj=proj)
+        seq = [lg]
+        pos = np.array([14, 14])
+        for i in range(4):
+            lg, cache = m.decode_step(p, cache, toks[:, 14 + i:15 + i],
+                                      pos + i, proj=proj,
+                                      token_mask=np.array([True, i < 2]))
+            seq.append(lg)
+        outs.append(([t.cpu() for t in seq],
+                     [{k: v.cpu() for k, v in c.items()} for c in cache]))
+    assert flash_attention.launches == before + cfg.n_layers
+    for a, b in zip(outs[0][0], outs[1][0]):
+        torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
+    for ca, cb in zip(outs[0][1], outs[1][1]):
+        for k in ca:
+            torch.testing.assert_close(cb[k], ca[k], rtol=2e-4, atol=2e-4)
+    served = []
+    for m, p in ((cpu, p_cpu), (gpu, p_gpu)):
+        eng = ServingEngine(cfg, p, ServeConfig(max_seq_len=64, max_batch=3,
+                                                decode_chunk=4),
+                            projections=mp, device=m.device)
+        rs = [Request(rid=i, prompt=q, max_new_tokens=8) for i, q in
+              enumerate(np.random.default_rng(2).integers(
+                  0, cfg.vocab_size, (5, 11)).astype(np.int32))]
+        eng.generate(rs)
+        served.append([r.out_tokens for r in rs])
+    assert served[0] == served[1]

@@ -136,7 +136,8 @@ def _close_trees(port, ref, **tol):
 
 
 @pytest.mark.parametrize("opt", ["adamw", "adafactor"])
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-2.7b",
+                                  "deepseek-v2-lite-16b"])
 def test_optimizer_steps_match_reference(arch, opt):
     """Three updates on identical gradients from the same state: params
     and state equal the reference's to float32 rounding.  Adafactor runs
@@ -164,6 +165,9 @@ def test_optimizer_steps_match_reference(arch, opt):
     _close_trees(st, bridge.opt_state_from_jax(
         jax.tree.map(np.asarray, jst)), **OPT_TOL)
     if opt == "adafactor":
-        L, d = len(tp["layers"]), tp["final_norm"].shape[0]
+        # deepseek-v2-lite's dense first layer keeps its own slots
+        n_prefix = len(st["slots"].get("prefix", []))
+        assert n_prefix == (1 if arch == "deepseek-v2-lite-16b" else 0)
+        L, d = len(tp["layers"]) - n_prefix, tp["final_norm"].shape[0]
         assert st["slots"]["layers"]["ln1"]["vr"].shape == (L,)
         assert st["slots"]["layers"]["ln1"]["vc"].shape == (d,)

@@ -121,7 +121,7 @@ def test_unported_families_raise():
     raises for the paged cache, as in the reference."""
     cfg = torch_config("tinyllama-1.1b").reduced()
     with pytest.raises(NotImplementedError):
-        torch_model(dataclasses.replace(cfg, family="moe"), "cpu")
+        torch_model(dataclasses.replace(cfg, family="hybrid"), "cpu")
     m = torch_model(dataclasses.replace(cfg, sliding_window=8), "cpu")
     assert m.init_cache(1, 16)[0]["slot_pos"].shape == (1, 8)
     with pytest.raises(NotImplementedError):
@@ -199,13 +199,15 @@ def test_param_counts_match_assignment():
     elements of the port's init at full width (shapes only, under
     FakeTensorMode), but for mamba2-2.7b, where the config's formula
     counts a second norm gain per layer that a pure SSM layer lacks and
-    not its D skip."""
+    not its D skip, and for arctic-480b, where it counts the 56 real
+    query heads and the init holds the 64 padded ones."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.configs import list_archs
     from repro_torch.tree import leaves
     expected = {"mamba2-2.7b": 2.7e9, "deepseek-67b": 67e9,
                 "tinyllama-1.1b": 1.1e9, "smollm-360m": 0.36e9,
-                "h2o-danube-1.8b": 1.8e9, "paper-llama2-7b": 6.7e9}
+                "h2o-danube-1.8b": 1.8e9, "paper-llama2-7b": 6.7e9,
+                "deepseek-v2-lite-16b": 16e9, "arctic-480b": 480e9}
     assert set(list_archs()) == set(expected)
     for arch, target in expected.items():
         cfg = torch_config(arch)
@@ -218,10 +220,14 @@ def test_param_counts_match_assignment():
         if cfg.ssm is not None and cfg.d_ff == 0:
             nh = cfg.ssm.n_heads(cfg.d_model)
             n_init += cfg.n_layers * (cfg.d_model - nh)
+        if cfg.qhead_pad:       # zero pad heads' wq and wo
+            n_init -= cfg.n_layers * 2 * cfg.d_model * cfg.d_head * (
+                cfg.qhead_pad - cfg.n_heads)
         assert n_init == n, (arch, n_init, n)
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["h2o-danube-1.8b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ARCHS + ["h2o-danube-1.8b", "mamba2-2.7b",
+                                  "deepseek-v2-lite-16b", "arctic-480b"])
 def test_one_train_step(arch):
     """One train step per carried arch (reference
     test_models_smoke.py::test_one_train_step): finite loss and gradient
