@@ -155,15 +155,16 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              device ms);
 3m. moe/mla  (after 3i) the MoE and MLA families at full width, seeded
              random bf16 weights, each model freed before the next is
-             built.  (a) deepseek-v2-lite-16b at full depth (27 layers,
-             d_model 2048, 16 heads, MLA kv_lora 512 + rope 64, 64 experts
-             top 6 + 2 shared of 1408, a dense first layer of 10944, 15.7 B
-             parameters): device calibration on 16 x 512 tokens in batches
+             built.  (a) deepseek-v2-lite-16b at full width cut to 7 of
+             its 27 layers (``DEPTH_3M``: the dense first layer of 10944
+             and 6 MoE layers; d_model 2048, 16 heads, MLA kv_lora 512 +
+             rope 64, 64 experts top 6 + 2 shared of 1408; 4.7 B
+             parameters, 15.7 B at full depth): device calibration on 16 x 512 tokens in batches
              of 4 and the solve at epsilon 0.1 on the latent (Hkv 1, m 16,
              ``c_v`` 32768 wide), then the dense-slot engine (8 slots of
              1024) serving 16 requests of 32..512 prompt tokens and 32 new.
              Counts zeroed before the calibration and read after the
-             drain: K6 = 27 x (4 + 16), at (192, 128) with H = Hkv = 16; no
+             drain: K6 = 7 x (4 + 16), at (192, 128) with H = Hkv = 16; no
              K1-K5, K7 or plain attention.  Printed: ranks, capacity gain
              against the raw latent + rope cache (576 a token), decode ms a
              step, prefill s, peak memory, the MoE ``dropped_frac`` of one
@@ -178,15 +179,57 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              chunks, nothing else) and on int8 pages with dynamic splits
              (K5 + K5 split = 2 x decode steps, nothing else), every request
              done and the pool whole; a profiled fp decode step;
+3n. hybrid   (after 3m) jamba-1.5-large-398b at full width cut to its
+             first 5 of 72 layers (``DEPTH_3N``): 4 Mamba-2 SSD layers
+             (d_inner 16384, 128 heads of (128, 64), d_conv 4) and the
+             period's GQA attention layer (64 / 8 heads of 128), MoE of 16
+             experts of 24576 top 2 on layers 0, 2, 4 and a SwiGLU of 24576
+             on 1 and 3 (33.0 B parameters, 66.1 GB in bf16), seeded; device
+             calibration on 16 x 512 tokens and the solve at epsilon 0.1 for
+             the one attention layer; the dense-slot engine (4 slots of
+             4608) serving 8 requests of 1, 255, 257, 1000, 2049, 3000, 4095
+             and 4096 prompt tokens and 16 new.  Counts zeroed before the
+             calibration and read after the drain: K7 = 4 x (prefills +
+             calibration batches), K6 = 1 x the same, K3 = 1 x decode steps,
+             K1, K2, K4, K5 and every plain version never.  Printed: ranks,
+             peak memory, capacity gain, a slot's SSM state bytes beside its
+             compressed and full cache bytes; then a profiled decode step
+             (4 slots at 4096, the MoE FFN's share) and a profiled
+             4096-token prefill (K7's share and each of its kernels' ms);
+3o. stubs    (a) musicgen-large at full width and depth (48 layers, 32 MHA
+             heads of 64, d_ff 8192, vocab 2048; 3.23 B parameters): device
+             calibration on 16 x 512 frame embeddings of the stub frontend
+             (``data.stub_batch``: seeded, normal x 0.1; K6 48 x 4 at (64,
+             64)); the solve in threads (as ``launch/serve.py`` runs it)
+             timed, and on 16 layers against one layer after another
+             (equal within 1e-12 of the largest entry);
+             then 3c's paged engine (fp pages of 16, 256 of them,
+             chunks of 256) serving 16 token requests of 32..1000 and 32
+             new: K1 = 48 x decode steps, K2 = 48 x chunks, nothing else,
+             the pool whole; a profiled decode step.  (b) phi-3-vision-4.2b
+             at full width and depth (32 layers, 32 MHA heads of 96, d_ff
+             8192; 3.82 B parameters): device calibration on 16 x (576
+             patch embeddings ahead of 512 text tokens), K6 32 x 4 at S
+             1088; the dense-slot engine (8 slots of 2048) serving 16 text
+             requests of 32..1000 and 32 new (K6 32 x prefills, K3 32 x
+             decode steps, nothing else); then one image-prefix request at
+             model level, ``LM.prefill`` of 576 patches and 300 tokens and
+             16 greedy ``decode_step`` calls: the cache covers P + S + 16
+             positions, K6 32 and K3 32 x 16;
 4.  kernels  each kernel against its plain PyTorch version on the card at
              the main paths' shapes (the calibrated ranks; K2 at the last
              chunk of a 1000-token prompt, at a first chunk and at a chunk
              the token budget truncated, 248 tokens from position 504; K6 at
-             tinyllama's calibration batch, at danube's windowed
+             tinyllama's, jamba's (m 8, d_head 128), phi-3-vision's
+             (576 patches + 512 tokens, d_head 96) and musicgen's (m 1,
+             d_head 64) calibration batches,
+             at danube's windowed
              prefill, the plain one there at 4608 tokens, at
              paper-llama2-7b's calibration batch, MHA at d_head 128, and
              at deepseek-v2-lite's, MLA's (192, 128) with H = Hkv = 16; K1,
-             K5 and K2's last chunk at arctic's m 8 and ranks) and
+             K5 and K2's last chunk at arctic's m 8 and ranks; K1 and K2's
+             last chunk at musicgen's m 1; K3 at jamba's m 8, d_head 128
+             and 4608-token slots and at phi-3-vision's m 1) and
              on edge cases: for K1, K2, K4 and K5 page sizes 4, 16, 64;
              lengths 0, 1, ps-1, ps, ps+1, 1023; splits 1, 2, 3, 8 with
              empty trailing splits; shuffled block tables; chunks at
@@ -205,7 +248,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              (96, 96), (128, 128), (24, 16), (192, 128); K7 at
              mamba2's full-width prefill (S 4096, and a ragged 4097, also
              against the float64 recurrence; each of bf16 K7's three
-             kernels' share of a call from ``torch.profiler``) and on the
+             kernels' share of a call from ``torch.profiler``), at jamba's
+             full-width prefill (128 heads of (128, 64), S 4096, with the
+             registers and spills phase 2 printed for its instantiations
+             and each kernel's share of a call) and on the
              reduced and the reference sweep's shapes with and without an
              initial state, two groups of four heads, chunks of 1, 17 and
              100 tokens and S 0;
@@ -251,9 +297,15 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              aux losses and gradients; and ``moe_ffn`` in decode mode at
              64 experts top 6 and 128 top 2 (narrow widths, 8 slots, two
              dead) gives the CPU's keep mask and outputs where capacity
-             binds.
+             binds; reduced jamba-1.5-large-398b, musicgen-large and
+             phi-3-vision-4.2b with KQ-SVD calibrated on the stub frontend's
+             batches: a prefill from each one's input (tokens, frame
+             embeddings, patches ahead of text) and 4 decode steps give
+             logits within 2e-4 of the CPU's, and jamba's dense-slot and
+             musicgen's paged chunked engines the same greedy tokens.
 
-The last two lines of standard output are the ``kernels`` JSON line and
+Every phase's seconds are printed as it ends and together before the
+result.  The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX or of
 the reference package, and exits non-zero where CUDA is not available.
 """
@@ -297,15 +349,28 @@ NEW_3J_B = 16
 # CPU with the same scheduler so that chaos at seed 0, rate 0.05 reaches
 # every recoverable point (swap_in first fires on its 176th hit)
 POOL_3K, WATERMARK_LOW_3K, NEW_3K = 40, 0.5, 48
+# phase 3n: jamba-1.5-large-398b's depth, cut from 72 to the first 5
+# layers, 4 Mamba-2 SSD layers and the period's attention layer (66 GB in
+# bf16; a whole period of 8 would be 90 GB)
+DEPTH_3N = 5
+# phase 3m (a): deepseek-v2-lite's depth, cut from 27 to its dense first
+# layer and 6 MoE layers (27 until jamba's and the stubs' phases came in:
+# the host solve of its 27 latent layers took 115 s of the script)
+DEPTH_3M = 7
 SOURCES = ("kq_decode", "kq_paged", "flash", "ssd")
 # K7's kernels by name: bf16's three (csrc/ssd_tc.cuh), float32's one
 K7_KERNELS = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_scan_kernel",
               "ssd_kernel<")
 
 
+# seconds of each phase that ended, in order (printed before the result)
+PHASE_SECONDS: dict = {}
+
+
 @contextlib.contextmanager
 def phase(name: str):
-    """Print a phase's start and outcome; a failure propagates."""
+    """Print a phase's start and outcome and keep its seconds; a failure
+    propagates."""
     print(f"== {name}", flush=True)
     t0 = time.perf_counter()
     try:
@@ -314,7 +379,9 @@ def phase(name: str):
         print(f"== {name}: FAILED after {time.perf_counter() - t0:.1f} s",
               flush=True)
         raise
-    print(f"== {name}: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
+    key = " ".join(name.split(" ")[:2])        # "3n serve", "3o (a)"
+    PHASE_SECONDS[key] = time.perf_counter() - t0
+    print(f"== {name}: ok ({PHASE_SECONDS[key]:.1f} s)", flush=True)
 
 
 def cuda_time_ms(fn, flush, reps: int = 100) -> float:
@@ -640,8 +707,9 @@ def profile_prefill(label: str, model, params, tokens,
     """Where one exact-length prefill's time goes: synced host wall,
     device busy time from ``torch.profiler``, the idle share, launches,
     the share of the kernels whose names hold one of ``kernels`` (and
-    each such kernel's device ms), and the largest device entries; after
-    one warm-up prefill."""
+    each such kernel's device ms), a MoE stack's FFN share (its
+    ``moe_ffn`` range, as ``profile_decode`` reads it) and the largest
+    device entries; after one warm-up prefill."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     T = tokens.shape[1]
@@ -653,11 +721,18 @@ def profile_prefill(label: str, model, params, tokens,
         model.prefill(params, tokens, T)
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    cuda_t = torch.autograd.DeviceType.CUDA
+    # the MoE FFN's range is no kernel (out of the busy sum); its host
+    # range's device time is that of the kernels launched inside it, as
+    # in profile_decode
     rows = [(e.key, e.device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.device_time_total > 0
-            and getattr(e, "device_type", None)
-            == torch.autograd.DeviceType.CUDA]
+            for e in events if e.device_time_total > 0
+            and e.key != "moe_ffn"
+            and getattr(e, "device_type", None) == cuda_t]
     busy = sum(r[1] for r in rows)
+    moe = sum(e.device_time_total for e in events if e.key == "moe_ffn"
+              and getattr(e, "device_type", None) != cuda_t) / 1e3
     if not busy:
         print(f"{label} prefill of {T} tokens: the profiler saw no device "
               f"time")
@@ -667,7 +742,9 @@ def profile_prefill(label: str, model, params, tokens,
     print(f"{label} prefill of {T} tokens, profiled host wall: {wall:.3f} "
           f"ms; device busy {busy:.3f} ms ({sum(r[2] for r in rows)} "
           f"launches); idle share {max(0.0, 1 - busy / wall):.3f}; "
-          f"{' + '.join(kernels)} {ms:.3f} ms ({ms / busy:.3f} of busy)")
+          f"{' + '.join(kernels)} {ms:.3f} ms ({ms / busy:.3f} of busy)"
+          + (f"; MoE FFN kernels {moe:.3f} ms ({moe / busy:.3f} of busy)"
+             if moe else ""))
     for name, t, n in mine:
         print(f"  {t:8.4f} ms  {n:5d} launches  {name[:80]}  "
               f"({t / busy:.3f} of busy)")
@@ -966,7 +1043,8 @@ def main() -> int:
                                               accumulator_from_grams,
                                               calibrate_model,
                                               make_calibrate_step)
-    from repro_torch.data import DataConfig, batches, calibration_batches
+    from repro_torch.data import (DataConfig, batches, calibration_batches,
+                                  stub_batch)
     from repro_torch.device import tree_to
     from repro_torch.kernels import build
     from repro_torch.kernels.flash import flash as flash_mod
@@ -1913,12 +1991,14 @@ def main() -> int:
         del mparams, mmodel
 
     # -- 3m: the MoE and MLA families ---------------------------------------
-    with phase("3m serve deepseek-v2-lite-16b (full width and depth, MLA + "
-               "MoE, dense slots) and arctic-480b (full width, 2 of 35 "
-               "layers, MoE, pages)"):
+    with phase(f"3m serve deepseek-v2-lite-16b (full width, {DEPTH_3M} of "
+               f"27 layers, MLA + MoE, dense slots) and arctic-480b (full "
+               f"width, 2 of 35 layers, MoE, pages)"):
         t_3m = time.perf_counter()
-        # (a) deepseek-v2-lite-16b: 27 layers, the first dense
-        dcfg = get_config("deepseek-v2-lite-16b")
+        # (a) deepseek-v2-lite-16b at full width, its depth cut to
+        # DEPTH_3M layers: the dense first layer and MoE layers
+        dfull = get_config("deepseek-v2-lite-16b")
+        dcfg = dataclasses.replace(dfull, n_layers=DEPTH_3M)
         dmodel = build_model(dcfg)
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
@@ -1927,9 +2007,11 @@ def main() -> int:
         dparams = dmodel.init(gen)
         n_dp = sum(t.numel() for _, t in tree_leaves(dparams))
         assert n_dp == dcfg.param_count(), (n_dp, dcfg.param_count())
-        print(f"deepseek-v2-lite-16b: {n_dp} parameters "
-              f"({2 * n_dp / 1e9:.1f} GB in bf16), {dcfg.n_layers} layers, "
-              f"built in {time.perf_counter() - t0:.1f} s")
+        print(f"deepseek-v2-lite-16b cut to {dcfg.n_layers} of "
+              f"{dfull.n_layers} layers at full width: {n_dp} parameters "
+              f"({2 * n_dp / 1e9:.1f} GB in bf16; the full depth "
+              f"{dfull.param_count()}), built in "
+              f"{time.perf_counter() - t0:.1f} s")
         zero_counts()
         t0 = time.perf_counter()
         dcalib = calibration_batches(dcfg.vocab_size, 16, 512, batch=4)
@@ -2124,6 +2206,337 @@ def main() -> int:
             f"{d['prefill_s']:.3f} s, peak {d['peak_gib']:.2f} GiB"
             for k, d in s3m.items() if "decode_ms" in d))
 
+    # -- 3n: the hybrid family ---------------------------------------------
+    with phase(f"3n serve jamba-1.5-large-398b (full width, {DEPTH_3N} of 72 "
+               f"layers: 4 Mamba-2 SSD layers and the period's attention "
+               f"layer, MoE), KQ-SVD, dense slots"):
+        t_3n = time.perf_counter()
+        jfull = get_config("jamba-1.5-large-398b")
+        jcfg = dataclasses.replace(jfull, n_layers=DEPTH_3N)
+        assert jcfg.layer_kinds() == ("ssm",) * 4 + ("attn",)
+        assert [jcfg.ffn_kind(i) for i in range(DEPTH_3N)] == [
+            "moe", "dense", "moe", "dense", "moe"]
+        jmodel = build_model(jcfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        jparams = jmodel.init(gen)
+        n_jp = sum(t.numel() for _, t in tree_leaves(jparams))
+        n_ssm = jcfg.layer_kinds().count("ssm")
+        nh_j = jcfg.ssm.n_heads(jcfg.d_model)
+        # the config's count leaves out each SSM layer's D skip
+        assert n_jp == jcfg.param_count() + n_ssm * nh_j, (
+            n_jp, jcfg.param_count())
+        print(f"jamba-1.5-large-398b cut to {jcfg.n_layers} of "
+              f"{jfull.n_layers} layers at full width (d_model "
+              f"{jcfg.d_model}; SSM: d_inner "
+              f"{jcfg.ssm.d_inner(jcfg.d_model)}, {nh_j} heads of "
+              f"({jcfg.ssm.head_dim}, {jcfg.ssm.d_state}); attention: "
+              f"{jcfg.n_heads} / {jcfg.n_kv_heads} heads of {jcfg.d_head}; "
+              f"MoE {jcfg.moe.n_experts} experts of {jcfg.moe.expert_ff} "
+              f"top {jcfg.moe.top_k} on layers 0, 2, 4): {n_jp} parameters "
+              f"({2 * n_jp / 1e9:.1f} GB in bf16; the full depth "
+              f"{jfull.param_count()}), built in "
+              f"{time.perf_counter() - t0:.1f} s; device memory "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        zero_counts()
+        t0 = time.perf_counter()
+        jcalib = calibration_batches(jcfg.vocab_size, 16, 512, batch=4)
+        init_grams, cal_step = make_calibrate_step(jmodel)
+        grams = init_grams(jcfg.d_head, jcfg.d_head, jcfg.n_kv_heads)
+        for bt in jcalib:
+            grams = cal_step(jparams, grams, bt)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        jmp = accumulator_from_grams(grams).solve(
+            CompressionConfig(method="kqsvd", epsilon=0.1),
+            jmodel.group_output_weights(jparams))
+        solve_s = time.perf_counter() - t0
+        del grams
+        assert ssd_chunk_scan.launches == n_ssm * len(jcalib)
+        assert flash_attention.launches == len(jcalib)
+        print(f"calibrated on {len(jcalib)} x {jcalib[0].shape} tokens: "
+              f"device Grams {dev_s:.2f} s (K7 {ssd_chunk_scan.launches}, "
+              f"K6 {flash_attention.launches}), solve {solve_s:.2f} s; "
+              f"ranks k={jmp.ranks_k} v={jmp.ranks_v} (padded "
+              f"Rk={jmp.rank_k} Rv={jmp.rank_v})")
+        jsc = ServeConfig(max_batch=4, max_seq_len=4608, decode_chunk=8)
+        jeng = ServingEngine(jcfg, jparams, jsc, projections=jmp)
+        rng = np.random.default_rng(9)
+        jlens = (1, 255, 257, 1000, 2049, 3000, 4095, 4096)
+        jreqs = [Request(rid=i, prompt=rng.integers(0, jcfg.vocab_size, L)
+                         .astype(np.int32), max_new_tokens=16)
+                 for i, L in enumerate(jlens)]
+        t0 = time.perf_counter()
+        jeng.generate(jreqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {w.__name__: w.launches for w in wrappers}
+        bad = [r.rid for r in jreqs if r.failed or r.truncated or not r.done
+               or len(r.out_tokens) != 16]
+        assert not bad, f"requests not served in full: {bad}"
+        n_pf = len(jreqs) + len(jcalib)
+        steps_ = jeng.n_decode_steps
+        assert steps_ > 0
+        assert got.pop("ssd_chunk_scan") == n_ssm * n_pf, got
+        assert got.pop("flash_attention") == n_pf, got
+        assert got.pop("kq_decode_attention") == steps_, got
+        assert not any(got.values()), f"K1, K2, K4 or K5 ran: {got}"
+        assert not any(plain_calls.values()), plain_calls
+        kinds_j = jcfg.layer_kinds()
+        state_b = sum(t[0].numel() * t.element_size()
+                      for layer, k in zip(jeng._cache, kinds_j) if k == "ssm"
+                      for t in layer.values())
+        kq_b = sum(t[0].numel() * t.element_size()
+                   for layer, k in zip(jeng._cache, kinds_j) if k == "attn"
+                   for t in layer.values())
+        full_b = 2 * jcfg.n_kv_heads * jcfg.d_head * jsc.max_seq_len * 2
+        j_peak = torch.cuda.max_memory_allocated() / 2**30
+        serve_report("jamba dense slots", jeng, jreqs, wall)
+        print(f"launches: K7 {n_ssm * n_pf} = {n_ssm} x ({len(jreqs)} "
+              f"prefills + {len(jcalib)} calibration batches), K6 {n_pf}, "
+              f"K3 {steps_} = 1 x {steps_} decode steps; K1, K2, K4, K5 "
+              f"and every plain version never; capacity gain "
+              f"{jeng.capacity_gain():.2f}x; a slot of {jsc.max_seq_len} "
+              f"tokens holds {state_b} bytes of SSM state ({n_ssm} layers: "
+              f"conv tails and f32 state) beside {kq_b} bytes of compressed "
+              f"cache in its one attention layer ({full_b} uncompressed); "
+              f"peak device memory {j_peak:.2f} GiB")
+        print(f"req 7 (prompt 4096) tokens: {jreqs[7].out_tokens}")
+        s3n = {"ranks": (jmp.rank_k, jmp.rank_v),
+               "K7": n_ssm * n_pf, "K6": n_pf, "K3": steps_,
+               "lengths": [L + 15 for L in jlens[4:]],
+               "decode_ms": 1e3 * jeng.decode_seconds / steps_,
+               "prefill_s": jeng.prefill_seconds, "peak_gib": j_peak,
+               "state_bytes": state_b, "kq_bytes": kq_b,
+               "full_bytes": full_b}
+        jproj = jeng.proj
+        del jeng
+
+    with phase("3n profile one jamba decode step (4 slots at position "
+               "4096) and one 4096-token prefill"):
+        prof["jamba"] = profile_decode(
+            "jamba dense slots, 4 slots at position 4096", jmodel, jparams,
+            jproj, s3n["ranks"], dev, paged=False, B=4, T=4608, at=4096)
+        profile_prefill("jamba", jmodel, jparams, jreqs[7].prompt[None],
+                        K7_KERNELS)
+        del jparams, jmodel, jproj
+        torch.cuda.empty_cache()
+        print(f"phase 3n: {time.perf_counter() - t_3n:.1f} s")
+
+    # -- 3o: the audio and VLM stubs ----------------------------------------
+    with phase("3o (a) serve musicgen-large (full width and depth), KQ-SVD "
+               "calibrated on the stub frontend's embeddings, fp pages"):
+        t_3o = time.perf_counter()
+        ucfg = get_config("musicgen-large")
+        umodel = build_model(ucfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        uparams = umodel.init(gen)
+        n_up = sum(t.numel() for _, t in tree_leaves(uparams))
+        assert n_up == ucfg.param_count(), (n_up, ucfg.param_count())
+        zero_counts()
+        t0 = time.perf_counter()
+        ucalib = [stub_batch(ucfg, 4, 512, seed=i) for i in range(4)]
+        assert set(ucalib[0]) == {"embeds"}
+        init_grams, cal_step = make_calibrate_step(umodel)
+        grams = init_grams(ucfg.d_head, ucfg.d_head, ucfg.n_kv_heads)
+        for bt in ucalib:
+            grams = cal_step(uparams, grams, bt)
+        assert int(grams["tokens"]) == 16 * 512
+        torch.cuda.synchronize()
+        grams_s = time.perf_counter() - t0
+        # the solve as launch/serve.py's calibrate_model calls it (its
+        # layers in threads, one a core), then the first 16 layers in
+        # threads and one after another, numpy's BLAS as it is
+        uacc = accumulator_from_grams(grams)
+        ucc = CompressionConfig(method="kqsvd", epsilon=0.1)
+        uw = umodel.group_output_weights(uparams)
+        t0 = time.perf_counter()
+        ump = uacc.solve(ucc, uw)
+        solve_s = time.perf_counter() - t0
+        uacc.layers = uacc.layers[:16]
+        t0 = time.perf_counter()
+        uacc.solve(ucc, uw)
+        threads16_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serial = [uacc._solve_layer(l, ucc, uw) for l in range(16)]
+        serial16_s = time.perf_counter() - t0
+        for l, (rk, rv, keys, values) in enumerate(serial):
+            assert (rk, rv) == (ump.ranks_k[l], ump.ranks_v[l])
+            for h, (kp, vp) in enumerate(zip(keys, values)):
+                for a, b in ((ump.a_k[l, h, :, :rk], kp.A),
+                             (ump.b_q[l, h, :, :rk], kp.B),
+                             (ump.a_v[l, h, :, :rv], vp.A),
+                             (ump.c_v[l, h, :rv], vp.C)):
+                    assert np.abs(a - b).max() <= 1e-12 * np.abs(b).max()
+        del grams, uacc, uw, serial
+        assert flash_attention.launches == ucfg.n_layers * len(ucalib)
+        print(f"musicgen-large: {n_up} parameters ({2 * n_up / 1e9:.2f} GB "
+              f"in bf16), {ucfg.n_layers} layers, {ucfg.n_heads} MHA heads "
+              f"of {ucfg.d_head}; calibrated on {len(ucalib)} x 4 x 512 "
+              f"frame embeddings of the stub frontend: device Grams "
+              f"{grams_s:.2f} s (K6 {flash_attention.launches}), solve "
+              f"{solve_s:.2f} s in threads ({len(os.sched_getaffinity(0))} "
+              f"usable cores, os.cpu_count {os.cpu_count()}); ranks "
+              f"k={ump.ranks_k} v={ump.ranks_v} (padded Rk={ump.rank_k} "
+              f"Rv={ump.rank_v})")
+        print(f"solve of the first 16 layers: in threads "
+              f"{threads16_s:.2f} s, one after another {serial16_s:.2f} s "
+              f"(projections equal within 1e-12 of the largest entry)")
+        k6_musicgen = flash_attention.launches
+        upsc = ServeConfig(max_seq_len=1024, max_batch=8, paged=True,
+                           page_size=16, n_pages=256, chunked_prefill=True,
+                           prefill_chunk=256, decode_chunk=8)
+        rng = np.random.default_rng(10)
+        ulens = np.concatenate([[32, 1000], rng.integers(32, 1001, 14)])
+        ureqs = [Request(rid=i, prompt=rng.integers(
+            0, ucfg.vocab_size, int(n)).astype(np.int32), max_new_tokens=32)
+            for i, n in enumerate(ulens)]
+        ueng = ServingEngine(ucfg, uparams, upsc, projections=ump)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        ueng.generate(ureqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {w.__name__: w.launches for w in wrappers}
+        bad = [r.rid for r in ureqs if r.failed or not r.done
+               or len(r.out_tokens) != min(32, 1024 - len(r.prompt) + 1)]
+        assert not bad, f"requests not served in full: {bad}"
+        assert ueng.pool.free_count == ueng.pool.n_pages
+        L, steps_, chunks_ = (ucfg.n_layers, ueng.n_decode_steps,
+                              ueng.n_prefill_chunks)
+        assert got["kq_decode_paged_attention"] == L * steps_, got
+        assert got["kq_prefill_paged_attention"] == L * chunks_, got
+        assert sum(got.values()) == L * (steps_ + chunks_), got
+        assert not any(plain_calls.values()), plain_calls
+        serve_report("musicgen paged fp", ueng, ureqs, wall)
+        print(f"launches: K1 {L * steps_} = {L} x {steps_} decode steps, "
+              f"K2 {L * chunks_} = {L} x {chunks_} chunks, nothing else; "
+              f"pool {ueng.pool.n_pages} pages, peak "
+              f"{ueng.peak_used_pages}, whole after the drain; capacity "
+              f"gain {ueng.capacity_gain():.2f}x; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        s3o = {"musicgen": {
+            "ranks": (ump.rank_k, ump.rank_v), "K1": L * steps_,
+            "K2": L * chunks_, "K6": k6_musicgen,
+            "lengths": [min(int(n) + 31, 1024) for n in ulens[:8]],
+            "decode_ms": 1e3 * ueng.decode_seconds / steps_,
+            "prefill_s": ueng.prefill_seconds}}
+        uproj = ueng.proj
+        del ueng
+        prof["musicgen"] = profile_decode(
+            "musicgen paged fp, 8 slots at position 512", umodel, uparams,
+            uproj, (ump.rank_k, ump.rank_v), dev, paged=True)
+        del uparams, umodel, uproj
+        torch.cuda.empty_cache()
+
+    with phase("3o (b) serve phi-3-vision-4.2b (full width and depth), "
+               "KQ-SVD calibrated on patch embeddings ahead of text, dense "
+               "slots, and one image-prefix request at model level"):
+        vcfg = get_config("phi-3-vision-4.2b")
+        P_img = vcfg.num_patch_tokens
+        vmodel = build_model(vcfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        vparams = vmodel.init(gen)
+        n_vp = sum(t.numel() for _, t in tree_leaves(vparams))
+        assert n_vp == vcfg.param_count(), (n_vp, vcfg.param_count())
+        zero_counts()
+        t0 = time.perf_counter()
+        vcalib = [stub_batch(vcfg, 4, 512, seed=i) for i in range(4)]
+        assert vcalib[0]["image_embeds"].shape == (4, P_img, vcfg.d_model)
+        init_grams, cal_step = make_calibrate_step(vmodel)
+        grams = init_grams(vcfg.d_head, vcfg.d_head, vcfg.n_kv_heads)
+        for bt in vcalib:
+            grams = cal_step(vparams, grams, bt)
+        assert int(grams["tokens"]) == 16 * (P_img + 512)
+        vmp = accumulator_from_grams(grams).solve(
+            CompressionConfig(method="kqsvd", epsilon=0.1),
+            vmodel.group_output_weights(vparams))
+        del grams
+        k6_calib = flash_attention.launches
+        assert k6_calib == vcfg.n_layers * len(vcalib)
+        print(f"phi-3-vision-4.2b: {n_vp} parameters "
+              f"({2 * n_vp / 1e9:.2f} GB in bf16), {vcfg.n_layers} layers, "
+              f"{vcfg.n_heads} MHA heads of {vcfg.d_head}; calibrated on "
+              f"{len(vcalib)} x 4 x ({P_img} patches + 512 tokens) in "
+              f"{time.perf_counter() - t0:.1f} s (K6 {k6_calib} at S "
+              f"{P_img + 512}); ranks k={vmp.ranks_k} v={vmp.ranks_v} "
+              f"(padded Rk={vmp.rank_k} Rv={vmp.rank_v})")
+        vsc = ServeConfig(max_seq_len=2048, max_batch=8, decode_chunk=8)
+        rng = np.random.default_rng(11)
+        vlens = np.concatenate([[32, 1000], rng.integers(32, 1001, 14)])
+        vreqs = [Request(rid=i, prompt=rng.integers(
+            0, vcfg.vocab_size, int(n)).astype(np.int32), max_new_tokens=32)
+            for i, n in enumerate(vlens)]
+        veng = ServingEngine(vcfg, vparams, vsc, projections=vmp)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        veng.generate(vreqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {w.__name__: w.launches for w in wrappers}
+        bad = [r.rid for r in vreqs if r.failed or r.truncated or not r.done
+               or len(r.out_tokens) != 32]
+        assert not bad, f"requests not served in full: {bad}"
+        L, steps_ = vcfg.n_layers, veng.n_decode_steps
+        assert got.pop("flash_attention") == L * len(vreqs), got
+        assert got.pop("kq_decode_attention") == L * steps_, got
+        assert not any(got.values()), f"K1, K2, K4, K5 or K7 ran: {got}"
+        assert not any(plain_calls.values()), plain_calls
+        serve_report("phi-3-vision dense slots (text)", veng, vreqs, wall)
+        print(f"launches: K6 {L * len(vreqs)} = {L} x {len(vreqs)} "
+              f"prefills, K3 {L * steps_} = {L} x {steps_} decode steps, "
+              f"nothing else; capacity gain {veng.capacity_gain():.2f}x; "
+              f"peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        vproj = veng.proj
+        s3o["phi-3-vision"] = {
+            "ranks": (vmp.rank_k, vmp.rank_v), "K3": L * steps_,
+            "K6": k6_calib + L * len(vreqs),
+            "lengths": [int(n) + 31 for n in vlens[:8]],
+            "decode_ms": 1e3 * veng.decode_seconds / steps_,
+            "prefill_s": veng.prefill_seconds}
+        del veng
+        # one image-prefix request at model level: 576 patches of the stub
+        # frontend ahead of 300 text tokens, then 16 greedy decode steps
+        img = stub_batch(vcfg, 1, 300, seed=99)
+        S_txt, n_new = 300, 16
+        T_img = P_img + S_txt + n_new
+        zero_counts()
+        t0 = time.perf_counter()
+        lg, vcache = vmodel.prefill(vparams, img, T_img, proj=vproj)
+        vtoks = []
+        for i in range(n_new):
+            tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True)
+            vtoks.append(int(tok))
+            lg, vcache = vmodel.decode_step(vparams, vcache, tok,
+                                            P_img + S_txt + i, proj=vproj)
+        torch.cuda.synchronize()
+        img_s = time.perf_counter() - t0
+        assert bool(torch.isfinite(lg).all()), "non-finite logits"
+        assert vcache[0]["kc"].shape == (1, vcfg.n_kv_heads, T_img,
+                                         vmp.rank_k)
+        assert flash_attention.launches == L
+        assert kq_decode_attention.launches == L * n_new
+        assert not any(plain_calls.values()), plain_calls
+        s3o["phi-3-vision"]["K6"] += L
+        s3o["phi-3-vision"]["K3"] += L * n_new
+        print(f"image-prefix request: {P_img} patches + {S_txt} tokens "
+              f"prefilled into a cache of {T_img} positions, {n_new} greedy "
+              f"decode steps at positions {P_img + S_txt}.."
+              f"{P_img + S_txt + n_new - 1} in {img_s:.3f} s (K6 {L}, K3 "
+              f"{L} x {n_new}); tokens {vtoks}")
+        del vparams, vmodel, vproj, vcache, lg
+        torch.cuda.empty_cache()
+        print(f"phase 3o: {time.perf_counter() - t_3o:.1f} s")
+
+
     # -- 4: each kernel against its plain version ------------------------
     with phase("4 kernels against their plain versions"):
         H, Hkv, m = cfg.n_heads, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
@@ -2138,6 +2551,38 @@ def main() -> int:
         lengths = torch.tensor([1, 31, 32, 33, 500, 777, 1023, 1024],
                                dtype=torch.int32, device=dev)
         cluster = paged_mod._library().kq_decode_cluster_size
+
+        def measure_k3(row, label, H_, Hkv_, rk_, rv_, el, T_, scale_):
+            """K3 for slots of lengths ``el`` in (B, Hkv, T_, R) caches
+            against its plain version, timed beside SDPA, in both
+            types."""
+            B_, m_ = len(el), H_ // Hkv_
+            live_ = int(el.sum())
+            emask = (torch.arange(T_, device=dev)[None, :]
+                     < el[:, None])[:, None, None, :]
+            for dt_name in ("bfloat16", "float32"):
+                dt = getattr(torch, dt_name)
+                qc = torch.randn(B_, H_, rk_, generator=g, device=dev).to(dt)
+                kc = torch.randn(B_, Hkv_, T_, rk_, generator=g,
+                                 device=dev).to(dt)
+                vc = torch.randn(B_, Hkv_, T_, rv_, generator=g,
+                                 device=dev).to(dt)
+                kx = kc.repeat_interleave(m_, dim=1)
+                vx = vc.repeat_interleave(m_, dim=1)
+                isz = qc.element_size()
+                measure(row, label, dt_name,
+                        lambda: kq_decode_attention(qc, kc, vc, el,
+                                                    scale=scale_),
+                        lambda: kq_decode_attention_ref(qc, kc, vc, el,
+                                                        scale=scale_),
+                        lambda: sdpa(qc[:, :, None], kx, vx, attn_mask=emask,
+                                     scale=scale_)[:, :, 0],
+                        flush,
+                        live_ * Hkv_ * (rk_ + rv_) * isz
+                        + B_ * H_ * (rk_ + rv_) * isz + B_ * 4,
+                        2 * live_ * H_ * (rk_ + rv_))
+                del qc, kc, vc, kx, vx
+
         k3 = {"name": "kq_decode (K3)", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/kq_decode.cu "
                         "(bf16 body: csrc/kq_decode_tc.cuh; float32: "
@@ -2146,27 +2591,36 @@ def main() -> int:
               "launches": k3_launches, "cluster_size": cluster(T),
               "shape": {"B": B, "H": H, "Hkv": Hkv, "T": T, "Rk": rk,
                         "Rv": rv, "lengths": lengths.tolist()}}
+        measure_k3(k3, "K3", H, Hkv, rk, rv, lengths, T, scale)
         live = int(lengths.sum())
         mask = (torch.arange(T, device=dev)[None, :]
                 < lengths[:, None])[:, None, None, :]
-        for dt_name in ("bfloat16", "float32"):
-            dt = getattr(torch, dt_name)
-            qc = torch.randn(B, H, rk, generator=g, device=dev).to(dt)
-            kc = torch.randn(B, Hkv, T, rk, generator=g, device=dev).to(dt)
-            vc = torch.randn(B, Hkv, T, rv, generator=g, device=dev).to(dt)
-            kx = kc.repeat_interleave(m, dim=1)
-            vx = vc.repeat_interleave(m, dim=1)
-            isz = qc.element_size()
-            measure(k3, "K3", dt_name,
-                    lambda: kq_decode_attention(qc, kc, vc, lengths,
-                                                scale=scale),
-                    lambda: kq_decode_attention_ref(qc, kc, vc, lengths,
-                                                    scale=scale),
-                    lambda: sdpa(qc[:, :, None], kx, vx, attn_mask=mask,
-                                 scale=scale)[:, :, 0],
-                    flush,
-                    live * Hkv * (rk + rv) * isz + B * H * (rk + rv) * isz
-                    + B * 4, 2 * live * H * (rk + rv))
+        # K3 at phase 3n's jamba shapes (4 slots of 4608, 64 query heads
+        # over 8 kv heads: m 8, d_head 128, its ranks, the longest four
+        # requests' lengths at their last step) and at phase 3o's
+        # phi-3-vision ones (8 slots of 2048, MHA: m 1, d_head 96)
+        (jrk, jrv), jel = s3n["ranks"], s3n["lengths"]
+        k3j = {"name": "kq_decode (K3), jamba-1.5-large-398b m = 8",
+               "route": "cuda", "source": k3["source"],
+               "replaces": k3["replaces"], "launches": s3n["K3"],
+               "launches_from": "phase 3n", "cluster_size": cluster(4608),
+               "shape": {"B": 4, "H": 64, "Hkv": 8, "T": 4608, "Rk": jrk,
+                         "Rv": jrv, "lengths": jel}}
+        measure_k3(k3j, "K3 jamba m=8", 64, 8, jrk, jrv,
+                   torch.tensor(jel, dtype=torch.int32, device=dev), 4608,
+                   128 ** -0.5)
+        v3o = s3o["phi-3-vision"]
+        (vrk, vrv), vel = v3o["ranks"], v3o["lengths"]
+        k3p = {"name": "kq_decode (K3), phi-3-vision-4.2b m = 1",
+               "route": "cuda", "source": k3["source"],
+               "replaces": k3["replaces"], "launches": v3o["K3"],
+               "launches_from": "phase 3o (b)",
+               "cluster_size": cluster(2048),
+               "shape": {"B": 8, "H": 32, "Hkv": 32, "T": 2048, "Rk": vrk,
+                         "Rv": vrv, "lengths": vel}}
+        measure_k3(k3p, "K3 phi-3-vision m=1", 32, 32, vrk, vrv,
+                   torch.tensor(vel, dtype=torch.int32, device=dev), 2048,
+                   96 ** -0.5)
 
         # K1 at the paged main path's decode shapes (pages of 16) and K2 at
         # its prefill shapes, each on random pools of its row's shape
@@ -2357,6 +2811,27 @@ def main() -> int:
                     + 8 * aH * (ark + arv) * isz + 8 * 4 + a_used * 4,
                     2 * a_live * aH * (ark + arv))
             del qc, kp, vp, btab, k8, v8, ks8, vs8, kdx, vdx
+
+        # K1 and K2 at phase 3o's musicgen-large shapes: MHA (m 1, 32 heads
+        # of 64), the ranks its KQ-SVD solved on the stub frontend's
+        # embeddings, its first 8 requests' lengths at their last decode
+        # step, pages of 16; K2 at the last chunk of its 1000-token prompt
+        u3o = s3o["musicgen"]
+        (urk, urv), ulens_ = u3o["ranks"], u3o["lengths"]
+        u_shape = {"H": 32, "Hkv": 32, "page_size": ps, "n_pages": n_pages,
+                   "Rk": urk, "Rv": urv}
+        k1u = {"name": "kq_decode_paged (K1), musicgen-large m = 1",
+               "route": "cuda", "source": k1["source"],
+               "replaces": k1["replaces"], "launches": u3o["K1"],
+               "launches_from": "phase 3o (a)",
+               "cluster_size": cluster(ps * n_pages),
+               "shape": dict(u_shape, B=8, lengths=ulens_)}
+        measure_k1(k1u, "K1 musicgen m=1", 32, 32, urk, urv,
+                   torch.tensor(ulens_, dtype=torch.int32, device=dev))
+        k2u = dict(k2_src, name="kq_prefill_paged (K2), musicgen-large m = 1",
+                   launches=u3o["K2"], launches_from="phase 3o (a)",
+                   shape=dict(u_shape, B=1, S=256, pos0=768, n_valid=232))
+        measure_k2(k2u, "K2 musicgen m=1", 32, 32, urk, urv)
 
         # K4, K5 (unsplit and split) and the split merge at the paged
         # main path's decode shapes (pages of 16), 8 splits of 8 pages.
@@ -2694,8 +3169,33 @@ def main() -> int:
         k6t = dict(k6_src, name="flash (K6), smollm-360m training batch",
                    shape={"B": 8, "H": 15, "Hkv": 5, "S": 512, "dh": 64,
                           "window": 0})
+        # and at phase 3n's and 3o's calibration batches: jamba's attention
+        # layer (64 / 8 heads of 128: m 8) and phi-3-vision's MHA heads of
+        # 96 over 576 patches and 512 text tokens
+        k6j = dict(k6_src, name="flash (K6), jamba-1.5-large-398b "
+                                "calibration batch",
+                   launches=s3n["K6"], launches_from="phase 3n (1 attention "
+                   "layer x (4 calibration batches + 8 prefills))",
+                   shape={"B": 4, "H": 64, "Hkv": 8, "S": 512, "dh": 128,
+                          "window": 0})
+        k6p = dict(k6_src, name="flash (K6), phi-3-vision-4.2b calibration "
+                                "batch (576 patches + 512 tokens)",
+                   launches=s3o["phi-3-vision"]["K6"],
+                   launches_from="phase 3o (b) (32 x (4 calibration "
+                                 "batches + 16 prefills + 1 image-prefix "
+                                 "prefill))",
+                   shape={"B": 4, "H": 32, "Hkv": 32, "S": 1088, "dh": 96,
+                          "window": 0})
+        k6u = dict(k6_src, name="flash (K6), musicgen-large calibration "
+                                "batch (frame embeddings)",
+                   launches=s3o["musicgen"]["K6"],
+                   launches_from="phase 3o (a) (48 x 4 calibration "
+                                 "batches)",
+                   shape={"B": 4, "H": 32, "Hkv": 32, "S": 512, "dh": 64,
+                          "window": 0})
         for row, S_long in ((k6c, None), (k6w, 6000), (k6l, None),
-                            (k6t, None)):
+                            (k6t, None), (k6j, None), (k6p, None),
+                            (k6u, None)):
             sh = row["shape"]
             B_, H_, Hkv_, S_, dh_, W_ = (sh[k] for k in
                                          ("B", "H", "Hkv", "S", "dh",
@@ -2753,8 +3253,9 @@ def main() -> int:
         k6m = dict(k6_src, name="flash (K6), deepseek-v2-lite-16b (MLA) "
                                 "calibration batch",
                    launches=k6_launches["phase 3m deepseek"],
-                   launches_from="phase 3m (deepseek-v2-lite: 27 x (4 "
-                                 "calibration batches + 16 prefills))",
+                   launches_from=f"phase 3m (deepseek-v2-lite cut to "
+                                 f"{DEPTH_3M} layers: {DEPTH_3M} x (4 "
+                                 f"calibration batches + 16 prefills))",
                    shape={"B": 4, "H": 16, "Hkv": 16, "S": 512, "dh": 192,
                           "dv": 128, "window": 0})
         for dt_name in ("bfloat16", "float32"):
@@ -2853,7 +3354,7 @@ def main() -> int:
             return (float((out[0].double() - y64).abs().max())
                     if y64.numel() else 0.0)
 
-        def k7_shares(args, calls=10, attempts=3):
+        def k7_shares(label, args, calls=10, attempts=3):
             """Each of K7's kernels' device ms per launch (its recorded
             time over its recorded launches) and share of a call, from
             torch.profiler over ``calls`` calls (L2 flushed before each),
@@ -2880,7 +3381,7 @@ def main() -> int:
                     break
                 print(f"K7 profile {attempt + 1}: no K7 kernel recorded")
             assert total > 0, "the profiler saw no K7 kernel"
-            print(f"K7 S=4096 bfloat16 under torch.profiler: "
+            print(f"{label} bfloat16 under torch.profiler: "
                   f"{total:.4f} ms of kernels a call")
             for name, (t, n) in sorted(per.items(), key=lambda kv: -kv[1][0]):
                 print(f"  {t:.4f} ms ({t / total:.3f} of the call; {n} of "
@@ -2919,8 +3420,44 @@ def main() -> int:
                 print(f"K7 S={S} {dt_name}: max |kernel - plain| {err:.3g}, "
                       f"|kernel - float64 recurrence| {err64:.3g}")
                 if S == 4096 and dt_name == "bfloat16":
-                    k7_shares(args)
+                    k7_shares(f"K7 S={S}", args)
                 del args, out
+        # K7 at phase 3n's jamba prefill: B 1, 128 heads of 128, one group
+        # of d_state 64, chunk 256, S 4096 (its longest prompt), the model's
+        # views and law as above; the registers and spills phase 2 printed
+        # for the (128, 64) instantiations beside it
+        jsh = {"B": 1, "nh": 128, "G": 1, "S": 4096, "hd": 128, "n": 64,
+               "chunk": 256}
+        k7j = {"name": "ssd_chunk_scan (K7), jamba-1.5-large-398b prefill",
+               "route": "cuda", "source": k7["source"],
+               "replaces": k7["replaces"], "launches": s3n["K7"],
+               "launches_from": "phase 3n",
+               "shape": dict(jsh, y="float32", layout="model views"),
+               "registers_spills": {
+                   e.split(": ")[0]: e.split(": ")[1]
+                   for e in ptxas_summary(logs["ssd"])
+                   if "/128/64" in e or "K7 pass" in e}}
+        print(f"K7 at jamba's head, registers+spilled bytes (phase 2): "
+              f"{k7j['registers_spills']}")
+        for dt_name in ("bfloat16", "float32"):
+            isz = torch.finfo(getattr(torch, dt_name)).bits // 8
+            args = ssd_views(dt_name, 1, 128, 1, 4096, 128, 64, True, 4096)
+            nbytes, flops = ssd_work(1, 128, 1, 4096, 128, 64, 256, isz, 4)
+            measure(k7j, "K7 jamba S=4096", dt_name,
+                    lambda args=args: ssd_chunk_scan(
+                        *args, chunk=256, out_dtype=f32),
+                    lambda args=args: ssd_chunk_scan_plain(
+                        *args, chunk=256, out_dtype=f32),
+                    None, flush, nbytes, flops, 20, check=check_ssd)
+            out = ssd_chunk_scan(*args, chunk=256, out_dtype=f32)
+            err64 = check_recurrence("K7 jamba S=4096", dt_name, out, args)
+            sfx = "" if dt_name == "bfloat16" else "_float32"
+            k7j[f"max_abs_err_vs_float64_S4096{sfx}"] = err64
+            print(f"K7 jamba S=4096 {dt_name}: |kernel - float64 "
+                  f"recurrence| {err64:.3g}")
+            if dt_name == "bfloat16":
+                k7_shares("K7 jamba S=4096", args)
+            del args, out
         # K7 edge cases: the reference sweep's shapes, reduced mamba2 at
         # lengths around its chunk of 32, the full width's head at short
         # and ragged lengths and at 4097, two groups of four heads,
@@ -2963,13 +3500,15 @@ def main() -> int:
               f"255, 257, 4097; jamba's head at S 300 and 333 (chunk "
               f"100); G 2 of 4 heads; chunks of 1 and 17; S 0; h0 zero "
               f"and random; y in x's type and float32)")
-        kernels = [k1, k1s, k1a, k2, k2f, k2t, k2s, k2a, k3, k4, k5, k5a,
-                   k5s, kcomb, k6c, k6w, k6l, k6t, k6m, k7]
+        kernels = [k1, k1s, k1a, k1u, k2, k2f, k2t, k2s, k2a, k2u, k3, k3j,
+                   k3p, k4, k5, k5a, k5s, kcomb, k6c, k6w, k6l, k6t, k6m,
+                   k6j, k6p, k6u, k7, k7j]
 
     # -- 5: the port on the card against the port on the CPU ---------------
     with phase("5 card against CPU, reduced tinyllama-1.1b, "
                "h2o-danube-1.8b, mamba2-2.7b, smollm-360m, "
-               "deepseek-v2-lite-16b and arctic-480b, float32"):
+               "deepseek-v2-lite-16b, arctic-480b, jamba-1.5-large-398b, "
+               "musicgen-large and phi-3-vision-4.2b, float32"):
         rcfg = get_config("tinyllama-1.1b").reduced()
         cpu_model = build_model(rcfg, "cpu")
         gpu_model = build_model(rcfg, dev)
@@ -3411,6 +3950,70 @@ def main() -> int:
               f"1e-5, gradients within {mg_worst:.3g} of each leaf's "
               f"max-abs (tol 1e-4)")
 
+        # the hybrid and the stubs, reduced, float32, KQ-SVD calibrated on
+        # the stub frontend's batches: a prefill from each arch's input
+        # (jamba's tokens, musicgen's frame embeddings, phi-3-vision's
+        # patches ahead of its text) and 4 token decode steps after it,
+        # logits card = CPU within 2e-4; jamba's dense-slot engine and
+        # musicgen's paged chunked engine, greedy tokens card = CPU
+        hyb = {}
+        for arch, kw in (("jamba-1.5-large-398b", {}),
+                         ("musicgen-large", chunked),
+                         ("phi-3-vision-4.2b", None)):
+            fcfg = get_config(arch).reduced()
+            fcpu, fgpu = build_model(fcfg, "cpu"), build_model(fcfg, dev)
+            fp_cpu = fcpu.init(torch.Generator().manual_seed(0))
+            fp_gpu = tree_to(fp_cpu, dev)
+            fmp = calibrate_model(
+                fcpu, fp_cpu, [stub_batch(fcfg, 4, 32, seed=i)
+                               for i in range(2)],
+                CompressionConfig(method="kqsvd", epsilon=0.1))
+            b5 = stub_batch(fcfg, 2, 16, seed=20)
+            P5 = fcfg.num_patch_tokens
+            t5 = np.random.default_rng(21).integers(0, fcfg.vocab_size,
+                                                    (2, 4))
+            zero_counts()
+            outs = []
+            for m_, p_ in ((fcpu, fp_cpu), (fgpu, fp_gpu)):
+                rproj = m_.projections_pytree(fmp)
+                lg, c5 = m_.prefill(p_, b5, P5 + 24, proj=rproj)
+                seq = [lg]
+                for i in range(4):
+                    lg, c5 = m_.decode_step(p_, c5, t5[:, i:i + 1],
+                                            P5 + 16 + i, proj=rproj)
+                    seq.append(lg)
+                outs.append([x.cpu() for x in seq])
+            assert flash_attention.launches == len(fcpu.attn_layers)
+            assert kq_decode_attention.launches == 4 * len(fcpu.attn_layers)
+            assert ssd_chunk_scan.launches == fcfg.layer_kinds().count("ssm")
+            worst5 = 0.0
+            for a, b in zip(*outs):
+                worst5 = max(worst5, float((a - b).abs().max()))
+                np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=2e-4,
+                                           atol=2e-4)
+            hyb[arch] = f"logits within {worst5:.3g}"
+            if kw is None:
+                continue
+            out = []
+            for m_, p_ in ((fcpu, fp_cpu), (fgpu, fp_gpu)):
+                e = ServingEngine(fcfg, p_, ServeConfig(
+                    max_seq_len=64, max_batch=3, decode_chunk=4, **kw),
+                    projections=fmp, device=m_.device)
+                rs = [Request(rid=i, prompt=p, max_new_tokens=8)
+                      for i, p in enumerate(mprompts_r)]
+                e.generate(rs)
+                assert all(r.done and len(r.out_tokens) == 8 for r in rs)
+                if e.pool is not None:
+                    assert e.pool.free_count == e.pool.n_pages
+                out.append([r.out_tokens for r in rs])
+            assert out[0] == out[1], (arch, out)
+            hyb[arch] += (f", {'paged chunked' if kw else 'dense'} engine "
+                          f"tokens equal ({sum(len(t) for t in out[1])})")
+            del fcpu, fgpu, fp_cpu, fp_gpu
+        print(f"reduced jamba, musicgen and phi-3-vision (float32, KQ-SVD "
+              f"on stub batches) card = CPU: " + "; ".join(
+                  f"{k}: {v}" for k, v in hyb.items()))
+
         # at the full configs' expert counts and top-k, narrow widths:
         # moe_ffn's keep mask and outputs in decode mode (8 slots, two of
         # them dead) on the card equal the CPU's, where capacity binds
@@ -3448,6 +4051,9 @@ def main() -> int:
                   f"{dg:.4f}; keep masks equal on card and CPU, outputs "
                   f"within {float((yg - yc).abs().max()):.3g} (tol 1e-5)")
 
+    print("phase seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
+        + f"; total {sum(PHASE_SECONDS.values()):.1f}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

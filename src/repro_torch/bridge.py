@@ -46,23 +46,22 @@ def _tree(node, fn):
 
 def _layers(jparams: Dict[str, Any], device) -> list:
     """The reference's ``prefix`` layers, then its stacked ``steps``
-    unstacked, one layer dict each, in layer order."""
+    unstacked in layer order: step ``i``, position ``j`` of a step of
+    ``P`` layers is layer ``i·P + j`` after the prefix."""
     step_layers = jparams["steps"]["layers"]
-    if len(step_layers) != 1:
-        raise NotImplementedError("multi-layer scan steps (hybrid stacks) "
-                                  "are not ported yet")
-    stacked = step_layers[0]
-    n = np.asarray(stacked["ln1"]).shape[0]
+    n = np.asarray(step_layers[0]["ln1"]).shape[0]
     prefix = [_tree(layer, lambda a: to_tensor(a, device))
               for layer in jparams.get("prefix") or []]
     return prefix + [_tree(stacked, lambda a, i=i: to_tensor(
-        np.asarray(a)[i], device)) for i in range(n)]
+        np.asarray(a)[i], device))
+        for i in range(n) for stacked in step_layers]
 
 
 def params_from_jax(jparams: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     """The reference's ``LM.init`` pytree (as numpy) -> the port's params:
     the unrolled ``prefix`` layers (DeepSeek-V2's dense first layer) come
-    first in ``layers``, then the scan steps, one layer each."""
+    first in ``layers``, then the layers of the scan steps in order (a
+    hybrid step holds a whole period)."""
     out = {k: to_tensor(jparams[k], device)
            for k in ("embed", "final_norm", "lm_head") if k in jparams}
     out["layers"] = _layers(jparams, device)
@@ -88,22 +87,20 @@ def opt_state_from_jax(jstate: Dict[str, Any], device="cpu"
     AdamW ``{"m", "v", "step"}``: the moment trees mirror the params and
     unstack as ``params_from_jax`` does.  Adafactor ``{"slots", "step"}``:
     the port keeps the reference's stacked layout
-    (``repro_torch.optim.adafactor``), so the slots of ``steps/layers/0``
-    become ``slots["layers"]`` as they are, stacked, and the unrolled
-    prefix layers' slots ``slots["prefix"]``, one dict a layer."""
+    (``repro_torch.optim.adafactor``), so the slots of ``steps/layers``
+    become ``slots["layers"]`` as they are, stacked, one dict per
+    position of a step, and the unrolled prefix layers' slots
+    ``slots["prefix"]``, one dict a layer."""
     step = torch.tensor(int(np.asarray(jstate["step"])), dtype=torch.int32)
     if "slots" not in jstate:
         return {"m": params_from_jax(jstate["m"], device),
                 "v": params_from_jax(jstate["v"], device), "step": step}
     slots = jstate["slots"]
-    if len(slots["steps"]["layers"]) != 1:
-        raise NotImplementedError("multi-layer scan steps (hybrid stacks) "
-                                  "are not ported yet")
     out = {k: _tree(slots[k], lambda a: to_tensor(a, device))
            for k in ("embed", "final_norm", "lm_head") if k in slots}
     if slots.get("prefix"):
         out["prefix"] = [_tree(layer, lambda a: to_tensor(a, device))
                          for layer in slots["prefix"]]
-    out["layers"] = _tree(slots["steps"]["layers"][0],
-                          lambda a: to_tensor(a, device))
+    out["layers"] = [_tree(layer, lambda a: to_tensor(a, device))
+                     for layer in slots["steps"]["layers"]]
     return {"slots": out, "step": step}

@@ -1,13 +1,14 @@
 """Architecture registry of the port.
 
 Each module defines ``config() -> ModelConfig`` with the same numbers as
-the reference's module of the same name.  The port carries the
-dense-family configs, h2o-danube-1.8b's sliding window included, the
-SSM family's mamba2-2.7b, the MLA + MoE family's deepseek-v2-lite-16b
-and the MoE family's arctic-480b; the hybrid, audio and VLM families
-come with their slices (ROADMAP.md queue 1, models off the main path).
-deepseek-67b (about 134 GB in bf16) runs reduced only on one card, and
-arctic-480b (about 960 GB) at full width with its depth cut.
+the reference's module of the same name.  The port carries every config
+of the reference: the dense family (h2o-danube-1.8b's sliding window
+included), the SSM family's mamba2-2.7b, the MLA + MoE family's
+deepseek-v2-lite-16b, the MoE family's arctic-480b, the hybrid
+jamba-1.5-large-398b and the audio / VLM stubs musicgen-large and
+phi-3-vision-4.2b.  deepseek-67b (about 134 GB in bf16) runs reduced
+only on one card; arctic-480b (about 960 GB) and jamba-1.5-large-398b
+(about 800 GB) at full width with their depth cut.
 """
 from __future__ import annotations
 
@@ -34,6 +35,13 @@ _ARCH_MODULES = {
     # 128 experts top-2 beside a dense residual FFN; 56 query heads
     # padded to 64 (m 8): K1, K2, K5 on pages
     "arctic-480b": "arctic_480b",
+    # hybrid: Mamba-2 SSD layers (K7) with one GQA attention layer in
+    # each period of 8, MoE every 2nd layer
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    # stub frontends: frame embeddings in place of tokens (MHA, d_head
+    # 64), patch embeddings ahead of the text (MHA, d_head 96)
+    "musicgen-large": "musicgen_large",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
 }
 
 _cache: Dict[str, ModelConfig] = {}
@@ -41,12 +49,11 @@ _cache: Dict[str, ModelConfig] = {}
 
 def get_config(name: str) -> ModelConfig:
     """The ``ModelConfig`` of arch ``name``; raises ``KeyError`` for an
-    arch this slice of the port does not carry."""
+    unknown arch."""
     if name not in _cache:
         if name not in _ARCH_MODULES:
             raise KeyError(
-                f"unknown arch {name!r} for the port; ported so far: "
-                f"{sorted(_ARCH_MODULES)}")
+                f"unknown arch {name!r}; known: {sorted(_ARCH_MODULES)}")
         mod = importlib.import_module(
             f"repro_torch.configs.{_ARCH_MODULES[name]}")
         _cache[name] = mod.config()

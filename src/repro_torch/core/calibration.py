@@ -22,16 +22,18 @@ per-group stacked output weights ``(Hkv, dv, Do_group)``.
 """
 from __future__ import annotations
 
+import ctypes
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.config import CompressionConfig
-from repro_torch.core.projections import (Factors, KeyProjection,
-                                          ValueProjection, select_rank,
-                                          solve_key, solve_value)
+from repro_torch.core.projections import (Factors, select_rank, solve_key,
+                                          solve_value)
 
 
 @dataclass
@@ -116,6 +118,19 @@ class GramAccumulator:
         fv = [Factors.from_gram(g) for g in st.g_v]
         return fk, fq, fv
 
+    def _solve_layer(self, l: int, cfg: CompressionConfig,
+                     w_out: Sequence[np.ndarray]):
+        """``(rank_k, rank_v, key projections, value projections)`` of
+        layer ``l``, one of each per kv head."""
+        fk, fq, fv = self.layer_factors(l)
+        rk = cfg.rank_k or select_rank(tuple(fk), cfg.epsilon)
+        rv = cfg.rank_v or select_rank(tuple(fv), cfg.epsilon)
+        keys = [solve_key(cfg.method, fk[h], fq[h], rk)
+                for h in range(len(fk))]
+        values = ([solve_value(cfg.method, fv[h], w_out[l][h], rv)
+                   for h in range(len(fv))] if cfg.compress_values else [])
+        return rk, rv, keys, values
+
     def solve(self, cfg: CompressionConfig,
               w_out: Sequence[np.ndarray]) -> ModelProjections:
         """Solve projections for every layer with statistics.
@@ -123,25 +138,37 @@ class GramAccumulator:
         ``w_out[l]``: (Hkv, dv, Do_group) stacked output weights per layer.
         Rank: per-layer energy rule (paper) unless cfg.rank_{k,v} pins it;
         arrays are zero-padded to the max rank for shape uniformity.
+        The layers are solved side by side, a thread each up to the CPU
+        cores this process may use, numpy's OpenBLAS held to one thread a
+        call meanwhile: its threads only wait on one another at these
+        small matrix sizes, and a pool over a threaded BLAS would
+        oversubscribe the cores.  One layer, one core, or a BLAS whose
+        thread count cannot be set is solved one layer after another on
+        the BLAS as it is.  Threads change no bit against that loop on a
+        one-thread BLAS; a BLAS on more threads rounds its sums
+        otherwise, some 1e-15 of the largest entry.
         """
         assert cfg.method != "none"
         n = len(self.layers)
-        key_projs: List[List[KeyProjection]] = []
-        val_projs: List[List[ValueProjection]] = []
-        ranks_k: List[int] = []
-        ranks_v: List[int] = []
-        for l in range(n):
-            fk, fq, fv = self.layer_factors(l)
-            rk = cfg.rank_k or select_rank(tuple(fk), cfg.epsilon)
-            rv = cfg.rank_v or select_rank(tuple(fv), cfg.epsilon)
-            ranks_k.append(rk)
-            ranks_v.append(rv)
-            key_projs.append([solve_key(cfg.method, fk[h], fq[h], rk)
-                              for h in range(len(fk))])
-            if cfg.compress_values:
-                val_projs.append([solve_value(cfg.method, fv[h],
-                                              w_out[l][h], rv)
-                                  for h in range(len(fv))])
+        workers = min(n, len(os.sched_getaffinity(0)))
+        setters = _openblas_thread_setters() if workers > 1 else []
+        if setters:
+            for set_threads, _ in setters:
+                set_threads(1)
+            try:
+                with ThreadPoolExecutor(workers) as ex:
+                    solved = list(ex.map(
+                        lambda l: self._solve_layer(l, cfg, w_out),
+                        range(n)))
+            finally:
+                for set_threads, threads in setters:
+                    set_threads(threads)
+        else:
+            solved = [self._solve_layer(l, cfg, w_out) for l in range(n)]
+        ranks_k = [rk for rk, _, _, _ in solved]
+        ranks_v = [rv for _, rv, _, _ in solved]
+        key_projs = [keys for _, _, keys, _ in solved]
+        val_projs = [values for _, _, _, values in solved]
         Rk = max(ranks_k)
         a_k = _stack_pad([[p.A for p in layer] for layer in key_projs], Rk)
         b_q = _stack_pad([[p.B for p in layer] for layer in key_projs], Rk)
@@ -155,6 +182,31 @@ class GramAccumulator:
         return ModelProjections(a_k=a_k, b_q=b_q, a_v=a_v, c_v=c_v,
                                 ranks_k=ranks_k, ranks_v=ranks_v,
                                 method=cfg.method)
+
+
+# thread-count getter and setter of an OpenBLAS build: numpy's own
+# (scipy-openblas, 64-bit interface), older numpy wheels', a system one's
+_OPENBLAS_THREADS = (
+    ("scipy_openblas_get_num_threads64_", "scipy_openblas_set_num_threads64_"),
+    ("openblas_get_num_threads64_", "openblas_set_num_threads64_"),
+    ("openblas_get_num_threads", "openblas_set_num_threads"))
+
+
+def _openblas_thread_setters() -> List[Tuple[Callable[[int], None], int]]:
+    """``(set_num_threads, current count)`` of each OpenBLAS library that
+    this process has loaded and that exports them (found through the
+    process's memory map); empty for another BLAS."""
+    with open("/proc/self/maps") as f:
+        paths = sorted({line.split()[-1] for line in f
+                        if "openblas" in line.rsplit("/", 1)[-1]})
+    out = []
+    for path in paths:
+        lib = ctypes.CDLL(path)
+        for get, set_ in _OPENBLAS_THREADS:
+            if hasattr(lib, get) and hasattr(lib, set_):
+                out.append((getattr(lib, set_), getattr(lib, get)()))
+                break
+    return out
 
 
 def _head_grams(x: np.ndarray) -> np.ndarray:
@@ -198,12 +250,13 @@ def make_calibrate_step(model):
     """Gram accumulation on the model's device: ``(init_grams,
     calibrate_step)``.
 
-    ``calibrate_step(params, grams, tokens) -> grams`` where ``grams`` is
+    ``calibrate_step(params, grams, batch) -> grams`` where ``grams`` is
     ``{"g_k", "g_q", "g_v": (L_attn, Hkv, d, d) float32, "tokens": ()
     float32}`` on ``model.device``.  The captures never leave the device
     (``model.calibrate(..., host=False)``); each step adds their Grams,
     ``torch.einsum`` over batch and time, O(L * H * d^2) bytes whatever
-    the sequence length.  A batch's products are taken in float64 and
+    the sequence length; ``batch`` is a token array or a dict as
+    ``LM.calibrate`` takes it.  A batch's products are taken in float64 and
     rounded once into the float32 sums: one float32 product over the
     thousands of rows of a full-width batch rounds a near-zero
     off-diagonal entry by some 1e-3 (smollm-360m's trained params on the
@@ -222,8 +275,8 @@ def make_calibrate_step(model):
                                       device=model.device)}
 
     @torch.no_grad()
-    def calibrate_step(params, grams, tokens):
-        captures = model.calibrate(params, tokens, host=False)
+    def calibrate_step(params, grams, batch):
+        captures = model.calibrate(params, batch, host=False)
         g_k, g_q, g_v = [], [], []
         for cap in captures:
             k, q, v = (cap[n].double() for n in ("k", "q", "v"))
@@ -232,7 +285,8 @@ def make_calibrate_step(model):
             g_k.append(torch.einsum("bhtd,bhte->hde", k, k).float())
             g_q.append(torch.einsum("bhmtd,bhmte->hde", qg, qg).float())
             g_v.append(torch.einsum("bhtd,bhte->hde", v, v).float())
-        B, T = tokens.shape[0], tokens.shape[-1]
+        # the positions captured: a VLM batch's patches count too
+        B, T = captures[0]["k"].shape[0], captures[0]["k"].shape[2]
         return {"g_k": grams["g_k"] + torch.stack(g_k),
                 "g_q": grams["g_q"] + torch.stack(g_q),
                 "g_v": grams["g_v"] + torch.stack(g_v),

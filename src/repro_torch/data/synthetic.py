@@ -61,3 +61,27 @@ def calibration_batches(vocab: int, n_seqs: int, seq_len: int,
     for i in range((n_seqs + batch - 1) // batch):
         out.append(sample_batch(cfg, i)["tokens"])
     return out
+
+
+def stub_batch(cfg, batch: int, seq_len: int, seed: int = 0,
+               scale: float = 0.1) -> Dict[str, np.ndarray]:
+    """A seeded input batch for the stub frontends, numpy float32: the
+    audio stub's precomputed frame embeddings ``embeds`` (batch, seq_len,
+    d_model) in place of tokens when ``cfg.inputs_embeds``, else uniform
+    ``tokens``; and a VLM's ``image_embeds`` (batch, num_patch_tokens,
+    d_model) when ``cfg.num_patch_tokens``.  Embeddings are standard
+    normal times ``scale`` (0.1, the reference tests' stand-in for an
+    encoder's output)."""
+    rng = np.random.default_rng(seed)
+    out: Dict[str, np.ndarray] = {}
+    if cfg.inputs_embeds:
+        out["embeds"] = (rng.standard_normal((batch, seq_len, cfg.d_model))
+                         * scale).astype(np.float32)
+    else:
+        out["tokens"] = rng.integers(0, cfg.vocab_size, (batch, seq_len)
+                                     ).astype(np.int32)
+    if cfg.num_patch_tokens:
+        out["image_embeds"] = (rng.standard_normal(
+            (batch, cfg.num_patch_tokens, cfg.d_model)) * scale
+        ).astype(np.float32)
+    return out

@@ -14,8 +14,15 @@ as in the reference), mamba2-2.7b (attention-free: no calibration,
 whatever ``--method`` says, as in the reference; SSM state on dense
 slots, K7 under every prefill), deepseek-v2-lite-16b (MLA and MoE: the
 latent cache, compressed by KQ-SVD, on dense slots; its paged store is
-refused, as in the reference) and arctic-480b (MoE beside a dense
-residual FFN, served on dense slots or pages).  The port serves the dense-slot cache
+refused, as in the reference), arctic-480b (MoE beside a dense
+residual FFN, served on dense slots or pages), jamba-1.5-large-398b (the
+hybrid: Mamba-2 SSD layers around one attention layer a period, its
+attention layers' cache compressed, the SSM state beside it on dense
+slots; its paged store is refused, as in the reference) and the stubs
+musicgen-large and phi-3-vision-4.2b (served on token prompts, dense
+slots or pages, as the reference engine serves them; their frontends'
+embeddings enter through ``LM.prefill``).  Calibration is skipped only
+for an attention-free stack.  The port serves the dense-slot cache
 and the paged store (``--paged``, ``--page-size``, ``--n-pages``), with
 exact-length or chunked prefill (``--prefill-chunk``, which turns on
 paging, and ``--prefill-buckets``), quantized pages (``--cache-quant``)

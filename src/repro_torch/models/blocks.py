@@ -1,11 +1,14 @@
-"""Decoder blocks of the dense, SSM, MoE and MLA families, pre-norm.
+"""Decoder blocks of every family, pre-norm.
 
 Torch counterpart of ``repro.models.blocks``: a mixer (attention, MLA or
 a Mamba-2 SSD layer) and an FFN (SwiGLU, or a mixture of experts), each
 behind its RMSNorm.  The reference groups layers into ``lax.scan`` steps
 behind an unrolled prefix of heterogeneous leading layers (DeepSeek-V2's
-dense first layer); the port runs a Python loop over a list of per-layer
-parameter dicts, the prefix layers first, so every step is one layer.
+dense first layer), one hybrid period a step (Jamba's seven SSM layers
+and one attention layer); the port runs a Python loop over a list of
+per-layer parameter dicts, the prefix layers first.  ``step_layout``
+gives the reference's grouping, which the bridge and Adafactor's stacked
+statistics follow.
 
 Layer dict: ``{"ln1", "attn": {wq, wk, wv, wo} | MLA {wq, wd, wuk, wuv,
 wo} | "ssm": {in_proj, conv, a_log, dt_bias, d_skip, norm, out_proj}[,
@@ -28,21 +31,31 @@ from repro_torch.models.moe import init_moe, moe_ffn
 
 
 def step_layout(cfg: ModelConfig) -> Tuple[List[int], List[List[int]]]:
-    """(prefix_layer_ids, steps): the ``first_k_dense`` layers of a MoE
-    stack form the unrolled prefix, as in the reference, and every other
-    layer is a step of its own.  Hybrid stacks (multi-layer steps) and
-    the audio and VLM stubs (``inputs_embeds``) are not ported yet and
-    raise."""
-    if (cfg.hybrid is not None or cfg.inputs_embeds
-            or cfg.family in ("hybrid", "audio", "vlm")):
-        raise NotImplementedError(
-            f"{cfg.name}: hybrid stacks and the audio / VLM stubs are not "
-            f"ported yet (family {cfg.family!r}; ROADMAP.md queue 1, item "
-            f"5, models off the main path)")
+    """(prefix_layer_ids, steps), each step a list of layer ids: the
+    ``first_k_dense`` layers of a MoE stack form the unrolled prefix, as
+    in the reference, and the other layers go into steps of one hybrid
+    period each (one layer without ``cfg.hybrid``).  The reference also
+    asserts that the steps are whole periods of one structure, which its
+    ``lax.scan`` needs; the port's loop does not, so a stack cut short of
+    a period (a hybrid model at a reduced depth) ends in a shorter
+    step."""
     prefix = []
     if cfg.moe is not None and cfg.moe.first_k_dense:
         prefix = list(range(cfg.moe.first_k_dense))
-    return prefix, [[i] for i in range(cfg.n_layers) if i not in prefix]
+    body = [i for i in range(cfg.n_layers) if i not in prefix]
+    period = cfg.hybrid.period if cfg.hybrid is not None else 1
+    return prefix, [body[i: i + period] for i in range(0, len(body), period)]
+
+
+def attn_sublayer_index(cfg: ModelConfig, step: List[int]) -> Optional[int]:
+    """Index within ``step`` of its one attention or MLA layer, None if
+    it has none."""
+    idxs = [j for j, i in enumerate(step)
+            if cfg.layer_kinds()[i] in ("attn", "mla")]
+    if len(idxs) > 1:
+        raise ValueError(f"{cfg.name}: more than one attention layer in "
+                         f"the step {step}")
+    return idxs[0] if idxs else None
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, layer_idx: int,

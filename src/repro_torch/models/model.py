@@ -1,8 +1,9 @@
 """The language model: embed -> blocks -> norm -> head, in PyTorch.
 
-Torch counterpart of ``repro.models.model.LM`` for the dense, SSM, MoE
-and MLA families.  Parameters are a plain dict of tensors on the model's
-device:
+Torch counterpart of ``repro.models.model.LM`` for every family: dense,
+SSM, MoE, MLA, the hybrid (SSM layers around one attention layer a
+period) and the audio / VLM stubs.  Parameters are a plain dict of
+tensors on the model's device:
 
     {"embed": (V, D), "final_norm": (D,), "lm_head": (D, V),
      "layers": [layer dict, ...]}            (see ``blocks``)
@@ -12,14 +13,23 @@ and its stacked ``steps`` unstacked after them, one list in layer order
 (``repro_torch.bridge`` converts one into the other).  Caches are lists
 with one dict per layer (an SSM layer's holds its conv tail and SSM
 state, an MLA layer's its (B, T, R) latent and rope keys), runtime
-projections lists with one dict per attention or MLA layer.
+projections lists with one dict per attention or MLA layer (a hybrid
+stack's attention layers only).
+
+A batch is a (B, S) token array, or a dict of ``tokens`` (B, S) or the
+stub frontend's ``embeds`` (B, S, D), either with ``image_embeds`` (B, P,
+D) put ahead of them (``_embed``, the reference's): ``prefill``,
+``train_logits`` and ``calibrate`` take it, so a VLM prefill's cache and
+logits cover the P + S positions.  ``prefill_chunk`` and ``decode_step``
+take tokens only, as in the reference.
 
 Public entry points:
     init(gen)                                   -> params
     prefill(params, batch, max_len, proj)       -> (logits, cache)
         (full-sequence attention in K6 on the card, MLA's at (192, 128);
         a sliding window makes the cache a ring of min(max_len, window)
-        slots; an SSM layer runs K7 and keeps only its state)
+        slots; an SSM layer runs K7 and keeps only its state; a VLM
+        prefix of P patches takes P of the ``max_len`` positions)
     decode_step(params, cache, tokens, pos, proj, block_table,
                 token_mask, num_splits)         -> (logits, cache)
         (pos: per-sequence (B,) positions; scalars broadcast; the cache
@@ -34,8 +44,9 @@ Public entry points:
         each layer rematerialized in the backward as ``cfg.remat_policy``
         says; aux sums the MoE layers' router statistics, ``n_moe``
         counts those layers)
-    calibrate(params, tokens, host=True)        -> per-layer captures
-        (host numpy arrays; ``host=False`` keeps them on the device)
+    calibrate(params, batch, host=True)         -> per-layer captures
+        (host numpy arrays; ``host=False`` keeps them on the device;
+        the patch positions of a VLM batch are captured too)
     group_output_weights(params)                -> stacked W^O per kv group
 
 The model runs on ``torch.device("cuda")`` unless it is given another
@@ -54,8 +65,9 @@ from repro_torch.config import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
-from repro_torch.models.blocks import (apply_layer, init_layer,
-                                       init_layer_cache, step_layout)
+from repro_torch.models.blocks import (apply_layer, attn_sublayer_index,
+                                       init_layer, init_layer_cache,
+                                       step_layout)
 from repro_torch.models.layers import dtype_of, init_rms, rms_norm
 
 
@@ -117,7 +129,9 @@ class LM:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype_of(cfg.dtype)
-        step_layout(cfg)            # raises for families not ported yet
+        self.prefix, self.steps = step_layout(cfg)
+        for step in self.steps:     # at most one attention layer a step
+            attn_sublayer_index(cfg, step)
         self.kinds = cfg.layer_kinds()
         self.attn_layers = [i for i, k in enumerate(self.kinds)
                             if k in ("attn", "mla")]
@@ -147,6 +161,23 @@ class LM:
     def _tokens(self, batch) -> torch.Tensor:
         tokens = batch["tokens"] if isinstance(batch, dict) else batch
         return torch.as_tensor(tokens, device=self.device).long()
+
+    def _embed(self, params, batch) -> torch.Tensor:
+        """The stack's input (B, S', D) in the model type: the token
+        embeddings, or the stub frontend's ``embeds`` in their place, with
+        ``image_embeds`` (B, P, D) put first when the batch has them
+        (S' = P + S).  A bare array is a token batch."""
+        if not isinstance(batch, dict):
+            batch = {"tokens": batch}
+        if "embeds" in batch:
+            x = torch.as_tensor(batch["embeds"], device=self.device) \
+                .to(self.dtype)
+        else:
+            x = params["embed"][self._tokens(batch)]
+        if "image_embeds" in batch:
+            img = torch.as_tensor(batch["image_embeds"], device=self.device)
+            x = torch.cat([img.to(self.dtype), x], dim=1)
+        return x
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         head = (params["embed"].T if self.cfg.tie_embeddings
@@ -180,8 +211,8 @@ class LM:
 
     def prefill(self, params, batch, max_len: int, proj=None):
         """Full-prompt prefill: last-token logits (B, 1, V) + a populated
-        cache of length ``max_len``."""
-        x = params["embed"][self._tokens(batch)]
+        cache of length ``max_len``; ``batch`` as ``_embed`` takes it."""
+        x = self._embed(params, batch)
         x, cache, _, _ = self._run_stack(params, x, "prefill", proj=proj,
                                          max_len=max_len)
         x = rms_norm(x[:, -1:], params["final_norm"], self.cfg.rms_eps)
@@ -239,8 +270,10 @@ class LM:
         stack without MoE), differentiable in ``params``: attention and
         MLA run K6 and an SSM layer K7 under autograd.  Each layer is
         checkpointed as ``cfg.remat_policy`` says (``remat_options``);
-        remat changes no number."""
-        x = params["embed"][self._tokens(batch)]
+        remat changes no number.  ``batch`` as ``_embed`` takes it: with
+        ``image_embeds`` the logits cover the P + S positions, and a
+        train batch's labels are -100 (ignored) over the patches."""
+        x = self._embed(params, batch)
         opts = remat_options(self.cfg.remat_policy)
         aux: Dict[str, torch.Tensor] = {}
         for i, lp in enumerate(params["layers"]):
@@ -257,15 +290,16 @@ class LM:
         x, _, _, aux = apply_layer(lp, x, self.cfg, i, "train")
         return x, aux
 
-    def calibrate(self, params, tokens, host: bool = True) -> List[Dict]:
+    def calibrate(self, params, batch, host: bool = True) -> List[Dict]:
         """Per-attention-layer post-RoPE captures ``{"k", "q", "v"}`` (an
         MLA layer's latent as k and v with one kv head, its absorbed
-        queries as q): host float32 numpy arrays
+        queries as q) over every position of ``batch`` (as ``_embed``
+        takes it: a VLM batch's patches too): host float32 numpy arrays
         (``GramAccumulator.update`` takes host arrays), or with
         ``host=False`` the tensors on the model's device, in the model's
         type (``make_calibrate_step`` sums their Grams there); empty for
-        an attention-free stack."""
-        x = params["embed"][self._tokens(tokens)]
+        an attention-free stack, one per attention layer of a hybrid."""
+        x = self._embed(params, batch)
         _, _, captures, _ = self._run_stack(params, x, "calibrate")
         if not host:
             return captures
@@ -309,7 +343,7 @@ class LM:
         of the page layout ``cfg.cache_quant`` selects.  A sliding window
         raises ``NotImplementedError``, as in the reference: its ring
         cache lives on dense slots; so does a stack with non-attention
-        layers (SSM, MLA)."""
+        layers (SSM, MLA, a hybrid's SSM layers)."""
         kinds = set(self.kinds)
         if kinds != {"attn"}:
             raise NotImplementedError(

@@ -10,13 +10,17 @@ __all__ = ["TrainConfig", "adafactor", "adamw", "learning_rate",
            "init_state", "apply_updates"]
 
 
-def init_state(params, tc: TrainConfig):
-    """The optimizer state ``tc.optimizer`` names, for ``params``."""
-    mod = adafactor if tc.optimizer == "adafactor" else adamw
-    return mod.init_state(params, tc)
+def init_state(params, tc: TrainConfig, layout=None):
+    """The optimizer state ``tc.optimizer`` names, for ``params``;
+    Adafactor's stacked statistics follow ``layout``, the model's
+    ``(prefix, steps)`` (``models.blocks.step_layout``)."""
+    if tc.optimizer == "adafactor":
+        return adafactor.init_state(params, tc, layout)
+    return adamw.init_state(params, tc)
 
 
-def apply_updates(params, grads, state, tc: TrainConfig, lr):
+def apply_updates(params, grads, state, tc: TrainConfig, lr, layout=None):
     """One update: ``(new_params, new_state, metrics)``."""
-    mod = adafactor if tc.optimizer == "adafactor" else adamw
-    return mod.apply_updates(params, grads, state, tc, lr)
+    if tc.optimizer == "adafactor":
+        return adafactor.apply_updates(params, grads, state, tc, lr, layout)
+    return adamw.apply_updates(params, grads, state, tc, lr)

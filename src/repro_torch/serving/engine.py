@@ -72,7 +72,11 @@ and in K1 over pages, and a prefill chunk's attention in K2.
 Every decode step passes the slots still active as its token mask and a
 prefill chunk its count of real tokens, so MoE routing gives no expert
 capacity to a finished or empty slot or to a chunk's padding.  An MLA
-stack (its (B, T, R) latent caches) serves on dense slots only.
+stack (its (B, T, R) latent caches) serves on dense slots only, and so
+does an SSM or hybrid stack, whose slots hold each SSM layer's state
+beside the attention layers' caches.  Prompts are tokens: the audio and
+VLM stubs serve them through their token embeddings, as in the
+reference.
 
 ``decode_splits`` > 1 splits each slot's page chain across blocks in the
 paged decode (split-KV: K4, and K5 over int8 pages); 0 derives the split

@@ -39,10 +39,13 @@ def value_and_grad(loss_fn, params, batch):
     """``(metrics, grads)``: ``loss_fn``'s metrics (detached) and the
     gradient tree of its loss at ``params``, in the parameters' types
     (the caller's tensors are not marked: autograd runs on detached
-    aliases of them)."""
+    aliases of them).  A parameter the loss does not read (the token
+    embeddings of a batch of frontend ``embeds``) gets a zero gradient,
+    as ``jax.grad`` gives it."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     loss, metrics = loss_fn(live, batch)
-    grads = torch.autograd.grad(loss, [p for _, p in leaves(live)])
+    grads = torch.autograd.grad(loss, [p for _, p in leaves(live)],
+                                allow_unused=True, materialize_grads=True)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return metrics, unflatten(params, grads)
 
@@ -76,7 +79,7 @@ def make_train_step(model: LM, tc: TrainConfig) -> Callable:
             metrics, grads = value_and_grad(loss_fn, params, batch)
         lr = learning_rate(tc, opt_state["step"])
         params, opt_state, om = optim.apply_updates(
-            params, grads, opt_state, tc, lr)
+            params, grads, opt_state, tc, lr, (model.prefix, model.steps))
         metrics = dict(metrics)
         metrics.update(om)
         metrics["lr"] = lr

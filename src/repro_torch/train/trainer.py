@@ -91,8 +91,9 @@ class Trainer:
             gen = torch.Generator(device=self.model.device)
             gen.manual_seed(self.tc.seed)
         params = self.model.init(gen)
-        return {"params": params, "opt": optim.init_state(params, self.tc),
-                "step": 0}
+        layout = (self.model.prefix, self.model.steps)
+        return {"params": params,
+                "opt": optim.init_state(params, self.tc, layout), "step": 0}
 
     def resume_or_init(self):
         """The newest readable checkpoint's state, else ``init_state()``."""

@@ -8,18 +8,20 @@ helpers walk them by path, the way the reference walks its JAX pytrees:
     unflatten(template, vals) -> template's structure, vals as its leaves
     tree_map(fn, tree, *rest) -> the same structure, fn on each leaf
     path_key(path)            -> "layers/0/attn/wq" (checkpoint keys)
-    stack_layers(params)      -> "layers" as one dict of (L, ...) leaves
+    stack_layers(params, layout)
+                              -> "layers" as the reference's stacked steps
                                  (a heterogeneous "prefix" apart)
-    unstack_layers(st, like)  -> back to a list of per-layer dicts
+    unstack_layers(st, layout) -> back to a list of per-layer dicts
 
-``stack_layers`` gives the reference's own layout of a stack (its
-``steps/layers/0`` leaves carry a leading layer axis, its unrolled
-``prefix`` layers do not), which is what Adafactor's statistics and
-update clip are taken over.
+``layout`` is the model's ``(prefix layer ids, steps)``
+(``models.blocks.step_layout``).  ``stack_layers`` gives the reference's
+own layout of a stack (its ``steps/layers/j`` leaves carry a leading step
+axis, its unrolled ``prefix`` layers do not), which is what Adafactor's
+statistics and update clip are taken over.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -68,46 +70,46 @@ def path_key(path: Path) -> str:
     return SEP.join(str(p) for p in path)
 
 
-def prefix_len(layers: Sequence) -> int:
-    """How many leading layers differ in structure (leaf paths and
-    shapes) from the last one: the reference's unrolled prefix, such as
-    DeepSeek-V2's dense first layer before its MoE layers; 0 for a
-    homogeneous stack."""
-    def signature(layer):
-        return [(path, tuple(x.shape)) for path, x in leaves(layer)]
-    last = signature(layers[-1])
-    n = 0
-    while n < len(layers) and signature(layers[n]) != last:
-        n += 1
-    return n
+Layout = Tuple[List[int], List[List[int]]]
 
 
-def stack_layers(params):
-    """``params`` with its ``layers`` list replaced by one layer dict whose
-    leaves are the per-layer leaves stacked on a new leading axis, the
-    reference's ``steps/layers/0``; leading layers of another structure
-    (``prefix_len``) stay unstacked under ``prefix``, as the reference's
-    unrolled prefix does.  A tree without a ``layers`` list comes back as
-    it is."""
+def stack_layers(params, layout: Optional[Layout]):
+    """``params`` with its ``layers`` list replaced by the reference's
+    ``steps/layers``: a list with, for each position ``j`` of a step of
+    ``layout``, one layer dict whose leaves are those of the steps'
+    ``j``-th layers stacked on a new leading axis (a last step cut short
+    of a period stacks into the positions it has).  The prefix layers
+    stay unstacked under ``prefix``, as the reference's unrolled prefix
+    does.  A tree without a ``layers`` list comes back as it is."""
     layers = params.get("layers")
     if not isinstance(layers, list):
         return params
-    n = prefix_len(layers)
+    if layout is None:
+        raise ValueError("stacking a layer list needs the model's layout "
+                         "(models.blocks.step_layout)")
+    prefix, steps = layout
     out = dict(params)
-    if n:
-        out["prefix"] = list(layers[:n])
-    out["layers"] = tree_map(lambda *xs: torch.stack(xs), *layers[n:])
+    if prefix:
+        out["prefix"] = [layers[i] for i in prefix]
+    out["layers"] = [
+        tree_map(lambda *xs: torch.stack(xs),
+                 *(layers[step[j]] for step in steps if j < len(step)))
+        for j in range(max(map(len, steps), default=0))]
     return out
 
 
-def unstack_layers(stacked, like):
-    """Inverse of ``stack_layers(like)``: the prefix layers, then views of
-    the stacked leaves, one layer dict per layer of ``like``."""
-    if not isinstance(like.get("layers"), list):
+def unstack_layers(stacked, layout: Optional[Layout]):
+    """Inverse of ``stack_layers(..., layout)``: one layer dict per layer,
+    the prefix layers as they are and views of the stacked leaves."""
+    if "layers" not in stacked:
         return stacked
+    prefix, steps = layout
     out = {k: v for k, v in stacked.items() if k != "prefix"}
-    prefix = list(stacked.get("prefix", []))
-    out["layers"] = prefix + [
-        tree_map(lambda x, i=i: x[i], stacked["layers"])
-        for i in range(len(like["layers"]) - len(prefix))]
+    layers = [None] * (len(prefix) + sum(len(step) for step in steps))
+    for i, layer in zip(prefix, stacked.get("prefix", [])):
+        layers[i] = layer
+    for s, step in enumerate(steps):
+        for j, i in enumerate(step):
+            layers[i] = tree_map(lambda x, s=s: x[s], stacked["layers"][j])
+    out["layers"] = layers
     return out

@@ -45,6 +45,34 @@ def test_gram_accumulator_matches_reference():
     assert mine.layers[0].tokens == ref.layers[0].tokens
 
 
+
+@pytest.mark.parametrize("L", [1, 6])
+def test_solve_in_threads_matches_reference(L):
+    """``GramAccumulator.solve`` over one layer (solved alone) and six
+    (side by side in threads) gives the reference's serial solve within
+    float64 rounding, and leaves numpy's BLAS on as many threads as
+    before."""
+    from repro_torch.core.calibration import _openblas_thread_setters
+    rng = np.random.default_rng(5)
+    B, Hkv, H, T, d, Do = 2, 2, 4, 40, 16, 48
+    mine, ref = GramAccumulator(L), JaxAccumulator(L)
+    for l in range(L):
+        k, q, v = (rng.normal(size=s) for s in ((B, Hkv, T, d),
+                                                 (B, H, T, d),
+                                                 (B, Hkv, T, d)))
+        mine.update(l, k, q, v)
+        ref.update(l, k, q, v)
+    w_out = [rng.normal(size=(Hkv, d, Do)) for _ in range(L)]
+    before = [n for _, n in _openblas_thread_setters()]
+    got = mine.solve(CompressionConfig(method="kqsvd", epsilon=0.05), w_out)
+    want = ref.solve(JaxCompression(method="kqsvd", epsilon=0.05), w_out)
+    assert [n for _, n in _openblas_thread_setters()] == before
+    assert got.ranks_k == want.ranks_k and got.ranks_v == want.ranks_v
+    for name in ("a_k", "b_q", "a_v", "c_v"):
+        a, b = getattr(got, name), getattr(want, name)
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-12 * np.abs(b).max())
+
 def _models(arch="tinyllama-1.1b"):
     jm = jax_model(jax_config(arch).reduced())
     jp = jm.init(jax.random.PRNGKey(0))

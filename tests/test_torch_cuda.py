@@ -9,6 +9,8 @@ budget, with the sliding-window ring cache and with mamba2's SSM state;
 MoE dispatch at deepseek-v2-lite's and arctic's expert counts (keep
 masks equal where capacity binds) and reduced deepseek-v2-lite's MLA
 prefill, decode and dense-slot engine on the card against the CPU;
+reduced jamba's prefill, decode and engine and reduced phi-3-vision's
+image-prefix prefill and decode on the card against the CPU;
 a copy-on-write fork on the card copying every leaf byte for byte, a
 budget step's fused chunk launching K2 before the decode chunk's K1 with
 one host sync, and the NaN quarantine of a device logit row; K6 and K7
@@ -886,7 +888,8 @@ def test_reduced_window_engine_card_matches_cpu(cuda, method, cache_quant):
 
 # K7: the reference sweep's shapes (B, nh, G, S, hd, n, chunk), reduced
 # mamba2 with a ragged last chunk, mamba2's full head at a ragged length
-# and jamba's head, each with and without an initial state
+# and jamba's head, short and at full width (128 heads of (128, 64), S
+# 4096 and 4097), each with and without an initial state
 SSD_CASES = [(2, 4, 2, 64, 8, 16, 16), (1, 2, 1, 128, 16, 8, 32),
              (2, 2, 2, 64, 8, 8, 64), (2, 8, 1, 70, 16, 16, 32),
              (1, 4, 1, 300, 64, 128, 256), (1, 2, 1, 130, 128, 64, 256),
@@ -896,10 +899,12 @@ SSD_CASES = [(2, 4, 2, 64, 8, 16, 16), (1, 2, 1, 128, 16, 8, 32),
              (1, 4, 1, 50, 16, 8, 1),           # chunks of 1 token
              (2, 4, 2, 123, 64, 128, 17),       # chunks of no tile multiple
              (1, 2, 1, 333, 128, 64, 100),
-             (2, 4, 1, 0, 16, 16, 32)]          # S 0: the state passes
+             (2, 4, 1, 0, 16, 16, 32),          # S 0: the state passes
+             (1, 128, 1, 4096, 128, 64, 256),   # jamba's full head
+             (1, 128, 1, 4097, 128, 64, 256)]   # jamba's, ragged
 # cases that ask y in float32, as the model does (models/ssm.py): held at
 # 1e-4 + 1e-4 |ref| whatever the input type
-SSD_Y_F32 = {7}
+SSD_Y_F32 = {7, 13, 14}
 
 
 def _ssd_inputs(dev, dtype, B, nh, G, S, hd, n, seed=0):
@@ -1176,6 +1181,88 @@ def test_moe_dispatch_card_matches_cpu(cuda, E, K, masked):
     torch.testing.assert_close(yg, yc, rtol=1e-5, atol=1e-5)
     for k in ac:
         assert abs(ag[k] - ac[k]) <= 1e-5 * max(1.0, abs(ac[k])), k
+
+
+def test_reduced_jamba_decode_card_matches_cpu(cuda):
+    """Reduced jamba-1.5-large-398b (SSM layers around two attention
+    layers, MoE, float32) with KQ-SVD: prefill (K7 in the six SSM layers,
+    K6 in the two attention layers on the card) and a decode step (K3 in
+    the attention layers): logits and every cache leaf within 2e-4 of the
+    CPU's; then the dense-slot engine's greedy tokens equal."""
+    cfg = get_config("jamba-1.5-large-398b").reduced()
+    cpu, gpu = build_model(cfg, "cpu"), build_model(cfg, cuda)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    p_gpu = tree_to(p_cpu, cuda)
+    mp = calibrate_model(cpu, p_cpu, calibration_batches(
+        cfg.vocab_size, 4, 32, batch=2),
+        CompressionConfig(method="kqsvd", epsilon=0.1))
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 40))
+    counts = (ssd_chunk_scan.launches, flash_attention.launches,
+              kq_decode_attention.launches)
+    outs = []
+    for m, p in ((cpu, p_cpu), (gpu, p_gpu)):
+        proj = m.projections_pytree(mp)
+        lg, cache = m.prefill(p, toks[:, :39], 48, proj=proj)
+        lg2, cache = m.decode_step(p, cache, toks[:, 39:40],
+                                   np.array([39, 39]), proj=proj)
+        outs.append(([lg.cpu(), lg2.cpu()],
+                     [{k: v.cpu() for k, v in c.items()} for c in cache]))
+    assert (ssd_chunk_scan.launches - counts[0],
+            flash_attention.launches - counts[1],
+            kq_decode_attention.launches - counts[2]) == (6, 2, 2)
+    for a, b in zip(outs[0][0], outs[1][0]):
+        torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
+    for ca, cb in zip(outs[0][1], outs[1][1]):
+        for k in ca:
+            torch.testing.assert_close(cb[k], ca[k], rtol=2e-4, atol=2e-4)
+    served = []
+    for m, p in ((cpu, p_cpu), (gpu, p_gpu)):
+        eng = ServingEngine(cfg, p, ServeConfig(max_seq_len=64, max_batch=3,
+                                                decode_chunk=4),
+                            projections=mp, device=m.device)
+        rs = [Request(rid=i, prompt=q, max_new_tokens=8) for i, q in
+              enumerate(np.random.default_rng(2).integers(
+                  0, cfg.vocab_size, (5, 11)).astype(np.int32))]
+        eng.generate(rs)
+        served.append([r.out_tokens for r in rs])
+    assert served[0] == served[1]
+
+
+def test_reduced_phi3_image_prefix_card_matches_cpu(cuda):
+    """Reduced phi-3-vision-4.2b (float32) with KQ-SVD calibrated on stub
+    batches (patch embeddings ahead of the text): a prefill of 4 patches
+    and 12 tokens (K6 on the card), then decode steps after the P + S
+    positions (K3): logits and the cache within 2e-4 of the CPU's."""
+    from repro_torch.data import stub_batch
+    cfg = get_config("phi-3-vision-4.2b").reduced()
+    cpu, gpu = build_model(cfg, "cpu"), build_model(cfg, cuda)
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    p_gpu = tree_to(p_cpu, cuda)
+    mp = calibrate_model(cpu, p_cpu, [stub_batch(cfg, 2, 32, seed=i)
+                                      for i in range(2)],
+                         CompressionConfig(method="kqsvd", epsilon=0.1))
+    batch = stub_batch(cfg, 2, 12, seed=5)
+    P = cfg.num_patch_tokens
+    toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 3))
+    before = kq_decode_attention.launches
+    outs = []
+    for m, p in ((cpu, p_cpu), (gpu, p_gpu)):
+        proj = m.projections_pytree(mp)
+        lg, cache = m.prefill(p, batch, P + 16, proj=proj)
+        seq = [lg]
+        for i in range(3):
+            lg, cache = m.decode_step(p, cache, toks[:, i:i + 1],
+                                      P + 12 + i, proj=proj)
+            seq.append(lg)
+        outs.append(([t.cpu() for t in seq],
+                     [{k: v.cpu() for k, v in c.items()} for c in cache]))
+    assert kq_decode_attention.launches == before + 3 * cfg.n_layers
+    assert outs[1][1][0]["kc"].shape[2] == P + 16
+    for a, b in zip(outs[0][0], outs[1][0]):
+        torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
+    for ca, cb in zip(outs[0][1], outs[1][1]):
+        for k in ca:
+            torch.testing.assert_close(cb[k], ca[k], rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("compressed", [False, True])

@@ -235,6 +235,8 @@ def test_bridge_prefix_layers():
     the reference's ``prefix`` / ``steps`` split back."""
     from repro_torch.tree import stack_layers, unstack_layers
     jm, jp, _, tm, tp, _, _ = pair("deepseek-v2-lite-16b")
+    layout = (tm.prefix, tm.steps)
+    assert layout == ([0], [[1], [2]])
     cfg = tm.cfg
     assert len(tp["layers"]) == cfg.n_layers == 3
     assert set(tp["layers"][0]["ffn"]) == {"wi", "wg", "wo"}
@@ -247,15 +249,15 @@ def test_bridge_prefix_layers():
         np.testing.assert_array_equal(
             tp["layers"][i]["ffn"]["wi_e"].numpy(),
             jp["steps"]["layers"][0]["ffn"]["wi_e"][i - 1])
-    st = stack_layers(tp)
-    assert len(st["prefix"]) == 1
-    assert st["layers"]["ffn"]["wi_e"].shape[0] == 2
-    back = unstack_layers(st, tp)
+    st = stack_layers(tp, layout)
+    assert len(st["prefix"]) == 1 and len(st["layers"]) == 1
+    assert st["layers"][0]["ffn"]["wi_e"].shape[0] == 2
+    back = unstack_layers(st, layout)
     for (p, a), (_, b) in zip(leaves(back), leaves(tp)):
         assert torch.equal(a, b), p
     # arctic: no prefix, every layer a step
-    _, _, _, _, ap, _, _ = pair("arctic-480b")
-    assert "prefix" not in stack_layers(ap)
+    _, _, _, am, ap, _, _ = pair("arctic-480b")
+    assert "prefix" not in stack_layers(ap, (am.prefix, am.steps))
 
 
 def test_adafactor_with_prefix_matches_reference():
@@ -272,7 +274,8 @@ def test_adafactor_with_prefix_matches_reference():
     jg = jax.tree.map(lambda a: rng.normal(size=a.shape).astype(a.dtype)
                       * 1e-2, jp)
     jst = jax_adafactor.init_state(jp, jtc)
-    st = adafactor.init_state(tp, tc)
+    layout = (tm.prefix, tm.steps)
+    st = adafactor.init_state(tp, tc, layout)
     mine = dict(leaves(st))
     ref = dict(leaves(bridge.opt_state_from_jax(
         jax.tree.map(np.asarray, jst))))
@@ -283,7 +286,7 @@ def test_adafactor_with_prefix_matches_reference():
     jp2, jst2, _ = jax.jit(jax_adafactor.apply_updates, static_argnums=3)(
         jp, jg, jst, jtc, jnp.float32(1e-2))
     tp2, st2, _ = adafactor.apply_updates(tp, bridge.params_from_jax(jg), st,
-                                          tc, 1e-2)
+                                          tc, 1e-2, layout)
     ref_p = dict(leaves(bridge.params_from_jax(jax.tree.map(np.asarray,
                                                             jp2))))
     for path, a in leaves(tp2):

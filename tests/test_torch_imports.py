@@ -56,7 +56,15 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.train.steps",
             "repro_torch.train.trainer",
             "repro_torch.checkpoint.manager",
-            "repro_torch.launch.train"} <= set(names)
+            "repro_torch.launch.train",
+            "repro_torch.configs.jamba_1_5_large_398b",
+            "repro_torch.configs.musicgen_large",
+            "repro_torch.configs.phi_3_vision_4_2b",
+            "repro_torch.data.synthetic",
+            "repro_torch.tree",
+            "repro_torch.bridge",
+            "repro_torch.examples",
+            "repro_torch.examples.long_context_decode"} <= set(names)
 
 
 def test_entry_points_without_device_raise_without_gpu():

@@ -16,8 +16,10 @@ from repro.optim import adafactor as jax_adafactor
 from repro.optim import adamw as jax_adamw
 from repro.optim.schedule import learning_rate as jax_lr
 from repro.train.losses import cross_entropy as jax_ce
-from repro_torch import bridge
+from repro_torch import bridge, optim
 from repro_torch.config import TrainConfig
+from repro_torch.configs import get_config as torch_config
+from repro_torch.models.blocks import step_layout
 from repro_torch.optim import adafactor, adamw
 from repro_torch.optim.schedule import learning_rate
 from repro_torch.train.losses import IGNORE, cross_entropy
@@ -149,15 +151,15 @@ def test_optimizer_steps_match_reference(arch, opt):
     tc, jtc = TrainConfig(**kw), JaxTrainConfig(**kw)
     jp, jgs, tp, tgs = _stack_trees(arch, seed=1, n=N_STEPS)
     jmod = jax_adafactor if opt == "adafactor" else jax_adamw
-    mod = adafactor if opt == "adafactor" else adamw
-    jst, st = jmod.init_state(jp, jtc), mod.init_state(tp, tc)
+    layout = step_layout(torch_config(arch).reduced())
+    jst, st = jmod.init_state(jp, jtc), optim.init_state(tp, tc, layout)
     _close_trees(st, bridge.opt_state_from_jax(
         jax.tree.map(np.asarray, jst)), rtol=0, atol=0)
     japply = jax.jit(jmod.apply_updates, static_argnums=3)
     for jg, tg in zip(jgs, tgs):
         lr = learning_rate(tc, st["step"])
         jp, jst, jm = japply(jp, jg, jst, jtc, jnp.float32(lr))
-        tp, st, tm = mod.apply_updates(tp, tg, st, tc, lr)
+        tp, st, tm = optim.apply_updates(tp, tg, st, tc, lr, layout)
         np.testing.assert_allclose(float(tm["grad_norm"]),
                                    float(jm["grad_norm"]), rtol=1e-6)
     _close_trees(tp, bridge.params_from_jax(jax.tree.map(np.asarray, jp)),
@@ -169,5 +171,5 @@ def test_optimizer_steps_match_reference(arch, opt):
         n_prefix = len(st["slots"].get("prefix", []))
         assert n_prefix == (1 if arch == "deepseek-v2-lite-16b" else 0)
         L, d = len(tp["layers"]) - n_prefix, tp["final_norm"].shape[0]
-        assert st["slots"]["layers"]["ln1"]["vr"].shape == (L,)
-        assert st["slots"]["layers"]["ln1"]["vc"].shape == (d,)
+        assert st["slots"]["layers"][0]["ln1"]["vr"].shape == (L,)
+        assert st["slots"]["layers"][0]["ln1"]["vc"].shape == (d,)

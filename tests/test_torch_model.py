@@ -22,8 +22,11 @@ from repro_torch.configs import get_config as torch_config
 from repro_torch.models import build_model as torch_model
 
 TOL = dict(rtol=2e-4, atol=2e-4)
-# reduced: m=2, m=1, m=2 with tied embeddings, m=2 at deepseek's shape
-ARCHS = ["tinyllama-1.1b", "paper-llama2-7b", "smollm-360m", "deepseek-67b"]
+# reduced: m=2, m=1, m=2 with tied embeddings, m=2 at deepseek's shape;
+# the hybrid (SSM layers around two attention layers, MoE) and the two
+# stubs served on tokens (m=1)
+ARCHS = ["tinyllama-1.1b", "paper-llama2-7b", "smollm-360m", "deepseek-67b",
+         "jamba-1.5-large-398b", "musicgen-large", "phi-3-vision-4.2b"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,12 +119,15 @@ def test_entry_point_without_device_needs_a_gpu():
 
 
 def test_unported_families_raise():
-    """Families the port does not carry raise at construction; a sliding
-    window (served on dense slots since its ring cache was ported) still
-    raises for the paged cache, as in the reference."""
+    """Every family builds now; what the reference refuses the port
+    refuses too: a hybrid stack (SSM layers beside its attention layers)
+    refuses the paged cache, and a sliding window (served on dense slots
+    since its ring cache was ported) still raises for the paged cache,
+    as in the reference."""
+    hyb = torch_model(torch_config("jamba-1.5-large-398b").reduced(), "cpu")
+    with pytest.raises(NotImplementedError, match="plain attention"):
+        hyb.init_paged_cache(4, 4)
     cfg = torch_config("tinyllama-1.1b").reduced()
-    with pytest.raises(NotImplementedError):
-        torch_model(dataclasses.replace(cfg, family="hybrid"), "cpu")
     m = torch_model(dataclasses.replace(cfg, sliding_window=8), "cpu")
     assert m.init_cache(1, 16)[0]["slot_pos"].shape == (1, 8)
     with pytest.raises(NotImplementedError):
@@ -197,18 +203,24 @@ def test_param_counts_match_assignment():
     """Every carried arch: the port's config count equals the
     reference's, within 15% of the assignment's size, and equals the
     elements of the port's init at full width (shapes only, under
-    FakeTensorMode), but for mamba2-2.7b, where the config's formula
-    counts a second norm gain per layer that a pure SSM layer lacks and
-    not its D skip, and for arctic-480b, where it counts the 56 real
-    query heads and the init holds the 64 padded ones."""
+    FakeTensorMode), but for the SSM layers of mamba2-2.7b and
+    jamba-1.5-large-398b, where the config's formula leaves out the D
+    skip (and counts a second norm gain that a pure SSM layer without an
+    FFN lacks), and for arctic-480b, where it counts the 56 real query
+    heads and the init holds the 64 padded ones.  The port's registry is
+    the reference's plus paper-llama2-7b."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.configs import list_archs
     from repro_torch.tree import leaves
+    from repro.configs import list_archs as jax_list_archs
     expected = {"mamba2-2.7b": 2.7e9, "deepseek-67b": 67e9,
                 "tinyllama-1.1b": 1.1e9, "smollm-360m": 0.36e9,
                 "h2o-danube-1.8b": 1.8e9, "paper-llama2-7b": 6.7e9,
-                "deepseek-v2-lite-16b": 16e9, "arctic-480b": 480e9}
-    assert set(list_archs()) == set(expected)
+                "deepseek-v2-lite-16b": 16e9, "arctic-480b": 480e9,
+                "jamba-1.5-large-398b": 398e9, "musicgen-large": 3.3e9,
+                "phi-3-vision-4.2b": 4.2e9}
+    assert set(list_archs()) == set(expected) \
+        == set(jax_list_archs()) | {"paper-llama2-7b"}
     for arch, target in expected.items():
         cfg = torch_config(arch)
         n = cfg.param_count()
@@ -217,9 +229,11 @@ def test_param_counts_match_assignment():
         with FakeTensorMode():
             p = torch_model(cfg, "cpu").init(torch.Generator())
             n_init = sum(x.numel() for _, x in leaves(p))
-        if cfg.ssm is not None and cfg.d_ff == 0:
-            nh = cfg.ssm.n_heads(cfg.d_model)
-            n_init += cfg.n_layers * (cfg.d_model - nh)
+        if cfg.ssm is not None:
+            n_ssm = cfg.layer_kinds().count("ssm")
+            n_init -= n_ssm * cfg.ssm.n_heads(cfg.d_model)    # D skip
+            if cfg.d_ff == 0 and cfg.moe is None:           # no 2nd norm
+                n_init += n_ssm * cfg.d_model
         if cfg.qhead_pad:       # zero pad heads' wq and wo
             n_init -= cfg.n_layers * 2 * cfg.d_model * cfg.d_head * (
                 cfg.qhead_pad - cfg.n_heads)
