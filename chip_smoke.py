@@ -41,7 +41,22 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              engine on the same requests is printed, not asserted: chunked
              prefill attends over the compressed cache, exact prefill over
              the full one;
-3d. profile  one paged decode step (8 slots at position 512);
+3d. profile  one paged decode step (8 slots at position 512), and its
+             roofline from ``repro_torch.roofline.analysis`` (the H100's
+             datasheet rates): ``model_flops_for`` and ``useful_bytes_for``
+             at 8 slots and position 512 under the reference's rank rule
+             (``d_head // 2``, not the solved ranks), the memory term
+             beside the profiled busy time, then the ``summarize`` line;
+3p. sharded  (after 3d) 3c's paged engine with ``shards=2``, both shards on
+             the one card (``devices=[dev, dev]``): each shard 4 slots and
+             128 pages, 3c's model, projections and 16 requests.  Counts
+             zeroed just before the drain and read just after, per shard:
+             K1 once per layer per decode step of each shard, K2 once per
+             layer per prefill chunk of each, nothing else and no plain
+             version; every request served in full, both pools whole, the
+             first tokens equal 3c's and the agreement with 3c's tokens
+             printed (the top-2 margin where one differs); each shard's
+             completed requests and the step wall p50 / max;
 3e. int8     the paged main path with int8 pages and per-chunk dynamic
              split-KV (``cache_quant="int8"``, ``decode_splits=0``), same
              model, projections, pool (256 fp-page units, so
@@ -269,7 +284,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 5.  parity   the port on the card against the port on the CPU (plain
              versions) at reduced size in float32, same seeded weights:
              dense, paged chunked, int8 pages with dynamic splits, SVDq
-             pages with 3 splits and the dense int8 cache of tinyllama,
+             pages with 3 splits, the dense int8 cache and the sharded
+             engine (2 shards on the card, fp pages and int8 pages with
+             dynamic splits; its agreement with 1 shard printed) of
+             tinyllama,
              and reduced h2o-danube-1.8b (window 16) on dense slots with
              the full cache, KQ-SVD and the dense int8 cache, and reduced
              mamba2-2.7b (chunk 32, prompts of 1..70 tokens) on dense
@@ -326,9 +344,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rate
-              "float32": 67e12}    # CUDA cores, no TF32
+# the H100 SXM's datasheet rates (700 W), from the port's roofline module
+from repro_torch.roofline.analysis import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS as PEAK_BF16, PEAK_FLOPS_F32)
+PEAK_FLOPS = {"bfloat16": PEAK_BF16,   # dense tensor-core rate
+              "float32": PEAK_FLOPS_F32}   # CUDA cores, no TF32
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # tests/test_kernels.py:15-17
 # kernel and plain version read the same inputs and both accumulate in
 # float32, so in bfloat16 they also agree to two ulps of the output
@@ -1028,6 +1048,138 @@ def serve_report(label: str, eng, reqs, wall: float) -> None:
           f"ms/step)")
 
 
+def roofline_line(cfg, prof: dict, ranks) -> None:
+    """3c's decode step (8 slots at position 512) against the card's
+    roofline, from the reference's config arithmetic in the port's
+    roofline module: ``model_flops_for`` and ``useful_bytes_for`` under
+    its KQ-SVD rank rule (``d_head // 2`` for keys and values), which is
+    not the solved padded ranks the step runs at.  First the memory term
+    beside 3d's profiled busy time, then the ``summarize`` line."""
+    from repro_torch.config import ShapeSpec
+    from repro_torch.roofline.analysis import (Roofline, model_flops_for,
+                                               summarize, useful_bytes_for)
+    sh = ShapeSpec("decode_b8_t512", 512, 8, "decode")
+    flops = model_flops_for(cfg, sh, "kqsvd")
+    nbytes = useful_bytes_for(cfg, sh, "kqsvd")
+    r = Roofline(arch=cfg.name, shape=sh.name, mesh="1 card",
+                 variant="kqsvd", n_devices=1, hlo_flops=flops,
+                 hlo_bytes=nbytes, model_flops=flops,
+                 useful_bytes=nbytes).finalize()
+    mem_ms = 1e3 * r.t_memory_projected
+    busy = prof.get("busy_ms")
+    print(f"roofline of 3c's decode step (8 slots at position 512; the "
+          f"reference's rank rule d_head // 2 = {cfg.d_head // 2} for k "
+          f"and v, not the solved padded Rk {ranks[0]} / Rv {ranks[1]}): "
+          f"memory term {mem_ms:.4f} ms ({nbytes:.0f} bytes at "
+          f"{HBM_BYTES_PER_S:.3g} B/s), compute term "
+          f"{1e3 * r.t_compute:.4f} ms ({flops:.0f} flops); "
+          + (f"3d's measured busy {busy:.3f} ms, {busy / mem_ms:.1f}x the "
+             f"memory term" if busy else
+             "busy not measured (the profiler saw no device time)"))
+    print(summarize(r))
+
+
+def serve_sharded(cfg, params, mp, psc, prompts, oracle, dev, zero_counts,
+                  plain_calls) -> None:
+    """Phase 3p: phase 3c's paged engine with ``shards=2``, both shards on
+    the one card (``devices=[dev, dev]``), on 3c's 16 requests.  Counts
+    zeroed just before the drain and read just after, per shard (each
+    worker's chunk and decode launches wrapped): K1 once per layer per
+    decode step of each shard, K2 once per layer per prefill chunk of
+    each, nothing else and no plain version; every request served in
+    full, both pools whole, the first tokens equal 3c's (the prefills are
+    the same chunks) and the agreement with 3c printed with the top-2
+    margin where a token differs; per shard the requests completed, and
+    the step wall p50 / max."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.kernels.kq_decode import (
+        kq_combine_splits, kq_decode_attention, kq_decode_paged_attention,
+        kq_decode_paged_int8, kq_decode_paged_int8_split,
+        kq_decode_paged_split, kq_prefill_paged_attention)
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving.engine import ShardedServingEngine
+    k1, k2 = kq_decode_paged_attention, kq_prefill_paged_attention
+    eng = ServingEngine(cfg, params, dataclasses.replace(psc, shards=2),
+                        projections=mp, devices=[dev, dev])
+    assert isinstance(eng, ShardedServingEngine)
+    assert all(w.params is params and w.proj is eng.proj
+               for w in eng.workers), "params or projections copied"
+    per = [{"K1": 0, "K2": 0} for _ in eng.workers]
+
+    def counted(fn, s):
+        def call(*args, **kw):
+            before = k1.launches, k2.launches
+            out = fn(*args, **kw)
+            per[s]["K1"] += k1.launches - before[0]
+            per[s]["K2"] += k2.launches - before[1]
+            return out
+        return call
+
+    for s, w in enumerate(eng.workers):
+        w._launch_decode = counted(w._launch_decode, s)
+        w._launch_chunk = counted(w._launch_chunk, s)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=32)
+            for i, p in enumerate(prompts)]
+    zero_counts()
+    walls = []
+    t0 = time.perf_counter()
+    eng.start(reqs)
+    busy = True
+    while busy:
+        t1 = time.perf_counter()
+        busy = eng.step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    wall = time.perf_counter() - t0
+    others = {"K3": kq_decode_attention.launches,
+              "K4": kq_decode_paged_split.launches,
+              "K5": kq_decode_paged_int8.launches,
+              "K5 split": kq_decode_paged_int8_split.launches,
+              "merge": kq_combine_splits.launches,
+              "K6": flash_attention.launches}
+    assert not any(others.values()), others
+    assert not any(plain_calls.values()), plain_calls
+    assert k1.launches == sum(c["K1"] for c in per), (k1.launches, per)
+    assert k2.launches == sum(c["K2"] for c in per), (k2.launches, per)
+    for s, w in enumerate(eng.workers):
+        assert w.n_completed > 0 and w.n_decode_steps > 0 \
+            and w.n_prefill_chunks > 0, (s, w.n_completed)
+        assert per[s]["K1"] == cfg.n_layers * w.n_decode_steps, (s, per)
+        assert per[s]["K2"] == cfg.n_layers * w.n_prefill_chunks, (s, per)
+        assert w.pool.free_count == w.pool.n_pages, \
+            (s, w.pool.free_count, w.pool.n_pages)
+    bad = [r.rid for r in reqs if r.failed or not r.done or len(
+        r.out_tokens) != min(32, psc.max_seq_len - len(r.prompt) + 1)]
+    assert not bad, f"requests not served in full: {bad}"
+    assert eng.n_completed == len(reqs)
+    first = [r.rid for r, o in zip(reqs, oracle)
+             if r.out_tokens[:1] != o.out_tokens[:1]]
+    assert not first, f"first tokens differ from 3c's: {first}"
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    w_ms = np.asarray(walls) * 1e3
+    print(f"2 shards on {dev} ({torch.cuda.get_device_name(dev)}): "
+          f"{len(reqs)} requests, {n_tok} tokens in {wall:.3f} s "
+          f"({n_tok / wall:.1f} tokens/s) over {len(walls)} steps, step "
+          f"wall p50 {np.percentile(w_ms, 50):.2f} ms, max "
+          f"{w_ms.max():.2f} ms; prefill {eng.prefill_seconds:.3f} s, "
+          f"decode {eng.decode_seconds:.3f} s (host, launches and "
+          f"read-backs)")
+    for s, w in enumerate(eng.workers):
+        print(f"  shard {s} ({w.device}, slots {w._slots.start}.."
+              f"{w._slots.stop - 1}, pool {w.pool.n_pages} pages): "
+              f"completed {w.n_completed}, {w.n_decode_steps} decode steps"
+              f", {w.n_prefill_chunks} prefill chunks, K1 {per[s]['K1']} = "
+              f"{cfg.n_layers} x {w.n_decode_steps}, K2 {per[s]['K2']} = "
+              f"{cfg.n_layers} x {w.n_prefill_chunks}, peak "
+              f"{w.peak_used_pages} pages, {w.pool.free_count} free after "
+              f"the drain")
+    print(f"  plain versions {sum(plain_calls.values())}; other kernels "
+          f"{others}")
+    agreement("2 shards against 3c's one-shard engine", eng, reqs, oracle)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1273,6 +1425,13 @@ def main() -> int:
                "512)"):
         prof = {"K1": profile_decode("paged", model, params, proj,
                                      (rk, rv), dev, paged=True)}
+        roofline_line(cfg, prof["K1"], (rk, rv))
+
+    # -- 3p: the sharded engine, 2 shards on the one card -----------------
+    with phase("3p serve tinyllama-1.1b, full width, KQ-SVD, paged + "
+               "chunked prefill, 2 shards"):
+        serve_sharded(cfg, params, mp, psc, prompts, preqs, dev,
+                      zero_counts, plain_calls)
 
     # -- 3e: int8 pages and dynamic split-KV ------------------------------
     with phase("3e serve tinyllama-1.1b, full width, KQ-SVD, int8 pages + "
@@ -3572,7 +3731,11 @@ def main() -> int:
                        chunked, cache_quant="int8", decode_splits=0), {}),
                    "svdq pages, 3 splits": (dict(
                        chunked, cache_quant="svdq", decode_splits=3), {}),
-                   "dense int8": ({}, {"cache_quant": "int8"})}
+                   "dense int8": ({}, {"cache_quant": "int8"}),
+                   "paged chunked, 2 shards": (dict(chunked, shards=2), {}),
+                   "int8 pages, dynamic splits, 2 shards": (dict(
+                       chunked, cache_quant="int8", decode_splits=0,
+                       shards=2), {})}
         zero_counts()
         for kind, (kw, cfg_kw) in layouts.items():
             for m_, p_ in ((cpu_model, p_cpu), (gpu_model, p_gpu)):
@@ -3588,6 +3751,11 @@ def main() -> int:
                 served.setdefault(kind, []).append(
                     [r.out_tokens for r in rs])
             assert served[kind][0] == served[kind][1], (kind, served[kind])
+        for kind in ("paged chunked", "int8 pages, dynamic splits"):
+            same = sum(a == b for a, b in zip(served[kind][1],
+                                              served[kind + ", 2 shards"][1]))
+            print(f"{kind}: 2 shards' tokens equal 1 shard's on {same}/"
+                  f"{len(prompts)} requests (card)")
         # the 30-token prompt reaches 11 pages of 4: dynamic mode splits,
         # and float32 split decode merges in the merge kernel
         assert kq_decode_paged_int8_split.launches > 0

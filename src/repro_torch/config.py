@@ -657,3 +657,38 @@ class ServeConfig:
     def total_pages(self) -> int:
         """Allocatable pages in the pool (excludes the garbage page)."""
         return self.n_pages or self.max_batch * self.pages_per_seq
+
+
+# ---------------------------------------------------------------------------
+# Shapes of the (arch x shape) grid, for the roofline arithmetic
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One cell of the assigned (arch x shape) grid."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                            # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether a (arch, shape) cell runs, and why not if it doesn't."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("skip: long_500k requires sub-quadratic attention; "
+                       f"{cfg.name} is pure full-attention (see DESIGN.md)")
+    return True, ""

@@ -7,6 +7,7 @@ instead of quietly running on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Union
 
 import numpy as np
@@ -52,3 +53,12 @@ def tree_to(tree, device: DeviceLike):
     if isinstance(tree, list):
         return [tree_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def device_context(device: torch.device):
+    """A context that makes ``device`` the thread's current CUDA device
+    (a kernel launch goes to the current device, whatever tensors it is
+    given); a no-op for any other device."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

@@ -34,9 +34,11 @@ too; optimistic admission with preempt-and-requeue (``--admission``,
 prefill), the token-budget scheduler with the fused prefill + decode
 iteration (``--max-batched-tokens``; it turns on chunked prefill), fault
 injection (``--chaos-seed``, ``--chaos-rate``) and invariant audits
-(``--audit``).  ``--shards``, whose path the port does not have yet,
-stops the run with an error naming it.  Runs on the CUDA device unless
-``--device`` says otherwise.
+(``--audit``) and data-axis shards (``--shards``: each shard an equal
+slice of the slots and of the pool with its own scheduler; it turns on
+chunked prefill).  Runs on the CUDA device unless ``--device`` says
+otherwise; ``--shards N`` runs on the first N CUDA devices, or every
+shard on ``--device`` when one is given.
 """
 from __future__ import annotations
 
@@ -54,10 +56,7 @@ from repro_torch.data import calibration_batches
 from repro_torch.models import build_model
 from repro_torch.serving import Request, ServingEngine
 from repro_torch.serving.page_layouts import FpLayout, get_layout
-
-# flags of the reference CLI whose paths later slices bring; refused
-# when given
-_NOT_PORTED = ("shards",)
+from repro_torch.sharding.partition import serve_devices
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -82,6 +81,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--n-pages", type=int, default=0,
                     help="pool size; 0 derives full capacity, smaller "
                          "oversubscribes with admission backpressure")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="data-axis shards for the serving engine: each "
+                         "shard owns an equal slice of the slot axis with "
+                         "its own page pool and scheduler, on its own "
+                         "device (the first N CUDA devices, or --device "
+                         "for all).  Implies --paged and chunked "
+                         "prefill.  1 = unsharded parity oracle.")
     ap.add_argument("--cache-quant", default="none",
                     choices=["none", "int8", "svdq"],
                     help="paged page layout: int8 = int8 pages + per-token "
@@ -162,15 +168,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain PyTorch versions of the kernels)")
-    for flag in _NOT_PORTED:
-        ap.add_argument("--" + flag, nargs="?", const=True, default=None,
-                        help="not ported yet")
     args = ap.parse_args(argv)
-    asked = ["--" + f for f in _NOT_PORTED
-             if getattr(args, f.replace("-", "_")) is not None]
-    if asked:
-        ap.error(f"{', '.join(asked)}: not ported yet (see ROADMAP.md "
-                 f"queue 1, item 7)")
+    if args.shards > 1 and not args.prefill_chunk:
+        print("--shards shards the chunked-prefill dispatch: enabling "
+              "chunked prefill (--prefill-chunk 8)")
+        args.prefill_chunk = 8
+    if args.shards > 1 and args.n_pages % args.shards:
+        n = -(-args.n_pages // args.shards) * args.shards
+        print(f"--shards needs equal per-shard pools: rounding "
+              f"--n-pages {args.n_pages} up to {n}")
+        args.n_pages = n
     if args.max_batched_tokens and not args.prefill_chunk:
         print("--max-batched-tokens schedules prefill at chunk "
               "granularity: enabling chunked prefill (--prefill-chunk 8)")
@@ -249,9 +256,12 @@ def main(argv=None) -> None:
                      chaos_rate=args.chaos_rate,
                      max_num_batched_tokens=args.max_batched_tokens,
                      cache_quant=args.cache_quant,
-                     decode_splits=args.decode_splits)
-    eng = ServingEngine(cfg, params, sc, projections=proj,
-                        device=model.device)
+                     decode_splits=args.decode_splits,
+                     shards=args.shards)
+    place = {"device": model.device}
+    if args.shards > 1:
+        place = {"devices": serve_devices(args.shards, args.device)}
+    eng = ServingEngine(cfg, params, sc, projections=proj, **place)
     rng = np.random.default_rng(0)
     lens = rng.integers(min(4, args.prompt_len), args.prompt_len + 1,
                         args.requests)
@@ -298,6 +308,20 @@ def main(argv=None) -> None:
               f"{eng.pool.free_count} free after the drain; "
               f"{eng.n_prefill_chunks} prefill chunks at buckets "
               f"{sorted(eng.prefill_chunk_shapes)}")
+        if args.shards > 1:
+            # pooled capacity: shards x the per-shard physical pool
+            # (already scaled by the page layout's capacity multiplier)
+            print(f"sharded: {args.shards} shard(s) x "
+                  f"{eng._local_phys} physical page(s) = "
+                  f"{eng.pool.n_pages} pooled "
+                  f"(x{eng.workers[0].capacity_x:.2f} resident "
+                  f"capacity multiplier); per-shard occupancy: "
+                  + ", ".join(f"s{w._shard}={w.pool.used_count}"
+                              f"/{w.pool.n_pages}" for w in eng.workers)
+                  + "; completed per shard: "
+                  + ", ".join(f"s{w._shard}={w.n_completed}"
+                              for w in eng.workers)
+                  + "; devices: " + ", ".join(str(d) for d in eng.devices))
         print(f"admission={args.admission}: preemptions="
               f"{eng.n_preempted} (swap out/in {eng.n_swapped_out}/"
               f"{eng.n_swapped_in}), failed={eng.n_failed}")

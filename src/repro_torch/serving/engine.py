@@ -111,8 +111,21 @@ of spinning (re-prefilling after a preemption is not progress).  A
 ``FaultInjector`` (``faults=``, or ``ServeConfig.chaos_seed``) forces the
 rare paths at the reference's eight fault points, and
 ``ServeConfig.audit`` runs ``invariants.audit`` every ``audit_every``-th
-step.  Sharded serving raises ``NotImplementedError`` at construction,
-naming its ``ROADMAP.md`` queue-1 entry.
+step.
+
+Data-axis sharding (``ServeConfig.shards > 1``, as in the reference):
+constructing a ``ServingEngine`` builds a ``ShardedServingEngine``, which
+cuts the slot axis and the page pool into ``shards`` equal slices, each
+served by a ``_ShardWorker``: a whole ``ServingEngine`` over its slots,
+with its own pool, block tables, prefix index, swap store, faults and
+tensors on its own device (``devices=``, default
+``sharding.partition.serve_devices``).  A thin router sends each pending
+request, in queue order, to the shard ``pick_shard`` picks; each step
+then runs one prefill round per staged chunk and one decode chunk per
+shard, launched one shard after another from this thread with no sync
+between them, and syncs once per shard for the harvest.  Greedy decoding
+does not depend on the batch a slot shares, so ``shards = N`` gives the
+``shards = 1`` tokens.
 """
 from __future__ import annotations
 
@@ -126,7 +139,8 @@ import torch
 from repro_torch.config import ModelConfig, ServeConfig
 from repro_torch.core.calibration import ModelProjections
 from repro_torch.core.compressed import cache_footprint
-from repro_torch.device import DeviceLike, to_device
+from repro_torch.device import (DeviceLike, device_context, resolve_device,
+                                to_device, tree_to)
 from repro_torch.kernels.kq_decode.ops import default_decode_splits
 from repro_torch.models.model import build_model
 from repro_torch.serving import invariants
@@ -136,17 +150,12 @@ from repro_torch.serving.paged_cache import (BlockTables, PagePool,
                                              PagePoolExhausted, PrefixIndex,
                                              copy_page, pages_needed,
                                              swap_in, swap_out)
+from repro_torch.sharding.partition import serve_devices, slot_slices
 
 # the structured failure taxonomy: every terminal non-success outcome of
 # a request is exactly one of these
 ERROR_KINDS = ("oversize", "deadline", "pool_exhausted", "swap_failed",
                "numerics", "cancelled")
-
-# ServeConfig features that belong to later slices of the port, with the
-# ROADMAP.md queue-1 entry that brings each
-_LATER = (
-    ("shards", lambda sc: sc.shards > 1, "item 7 (sharded engine)"),
-)
 
 
 @dataclasses.dataclass
@@ -237,15 +246,19 @@ class ServingEngine:
     ``FaultInjector.chaos(chaos_seed, chaos_rate)`` afresh at every
     ``start()``, so each drain reproduces from the config."""
 
+    def __new__(cls, cfg=None, params=None, sc=None, *args, **kwargs):
+        """Route construction to the sharded engine when the config asks
+        for more than one shard; ``shards == 1``, and any subclass, takes
+        the ordinary path, so no sharded class is ever built then."""
+        sc = kwargs.get("sc", sc)
+        if cls is ServingEngine and sc is not None and sc.shards > 1:
+            return super().__new__(ShardedServingEngine)
+        return super().__new__(cls)
+
     def __init__(self, cfg: ModelConfig, params, sc: ServeConfig,
                  projections: Optional[ModelProjections] = None,
                  device: DeviceLike = None,
                  faults: Optional[FaultInjector] = None):
-        later = [f"{name} (ROADMAP.md queue 1 {item})"
-                 for name, asks, item in _LATER if asks(sc)]
-        if later:
-            raise NotImplementedError(
-                "not yet ported: " + ", ".join(later))
         # the serve config owns the paged page layout: folded into the
         # model config so prefill, chunks and decode resolve the same
         # one; a full cache (no projections) has no compressed entries
@@ -260,7 +273,7 @@ class ServingEngine:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the engine on {self.device}")
         self.params = params
-        self.proj = (self.model.projections_pytree(projections)
+        self.proj = (self._projection_tree(projections)
                      if projections is not None else None)
         self.ranks = ((projections.rank_k, projections.rank_v)
                       if projections is not None else (0, 0))
@@ -277,6 +290,10 @@ class ServingEngine:
         self._faults_arg = faults
         self.faults: Optional[FaultInjector] = None
         self._started = False
+
+    def _projection_tree(self, projections: ModelProjections):
+        """The runtime projections on the engine's device."""
+        return self.model.projections_pytree(projections)
 
     def _capacity_multiplier(self) -> float:
         """Physical pages per fp page of memory under the page layout:
@@ -1047,6 +1064,29 @@ class ServingEngine:
             self.prefill_seconds += time.perf_counter() - t0
         return budget
 
+    def _stage_prefill(self) -> List[tuple]:
+        """Stage, without launching, up to ``prefill_chunks_per_step``
+        chunks in ``_prefill_step``'s round-robin order: the sharded
+        engine launches every shard's r-th staged chunk in one round.
+        Staging is safe because a pass stages at most one chunk a slot and
+        a chunk writes only its own slot's pages."""
+        B = self.sc.max_batch
+        budget = self.sc.prefill_chunks_per_step
+        preps: List[tuple] = []
+        for off in range(B):
+            if budget == 0:
+                break
+            b = (self._pf_next + off) % B
+            if self._prefilled[b] is None:
+                continue
+            prep = self._prep_chunk(b)
+            if prep is None:
+                continue
+            preps.append(prep)
+            budget -= 1
+        self._pf_next = (self._pf_next + 1) % B
+        return preps
+
     # -- preemption -----------------------------------------------------------
 
     def _swap_out_slot(self, b: int, n_tokens: int) -> dict:
@@ -1186,18 +1226,29 @@ class ServingEngine:
 
     def _decode_chunk(self, live: np.ndarray,
                       block_table: Optional[torch.Tensor] = None):
-        """``decode_chunk`` iterations on the device; one read-back.
-        ``block_table``: the paged cache's rows on the device, those of
-        slots outside ``live`` as the garbage page.
+        """``decode_chunk`` iterations on the device; one read-back
+        (``_launch_decode``, then ``_read_decode``).  ``block_table``: the
+        paged cache's rows on the device, those of slots outside ``live``
+        as the garbage page.
 
         Returns host arrays: tokens and emit masks (N, B) and a per-slot
         flag of finite next-token logits; positions, counts and the
-        done/truncated masks are written back to the host state.  The
-        state goes in by a non-blocking copy, so the chunk queues behind
-        work already on the stream (a fused prefill chunk) without a
-        sync.  A ``nan_logits`` fault poisons the lowest live slot's
-        next-token logits on the device before the finiteness check, as
-        the reference's harvest does."""
+        done/truncated masks are written back to the host state."""
+        return self._read_decode(self._launch_decode(live, block_table))
+
+    def _launch_decode(self, live: np.ndarray,
+                       block_table: Optional[torch.Tensor] = None,
+                       num_splits: Optional[int] = None) -> torch.Tensor:
+        """Queue a decode chunk's work on the device, with no host sync:
+        the state goes in by a non-blocking copy, so the chunk queues
+        behind work already on the stream (a fused prefill chunk).
+        ``num_splits``: the split count (default ``_live_splits(live)``;
+        the sharded engine passes one for every shard).  A
+        ``nan_logits`` fault poisons the lowest live slot's next-token
+        logits on the device before the finiteness check, as the
+        reference's harvest does.  Returns the chunk's tokens, emit
+        masks, state and finiteness flags packed in one device tensor
+        for ``_read_decode``."""
         sc = self.sc
         T, N, eos = sc.max_seq_len, sc.decode_chunk, sc.eos_token
         dev = self.device
@@ -1208,7 +1259,8 @@ class ServingEngine:
         n_model = int(np.minimum(self._max_new - self._emitted - 1,
                                  T - self._pos)[act].max(initial=0))
         n_model = max(0, min(N, n_model))
-        n_splits = self._live_splits(live)
+        n_splits = (self._live_splits(live) if num_splits is None
+                    else num_splits)
         state = to_device(np.stack([
             self._pos, self._emitted, self._max_new, self._done,
             self._trunc]).astype(np.int64), dev)          # one copy in
@@ -1245,11 +1297,17 @@ class ServingEngine:
         if self._fires("nan_logits"):
             self._logits[int(np.nonzero(live)[0][0])] = float("nan")
         finite = torch.isfinite(self._logits).all(dim=-1)
-        B = sc.max_batch
-        host = torch.cat([torch.stack(toks).reshape(-1),
+        return torch.cat([torch.stack(toks).reshape(-1),
                           torch.stack(emits).reshape(-1).long(),
                           pos, emitted, done.long(), trunc.long(),
-                          finite.long()]).cpu().numpy()
+                          finite.long()])
+
+    def _read_decode(self, packed: torch.Tensor):
+        """Read a launched chunk back (the host sync) and write its
+        positions, counts and done/truncated masks to the host state;
+        returns ``_decode_chunk``'s host arrays."""
+        N, B = self.sc.decode_chunk, self.sc.max_batch
+        host = packed.cpu().numpy()
         nb = N * B
         toks_np = host[:nb].reshape(N, B)
         emits_np = host[nb:2 * nb].reshape(N, B).astype(bool)
@@ -1427,3 +1485,397 @@ class ServingEngine:
         while self.step():
             pass
         return requests
+
+
+# ---------------------------------------------------------------------------
+# Data-axis sharded engine
+# ---------------------------------------------------------------------------
+
+
+class PooledPages:
+    """Read-only aggregate view over the shards' page pools: the sharded
+    engine's ``pool`` for introspection (tests, the serve CLI), its counts
+    summed over every worker's pool.  Pages are owned and allocated per
+    shard only, never through this view."""
+
+    def __init__(self, workers):
+        self._workers = workers
+
+    @property
+    def n_pages(self) -> int:
+        """Allocatable physical pages over every shard."""
+        return sum(w.pool.n_pages for w in self._workers)
+
+    @property
+    def free_count(self) -> int:
+        """Free pages summed over the shard pools."""
+        return sum(w.pool.free_count for w in self._workers)
+
+    @property
+    def used_count(self) -> int:
+        """Allocated pages summed over the shard pools."""
+        return sum(w.pool.used_count for w in self._workers)
+
+    @property
+    def high_pages(self) -> int:
+        """Admission high-watermark budget summed over the shards."""
+        return sum(w.pool.high_pages for w in self._workers)
+
+
+def pick_shard(workers, capacity=None):
+    """Route target for the next pending request, the reference's rule:
+    among workers with routing capacity (free slots not already spoken for
+    by their local backlog of preemption requeues), the one with the most
+    admission headroom, free pages capped at the high-watermark budget (a
+    pool past its watermark does not look attractive because another
+    shard is fuller).  Ties go to the lower shard index.  ``capacity``
+    threads the routing loop's residual capacities; by default it comes
+    from each worker's slots and backlog.  None when no worker has
+    capacity: the head request waits, which keeps the queue's order."""
+    if capacity is None:
+        capacity = [sum(q is None for q in w._slot_req) - len(w._pending)
+                    for w in workers]
+    best, best_score = None, -1
+    for i, w in enumerate(workers):
+        if capacity[i] <= 0:
+            continue
+        score = min(w.pool.free_count,
+                    max(w.pool.high_pages - w.pool.used_count, 0))
+        if score > best_score:
+            best, best_score = w, score
+    return best
+
+
+class _ShardWorker(ServingEngine):
+    """One shard's scheduler inside a ``ShardedServingEngine``: a whole
+    ``ServingEngine`` over its slice of the slot axis (``sc`` is the
+    shard's own config, ``shards=1``) that owns every piece of its state
+    (pending queue of preemption requeues, page pool, block tables, prefix
+    index, swap store, faults, counters) and its tensors, on its own
+    device.  The parent drives it phase by phase and never lets it launch
+    from ``step()``; its runtime projections are the parent's copy for
+    its device."""
+
+    def __init__(self, parent: "ShardedServingEngine", shard: int,
+                 slots: slice, cfg, params, sc: ServeConfig, projections,
+                 device, faults: Optional[FaultInjector]):
+        self._parent = parent
+        self._shard = shard
+        self._slots = slots             # its slice of the global slot axis
+        super().__init__(cfg, params, sc, projections=projections,
+                         device=device, faults=faults)
+
+    def _projection_tree(self, projections: ModelProjections):
+        return self._parent._shared_projections(self.model, projections)
+
+
+class ShardedServingEngine(ServingEngine):
+    """Data-axis sharded serving engine (see the module docstring).
+
+    ``ServingEngine(cfg, params, sc)`` builds one when
+    ``sc.shards > 1``.  ``devices`` (one per shard; default
+    ``serve_devices(sc.shards, device)``: the first ``shards`` CUDA
+    devices, or ``device`` repeated when the caller names one) places
+    the shards; the params and the runtime projections are copied once
+    to each distinct device, and workers on one device share them.  Shard
+    ``s`` samples from a generator seeded ``sc.seed + s`` and draws its
+    chaos schedule from ``chaos_seed + s``.
+
+    Each ``step()`` keeps the reference's order: per-shard deadlines, then
+    the global queue's; routing in queue order (``pick_shard``);
+    per-shard admission; one prefill round per staged chunk over the
+    shards; per-shard headroom; one decode chunk per shard with live
+    slots, all with one split count, from the deepest live position over
+    every shard; per-shard harvest and a same-step refill; then the audits
+    (``invariants.audit`` per worker, then ``invariants.audit_sharded``)
+    and the watchdog over every shard.  Every launch for a worker runs
+    under its device's context.  The shards' launches follow one another
+    from this thread with no sync between them, so shards on distinct
+    cards overlap; the one sync a step is the harvest's read-back.
+    ``prefill_seconds`` and ``decode_seconds`` are the host time of the
+    prefill rounds and of the decode chunks' launches and read-backs;
+    ``_AGG_COUNTERS`` and ``n_failed``, ``error_counts`` and
+    ``preempted_rids`` sum or join the workers'."""
+
+    def __init__(self, cfg: ModelConfig, params, sc: ServeConfig,
+                 projections: Optional[ModelProjections] = None,
+                 device: DeviceLike = None,
+                 faults: Optional[FaultInjector] = None,
+                 devices: Optional[List[DeviceLike]] = None):
+        S = sc.shards
+        if devices is None:
+            devices = serve_devices(S, device)
+        devices = [resolve_device(d) for d in devices]
+        if len(devices) != S:
+            raise ValueError(f"{len(devices)} devices for {S} shards")
+        self.devices = devices
+        # one copy of the params and of the runtime projections on each
+        # distinct device (filled before the base init builds the latter)
+        self._params_on: Dict[torch.device, dict] = {}
+        self._proj_on: Dict[torch.device, list] = {}
+        self._given_params = params
+        super().__init__(cfg, self._params_for(devices[0]), sc,
+                         projections=projections, device=devices[0],
+                         faults=faults)
+
+        def local_sc(s: int) -> ServeConfig:
+            kw = dict(shards=1, max_batch=sc.max_batch // S,
+                      n_pages=sc.total_pages // S, seed=sc.seed + s)
+            if sc.chaos_seed is not None:
+                # each shard draws its own fault sequence, reproducibly
+                kw["chaos_seed"] = sc.chaos_seed + s
+            return dataclasses.replace(sc, **kw)
+
+        self.workers = [
+            _ShardWorker(self, s, slots, cfg, self._params_for(d),
+                         local_sc(s), projections, d, faults)
+            for s, (d, slots) in enumerate(zip(
+                devices, slot_slices(sc.max_batch, S)))]
+        self._local_phys = self.workers[0]._pool_pages()
+
+    def _params_for(self, device: torch.device) -> dict:
+        """The params on ``device``: the caller's where they live there,
+        else one copy a device."""
+        if self._given_params["embed"].device == device:
+            return self._given_params
+        if device not in self._params_on:
+            self._params_on[device] = tree_to(self._given_params, device)
+        return self._params_on[device]
+
+    def _shared_projections(self, model, projections: ModelProjections):
+        """The runtime projections on ``model``'s device, built once a
+        device."""
+        if model.device not in self._proj_on:
+            self._proj_on[model.device] = model.projections_pytree(
+                projections)
+        return self._proj_on[model.device]
+
+    def _projection_tree(self, projections: ModelProjections):
+        return self._shared_projections(self.model, projections)
+
+    #: scheduler counters summed over the shard workers on read (each
+    #: worker counts its own slots): the reference's, and the port's
+    #: decode steps and prefill tokens
+    _AGG_COUNTERS = (
+        "n_completed", "n_preempted", "n_swapped_out", "n_swapped_in",
+        "n_retried", "n_swap_fallbacks", "n_reclaimed", "n_cow_forks",
+        "n_shared_pages", "n_shared_tokens", "n_full_hits",
+        "n_prefill_chunks", "n_fused_steps", "n_truncated_chunks",
+        "peak_used_pages", "n_decode_steps", "n_prefill_tokens")
+
+    def __getattr__(self, name):
+        """Aggregate the shards' scheduler counters on read: sums for
+        ``_AGG_COUNTERS``, a merged dict for ``error_counts``, the
+        concatenation for ``preempted_rids``; ``n_failed`` adds the
+        failures of requests still in the global queue."""
+        workers = self.__dict__.get("workers")
+        if workers:
+            if name in ShardedServingEngine._AGG_COUNTERS:
+                return sum(getattr(w, name) for w in workers)
+            if name == "preempted_rids":
+                return [rid for w in workers for rid in w.preempted_rids]
+            if name == "n_failed":
+                return (self.__dict__.get("_n_failed_global", 0)
+                        + sum(w.n_failed for w in workers))
+            if name == "error_counts":
+                out = dict(self.__dict__.get("_error_counts_global")
+                           or {k: 0 for k in ERROR_KINDS})
+                for w in workers:
+                    for k, v in w.error_counts.items():
+                        out[k] = out.get(k, 0) + v
+                return out
+        raise AttributeError(
+            f"{type(self).__name__!r} object has no attribute {name!r}")
+
+    def _each(self):
+        """The workers in shard order, each yielded inside its device's
+        context."""
+        for w in self.workers:
+            with device_context(w.device):
+                yield w
+
+    # -- lifecycle ------------------------------------------------------------
+
+    def start(self, requests: List[Request]) -> None:
+        """Start every shard empty: requests enter through the router at
+        the first ``step()``."""
+        T = self.sc.max_seq_len
+        for r in requests:
+            if len(r.prompt) > T:
+                raise ValueError(
+                    f"request {r.rid}: prompt length {len(r.prompt)} "
+                    f"exceeds max_seq_len {T}")
+        self._pending: List[Request] = list(requests)     # unrouted
+        self._all_requests: List[Request] = list(requests)
+        # for introspection only: the workers inject (an explicit injector
+        # is shared, a chaos schedule is built per shard from its seed)
+        if self._faults_arg is not None:
+            self.faults = self._faults_arg
+        elif self.sc.chaos_seed is not None:
+            self.faults = FaultInjector.chaos(self.sc.chaos_seed,
+                                              self.sc.chaos_rate)
+        else:
+            self.faults = None
+        for w in self._each():
+            w.start([])
+        self.pool = PooledPages(self.workers)
+        self._n_failed_global = 0
+        self._error_counts_global = {k: 0 for k in ERROR_KINDS}
+        self._progress_global = False
+        self._step_count = 0
+        self._no_progress = 0
+        self.n_audits = 0
+        self.prefill_seconds = 0.0
+        self.decode_seconds = 0.0
+        self._started = True
+
+    def _busy(self) -> bool:
+        return bool(self._pending) or any(w._busy() for w in self.workers)
+
+    def _fail_global(self, r: Request, kind: str, detail: str = "") -> None:
+        """Fail a request still in the global queue (never routed, so no
+        shard state to unwind)."""
+        r.error = RequestError(kind=kind, detail=detail,
+                               step=self._step_count)
+        r.done = True
+        self._n_failed_global += 1
+        self._error_counts_global[kind] += 1
+        self._progress_global = True
+        self._pending = [p for p in self._pending if p is not r]
+
+    def _check_global_deadlines(self) -> None:
+        """Deadlines of the requests not yet routed (the workers check
+        their own)."""
+        now = self._step_count
+        for r in list(self._pending):
+            ttft = r.ttft_deadline_steps
+            if ttft is not None and not r.out_tokens and now > ttft:
+                self._fail_global(
+                    r, "deadline",
+                    f"no first token after {ttft} steps (TTFT budget)")
+            elif r.deadline_steps is not None and now > r.deadline_steps:
+                self._fail_global(
+                    r, "deadline",
+                    f"incomplete after {r.deadline_steps} steps "
+                    f"({len(r.out_tokens)}/{r.max_new_tokens} tokens)")
+
+    def cancel(self, rid: int, detail: str = "cancelled by caller") -> bool:
+        """Cancel request ``rid``: in the global queue it fails there;
+        routed, its shard unwinds it."""
+        if not self._started:
+            raise RuntimeError("call start(requests) first")
+        for r in list(self._pending):
+            if r.rid == rid and not r.done:
+                self._fail_global(r, "cancelled", detail)
+                return True
+        return any(w.cancel(rid, detail) for w in self._each())
+
+    def _route(self) -> None:
+        """Move pending requests, strictly in queue order, to the shard
+        ``pick_shard`` picks; stop at the first head no shard can take, so
+        the order holds.  A routed request's whole life stays on its
+        shard."""
+        cap = [sum(q is None for q in w._slot_req) - len(w._pending)
+               for w in self.workers]
+        while self._pending:
+            w = pick_shard(self.workers, cap)
+            if w is None:
+                break
+            cap[w._shard] -= 1
+            r = self._pending.pop(0)
+            w._pending.append(r)
+            w._all_requests.append(r)
+
+    def _run_prefill_rounds(self) -> None:
+        """Each worker stages its round-robin chunks; round ``r`` launches
+        every worker's r-th staged chunk, shard after shard, then does
+        their host bookkeeping (no sync: the chunks' last logits stay on
+        the devices)."""
+        t0 = time.perf_counter()
+        staged = [w._stage_prefill() for w in self._each()]
+        for rnd in range(max((len(sp) for sp in staged), default=0)):
+            launched = [(w, sp[rnd], w._launch_chunk(sp[rnd]))
+                        for w, sp in zip(self._each(), staged)
+                        if rnd < len(sp)]
+            for w, prep, last in launched:
+                with device_context(w.device):
+                    w._finish_chunk(prep, last)
+                self.prefill_chunk_shapes.add(prep[4])
+        self.prefill_seconds += time.perf_counter() - t0
+
+    def _dispatch_decode(self, lives: List[np.ndarray]) -> bool:
+        """One decode chunk on every shard with live slots, one split
+        count for all (from the deepest live host position over every
+        shard), launched shard after shard; then each shard's read-back
+        and harvest.  Returns whether any slot was freed."""
+        sc = self.sc
+        if self._dynamic_splits:
+            deepest = [int(w._pos[live].max())
+                       for w, live in zip(self.workers, lives) if live.any()]
+            n_splits = self._splits_for_step(max(deepest, default=1)
+                                             + sc.decode_chunk)
+        else:
+            n_splits = self._decode_splits
+        t0 = time.perf_counter()
+        launched = [(w, live, w._launch_decode(live, w._btabs.device(live),
+                                               n_splits))
+                    for w, live in zip(self._each(), lives) if live.any()]
+        outs = []
+        for w, live, packed in launched:
+            with device_context(w.device):
+                outs.append((w, live, w._read_decode(packed)))
+        self.decode_seconds += time.perf_counter() - t0
+        freed = False
+        for w, live, (toks_np, emits_np, finite) in outs:
+            with device_context(w.device):
+                freed |= w._harvest(live, toks_np, emits_np, finite)
+        return freed
+
+    def step(self) -> bool:
+        """One sharded scheduling iteration (the order is the class
+        docstring's).  Returns whether work remains."""
+        if not self._started:
+            raise RuntimeError("call start(requests) first")
+        sc = self.sc
+        self._step_count += 1
+        self._progress_global = False
+        for w in self._each():
+            # one scheduler clock: retry backoff, deadlines and chaos
+            # schedules line up with the global step count
+            w._step_count = self._step_count
+            w._progress = False
+            w._check_deadlines()
+        self._check_global_deadlines()
+        self._route()
+        for w in self._each():
+            w._admit()
+            w._note_pages()
+        self._run_prefill_rounds()
+        lives = [w._decodable() for w in self.workers]
+        for w, live in zip(self._each(), lives):
+            if live.any():
+                w._ensure_chunk_headroom(live)
+                w._note_pages()
+        if any(live.any() for live in lives) and self._dispatch_decode(lives):
+            # refill the freed slots in the same step, routed globally
+            self._route()
+            for w in self._each():
+                w._admit()
+        busy = self._busy()
+        if sc.audit and self._step_count % sc.audit_every == 0:
+            for w in self.workers:
+                invariants.audit(w)
+            invariants.audit_sharded(self)
+            self.n_audits += 1
+        progress = (self._progress_global
+                    or any(w._progress for w in self.workers))
+        if busy and not progress:
+            self._no_progress += 1
+            if sc.stall_steps and self._no_progress >= sc.stall_steps:
+                raise EngineStalledError(
+                    self._no_progress,
+                    "\n".join(f"[shard {s}] " + invariants.scheduler_dump(w)
+                              for s, w in enumerate(self.workers)))
+        else:
+            self._no_progress = 0
+        return busy

@@ -1,8 +1,7 @@
 """Serving-state invariant audits of the paged engine.
 
-Torch counterpart of ``repro.serving.invariants`` (``audit_sharded``
-waits for the sharded engine).  ``audit(engine)`` cross-checks the host
-bookkeeping the engine's correctness rests on:
+Torch counterpart of ``repro.serving.invariants``.  ``audit(engine)``
+cross-checks the host bookkeeping the engine's correctness rests on:
 
 * **refcounts**: every physical page's ``PagePool`` refcount equals its
   block-table references (over all slots) plus its prefix-index pins;
@@ -24,7 +23,9 @@ A violation raises ``InvariantViolation`` with every failed check and a
 scheduler dump.  The audit reads host state only (the engine keeps
 positions and masks on the host between decode chunks), adds no
 host-device sync and never mutates the engine.  ``ServeConfig.audit``
-runs it inside ``step()`` every ``audit_every``-th step.
+runs it inside ``step()`` every ``audit_every``-th step; the sharded
+engine runs it on every worker, then ``audit_sharded`` for what no single
+worker can see.
 """
 from __future__ import annotations
 
@@ -233,6 +234,61 @@ def audit(eng) -> None:
     _audit_slots(eng, bad)
     if bad:
         raise InvariantViolation(bad, scheduler_dump(eng))
+
+
+def audit_sharded(eng) -> None:
+    """Cross-shard accounting of the data-sharded engine (each worker's
+    own state is ``audit``'s):
+
+    * **exclusive ownership**: every live request is owned by exactly one
+      shard, its slots and local pending queue disjoint from every other
+      shard's;
+    * **router/worker disjointness**: the global queue holds no request a
+      shard owns (a routed request never reappears upstream);
+    * **uniform partitioning**: every shard has the same slot-slice width
+      and physical pool size;
+    * **slot-axis cover**: the shards' slices tile ``max_batch`` in order;
+    * **placement**: every leaf of a worker's cache lives on its device.
+    """
+    bad: List[str] = []
+    owner: Dict[int, int] = {}
+    for w in eng.workers:
+        owned = [r for r in w._slot_req if r is not None]
+        owned += list(w._pending)
+        for r in owned:
+            prev = owner.get(id(r))
+            if prev is not None and prev != w._shard:
+                bad.append(f"request rid={r.rid} owned by both shard "
+                           f"{prev} and shard {w._shard}")
+            owner[id(r)] = w._shard
+    for r in eng._pending:
+        if id(r) in owner:
+            bad.append(f"request rid={r.rid} both in the global queue "
+                       f"and owned by shard {owner[id(r)]}")
+    widths = {w.sc.max_batch for w in eng.workers}
+    if len(widths) != 1:
+        bad.append(f"unequal shard slot widths: {sorted(widths)}")
+    pools = {w.pool.n_pages for w in eng.workers}
+    if len(pools) != 1:
+        bad.append(f"unequal shard pool sizes: {sorted(pools)}")
+    if sum(w.sc.max_batch for w in eng.workers) != eng.sc.max_batch:
+        bad.append(
+            f"shard slot slices cover "
+            f"{sum(w.sc.max_batch for w in eng.workers)} slots != "
+            f"max_batch {eng.sc.max_batch}")
+    bases = [w._slots.start for w in eng.workers]
+    if bases != sorted(set(bases)) or (bases and bases[0] != 0):
+        bad.append(f"shard slot bases not a contiguous tiling: {bases}")
+    for w in eng.workers:
+        off = {str(t.device) for layer in w._cache for t in layer.values()
+               if t.device != w.device}
+        if off:
+            bad.append(f"shard {w._shard} on {w.device} holds cache "
+                       f"leaves on {sorted(off)}")
+    if bad:
+        dump = "\n".join(f"[shard {s}]\n" + scheduler_dump(w)
+                         for s, w in enumerate(eng.workers))
+        raise InvariantViolation(bad, dump)
 
 
 def refcount_histogram(eng) -> Dict[int, int]:

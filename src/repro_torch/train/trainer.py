@@ -14,8 +14,8 @@ Torch counterpart of ``repro.train.trainer``:
   builds the kernels, stays out of it); steps slower than
   ``straggler_factor`` x EMA are counted.
 
-One device: a ``mesh`` other than None raises (the sharded paths are
-``ROADMAP.md`` queue 1, item 7).
+One device: a ``mesh`` other than None raises (multi-device training
+is ``ROADMAP.md`` queue 1, item 1, the training slice).
 """
 from __future__ import annotations
 
@@ -69,8 +69,9 @@ class Trainer:
                  device: DeviceLike = None):
         if mesh is not None:
             raise NotImplementedError(
-                "not yet ported: mesh (ROADMAP.md queue 1, item 7: "
-                "sharded engine); the port trains on one device")
+                "not yet ported: mesh (ROADMAP.md queue 1, item 1: "
+                "the multi-device training slice); the port trains on "
+                "one device")
         self.cfg = cfg
         self.tc = tc
         self.mesh = mesh

@@ -13,7 +13,8 @@ reduced jamba's prefill, decode and engine and reduced phi-3-vision's
 image-prefix prefill and decode on the card against the CPU;
 a copy-on-write fork on the card copying every leaf byte for byte, a
 budget step's fused chunk launching K2 before the decode chunk's K1 with
-one host sync, and the NaN quarantine of a device logit row; K6 and K7
+one host sync, and the NaN quarantine of a device logit row; the
+sharded engine with a shard on every card against the CPU; K6 and K7
 under autograd (the kernel forward, the plain backward) against autograd
 through their plain versions, a bfloat16 checkpoint of card tensors, and
 a trainer whose kernel build fails raising at once.  Marked
@@ -544,6 +545,66 @@ def test_reduced_paged_engine_card_matches_cpu(cuda, extra, cfg_kw, counts):
         served.append([r.out_tokens for r in rs])
     assert served[0] == served[1]
     assert all(s == served[0] for s in served[2:])
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_sharded_engine_on_every_card_matches_cpu(cuda, quant):
+    """The sharded engine with one shard a card (every card the machine
+    has; two shards on the one card of a one-card machine), fp pages or
+    int8 pages with dynamic splits: each worker's cache, params and
+    projections on its own card (one copy a card), every shard's K1 and
+    K2 (K5) launched under its own device, and the greedy tokens equal
+    the CPU's one-shard engine's on 12 requests over 8 slots."""
+    n = torch.cuda.device_count()
+    devices = ([torch.device("cuda", i) for i in range(n)] if n > 1
+               else [cuda, cuda])
+    S = len(devices)
+    cfg = get_config("tinyllama-1.1b").reduced()
+    cpu = build_model(cfg, "cpu")
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    mp = calibrate_model(cpu, p_cpu,
+                         calibration_batches(cfg.vocab_size, 8, 32, batch=4),
+                         CompressionConfig(method="kqsvd", epsilon=0.1))
+    prompts = [np.random.default_rng(20 + i).integers(
+        0, cfg.vocab_size, L).astype(np.int32)
+        for i, L in enumerate((3, 30, 5, 26, 4, 22, 6, 18, 5, 7, 9, 11))]
+    kw = dict(max_seq_len=64, max_batch=8, decode_chunk=4, paged=True,
+              page_size=4, n_pages=64, chunked_prefill=True,
+              prefill_chunk=8)
+    if quant == "int8":
+        kw.update(cache_quant="int8", decode_splits=0)
+    served = []
+    for shards, place in ((1, {"device": "cpu"}), (S, {"devices": devices})):
+        eng = ServingEngine(cfg, tree_to(p_cpu, devices[0]) if shards > 1
+                            else p_cpu, ServeConfig(**kw, shards=shards),
+                            projections=mp, **place)
+        if shards > 1:
+            seen = {}
+            for w in eng.workers:
+                assert w.device == devices[w._shard]
+                assert w.params["embed"].device == w.device
+                assert all(t.device == w.device for layer in w.proj
+                           for t in layer.values())
+                seen.setdefault(w.device, (w.params, w.proj))
+                assert seen[w.device][0] is w.params \
+                    and seen[w.device][1] is w.proj
+        rs = [Request(rid=i, prompt=q, max_new_tokens=6)
+              for i, q in enumerate(prompts)]
+        for w in (kq_decode_paged_attention, kq_prefill_paged_attention,
+                  kq_decode_paged_int8, kq_decode_paged_int8_split):
+            w.launches = 0
+        eng.generate(rs)
+        assert eng.pool.free_count == eng.pool.n_pages
+        served.append([r.out_tokens for r in rs])
+    decode = (kq_decode_paged_attention.launches if quant == "none" else
+              kq_decode_paged_int8.launches
+              + kq_decode_paged_int8_split.launches)
+    assert decode == cfg.n_layers * eng.n_decode_steps
+    if quant == "none":
+        assert kq_prefill_paged_attention.launches == \
+            cfg.n_layers * eng.n_prefill_chunks
+    assert all(w.n_completed > 0 for w in eng.workers)
+    assert served[0] == served[1]
 
 
 def test_cow_fork_on_card_copies_every_leaf(cuda):

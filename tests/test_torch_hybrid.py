@@ -24,7 +24,9 @@ from repro.config import ServeConfig as JaxServe
 from repro.config import TrainConfig as JaxTrainConfig
 from repro.configs import get_config as jax_config
 from repro.core.calibration import GramAccumulator
+from repro.models import blocks as jax_blocks
 from repro.models import build_model as jax_model
+from repro.models.layers import rms_norm as jax_rms_norm
 from repro.serving import Request as JaxRequest
 from repro.serving import ServingEngine as JaxEngine
 from repro.train.steps import make_loss_fn as jax_loss_fn
@@ -33,6 +35,7 @@ from repro_torch import bridge, optim
 from repro_torch.config import ServeConfig, TrainConfig
 from repro_torch.configs import get_config as torch_config
 from repro_torch.models import build_model as torch_model
+from repro_torch.models import model as model_mod
 from repro_torch.serving import Request, ServingEngine
 from repro_torch.train.steps import (make_loss_fn, make_train_step,
                                      value_and_grad)
@@ -340,3 +343,84 @@ def test_paged_store_refused():
                       device="cpu")
     with pytest.raises(NotImplementedError, match="plain attention"):
         JaxEngine(jm.cfg, {}, JaxServe(**paged), projections=mp)
+
+
+@pytest.mark.parametrize("compressed", [False, True])
+def test_stack_cut_past_a_period_matches_reference_layers(monkeypatch,
+                                                          compressed):
+    """A hybrid stack cut one layer past a whole period (5 of the reduced
+    8 layers: one period of four, then an SSM layer), the cut the card's
+    full-width jamba serves.  The reference's ``step_layout`` asserts
+    whole periods, so its LM cannot hold such a stack: its own
+    ``blocks.apply_layer`` runs layer by layer in JAX on the first 5 of
+    its 8 layers.  The port's ``LM.prefill`` and 4 greedy ``decode_step``
+    calls (full or KQ-SVD cache on the attention layer) give every
+    layer's hidden states within 2e-4, the logits within 2e-4 and the
+    same greedy tokens."""
+    jm, jp, _, jproj, tm, tp, tmp = pair()
+    jcfg, period = jm.cfg, tm.cfg.hybrid.period
+    n = period + 1
+    cut = torch_model(dataclasses.replace(tm.cfg, n_layers=n), "cpu")
+    assert (cut.prefix, cut.steps) == ([], [[0, 1, 2, 3], [4]])
+    assert cut.attn_layers == [1]
+    tparams = dict(tp, layers=tp["layers"][:n])
+    tproj = cut.projections_pytree(tmp) if compressed else None
+    # layer i of the reference is position i % period of step i // period
+    jlayers = [jax.tree.map(lambda a, i=i: jnp.asarray(a[i // period]),
+                            jp["steps"]["layers"][i % period])
+               for i in range(n)]
+    jlproj = (jax.tree.map(lambda a: a[0], jproj["steps"])
+              if compressed else None)
+    apply_layer = jax.jit(jax_blocks.apply_layer,
+                          static_argnums=(2, 3, 4, 8))
+    recorded = []
+
+    def recording(*args, **kw):
+        out = model_mod_apply(*args, **kw)
+        recorded.append(out[0])
+        return out
+    model_mod_apply = model_mod.apply_layer
+    monkeypatch.setattr(model_mod, "apply_layer", recording)
+
+    def reference(x, mode, caches, pos=None):
+        """The reference's layers in order: each layer's output, the last
+        position's logits and the new caches."""
+        outs, new = [], []
+        for i in range(n):
+            attn = jcfg.layer_kinds()[i] == "attn"
+            x, c, _, _ = apply_layer(
+                jlayers[i], x, jcfg, i, mode,
+                caches[i] if caches else None, pos,
+                jlproj if attn else None, T)
+            outs.append(x)
+            new.append(c)
+        h = jax_rms_norm(x[:, -1:], jnp.asarray(jp["final_norm"]),
+                         jcfg.rms_eps)
+        return outs, jm._logits(jp, h), new
+
+    def held(outs, logits, tl):
+        assert len(recorded) == n
+        for i, (t, j) in enumerate(zip(recorded, outs)):
+            np.testing.assert_allclose(t.detach().numpy(), np.asarray(j),
+                                       err_msg=f"layer {i}", **TOL)
+        _close(tl, logits)
+        recorded.clear()
+
+    B, S, steps = 2, 16, 4
+    T = S + steps
+    toks = np.random.default_rng(4).integers(
+        0, tm.cfg.vocab_size, (B, S)).astype(np.int32)
+    tl, tc = cut.prefill(tparams, toks, T, proj=tproj)
+    outs, jl, jc = reference(jnp.asarray(jp["embed"])[toks], "prefill",
+                             None)
+    held(outs, jl, tl)
+    for t in range(steps):
+        tok = np.asarray(jnp.argmax(jl[:, -1], axis=-1))
+        np.testing.assert_array_equal(
+            torch.argmax(tl[:, -1], dim=-1).numpy(), tok)
+        tl, tc = cut.decode_step(tparams, tc, tok[:, None], S + t,
+                                 proj=tproj)
+        outs, jl, jc = reference(
+            jnp.asarray(jp["embed"])[tok[:, None]], "decode", jc,
+            jnp.full((B,), S + t, jnp.int32))
+        held(outs, jl, tl)

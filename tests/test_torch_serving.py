@@ -22,6 +22,7 @@ from repro_torch.config import ServeConfig
 from repro_torch.configs import get_config as torch_config
 from repro_torch.serving import (EngineStalledError, Request, ServingEngine,
                                  sample_token)
+from repro_torch.serving.engine import ShardedServingEngine
 
 
 @functools.lru_cache(maxsize=None)
@@ -194,16 +195,16 @@ def test_watchdog_raises_on_no_progress(monkeypatch):
          prefill_chunk=8, max_num_batched_tokens=6),
     dict(audit=True), dict(chaos_seed=0)])
 def test_later_slice_features_raise(later):
-    """Only sharded serving is still refused at construction, naming its
-    ROADMAP.md entry; audits, chaos and the token budget build and
-    serve."""
+    """No serving feature is refused any more: sharded serving builds the
+    sharded engine (every shard on the given device), and it, audits,
+    chaos and the token budget build and serve."""
     _, _, tcfg, tp, _, _ = models()
-    if later.get("shards", 1) > 1:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine(tcfg, tp, ServeConfig(**later), device="cpu")
-        return
     eng = ServingEngine(tcfg, tp, ServeConfig(**{"max_seq_len": 64,
                                                  **later}), device="cpu")
+    sharded = later.get("shards", 1) > 1
+    assert isinstance(eng, ShardedServingEngine) == sharded
+    if sharded:
+        assert eng.devices == [torch.device("cpu")] * 2
     reqs = [Request(rid=i, prompt=np.arange(4 + i, dtype=np.int32),
                     max_new_tokens=3) for i in range(2)]
     eng.generate(reqs)
@@ -215,24 +216,21 @@ def test_later_slice_features_raise(later):
     ["--audit"], ["--chaos-seed", "0"], ["--shards", "2"],
     ["--max-batched-tokens", "6", "--audit"]])
 def test_cli_refuses_flags_of_later_slices(flags, capsys):
-    """The reference CLI's flag for the path the port lacks (``--shards``)
-    stops the run with an error naming it; the flags of the audits, chaos
-    and the token budget parse (the budget turning on chunked prefill)."""
+    """Every flag of the reference CLI parses now: ``--shards`` (turning
+    on chunked prefill, so paging), the audits, chaos and the token
+    budget (the budget turning on chunked prefill)."""
     from repro_torch.launch.serve import parse_args
     argv = ["--arch", "tinyllama-1.1b", *flags]
-    if "--shards" in flags:
-        with pytest.raises(SystemExit) as exc:
-            parse_args(argv)
-        assert exc.value.code != 0
-        err = capsys.readouterr().err
-        assert "not ported yet" in err and "--shards" in err
-        return
     args = parse_args(argv)
     assert args.audit == ("--audit" in flags)
     assert args.chaos_seed == (0 if "--chaos-seed" in flags else None)
+    assert args.shards == (2 if "--shards" in flags else 1)
     if "--max-batched-tokens" in flags:
         assert args.max_batched_tokens == 6 and args.prefill_chunk == 8
         assert args.paged
+    if "--shards" in flags:
+        assert args.prefill_chunk == 8 and args.paged
+        assert "enabling chunked prefill" in capsys.readouterr().out
 
 
 def test_cli_serves_optimistic_swap_with_sharing(capsys):

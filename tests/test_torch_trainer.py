@@ -133,5 +133,5 @@ def test_kernel_failure_is_not_retried(tmp_path, monkeypatch):
 
 def test_mesh_is_refused():
     tc = TrainConfig(checkpoint_every=0)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
         trainer(tc, mesh=object())
