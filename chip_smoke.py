@@ -141,6 +141,23 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              of 256) serving 16 requests of 32..1000 prompt tokens and 32
              new: K1 32 x decode steps, K2 32 x chunks, no plain version,
              the pool whole (the first served model with m = 3);
+3q. mesh     (after 3l) tinyllama-1.1b at full width and depth (22
+             layers, bf16, seeded init) trained 4 steps of 8 x 512 Zipf
+             tokens with AdamW (lr 3e-4) twice from the same init and
+             batches: by ``Trainer(mesh=...)`` on a (1, 1) ("data",
+             "model") mesh of a one-rank NCCL group (DTensor params and
+             optimizer state placed by ``params_shardings``, the batch by
+             ``batch_shardings``, K6 per shard through ``local_map``),
+             and by the one-device ``Trainer``.  Each run: K6 22 x 2
+             launches a step (forward and remat recompute), its plain
+             backward 22 a step, its plain forward never; every mesh loss
+             within 1e-2 relative of the one-device run's; the mesh's
+             step-4 params saved (gathered, rank 0 writes) and restored
+             with no mesh and onto the mesh, bit for bit the gathered
+             params.  Printed: ms a step p50 on both paths (their
+             difference is DTensor's host cost), peak device memory,
+             checkpoint bytes, save and restore ms.  The group is
+             destroyed before 3g;
 3g. window   h2o-danube-1.8b at full width (24 layers, d_head 80, window
              4096, bf16, seeded random weights), KQ-SVD calibrated on
              16 x 512 tokens in batches of 4, on dense slots
@@ -2038,6 +2055,105 @@ def main() -> int:
                "K2": kq_prefill_paged_attention.launches}
         del seng, trainer, fresh, model, params, grams, host, acc, state
 
+    # -- 3q: training on a (data, model) mesh --------------------------------
+    with phase("3q train tinyllama-1.1b (full width and depth) on a (1, 1) "
+               "(data, model) mesh beside the one-device Trainer"):
+        import torch.distributed as dist
+        from repro_torch.checkpoint.manager import CheckpointManager
+        from repro_torch.launch.mesh import make_local_mesh
+        from repro_torch.sharding.partition import (is_dtensor,
+                                                    params_shardings)
+        qcfg = get_config("tinyllama-1.1b")
+        assert (qcfg.n_layers, qcfg.d_model, qcfg.n_heads, qcfg.n_kv_heads,
+                qcfg.d_head, qcfg.d_ff, qcfg.vocab_size, qcfg.dtype,
+                qcfg.remat_policy) == (22, 2048, 32, 4, 64, 5632, 32000,
+                                       "bfloat16", "nothing")
+        L, steps_3q = qcfg.n_layers, 4
+        tc = TrainConfig(learning_rate=3e-4, warmup_steps=2,
+                         total_steps=steps_3q, checkpoint_every=0)
+        dc = DataConfig(vocab_size=qcfg.vocab_size, seq_len=512,
+                        batch_size=8)
+        data_3q = [b for b, _ in zip(batches(dc), range(steps_3q))]
+        ckdir = tempfile.mkdtemp(prefix="chip_smoke_3q_")
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        runs = {}
+        try:
+            mesh = make_local_mesh(1, 1)
+            for label, m in (("mesh", mesh), ("one device", None)):
+                trainer = Trainer(qcfg, tc, mesh=m)
+                state = trainer.init_state()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_counts()
+                flash_attention_backward.launches = 0
+                rep = trainer.run(iter(data_3q), steps_3q, state=state)
+                torch.cuda.synchronize()
+                runs[label] = {
+                    "losses": rep.losses, "k6": flash_attention.launches,
+                    "bwd": flash_attention_backward.launches,
+                    "plain": plain_calls["flash_attention_ref"],
+                    "ms": np.percentile(np.asarray(rep.step_times) * 1e3, 50),
+                    "peak": torch.cuda.max_memory_allocated() / 2**30}
+                assert rep.steps_done == steps_3q and rep.retries == 0, rep
+                # forward and remat recompute, the plain forward never
+                assert runs[label]["k6"] == L * 2 * steps_3q, runs[label]
+                assert runs[label]["bwd"] == L * steps_3q, runs[label]
+                assert runs[label]["plain"] == 0, plain_calls
+                if m is None:
+                    break
+                # the params at the last step, saved (every leaf gathered,
+                # rank 0 writes) and restored with no mesh and onto it
+                params = trainer.state["params"]
+                assert all(is_dtensor(t) for _, t in tree_leaves(params))
+                full = [t.full_tensor() for _, t in tree_leaves(params)]
+                ck = CheckpointManager(ckdir, keep=1, async_save=False)
+                t0 = time.perf_counter()
+                ck.save(steps_3q, {"params": params})
+                ck.wait()
+                save_ms = (time.perf_counter() - t0) * 1e3
+                step_dir = os.path.join(ckdir, f"step_{steps_3q:08d}")
+                ck_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                               for f in os.listdir(step_dir))
+                t0 = time.perf_counter()
+                plain_tree, _ = ck.restore({"params": params})
+                placed, _ = ck.restore({"params": params}, shardings={
+                    "params": params_shardings(params, mesh,
+                                               fsdp=tc.fsdp)})
+                torch.cuda.synchronize()
+                restore_ms = (time.perf_counter() - t0) * 1e3 / 2
+                for (path, a), (_, b), g in zip(
+                        tree_leaves(plain_tree["params"]),
+                        tree_leaves(placed["params"]), full):
+                    assert not is_dtensor(a) and a.device == dev, path
+                    assert is_dtensor(b), path
+                    assert torch.equal(a, g), path
+                    assert torch.equal(b.full_tensor(), g), path
+                del params, full, plain_tree, placed
+        finally:
+            trainer = state = None
+            dist.destroy_process_group()
+            shutil.rmtree(ckdir, ignore_errors=True)
+        rel = [abs(a - b) / abs(b) for a, b in
+               zip(runs["mesh"]["losses"], runs["one device"]["losses"])]
+        assert max(rel) <= 1e-2, (runs["mesh"]["losses"],
+                                  runs["one device"]["losses"])
+        for label, r in runs.items():
+            print(f"{label}: losses {[round(x, 4) for x in r['losses']]}; "
+                  f"ms a step p50 {r['ms']:.2f}; peak device memory "
+                  f"{r['peak']:.2f} GiB; K6 {r['k6']} = {L} x 2 x "
+                  f"{steps_3q} (forward and remat recompute), its plain "
+                  f"backward {r['bwd']}, its plain forward {r['plain']}")
+        print(f"losses mesh / one device: max relative difference "
+              f"{max(rel):.3g} (limit 1e-2); DTensor's host cost "
+              f"{runs['mesh']['ms'] - runs['one device']['ms']:.2f} ms a "
+              f"step at the p50")
+        print(f"checkpoint of the step-{steps_3q} params: {ck_bytes} bytes "
+              f"(bf16), save {save_ms:.1f} ms (gather, write, barrier), "
+              f"restore {restore_ms:.1f} ms; restored with no mesh and onto "
+              f"the mesh: bit for bit the gathered params")
+        k6_launches["phase 3q"] = runs["mesh"]["k6"] + runs["one device"]["k6"]
+
     # -- 3g: the sliding-window ring cache -----------------------------------
     with phase("3g serve h2o-danube-1.8b, full width, KQ-SVD, dense slots, "
                "window 4096"):
@@ -3309,10 +3425,12 @@ def main() -> int:
                   "source": "src/repro_torch/kernels/csrc/flash.cu",
                   "replaces": "src/repro/kernels/flash/flash.py:29",
                   "launches": k6_launches["phase 3"]
-                  + k6_launches["phase 3g"] + k6_launches["phase 3l"],
-                  "launches_from": "phases 3, 3g and 3l (training: "
-                                   "forward and remat recompute, then "
-                                   "calibration)"}
+                  + k6_launches["phase 3g"] + k6_launches["phase 3l"]
+                  + k6_launches["phase 3q"],
+                  "launches_from": "phases 3, 3g, 3l and 3q (training: "
+                                   "forward and remat recompute, 3q's on "
+                                   "a mesh through local_map and on one "
+                                   "device; then calibration)"}
         k6c = dict(k6_src, name="flash (K6), tinyllama-1.1b calibration "
                                 "batch",
                    shape={"B": 4, "H": 32, "Hkv": 4, "S": 512, "dh": 64,

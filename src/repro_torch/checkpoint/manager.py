@@ -23,8 +23,18 @@ Torch counterpart of ``repro.checkpoint.manager``, with the same layout
 npz cannot store bfloat16, and the card machine has no ``ml_dtypes``:
 such a leaf is stored as its ``int16`` view (``Tensor.view``) with its
 true dtype recorded in the index.  ``restore`` places every leaf on the
-template leaf's device, in its recorded dtype.  Trees are the port's
-nested dicts and lists of tensors (``repro_torch.tree``).
+template leaf's device (a meta template leaf: the host), in its recorded
+dtype, or by ``shardings``.  Trees are the port's nested dicts and lists
+of tensors (``repro_torch.tree``).
+
+Multi-rank (``Trainer(mesh=...)``): a tree with DTensor leaves is saved
+collectively.  Every rank calls ``save`` with its shards of the same
+tree; each leaf is gathered (``full_tensor``, a collective, in the same
+leaf order on every rank), rank 0 writes the checkpoint, and all ranks
+meet at a barrier in ``wait`` (which the next ``save`` and every restore
+path of the trainer call) once rank 0's write has committed.  The files
+hold global arrays, so ``restore(..., shardings=...)`` places them under
+any mesh, or none: the elastic resume.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.sharding.partition import is_dtensor, place_tree
 from repro_torch.tree import SEP, leaves, path_key, unflatten
 
 # tensors npz cannot hold, stored as the same-width integer view
@@ -59,6 +70,8 @@ def _encode(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     name.  The copy to host is synchronous and always a copy (a CPU
     tensor too), so later writes to ``t`` do not reach it."""
     t = t.detach()
+    if is_dtensor(t):
+        t = t.full_tensor()
     name = str(t.dtype).replace("torch.", "")
     if t.dtype in _VIEW_FOR:
         t = t.view(_VIEW_FOR[t.dtype])
@@ -83,8 +96,9 @@ def _unflatten_like(template, flat: Dict[str, torch.Tensor]):
         if key not in flat:
             raise KeyError(f"checkpoint missing leaf {key!r}")
         t = flat[key]
-        out.append(t.to(like.device) if isinstance(like, torch.Tensor)
-                   else t)
+        out.append(t.to(like.device)
+                   if isinstance(like, torch.Tensor)
+                   and like.device.type != "meta" else t)
     return unflatten(template, out)
 
 
@@ -98,15 +112,21 @@ class CheckpointManager:
         self.keep = keep
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
+        self._collective = False          # a multi-rank save to wait for
         os.makedirs(root, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
 
     def save(self, step: int, tree, extra: Optional[Dict] = None) -> None:
         """Snapshot ``tree`` at ``step``.  Blocks only for the copy to
-        host; a previous save still being written is waited for first."""
+        host; a previous save still being written is waited for first.
+        Collective when ``tree`` has DTensor leaves (module docstring):
+        only rank 0 writes."""
+        self.wait()
+        flat = _flatten(tree)
+        collective = any(is_dtensor(v) for v in flat.values())
         host, dtypes = {}, {}
-        for k, v in _flatten(tree).items():
+        for k, v in flat.items():
             host[k], dtypes[k] = _encode(torch.as_tensor(v))
         meta = {
             "step": step,
@@ -114,7 +134,9 @@ class CheckpointManager:
                        for k, v in host.items()},
             "extra": extra or {},
         }
-        self.wait()
+        self._collective = collective
+        if collective and torch.distributed.get_rank() != 0:
+            return
         if self.async_save:
             self._thread = threading.Thread(
                 target=self._write, args=(step, host, meta), daemon=True)
@@ -165,10 +187,14 @@ class CheckpointManager:
         os.rename(part, path)
 
     def wait(self) -> None:
-        """Block until the in-flight async save (if any) commits."""
+        """Block until the in-flight async save (if any) commits; after a
+        collective save, every rank waits at a barrier for rank 0's."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._collective:
+            self._collective = False
+            torch.distributed.barrier()
 
     def _gc(self) -> None:
         steps = self.list_steps()
@@ -202,11 +228,13 @@ class CheckpointManager:
             out[k] = _decode(host[k], info["dtype"])
         return out, meta
 
-    def restore(self, template, step: Optional[int] = None
-                ) -> Tuple[Any, Dict]:
+    def restore(self, template, step: Optional[int] = None,
+                shardings=None) -> Tuple[Any, Dict]:
         """Restore into ``template``'s structure, each leaf on the device
-        of the template's leaf; the newest step unless ``step`` is given,
-        falling back to older ones past a damaged directory."""
+        of the template's leaf, or placed by ``shardings`` (a matching tree
+        of ``NamedSharding``s, None leaves left on the host; the elastic
+        resume onto another mesh); the newest step unless ``step`` is
+        given, falling back to older ones past a damaged directory."""
         steps = self.list_steps()
         if not steps:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
@@ -215,7 +243,10 @@ class CheckpointManager:
         for s in candidates:
             try:
                 host, meta = self._load_step(s)
-                return _unflatten_like(template, host), meta
+                tree = _unflatten_like(template, host)
+                if shardings is not None:
+                    tree = place_tree(tree, shardings)
+                return tree, meta
             except (IOError, KeyError) as e:      # damaged -> fall back
                 err = e
                 continue

@@ -12,9 +12,12 @@ parity of the dataclass but do not change what the port computes: on a
 CUDA device the hand-written kernels always run.  ``remat_policy`` maps
 to ``torch.utils.checkpoint`` per layer in ``LM.train_logits``.  Serving
 features this port does not have yet are rejected when
-``repro_torch.serving.ServingEngine`` is constructed; ``TrainConfig``'s
-``fsdp`` and ``grad_reduce_dtype`` (the reference's sharding knobs) route
-nothing on one device.
+``repro_torch.serving.ServingEngine`` is constructed.  ``TrainConfig``'s
+``fsdp`` selects ZeRO-3 placement of params and optimizer state under
+``Trainer(mesh=...)`` (``params_shardings(..., fsdp=tc.fsdp)``) and routes
+nothing on one device; ``grad_reduce_dtype`` routes nothing anywhere, as
+in the reference, which reads it nowhere.  ``MeshConfig`` describes a
+device mesh's shape and axis names, as in the reference.
 """
 from __future__ import annotations
 
@@ -324,6 +327,39 @@ def _count_params(cfg: ModelConfig, active_only: bool) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Mesh / run configs
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """A device mesh's shape and axis names (the reference's
+    ``MeshConfig``); the partition rules take it where no process group
+    exists (``sharding.partition.mesh_axes``)."""
+
+    shape: Tuple[int, ...] = (16, 16)
+    axis_names: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        """The number of devices: the product of the shape."""
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        """Axes that carry batch / data parallelism."""
+        return tuple(a for a in self.axis_names if a in ("pod", "data"))
+
+    @property
+    def model_axis(self) -> str:
+        """The axis that carries TP and EP."""
+        return "model"
+
+
+# ---------------------------------------------------------------------------
 # Training
 # ---------------------------------------------------------------------------
 
@@ -343,12 +379,12 @@ class TrainConfig:
     optimizer: str = "adamw"            # adamw | adafactor
     adam_dtype: str = "float32"         # moment dtype ("bfloat16" to shrink)
     grad_accum: int = 1                 # microbatch steps per update
-    grad_reduce_dtype: str = "bfloat16" # reference's FSDP reduce type
+    grad_reduce_dtype: str = "bfloat16" # read nowhere, as in the reference
     z_loss: float = 1e-4
     seed: int = 0
     checkpoint_every: int = 100
     keep_checkpoints: int = 3
-    fsdp: bool = True                   # reference's ZeRO-3 switch
+    fsdp: bool = True                   # ZeRO-3 placement under a mesh
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,21 @@ otherwise (``--device cpu`` runs the kernels' plain versions), and with
 neither a device nor a GPU it stops with an error.  Zipf token data from
 ``repro_torch.data``; checkpoints under ``--ckpt-dir`` every
 ``--checkpoint-every`` steps.
+
+``--mesh DATA,MODEL`` trains on a (data, model) device mesh (the dense
+family), one process a rank, under ``torchrun``, which sets each
+process's rank, the world size and the rendezvous address:
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch tinyllama-1.1b --mesh 2,2 --steps 20 --seq-len 512 --batch 8
+
+(NCCL, a card a rank by ``LOCAL_RANK``; with ``--device cpu``, gloo).
+Every rank reads the same global batches; rank 0 prints.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 from repro_torch.config import TrainConfig
 from repro_torch.configs import get_config
@@ -39,6 +50,9 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain PyTorch versions of the kernels)")
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="train on a (data, model) mesh, one process a "
+                         "rank under torchrun")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -48,13 +62,36 @@ def main(argv=None) -> None:
                      optimizer=args.optimizer, grad_accum=args.grad_accum,
                      checkpoint_every=args.checkpoint_every
                      if args.ckpt_dir else 0)
-    trainer = Trainer(cfg, tc, ckpt_dir=args.ckpt_dir, device=args.device)
+    mesh = _mesh(args.mesh, args.device) if args.mesh else None
+    trainer = Trainer(cfg, tc, ckpt_dir=args.ckpt_dir, mesh=mesh,
+                      device=args.device)
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                     batch_size=args.batch)
     report = trainer.run(batches(dc), args.steps)
-    print(f"device {trainer.model.device}: steps={report.steps_done} loss "
-          f"{report.losses[0]:.3f} -> {report.final_loss:.3f} "
-          f"retries={report.retries} stragglers={report.straggler_steps}")
+    if mesh is None or int(os.environ.get("RANK", 0)) == 0:
+        print(f"device {trainer.model.device}"
+              f"{f' mesh {args.mesh}' if mesh is not None else ''}: "
+              f"steps={report.steps_done} loss {report.losses[0]:.3f} -> "
+              f"{report.final_loss:.3f} retries={report.retries} "
+              f"stragglers={report.straggler_steps}")
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
+def _mesh(spec: str, device):
+    """The (data, model) mesh of ``--mesh``: the process group from
+    torchrun's environment, NCCL with this rank's card current (gloo
+    for ``--device cpu``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    data, model = (int(n) for n in spec.split(","))
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if not cpu:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("gloo" if cpu else "nccl")
+    return make_local_mesh(data, model, "cpu" if cpu else None)
 
 
 if __name__ == "__main__":

@@ -64,6 +64,7 @@ from repro_torch.models.layers import apply_rope, init_dense
 from repro_torch.serving.page_layouts import get_layout, quantize_int8
 from repro_torch.serving.paged_cache import (append_chunk, append_token,
                                              gather_pages)
+from repro_torch.sharding.partition import is_dtensor
 
 NEG_INF = -1e30
 
@@ -317,19 +318,73 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return torch.cat(outs, dim=2)
 
 
+def _attend_train(q, k, v, cfg: ModelConfig, pos0: int, h0: int):
+    """RoPE, K6 under autograd and the pad-head mask on one shard's heads:
+    q (B, Hl, S, dh) holds query heads ``h0 .. h0 + Hl`` of the model's,
+    k / v (B, Hkv', S, dh) the kv heads of the shard (all of them when
+    the rules replicate them).  Each query head reads its own kv group:
+    a contiguous slice of kv heads where the shard's query heads fill
+    whole groups or lie in one, else one kv head a query head."""
+    S, Hl = q.shape[2], q.shape[1]
+    pos = torch.arange(S, device=q.device) + pos0
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    Hp = padded_heads(cfg)
+    if Hl != Hp and k.shape[1] == cfg.n_kv_heads:
+        m = Hp // cfg.n_kv_heads                 # query heads a kv group
+        if m % Hl == 0 or Hl % m == 0:
+            kv = slice(h0 // m, h0 // m + max(1, Hl // m))
+        else:
+            kv = (h0 + torch.arange(Hl, device=q.device)) // m
+        k, v = k[:, kv], v[:, kv]
+    out = flash_attention_train(q, k, v, window=cfg.sliding_window)
+    mask = head_mask(cfg)
+    if mask is not None:
+        out = out * torch.as_tensor(mask[h0:h0 + Hl], dtype=out.dtype,
+                                    device=out.device)[None, :, None, None]
+    return out
+
+
+def _attend_train_sharded(q, k, v, cfg: ModelConfig, pos0: int):
+    """``_attend_train`` on every rank's own batch rows and heads of
+    DTensor q / k / v (``local_map``): K6 runs on the local tensors.
+    Where the rules replicate k and v on a mesh dim that shards q's
+    heads, each rank reads only its heads' groups, so their gradients
+    come back as partial sums on that dim."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    coord = mesh.get_coordinate()
+    Hl = q.shape[1] // math.prod(
+        mesh.size(i) for i, pl in enumerate(q.placements) if pl == Shard(1))
+    h0 = 0
+    for i, pl in enumerate(q.placements):
+        if pl == Shard(1):
+            h0 = h0 * mesh.size(i) + coord[i]
+    h0 *= Hl
+    kv_grad = tuple(Partial() if qp == Shard(1) and kp == Replicate()
+                    else kp for qp, kp in zip(q.placements, k.placements))
+    fn = local_map(_attend_train, out_placements=list(q.placements),
+                   in_placements=(q.placements, k.placements, v.placements,
+                                  None, None, None),
+                   in_grad_placements=(q.placements, kv_grad, kv_grad,
+                                       None, None, None),
+                   device_mesh=mesh)
+    return fn(q, k, v, cfg, pos0, h0)
+
+
 def attn_train(p, x: torch.Tensor, cfg: ModelConfig,
                pos0: int = 0) -> torch.Tensor:
     """Full-sequence causal attention with gradients (training): K6 under
     autograd (``flash_attention_train``; its backward plain PyTorch).
     Pad query heads (``qhead_pad``) have their outputs zeroed, so their
-    weights' gradients stay zero, as in the reference."""
-    S = x.shape[1]
-    q, k, v = _qkv(p, x, cfg, torch.arange(S, device=x.device) + pos0)
-    out = flash_attention_train(q, k, v, window=cfg.sliding_window)
-    mask = head_mask(cfg)
-    if mask is not None:
-        out = out * torch.as_tensor(mask, dtype=out.dtype,
-                                    device=out.device)[None, :, None, None]
+    weights' gradients stay zero, as in the reference.  On DTensor
+    activations (a mesh) K6 runs per shard (``_attend_train_sharded``)."""
+    q, k, v = (_project(x, p[w]) for w in ("wq", "wk", "wv"))
+    if is_dtensor(q):
+        out = _attend_train_sharded(q, k, v, cfg, pos0)
+    else:
+        out = _attend_train(q, k, v, cfg, pos0, 0)
     return _out(out, p["wo"])
 
 

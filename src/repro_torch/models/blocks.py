@@ -28,6 +28,7 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import init_rms, init_swiglu, rms_norm, swiglu
 from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.sharding.partition import shard
 
 
 def step_layout(cfg: ModelConfig) -> Tuple[List[int], List[List[int]]]:
@@ -130,6 +131,7 @@ def apply_layer(p: Dict, x: torch.Tensor, cfg: ModelConfig, layer_idx: int,
     ``decode`` (its state updated in place).  ``aux`` holds a MoE layer's
     router statistics, else nothing."""
     kind = cfg.layer_kinds()[layer_idx]
+    x = shard(x, ("pod", "data"), None, None)
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
     new_cache = captures = None
     if (block_table is not None or mode == "chunk") and kind != "attn":

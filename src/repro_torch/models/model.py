@@ -69,6 +69,8 @@ from repro_torch.models.blocks import (apply_layer, attn_sublayer_index,
                                        init_layer, init_layer_cache,
                                        step_layout)
 from repro_torch.models.layers import dtype_of, init_rms, rms_norm
+from repro_torch.sharding.partition import gather_dp, is_dtensor, shard
+from repro_torch.tree import tree_map
 
 
 AUX_KEYS = ("load_balance", "router_z", "dropped_frac")
@@ -96,6 +98,40 @@ def _add_aux(acc: Dict[str, torch.Tensor], aux: Dict[str, torch.Tensor]
     out = {k: acc[k] + aux[k] if k in aux else acc[k] for k in AUX_KEYS}
     out["n_moe"] = acc["n_moe"] + (1.0 if "load_balance" in aux else 0.0)
     return out
+
+
+def _lookup_sharded(weight, tokens):
+    """``weight[tokens]`` for DTensors, through ``local_map``: DTensor's
+    rules for the index ops (and their backward) are not dependable
+    across torch versions.  Each rank looks its batch rows' tokens up in
+    the vocabulary rows it holds (the rules shard the vocabulary over the
+    model axis, after ``gather_dp``), zeros where another rank holds the
+    row, and the ranks' partial sums add up over that axis; the rows'
+    gradients come back partial over the axes that split the batch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh, wp, tp = weight.device_mesh, weight.placements, tokens.placements
+    coord = mesh.get_coordinate()
+    v0 = 0
+    for i, pl in enumerate(wp):
+        if pl == Shard(0):
+            v0 = v0 * mesh.size(i) + coord[i]
+    v0 *= weight.to_local().shape[0]
+    out_pl = [Partial() if w == Shard(0) else t for w, t in zip(wp, tp)]
+    grad_pl = [w if w == Shard(0) else Partial() if t == Shard(0)
+               else Replicate() for w, t in zip(wp, tp)]
+
+    def lookup(w, t, v0):
+        rows = t - v0
+        hit = (rows >= 0) & (rows < w.shape[0])
+        x = w[rows.clamp(0, w.shape[0] - 1)]
+        return torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))
+
+    return local_map(lookup, out_placements=out_pl,
+                     in_placements=(wp, tp, None),
+                     in_grad_placements=(grad_pl, tp, None),
+                     device_mesh=mesh)(weight, tokens, v0)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -172,17 +208,20 @@ class LM:
         if "embeds" in batch:
             x = torch.as_tensor(batch["embeds"], device=self.device) \
                 .to(self.dtype)
+        elif is_dtensor(params["embed"]):
+            x = _lookup_sharded(params["embed"], self._tokens(batch))
         else:
             x = params["embed"][self._tokens(batch)]
         if "image_embeds" in batch:
             img = torch.as_tensor(batch["image_embeds"], device=self.device)
             x = torch.cat([img.to(self.dtype), x], dim=1)
-        return x
+        return shard(x, ("pod", "data"), None, None)
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         head = (params["embed"].T if self.cfg.tie_embeddings
                 else params["lm_head"])
-        return x.float() @ head.float()
+        return shard(x.float() @ head.float(), ("pod", "data"), None,
+                     "model")
 
     def _run_stack(self, params, x, mode, cache=None, pos=None, proj=None,
                    max_len: int = 0, block_table=None, token_mask=None,
@@ -273,7 +312,8 @@ class LM:
         remat changes no number.  ``batch`` as ``_embed`` takes it: with
         ``image_embeds`` the logits cover the P + S positions, and a
         train batch's labels are -100 (ignored) over the patches."""
-        x = self._embed(params, batch)
+        top = {k: gather_dp(v) for k, v in params.items() if k != "layers"}
+        x = self._embed(top, batch)
         opts = remat_options(self.cfg.remat_policy)
         aux: Dict[str, torch.Tensor] = {}
         for i, lp in enumerate(params["layers"]):
@@ -283,11 +323,12 @@ class LM:
                 x, la = torch_checkpoint.checkpoint(self._train_layer, lp, x,
                                                     i, **opts)
             aux = _add_aux(aux, la)
-        x = rms_norm(x, params["final_norm"], self.cfg.rms_eps)
-        return self._logits(params, x), aux or _zero_aux(self.device)
+        x = rms_norm(x, top["final_norm"], self.cfg.rms_eps)
+        return self._logits(top, x), aux or _zero_aux(self.device)
 
     def _train_layer(self, lp, x, i):
-        x, _, _, aux = apply_layer(lp, x, self.cfg, i, "train")
+        x, _, _, aux = apply_layer(tree_map(gather_dp, lp), x, self.cfg, i,
+                                   "train")
         return x, aux
 
     def calibrate(self, params, batch, host: bool = True) -> List[Dict]:

@@ -21,6 +21,11 @@ reference's unrolled prefix and keep per-layer statistics under
 params' tree with a slot {"vr", "vc", "m"} or {"v", "m"} at each leaf,
 "step"}``, the reference's own slot shapes.  Functional, as the
 reference is: new params and a new state, the old ones untouched.
+
+Under a mesh the leaves are DTensors: the stacking keeps each leaf's
+placements (a stacked shard is the stack of the layers' shards), the row
+and column statistics reduce over sharded dims through DTensor, and each
+new slot keeps the placement its old one had (``params_shardings``).
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import torch
 
 from repro_torch.config import TrainConfig
 from repro_torch.optim.adamw import _wd_mask, clip_by_global_norm
+from repro_torch.sharding.partition import placed_like
 from repro_torch.tree import (Layout, leaves, stack_layers, tree_map,
                               unflatten, unstack_layers)
 
@@ -105,7 +111,8 @@ def apply_updates(params, grads, state, tc: TrainConfig, lr: float,
         if tc.weight_decay and _wd_mask(path):
             m = m + tc.weight_decay * p.float()
         new_p.append((p.float() - lr * m).to(p.dtype))
-        new_slots.append(new_slot)
+        new_slots.append({k: placed_like(v, slot[k])
+                          for k, v in new_slot.items()})
     new_params = unstack_layers(unflatten(sp, new_p), layout)
     return new_params, {"slots": unflatten(sp, new_slots), "step": step}, \
         {"grad_norm": gnorm}

@@ -7,32 +7,57 @@ neither, so a step that fails part-way leaves the old tree whole.  The
 state mirrors the params: ``{"m", "v"}`` trees of the same structure,
 and ``"step"``, a 0-d int32 tensor on the host.  Float32 math; results
 cast back to each leaf's type.
+
+Under a mesh the leaves are DTensors: every update is elementwise on the
+shards, the state's moments are placed like their parameters, and the
+clip's norm is the global one, over every shard (``global_norm``).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.config import TrainConfig
 from repro_torch.models.layers import dtype_of
+from repro_torch.sharding.partition import is_dtensor
 from repro_torch.tree import leaves, tree_map, unflatten
 
 
 def init_state(params, tc: TrainConfig) -> Dict[str, Any]:
-    """Zero moments in ``tc.adam_dtype`` beside each parameter."""
+    """Zero moments in ``tc.adam_dtype`` beside each parameter (placed
+    like it, a DTensor's)."""
     mdt = dtype_of(tc.adam_dtype)
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=mdt, device=p.device)
+        return torch.zeros_like(p, dtype=mdt,
+                                memory_format=torch.contiguous_format)
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32)}
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, float32."""
-    return torch.stack([x.float().square().sum()
-                        for _, x in leaves(tree)]).sum().sqrt()
+    """sqrt of the sum of squares of every leaf, float32.  DTensor leaves
+    (sharded or replicated, never partial) count each element once: each
+    rank sums its shards' squares, a shard held by r ranks weighted 1/r,
+    and one all-reduce over the mesh adds the ranks' sums; the norm comes
+    back as a plain tensor, the same on every rank."""
+    plain, local, mesh = [], [], None
+    for _, x in leaves(tree):
+        if not is_dtensor(x):
+            plain.append(x.float().square().sum())
+            continue
+        mesh = x.device_mesh
+        reps = math.prod(mesh.size(i) for i, pl in enumerate(x.placements)
+                         if pl.is_replicate())
+        local.append(x.to_local().float().square().sum() / reps)
+    if local:
+        from torch.distributed.tensor import DTensor, Partial
+        plain.append(DTensor.from_local(
+            torch.stack(local).sum(), mesh,
+            [Partial()] * mesh.ndim).full_tensor())
+    return torch.stack(plain).sum().sqrt()
 
 
 def clip_by_global_norm(grads, max_norm: float):

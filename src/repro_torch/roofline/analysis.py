@@ -17,11 +17,12 @@ B/s of NVLink 4 a direction (``LINK_BW``).  A card set below 700 W runs
 slower under load, so a share of these peaks is stated beside the
 card's power limit.
 
-What waits for the port's multi-device training slice (``ROADMAP.md``
-queue 1): ``parse_collectives`` / ``CollectiveStats`` and
+Not ported yet: ``parse_collectives`` / ``CollectiveStats`` and
 ``attn_substitution`` read the XLA HLO text of a compiled dry run, which
-the port does not emit; the training slice's dry run will count the
-port's own collectives and attention passes.  ``Roofline``'s
+the port does not emit.  Training on a mesh is ported; its dry run on
+placed meta tensors over a fake 256- or 512-rank group, which will count
+the port's own collectives and attention passes in their place, is the
+next slice (``ROADMAP.md`` queue 1).  ``Roofline``'s
 ``hlo_flops`` / ``hlo_bytes`` keep their names: in the port they are
 whatever count the caller gives (``roofline.flop_count`` for FLOPs).
 """

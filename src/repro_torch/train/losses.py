@@ -9,6 +9,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.sharding.partition import shard
+
 IGNORE = -100
 
 
@@ -18,6 +20,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     Returns the mean negative log-likelihood over unmasked tokens (plus
     ``z_weight`` times the mean squared log-partition) and metrics
     ``ce``, ``tokens`` and, with a z-loss, ``z_loss``."""
+    # DTensor has no rule for a gather over a sharded vocab: under a mesh
+    # the logits are gathered over the model axis first
+    logits = shard(logits, ("pod", "data"), None, None)
     labels = labels.long()
     mask = (labels != IGNORE).float()
     safe = labels.masked_fill(labels == IGNORE, 0)

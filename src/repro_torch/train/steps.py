@@ -5,6 +5,12 @@ grads (with optional gradient accumulation over microbatches, the
 accumulator float32) -> clipped update.  Gradients come back in the
 parameter type; the update is functional (``repro_torch.optim``).
 
+Under a mesh (``Trainer(mesh=...)``) params, optimizer state and batch
+are DTensors: autograd hands the gradients back as partial sums over the
+data axes, and ``value_and_grad`` redistributes each to its parameter's
+placements (the FSDP reduce-scatter, or the data-parallel all-reduce);
+the metrics come back as plain tensors, the same on every rank.
+
 ``make_prefill_step`` / ``make_decode_step``: serving steps, full-cache
 or KQ-SVD-compressed variants.
 """
@@ -18,6 +24,7 @@ from repro_torch import optim
 from repro_torch.config import TrainConfig
 from repro_torch.models.model import LM
 from repro_torch.optim.schedule import learning_rate
+from repro_torch.sharding.partition import is_dtensor, placed_like, shard
 from repro_torch.train.losses import total_loss
 from repro_torch.tree import leaves, tree_map, unflatten
 
@@ -29,7 +36,9 @@ def make_loss_fn(model: LM, tc: TrainConfig) -> Callable:
 
     def loss_fn(params, batch):
         logits, aux = model.train_logits(params, batch)
-        labels = torch.as_tensor(batch["labels"], device=model.device)
+        labels = batch["labels"]
+        if not is_dtensor(labels):
+            labels = torch.as_tensor(labels, device=model.device)
         return total_loss(logits, labels, aux, tc, cfg.moe)
 
     return loss_fn
@@ -41,13 +50,27 @@ def value_and_grad(loss_fn, params, batch):
     (the caller's tensors are not marked: autograd runs on detached
     aliases of them).  A parameter the loss does not read (the token
     embeddings of a batch of frontend ``embeds``) gets a zero gradient,
-    as ``jax.grad`` gives it."""
+    as ``jax.grad`` gives it.  A DTensor parameter's gradient is
+    redistributed to the parameter's placements, and DTensor metrics are
+    gathered into plain tensors."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     loss, metrics = loss_fn(live, batch)
     grads = torch.autograd.grad(loss, [p for _, p in leaves(live)],
                                 allow_unused=True, materialize_grads=True)
-    metrics = {k: v.detach() for k, v in metrics.items()}
+    grads = [placed_like(g, p) for g, (_, p) in zip(grads, leaves(params))]
+    metrics = {k: (v.full_tensor() if is_dtensor(v) else v).detach()
+               for k, v in metrics.items()}
     return metrics, unflatten(params, grads)
+
+
+def _microbatch(v, lo: int, hi: int):
+    """Rows ``lo:hi`` of a batch leaf; a DTensor's sliced from the whole
+    batch (the reference's microbatch i is rows i*mb .. (i+1)*mb of the
+    global batch) and split over the data axes again."""
+    mb = v[lo:hi]
+    if is_dtensor(mb):
+        mb = shard(mb, ("pod", "data"), *([None] * (mb.ndim - 1)))
+    return mb
 
 
 def make_train_step(model: LM, tc: TrainConfig) -> Callable:
@@ -55,20 +78,22 @@ def make_train_step(model: LM, tc: TrainConfig) -> Callable:
     metrics)``: metrics ``loss`` (and ``ce``, ``tokens``, ``z_loss`` without
     accumulation), ``grad_norm`` and ``lr``.  With ``tc.grad_accum`` > 1
     the batch splits into that many microbatches on its leading axis,
-    their gradients summed in float32, divided and cast to the parameter
-    type, as the reference's ``lax.scan`` does."""
+    their gradients summed in float32 (a DTensor's accumulator placed
+    like its parameter), divided and cast to the parameter type, as the
+    reference's ``lax.scan`` does."""
     loss_fn = make_loss_fn(model, tc)
 
     def train_step(params, opt_state, batch):
         if tc.grad_accum > 1:
             n = tc.grad_accum
-            g_acc = tree_map(lambda p: torch.zeros(p.shape,
-                                                   dtype=torch.float32,
-                                                   device=p.device), params)
+            g_acc = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32,
+                memory_format=torch.contiguous_format), params)
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=model.device)
             for i in range(n):
-                mb = {k: v[i * (len(v) // n):(i + 1) * (len(v) // n)]
+                mb = {k: _microbatch(v, i * (len(v) // n),
+                                     (i + 1) * (len(v) // n))
                       for k, v in batch.items()}
                 m, g = value_and_grad(loss_fn, params, mb)
                 g_acc = tree_map(lambda a, b: a + b.float(), g_acc, g)

@@ -4,6 +4,7 @@ and the synthetic calibration tokens are identical."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.config import CompressionConfig as JaxCompression
 from repro.configs import get_config as jax_config
@@ -17,6 +18,17 @@ from repro_torch.configs import get_config as torch_config
 from repro_torch.core.calibration import GramAccumulator, calibrate_model
 from repro_torch.data import calibration_batches
 from repro_torch.models import build_model as torch_model
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("vocab,n_seqs,seq_len,batch,seed", [

@@ -16,8 +16,9 @@ budget step's fused chunk launching K2 before the decode chunk's K1 with
 one host sync, and the NaN quarantine of a device logit row; the
 sharded engine with a shard on every card against the CPU; K6 and K7
 under autograd (the kernel forward, the plain backward) against autograd
-through their plain versions, a bfloat16 checkpoint of card tensors, and
-a trainer whose kernel build fails raising at once.  Marked
+through their plain versions, a bfloat16 checkpoint of card tensors, a
+trainer whose kernel build fails raising at once, and training on a
+(2, 2) mesh of four cards against one card.  Marked
 ``cuda``; skips where there is no GPU.  Imports no JAX, so it also runs
 on a machine without it (``--noconftest``: the repository's conftest
 imports JAX):
@@ -1374,3 +1375,123 @@ def test_mla_decode_card_matches_cpu(cuda, compressed):
         eng.generate(rs)
         served.append([r.out_tokens for r in rs])
     assert served[0] == served[1]
+
+
+MESH_RANK = r"""
+import datetime, itertools, json, os, sys
+import torch
+import torch.distributed as dist
+
+rank, tmp = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(rank)
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group(
+    "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 4), rank=rank,
+    world_size=4, timeout=datetime.timedelta(seconds=180))
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.config import TrainConfig
+from repro_torch.configs import get_config
+from repro_torch.data import DataConfig, batches
+from repro_torch.kernels.flash import flash as flash_mod
+from repro_torch.kernels.flash import flash_attention
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.specs import abstract_params
+from repro_torch.sharding.partition import params_shardings
+from repro_torch.train import Trainer
+from repro_torch.tree import leaves
+
+plain = {"n": 0}
+ref = flash_mod.flash_attention_ref
+
+
+def counted(*args, **kw):
+    plain["n"] += 1
+    return ref(*args, **kw)
+
+
+flash_mod.flash_attention_ref = counted
+cfg = get_config("tinyllama-1.1b")
+tc = TrainConfig(learning_rate=3e-4, warmup_steps=2, total_steps=3,
+                 checkpoint_every=0)
+data = list(itertools.islice(batches(DataConfig(
+    vocab_size=cfg.vocab_size, seq_len=512, batch_size=8)), 3))
+tr = Trainer(cfg, tc, mesh=make_local_mesh(2, 2))
+flash_attention.launches = 0
+rep = tr.run(iter(data), 3, state=tr.init_state())
+dev = torch.device("cuda", rank)
+on_card = all(t.to_local().device == dev for tree in (tr.state["params"],
+              tr.state["opt"]["m"], tr.state["opt"]["v"])
+              for _, t in leaves(tree))
+k6 = flash_attention.launches
+# save on (2, 2), restore onto (4, 1)
+ck = CheckpointManager(os.path.join(tmp, "ckpt"), keep=1, async_save=False)
+ck.save(3, {"params": tr.state["params"]})
+ck.wait()                       # every rank meets rank 0's committed write
+saved = {p: t.full_tensor() for p, t in leaves(tr.state["params"])}
+mesh41 = make_local_mesh(4, 1)
+template = {"params": abstract_params(tr.model)}
+out, _ = ck.restore(template, shardings={"params": params_shardings(
+    template["params"], mesh41, fsdp=tc.fsdp)})
+equal = all(torch.equal(t.full_tensor(), saved[p])
+            for p, t in leaves(out["params"]))
+on_card41 = all(t.to_local().device == dev for _, t in leaves(out["params"]))
+with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+    json.dump({"losses": rep.losses, "k6": k6, "plain": plain["n"],
+               "on_card": on_card, "equal": equal, "on_card41": on_card41,
+               "retries": rep.retries,
+               "ms": sorted(rep.step_times)[1] * 1e3}, f)
+dist.destroy_process_group()
+"""
+
+
+def test_mesh_training_on_four_cards_matches_one_card(cuda, tmp_path):
+    """tinyllama-1.1b at full width and depth on a (2, 2) NCCL mesh, one
+    rank a card, 3 AdamW steps: every loss within 1e-2 relative of the
+    one-card Trainer's on the same init and batches; each rank's params,
+    AdamW moments and K6 launches on its own card (K6 22 x 2 a step,
+    the plain forward never); the params saved on (2, 2) and restored
+    onto (4, 1) bit for bit."""
+    import itertools
+    import json
+    import os
+    import subprocess
+    import sys
+    import time
+    from repro_torch.config import TrainConfig
+    from repro_torch.data import DataConfig, batches
+    from repro_torch.kernels import build
+    from repro_torch.train import Trainer
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 NVIDIA GPUs (one rank a card)")
+    build.load("flash")                       # the ranks find it built
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    procs = [subprocess.Popen([sys.executable, "-c", MESH_RANK, str(r),
+                               str(tmp_path)], env=env) for r in range(4)]
+    try:                # a rank that fails leaves the others in a collective
+        while any(p.poll() is None for p in procs):
+            assert all(p.returncode in (None, 0) for p in procs), \
+                [p.returncode for p in procs]
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0] * 4
+    ranks = [json.load(open(tmp_path / f"rank{r}.json")) for r in range(4)]
+    cfg = get_config("tinyllama-1.1b")
+    tc = TrainConfig(learning_rate=3e-4, warmup_steps=2, total_steps=3,
+                     checkpoint_every=0)
+    data = list(itertools.islice(batches(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=512, batch_size=8)), 3))
+    tr = Trainer(cfg, tc, device=cuda)
+    rep = tr.run(iter(data), 3, state=tr.init_state())
+    one = rep.losses
+    for r in ranks:
+        assert r["retries"] == 0 and len(r["losses"]) == 3
+        np.testing.assert_allclose(r["losses"], one, rtol=1e-2)
+        assert r["losses"] == ranks[0]["losses"]
+        assert r["k6"] == cfg.n_layers * 2 * 3 and r["plain"] == 0
+        assert r["on_card"] and r["on_card41"] and r["equal"]
+    print(f"four-card (2, 2) mesh losses {ranks[0]['losses']}, ms a step "
+          f"p50 {ranks[0]['ms']:.2f}; one card {one}, "
+          f"{sorted(rep.step_times)[1] * 1e3:.2f}")

@@ -3,9 +3,23 @@
 same tokens and labels as the reference's for the same config."""
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.data import (DataConfig, batches, calibration_batches,
                               sample_batch)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_deterministic_across_calls():
     cfg = DataConfig(vocab_size=100, seq_len=16, batch_size=4, seed=7)
     a = sample_batch(cfg, 3)

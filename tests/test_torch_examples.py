@@ -12,10 +12,25 @@ import importlib.util
 import os
 import re
 
+import pytest
+import torch
+
 from repro.config import ModelConfig as JaxModelConfig
 from repro.configs import get_config as jax_config
 from repro.core.compressed import cache_footprint as jax_footprint
 from repro_torch.examples import quickstart, serve_compressed, train_100m
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOKENS = r"\[\d+(, \d+)*\]"

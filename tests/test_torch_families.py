@@ -30,6 +30,18 @@ from repro_torch.train.steps import (make_loss_fn, make_train_step,
                                      value_and_grad)
 from repro_torch.tree import leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 GRAD_TOL = 1e-4        # of each gradient leaf's max-abs
 LOSS_RTOL = 1e-5

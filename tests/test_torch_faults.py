@@ -32,6 +32,19 @@ from repro_torch.serving import (FAULT_POINTS, RECOVERABLE_POINTS,
                                  Request, ServingEngine, checksum, invariants)
 
 # what both engines must agree on after a drain
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 COUNTERS = ("n_preempted", "preempted_rids", "n_swapped_out", "n_swapped_in",
             "n_swap_fallbacks", "n_retried", "n_audits", "n_completed",
             "n_failed", "error_counts", "n_shared_pages", "n_full_hits",

@@ -20,6 +20,18 @@ from repro_torch.kernels.flash import flash as flash_mod
 from repro_torch.kernels.flash import flash_attention, flash_attention_ref
 from repro_torch.models import attention as attn_mod
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}       # tests/test_kernels.py
 
 

@@ -32,6 +32,17 @@ from repro_torch.serving import (InvariantViolation, Request, ServingEngine,
 from repro_torch.serving.invariants import refcount_histogram
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def models():
     jcfg = jax_config("tinyllama-1.1b").reduced()

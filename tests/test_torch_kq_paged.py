@@ -24,6 +24,19 @@ from repro_torch.kernels.kq_decode import (kq_decode_paged_attention,
 from repro_torch.kernels.kq_decode.kq_decode import MAX_GROUP, MAX_RANK
 
 # the reference kernel tests' tolerances (tests/test_kernels.py:15-17)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -8,6 +8,18 @@ import torch
 from repro.models import layers as jl
 from repro_torch.models import layers as tl
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 

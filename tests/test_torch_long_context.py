@@ -7,10 +7,22 @@ import dataclasses
 
 import jax
 import pytest
+import torch
 
 from repro.configs import get_config as jax_config
 from repro.models import build_model as jax_model
 from repro_torch.examples import long_context_decode as example
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def reference_lines(arch):

@@ -26,6 +26,19 @@ from repro_torch.train.losses import IGNORE, cross_entropy
 from repro_torch.tree import leaves
 
 # optimizer results on the same float32 arrays: float32 rounding apart
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 OPT_TOL = dict(rtol=1e-6, atol=1e-6)
 # a bfloat16 leaf (Adafactor's first moment) within one bf16 ulp of its
 # largest element per step taken: a float32 difference at a rounding

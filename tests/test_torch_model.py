@@ -21,6 +21,18 @@ from repro_torch import bridge
 from repro_torch.configs import get_config as torch_config
 from repro_torch.models import build_model as torch_model
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 # reduced: m=2, m=1, m=2 with tied embeddings, m=2 at deepseek's shape;
 # the hybrid (SSM layers around two attention layers, MoE) and the two

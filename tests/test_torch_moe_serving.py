@@ -17,6 +17,7 @@ import functools
 import jax
 import numpy as np
 import pytest
+import torch
 
 from conftest import dropless
 from repro.config import CompressionConfig as JaxCompression
@@ -34,6 +35,19 @@ from repro_torch.serving import Request, ServingEngine
 
 # a router whose capacity binds in decode at reduced width: 32 experts,
 # top 2, so C = ceil(2 * 3 * 4 / 32) = 1 slot an expert for 3 slots
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BINDING = (("n_experts", 32), ("top_k", 2))
 
 

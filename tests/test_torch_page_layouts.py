@@ -34,6 +34,17 @@ from repro_torch.serving import (FaultInjector, Request, ServingEngine,
 from repro_torch.serving import page_layouts as tl
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x) -> np.ndarray:
     """Host bytes of a jax or torch array (bf16 as its uint16 bits)."""
     if isinstance(x, torch.Tensor):

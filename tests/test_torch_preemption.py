@@ -12,6 +12,7 @@ import functools
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.config import ServeConfig as JaxServe
 from repro.configs import get_config as jax_config
@@ -22,6 +23,17 @@ from repro_torch import bridge
 from repro_torch.config import ServeConfig
 from repro_torch.configs import get_config as torch_config
 from repro_torch.serving import Request, ServingEngine
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

@@ -59,6 +59,18 @@ from repro_torch.roofline import (HBM_BW, LINK_BW, PEAK_FLOPS,
                                   count_step_flops, model_flops_for,
                                   packed_pairs, summarize, useful_bytes_for)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 VARIANTS = ("baseline", "kqsvd", "kqsvd_int8")
 DENSE = ("tinyllama-1.1b", "smollm-360m", "paper-llama2-7b")
 

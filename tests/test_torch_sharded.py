@@ -40,6 +40,19 @@ from repro_torch.sharding.partition import (serve_devices, slot_slice,
                                             slot_slices)
 
 # tests/test_sharded.py's SCRIPT configuration
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BASE = dict(max_seq_len=64, temperature=0.0, decode_chunk=4, paged=True,
             page_size=4, chunked_prefill=True, prefill_chunk=8,
             share_prefix=True, preempt_mode="swap",

@@ -31,6 +31,18 @@ from repro_torch.kernels.kq_decode import (combine_split_partials,
 from repro_torch.kernels.kq_decode import paged
 from repro_torch.models import attention as tattn
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=2e-5, atol=2e-5)          # tests/test_kernels.py, float32
 
 

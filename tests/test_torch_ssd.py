@@ -25,6 +25,18 @@ from repro_torch.kernels.ssd import (ssd_chunk_scan, ssd_chunk_scan_plain,
                                      ssd_chunk_scan_ref)
 from repro_torch.models.ssm import _ssd_chunked
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}      # tests/test_kernels.py
 RTOL = dict(rtol=1e-4, atol=1e-4)              # tests/test_ssm.py
 

@@ -32,6 +32,18 @@ from repro_torch.models import ssm
 from repro_torch.serving import Request, ServingEngine
 from test_ssm import naive_ssd
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "mamba2-2.7b"
 TOL = dict(rtol=2e-4, atol=2e-4)       # test_models_smoke.py's bar
 STEP_TOL = dict(rtol=5e-4, atol=5e-4)  # test_ssm.py's bar

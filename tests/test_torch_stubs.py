@@ -36,6 +36,18 @@ from repro_torch.serving import Request, ServingEngine
 from repro_torch.train.steps import make_loss_fn, value_and_grad
 from test_torch_train import close_grads
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ["musicgen-large", "phi-3-vision-4.2b"]
 TOL = dict(rtol=2e-4, atol=2e-4)
 FN_TOL = dict(rtol=1e-5, atol=1e-5)

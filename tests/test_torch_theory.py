@@ -4,6 +4,7 @@ and of tests/test_theory_properties.py (hypothesis), and the port's
 theory functions equal to the reference's on the same arrays."""
 import numpy as np
 import pytest
+import torch
 from hypothesis import given, settings, strategies as st
 
 from repro_torch.core.projections import (Factors,
@@ -15,6 +16,17 @@ from repro_torch.core.svd import (energy_rank, gram, gram_factors,
 from repro_torch.core.theory import (ksvd_error, mha_outputs, opt_error,
                                      relative_fro, score_error, thm1_bound,
                                      thm3_gap)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -131,7 +131,10 @@ def test_kernel_failure_is_not_retried(tmp_path, monkeypatch):
     assert calls["n"] == 1
 
 
-def test_mesh_is_refused():
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mamba2-2.7b"])
+def test_mesh_refuses_other_families(arch):
+    """Training on a mesh covers the dense family: a MoE (and MLA) or an
+    SSM config under one raises, naming the next slice."""
     tc = TrainConfig(checkpoint_every=0)
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
-        trainer(tc, mesh=object())
+    with pytest.raises(NotImplementedError, match="next slice"):
+        Trainer(get_config(arch).reduced(), tc, device="cpu", mesh=object())

@@ -33,6 +33,18 @@ from repro_torch.launch import serve as cli
 from repro_torch.models import build_model as torch_model
 from repro_torch.serving import Request, ServingEngine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for these small models: the test runner's
+    workers share the cores, and torch's thread pools would oversubscribe
+    them, stretching a few-ms step many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "h2o-danube-1.8b"
 TOL = dict(rtol=2e-4, atol=2e-4)       # test_models_smoke.py's bar
 
