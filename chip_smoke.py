@@ -158,6 +158,29 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              difference is DTensor's host cost), peak device memory,
              checkpoint bytes, save and restore ms.  The group is
              destroyed before 3g;
+3r. mesh     (after 3q) serving and every family's training on a (1, 1)
+    serving  mesh of a one-rank NCCL group.  (a) tinyllama-1.1b at full
+             width and depth, phase 3's seeded params and projections:
+             ``make_prefill_step`` of 8 prompts of 512 into a cache of
+             1024, then 32 greedy ``make_decode_step``s, three times:
+             with no mesh; on the mesh (params by ``params_shardings``,
+             projections by ``projection_shardings``, tokens by
+             ``batch_shardings``, the cache as ``cache_shardings`` gives
+             it); on the mesh with the cache's sequence placed on the
+             model axis (``Shard(2)`` of a size-1 axis: K3's span output
+             and the LSE merge on the main path).  Counts zeroed before
+             and read after each run: K6 22, K3 22 x 32 (or K3 span 22 x
+             32 and as many merges), plain versions none; tokens equal no
+             mesh's, the logits' largest difference printed, ms a decode
+             step p50 of each.  (b) deepseek-v2-lite-16b at full width, 3
+             of 27 layers (``DEPTH_3R_DEEPSEEK``), and (c) mamba2-2.7b at
+             full width, 16 of 64 layers (``DEPTH_3R_MAMBA``): 3 AdamW
+             steps of 4 x 512 tokens through ``Trainer(mesh=...)`` and
+             the one-device ``Trainer``: losses within 1e-2 relative, K6
+             (MLA at (192, 128)) and K7 layers x 2 x 3 (forward and remat
+             recompute, through ``local_map`` on the mesh), their plain
+             forwards never; MoE's ``dropped_frac`` (G = 1 group a layer
+             on (1, 1)), ms a step and peak memory printed;
 3g. window   h2o-danube-1.8b at full width (24 layers, d_head 80, window
              4096, bf16, seeded random weights), KQ-SVD calibrated on
              16 x 512 tokens in batches of 4, on dense slots
@@ -286,7 +309,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              and each kernel's share of a call) and on the
              reduced and the reference sweep's shapes with and without an
              initial state, two groups of four heads, chunks of 1, 17 and
-             100 tokens and S 0;
+             100 tokens and S 0; K3's span output (rows and LSE) at 3r's
+             shape and at a quarter span of 256 whose rows lie before,
+             across and past it (empty rows: zero and LSE -1e30), timed
+             beside SDPA over the span, and two half spans merged by their
+             LSE against one whole-cache K3 call;
              in bf16 and
              float32, at the reference kernel tests' tolerances and within
              two bf16 ulps; its time (CUDA events, L2 flushed before every
@@ -394,6 +421,12 @@ DEPTH_3N = 5
 # layer and 6 MoE layers (27 until jamba's and the stubs' phases came in:
 # the host solve of its 27 latent layers took 115 s of the script)
 DEPTH_3M = 7
+# phase 3r (b): deepseek-v2-lite's depth for three AdamW steps on a mesh
+# beside one device, cut from 27 to its dense first layer and two MoE
+# layers (about 1.7 B params: 33 GB of bf16 weights and gradients, f32
+# moments and the update's copy); (c): mamba2-2.7b's, 16 of 64 layers
+DEPTH_3R_DEEPSEEK = 3
+DEPTH_3R_MAMBA = 16
 SOURCES = ("kq_decode", "kq_paged", "flash", "ssd")
 # K7's kernels by name: bf16's three (csrc/ssd_tc.cuh), float32's one
 K7_KERNELS = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_scan_kernel",
@@ -1233,7 +1266,8 @@ def main() -> int:
     from repro_torch.models import attention as attention_mod
     from repro_torch.kernels.kq_decode import (
         combine_split_partials, kq_combine_splits, kq_decode_attention,
-        kq_decode_attention_ref, kq_decode_paged_attention,
+        kq_decode_attention_ref, kq_decode_attention_span,
+        kq_decode_attention_span_ref, kq_decode_paged_attention,
         kq_decode_paged_attention_ref, kq_decode_paged_int8,
         kq_decode_paged_int8_split,
         kq_decode_paged_split, kq_prefill_paged_attention,
@@ -1244,7 +1278,8 @@ def main() -> int:
     from repro_torch.serving import invariants as invariants_mod
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    wrappers = (kq_decode_attention, kq_decode_paged_attention,
+    wrappers = (kq_decode_attention, kq_decode_attention_span,
+                kq_decode_paged_attention,
                 kq_prefill_paged_attention, kq_decode_paged_split,
                 kq_decode_paged_int8, kq_decode_paged_int8_split,
                 kq_combine_splits, flash_attention, ssd_chunk_scan)
@@ -1257,6 +1292,7 @@ def main() -> int:
                    "kq_prefill_paged_attention_ref": 0,
                    "chunk_decode_attention": 0,
                    "kq_decode_attention_ref": 0,
+                   "kq_decode_attention_span_ref": 0,
                    "kq_decode_paged_attention_ref": 0,
                    "kq_decode_paged_attention_int8_ref": 0,
                    "kq_decode_paged_partials_ref": 0}
@@ -1279,6 +1315,8 @@ def main() -> int:
         setattr(paged_mod, name, counted(name, getattr(paged_mod, name)))
     k3_mod.kq_decode_attention_ref = counted("kq_decode_attention_ref",
                                              kq_decode_attention_ref)
+    k3_mod.kq_decode_attention_span_ref = counted(
+        "kq_decode_attention_span_ref", kq_decode_attention_span_ref)
     attention_mod.chunk_decode_attention = counted(
         "chunk_decode_attention", attention_mod.chunk_decode_attention)
 
@@ -2154,6 +2192,204 @@ def main() -> int:
               f"the mesh: bit for bit the gathered params")
         k6_launches["phase 3q"] = runs["mesh"]["k6"] + runs["one device"]["k6"]
 
+    # -- 3r: serving and training on a (1, 1) mesh ---------------------------
+    with phase("3r (a) prefill + 32 compressed decode steps of tinyllama-1.1b "
+               "(full width and depth) on a (1, 1) mesh beside no mesh"):
+        import torch.distributed as dist
+        from torch.distributed.tensor import Replicate, Shard
+        from repro_torch.launch import specs
+        from repro_torch.launch.mesh import make_local_mesh
+        from repro_torch.sharding.partition import (
+            is_dtensor, merge_spans, params_shardings, place_tree, use_mesh)
+        from repro_torch.train.steps import make_decode_step, make_prefill_step
+        t_3r = time.perf_counter()
+        full = lambda t: t.full_tensor() if is_dtensor(t) else t
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        rmodel = build_model(cfg)
+        rparams = rmodel.init(gen)              # phase 3's params again
+        n_new_3r = 32
+        prompts_3r = np.random.default_rng(31).integers(
+            0, cfg.vocab_size, (8, 512)).astype(np.int32)
+        prefill_3r = make_prefill_step(rmodel, 1024, compressed=True)
+        decode_3r = make_decode_step(rmodel, compressed=True)
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        s3r = {}
+        try:
+            mesh = make_local_mesh(1, 1)
+            # no mesh; the mesh with the placements cache_shardings gives
+            # (all Replicate on (1, 1)); the mesh with the cache's sequence
+            # on the model axis (Shard(2) of a size-1 axis), the layout a
+            # model axis wider than the kv heads gives: K3's span output
+            # and the LSE merge on the main path
+            for label, m, seq_cut in (("no mesh", None, False),
+                                      ("mesh", mesh, False),
+                                      ("mesh, sequence on model", mesh,
+                                       True)):
+                with use_mesh(m):
+                    p, pj = rparams, proj
+                    tok = {"tokens": torch.as_tensor(prompts_3r, device=dev)}
+                    if m is not None:
+                        p = place_tree(rparams, params_shardings(
+                            rparams, m, fsdp=True))
+                        pj = place_tree(proj, specs.projection_shardings(
+                            proj, m))
+                        tok = place_tree(tok, specs.batch_shardings(tok, m))
+                    torch.cuda.synchronize()
+                    zero_counts()
+                    merges0 = merge_spans.calls
+                    logits, cache = prefill_3r(p, pj, tok)
+                    if seq_cut:
+                        cache = [{k: (v.redistribute(m, (Replicate(),
+                                                         Shard(2)))
+                                      if k in ("kc", "vc") else v)
+                                  for k, v in layer.items()}
+                                 for layer in cache]
+                    step_logits, toks, walls = [], [], []
+                    for i in range(n_new_3r):
+                        lg = full(logits)[:, -1].float()
+                        step_logits.append(lg)
+                        nxt = {"tokens": lg.argmax(-1)[:, None].to(
+                            torch.int32)}
+                        toks.append(nxt["tokens"][:, 0].cpu())
+                        if m is not None:
+                            nxt = place_tree(nxt, specs.batch_shardings(
+                                nxt, m))
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        logits, cache = decode_3r(p, pj, cache,
+                                                  nxt["tokens"], 512 + i)
+                        torch.cuda.synchronize()
+                        walls.append(time.perf_counter() - t0)
+                    step_logits.append(full(logits)[:, -1].float())
+                    s3r[label] = {
+                        "logits": step_logits, "tokens": torch.stack(toks),
+                        "K6": flash_attention.launches,
+                        "K3": kq_decode_attention.launches,
+                        "K3 span": kq_decode_attention_span.launches,
+                        "merges": merge_spans.calls - merges0,
+                        "plain": sum(plain_calls.values()),
+                        "ms": float(np.median(walls[1:]) * 1e3)}
+                    del p, pj, cache, logits
+                L = cfg.n_layers
+                r = s3r[label]
+                assert r["K6"] == L and r["plain"] == 0, (label, r["K6"],
+                                                          plain_calls)
+                want = (0, L * n_new_3r) if seq_cut else (L * n_new_3r, 0)
+                assert (r["K3"], r["K3 span"]) == want, (label, r["K3"],
+                                                         r["K3 span"])
+                assert r["merges"] == want[1], (label, r["merges"])
+                assert all(bool(torch.isfinite(x).all())
+                           for x in r["logits"]), label
+        finally:
+            dist.destroy_process_group()
+        base = s3r["no mesh"]
+        for label in ("mesh", "mesh, sequence on model"):
+            r = s3r[label]
+            diff = max(float((a - b).abs().max())
+                       for a, b in zip(r["logits"], base["logits"]))
+            same = bool(torch.equal(r["tokens"], base["tokens"]))
+            r["max_diff"], r["tokens_equal"] = diff, same
+            print(f"{label}: K6 {r['K6']} = {cfg.n_layers} x 1 prefill, K3 "
+                  f"{r['K3']}, K3 span {r['K3 span']}, merges "
+                  f"{r['merges']} ({cfg.n_layers} x {n_new_3r} steps), plain "
+                  f"versions {r['plain']}; logits against no mesh: max "
+                  f"|diff| {diff:.3g}; greedy tokens equal: {same}; ms a "
+                  f"decode step p50 {r['ms']:.2f} (no mesh "
+                  f"{base['ms']:.2f})")
+            assert same, (label, r["tokens"][:, :8], base["tokens"][:, :8])
+        print(f"req 0 tokens on the mesh: {base['tokens'][:, 0].tolist()}")
+        del rparams, rmodel
+        torch.cuda.empty_cache()
+
+    with phase(f"3r (b) train deepseek-v2-lite-16b (full width, "
+               f"{DEPTH_3R_DEEPSEEK} of 27 layers) and (c) mamba2-2.7b (full "
+               f"width, {DEPTH_3R_MAMBA} of 64 layers) on a (1, 1) mesh "
+               f"beside one device"):
+        from repro_torch.sharding.partition import axis_size
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        t3r = {}
+        try:
+            mesh = make_local_mesh(1, 1)
+            for arch, depth in (("deepseek-v2-lite-16b", DEPTH_3R_DEEPSEEK),
+                                ("mamba2-2.7b", DEPTH_3R_MAMBA)):
+                tcfg = dataclasses.replace(get_config(arch), n_layers=depth)
+                steps_3r = 3
+                tc = TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                                 total_steps=steps_3r, checkpoint_every=0)
+                data_3r = [b for b, _ in zip(batches(DataConfig(
+                    vocab_size=tcfg.vocab_size, seq_len=512,
+                    batch_size=4)), range(steps_3r))]
+                for label, m in (("mesh", mesh), ("one device", None)):
+                    trainer = Trainer(tcfg, tc, mesh=m)
+                    state = trainer.init_state()
+                    n_params = sum(t.numel() for _, t in
+                                   tree_leaves(state["params"]))
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    zero_counts()
+                    rep = trainer.run(iter(data_3r), steps_3r, state=state)
+                    torch.cuda.synchronize()
+                    counts = (flash_attention.launches,
+                              ssd_chunk_scan.launches)
+                    dropped = None
+                    if tcfg.moe is not None:      # the last batch's drops
+                        with torch.no_grad(), use_mesh(m):
+                            _, aux = trainer.model.train_logits(
+                                trainer.state["params"],
+                                trainer.place_batch(data_3r[-1]))
+                        dropped = float(full(aux["dropped_frac"])
+                                        / full(aux["n_moe"]))
+                    t3r[(arch, label)] = {
+                        "losses": rep.losses, "params": n_params,
+                        "K6": counts[0], "K7": counts[1],
+                        "plain": plain_calls["flash_attention_ref"]
+                        + plain_calls["ssd_chunk_scan_plain"],
+                        "ms": float(np.median(rep.step_times[1:]) * 1e3),
+                        "peak": torch.cuda.max_memory_allocated() / 2**30,
+                        "dropped": dropped}
+                    assert rep.steps_done == steps_3r and rep.retries == 0
+                    del trainer, state
+                    torch.cuda.empty_cache()
+                kinds = tcfg.layer_kinds()
+                n_attn = sum(k in ("attn", "mla") for k in kinds)
+                n_ssm = kinds.count("ssm")
+                want = 2 * steps_3r          # forward and remat recompute
+                for label in ("mesh", "one device"):
+                    r = t3r[(arch, label)]
+                    assert r["K6"] == n_attn * want, (arch, label, r)
+                    assert r["K7"] == n_ssm * want, (arch, label, r)
+                    assert r["plain"] == 0, (arch, label, plain_calls)
+                a, b = t3r[(arch, "mesh")], t3r[(arch, "one device")]
+                rel = max(abs(x - y) / abs(y)
+                          for x, y in zip(a["losses"], b["losses"]))
+                for label, r in (("mesh", a), ("one device", b)):
+                    print(f"{arch} ({depth} layers, {r['params'] / 1e9:.2f} "
+                          f"B params) {label}: losses "
+                          f"{[round(x, 4) for x in r['losses']]}; ms a step "
+                          f"p50 {r['ms']:.1f}; peak device memory "
+                          f"{r['peak']:.2f} GiB; K6 {r['K6']} = {n_attn} x 2 "
+                          f"x {steps_3r}, K7 {r['K7']} = {n_ssm} x 2 x "
+                          f"{steps_3r}; plain forwards {r['plain']}"
+                          + ("" if r["dropped"] is None else
+                             f"; MoE dropped_frac {r['dropped']:.4f}"))
+                print(f"{arch}: losses mesh / one device max relative "
+                      f"difference {rel:.3g} (limit 1e-2)")
+                assert rel <= 1e-2, (a["losses"], b["losses"])
+                if tcfg.moe is not None:
+                    assert axis_size(("pod", "data"), mesh) == 1
+                    print(f"{arch}: G = 1 dispatch group a MoE layer on "
+                          f"(1, 1) (the data axes' size)")
+        finally:
+            dist.destroy_process_group()
+        k6_launches["phase 3r"] = sum(r["K6"] for r in s3r.values())
+        k6_launches["phase 3r deepseek"] = sum(
+            r["K6"] for (arch, _), r in t3r.items()
+            if arch == "deepseek-v2-lite-16b")
+        print(f"phase 3r: {time.perf_counter() - t_3r:.1f} s")
+
     # -- 3g: the sliding-window ring cache -----------------------------------
     with phase("3g serve h2o-danube-1.8b, full width, KQ-SVD, dense slots, "
                "window 4096"):
@@ -2897,6 +3133,100 @@ def main() -> int:
                    torch.tensor(vel, dtype=torch.int32, device=dev), 2048,
                    96 ** -0.5)
 
+        # K3's span output at phase 3r's shape (8 slots, the whole cache
+        # of 1024 one span on (1, 1); lengths those of its last decode
+        # step), and at a quarter span of 256 (a (1, 4) cut) whose rows
+        # lie before, across and past it; held to its plain version (rows
+        # and LSE), timed beside SDPA over the same span; then two half
+        # spans merged by their LSE against one whole-cache K3 call
+        def measure_span(row, label, T_, el):
+            B_, live_ = len(el), int(el.sum())
+            emask = (torch.arange(T_, device=dev)[None, :]
+                     < el[:, None])[:, None, None, :]
+            for dt_name in ("bfloat16", "float32"):
+                dt = getattr(torch, dt_name)
+                qc = torch.randn(B_, H, rk, generator=g, device=dev).to(dt)
+                kc = torch.randn(B_, Hkv, T_, rk, generator=g,
+                                 device=dev).to(dt)
+                vc = torch.randn(B_, Hkv, T_, rv, generator=g,
+                                 device=dev).to(dt)
+                kx = kc.repeat_interleave(m, dim=1)
+                vx = vc.repeat_interleave(m, dim=1)
+                isz = qc.element_size()
+
+                def both(fn):
+                    out, lse = fn(qc, kc, vc, el, scale=scale)
+                    return torch.cat([out, lse[..., None]], dim=-1)
+
+                measure(row, label, dt_name,
+                        lambda: both(kq_decode_attention_span),
+                        lambda: both(kq_decode_attention_span_ref), None,
+                        flush,
+                        live_ * Hkv * (rk + rv) * isz + B_ * H * rk * isz
+                        + B_ * H * (rv + 1) * 4 + B_ * 4,
+                        2 * live_ * H * (rk + rv))
+                out, lse = kq_decode_attention_span(qc, kc, vc, el,
+                                                    scale=scale)
+                dead = el == 0
+                assert bool((out[dead] == 0).all()) and bool(
+                    (lse[dead] <= -1e29).all()), f"{label}: empty span"
+                sd = lambda: sdpa(qc[:, :, None], kx, vx, attn_mask=emask,
+                                  scale=scale)[:, :, 0]
+                live_rows = ~dead
+                lib_err = float((sd()[live_rows].float()
+                                 - out[live_rows]).abs().max())
+                assert lib_err <= 10 * TOL[dt_name], (label, lib_err)
+                key = "library_ms" if dt_name == "bfloat16" else \
+                    "library_ms_float32"
+                row[key] = cuda_time_ms(sd, flush)
+                print(f"{label} {dt_name}: SDPA over the span "
+                      f"{row[key]:.4f} ms (|diff| {lib_err:.3g} on live "
+                      f"rows)")
+                del qc, kc, vc, kx, vx
+
+        el_3r = torch.full((8,), 512 + n_new_3r, dtype=torch.int32,
+                           device=dev)
+        k3s = {"name": "kq_decode span output (K3 with LSE)",
+               "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/kq_decode.cu "
+                         "(kq_decode_span_launch; bodies as K3's)",
+               "replaces": k3["replaces"],
+               "launches": s3r["mesh, sequence on model"]["K3 span"],
+               "launches_from": "phase 3r (a), the cache's sequence on the "
+                                "model axis",
+               "cluster_size": cluster(1024),
+               "shape": {"B": 8, "H": H, "Hkv": Hkv, "T": 1024, "Rk": rk,
+                         "Rv": rv, "lengths": el_3r.tolist()}}
+        measure_span(k3s, "K3 span", 1024, el_3r)
+        el_q = torch.tensor([0, 0, 1, 31, 200, 256, 256, 256],
+                            dtype=torch.int32, device=dev)
+        k3q = {"quarter": True}
+        measure_span(k3q, "K3 span, a quarter of 1024", 256, el_q)
+        k3s["quarter_span"] = {k: k3q[k] for k in k3q
+                               if k.startswith(("ms", "plain_ms",
+                                                "library_ms", "bound",
+                                                "max_abs"))}
+        for dt_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dt_name)
+            qc = torch.randn(8, H, rk, generator=g, device=dev).to(dt)
+            kc = torch.randn(8, Hkv, 1024, rk, generator=g, device=dev).to(dt)
+            vc = torch.randn(8, Hkv, 1024, rv, generator=g, device=dev).to(dt)
+            whole = kq_decode_attention(qc, kc, vc, lengths, scale=scale)
+            parts = [kq_decode_attention_span(
+                qc, kc[:, :, t0:t0 + 512].contiguous(),
+                vc[:, :, t0:t0 + 512].contiguous(),
+                (lengths - t0).clamp(0, 512).to(torch.int32), scale=scale)
+                for t0 in (0, 512)]
+            o = torch.stack([x for x, _ in parts], dim=-3)    # (B, 2, H, R)
+            ls = torch.stack([y for _, y in parts], dim=-2)
+            merged = combine_split_partials(o, ls).to(dt)
+            err = check_close("K3 two half spans merged", dt_name, merged,
+                              whole)
+            print(f"K3 two half spans merged against one whole-cache K3 "
+                  f"call, {dt_name}: max |err| {err:.3g} (lengths "
+                  f"{lengths.tolist()})")
+            del qc, kc, vc
+
         # K1 at the paged main path's decode shapes (pages of 16) and K2 at
         # its prefill shapes, each on random pools of its row's shape
         ps, n_pages = 16, T // 16
@@ -3426,11 +3756,13 @@ def main() -> int:
                   "replaces": "src/repro/kernels/flash/flash.py:29",
                   "launches": k6_launches["phase 3"]
                   + k6_launches["phase 3g"] + k6_launches["phase 3l"]
-                  + k6_launches["phase 3q"],
-                  "launches_from": "phases 3, 3g, 3l and 3q (training: "
+                  + k6_launches["phase 3q"] + k6_launches["phase 3r"],
+                  "launches_from": "phases 3, 3g, 3l, 3q and 3r (training: "
                                    "forward and remat recompute, 3q's on "
                                    "a mesh through local_map and on one "
-                                   "device; then calibration)"}
+                                   "device; 3r: a prefill a run, two of "
+                                   "its three on a mesh; then "
+                                   "calibration)"}
         k6c = dict(k6_src, name="flash (K6), tinyllama-1.1b calibration "
                                 "batch",
                    shape={"B": 4, "H": 32, "Hkv": 4, "S": 512, "dh": 64,
@@ -3529,10 +3861,14 @@ def main() -> int:
         # moved once.
         k6m = dict(k6_src, name="flash (K6), deepseek-v2-lite-16b (MLA) "
                                 "calibration batch",
-                   launches=k6_launches["phase 3m deepseek"],
+                   launches=k6_launches["phase 3m deepseek"]
+                   + k6_launches["phase 3r deepseek"],
                    launches_from=f"phase 3m (deepseek-v2-lite cut to "
                                  f"{DEPTH_3M} layers: {DEPTH_3M} x (4 "
-                                 f"calibration batches + 16 prefills))",
+                                 f"calibration batches + 16 prefills)) "
+                                 f"and 3r (b) ({DEPTH_3R_DEEPSEEK} layers "
+                                 f"x 2 x 3 steps, on the mesh and on one "
+                                 f"device)",
                    shape={"B": 4, "H": 16, "Hkv": 16, "S": 512, "dh": 192,
                           "dv": 128, "window": 0})
         for dt_name in ("bfloat16", "float32"):
@@ -3778,7 +4114,7 @@ def main() -> int:
               f"100); G 2 of 4 heads; chunks of 1 and 17; S 0; h0 zero "
               f"and random; y in x's type and float32)")
         kernels = [k1, k1s, k1a, k1u, k2, k2f, k2t, k2s, k2a, k2u, k3, k3j,
-                   k3p, k4, k5, k5a, k5s, kcomb, k6c, k6w, k6l, k6t, k6m,
+                   k3p, k3s, k4, k5, k5a, k5s, kcomb, k6c, k6w, k6l, k6t, k6m,
                    k6j, k6p, k6u, k7, k7j]
 
     # -- 5: the port on the card against the port on the CPU ---------------

@@ -12,6 +12,15 @@
 // (float32), shared with the paged kernels (kq_paged.cu): here the cache is
 // dense, (B, Hkv, T, R), one row per query head of the group.
 //
+// The span entry point (kq_decode_span_launch) runs the same bodies over a
+// rank's span of a sequence-cut cache (a sequence-parallel decode on a
+// device mesh): it writes the split-KV form of the output, the f32 rows
+// acc / max(l, 1e-30) and their log-sum-exp m + log(max(l, 1e-30)), as
+// one split covering the span, so that the ranks' spans merge by the rule
+// of combine_split_partials.  A span wholly past the sequence (length 0)
+// gives a zero row and an LSE of -1e30 + log(1e-30): weight 0 beside any
+// live span.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (see repro_torch/kernels/build.py).
 
@@ -34,4 +43,27 @@ extern "C" int kq_decode_launch(const void* qc, const void* kc, const void* vc,
   return kq::attend<false>(dtype, qc, kc, vc, lengths, out, B, H, Hkv, Rk, Rv,
                            scale, cache, nullptr, 1,
                            kq::Split{nullptr, nullptr, 1, T_len}, stream);
+}
+
+// K3 over a span, with its LSE.  qc (B, H, Rk), kc (B, Hkv, T, Rk),
+// vc (B, Hkv, T, Rv) of `dtype` -> o_part (B, H, Rv) and lse (B, H), both
+// f32; lengths (B,) int32 counts the span's live entries.
+extern "C" int kq_decode_span_launch(const void* qc, const void* kc,
+                                     const void* vc, const void* lengths,
+                                     void* o_part, void* lse, int B, int H,
+                                     int Hkv, int T_len, int Rk, int Rv,
+                                     float scale, int dtype, void* stream) {
+  if (o_part == nullptr || lse == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return kq_tc::decode_bf16(qc, kc, vc, nullptr, nullptr, lengths, nullptr,
+                              nullptr, o_part, lse, nullptr, B, H, Hkv, Rk,
+                              Rv, T_len, 1, 1, T_len, 1, scale, stream);
+  const kq::Cache cache{nullptr, T_len, 1, 1, nullptr, nullptr};
+  return kq::attend<false>(
+      dtype, qc, kc, vc, lengths, nullptr, B, H, Hkv, Rk, Rv, scale, cache,
+      nullptr, 1,
+      kq::Split{static_cast<float*>(o_part), static_cast<float*>(lse), 1,
+                T_len},
+      stream);
 }

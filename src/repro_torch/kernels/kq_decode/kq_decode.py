@@ -10,10 +10,18 @@ design answers that).  It is compiled with ``nvcc`` at first use and
 called through a plain C entry point with ``ctypes`` on PyTorch's
 current stream.
 
-``kq_decode_attention`` takes the plain version
-(``kq_decode_attention_ref``) only for tensors on the CPU.  For CUDA
+``kq_decode_attention_span`` runs K3 over one span of a sequence-cut
+cache (a rank's share of a sequence-parallel decode on a device mesh)
+and returns the float32 rows with their log-sum-exp, the form of K4's
+split partials, which ``combine_split_partials`` merges across spans
+(the same kernel bodies, through a second entry point of
+``csrc/kq_decode.cu``).
+
+Each wrapper takes its plain version (``kq_decode_attention_ref``,
+``kq_decode_attention_span_ref``) only for tensors on the CPU.  For CUDA
 tensors it launches the kernel or raises: there is no fallback.  Every
-launch adds one to ``kq_decode_attention.launches``.
+launch adds one to ``kq_decode_attention.launches``, or to
+``kq_decode_attention_span.launches`` for the span entry point.
 """
 from __future__ import annotations
 
@@ -22,7 +30,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.kq_decode.ref import kq_decode_attention_ref
+from repro_torch.kernels.kq_decode.ref import (kq_decode_attention_ref,
+                                              kq_decode_attention_span_ref)
 
 MAX_RANK = 256        # largest Rk / Rv the kernel takes
 MAX_GROUP = 16        # largest GQA group m = H / Hkv the kernel takes
@@ -31,28 +40,19 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _library() -> ctypes.CDLL:
     lib = build.load("kq_decode")
-    fn = lib.kq_decode_launch
-    if not fn.argtypes:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    for name, n_ptr in (("kq_decode_launch", 5), ("kq_decode_span_launch",
+                                                  6)):
+        fn = getattr(lib, name)
+        if not fn.argtypes:
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
+                           + [ctypes.c_float, ctypes.c_int,
+                              ctypes.c_void_p])
+            fn.restype = ctypes.c_int
     return lib
 
 
-def kq_decode_attention(qc: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
-                        lengths: torch.Tensor, *,
-                        scale: float = 1.0) -> torch.Tensor:
-    """qc: (B,H,Rk); kc: (B,Hkv,T,Rk); vc: (B,Hkv,T,Rv) -> (B,H,Rv).
-
-    ``lengths``: (B,) int32 count of live cache entries per sequence
-    (positions ``0..lengths[b]-1`` attend; 0 gives a zero row).  Inputs
-    float32 or bfloat16, all of one type; f32 accumulation; the output is
-    in the query's type."""
-    if qc.device.type == "cpu":
-        return kq_decode_attention_ref(qc, kc, vc, lengths, scale=scale)
-    if qc.device.type != "cuda":
-        raise ValueError(f"kq_decode_attention: unsupported device "
-                         f"{qc.device}")
+def _check(qc, kc, vc, lengths) -> None:
+    """Raise on what K3 does not take: shapes, types, devices, layout."""
     B, H, Rk = qc.shape
     Bk, Hkv, T, Rk2 = kc.shape
     Rv = vc.shape[-1]
@@ -79,6 +79,26 @@ def kq_decode_attention(qc: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError("kq_decode_attention: tensors must be "
                              "contiguous")
+
+
+def kq_decode_attention(qc: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                        lengths: torch.Tensor, *,
+                        scale: float = 1.0) -> torch.Tensor:
+    """qc: (B,H,Rk); kc: (B,Hkv,T,Rk); vc: (B,Hkv,T,Rv) -> (B,H,Rv).
+
+    ``lengths``: (B,) int32 count of live cache entries per sequence
+    (positions ``0..lengths[b]-1`` attend; 0 gives a zero row).  Inputs
+    float32 or bfloat16, all of one type; f32 accumulation; the output is
+    in the query's type."""
+    if qc.device.type == "cpu":
+        return kq_decode_attention_ref(qc, kc, vc, lengths, scale=scale)
+    if qc.device.type != "cuda":
+        raise ValueError(f"kq_decode_attention: unsupported device "
+                         f"{qc.device}")
+    _check(qc, kc, vc, lengths)
+    B, H, _ = qc.shape
+    Hkv, T, Rk = kc.shape[1:]
+    Rv = vc.shape[-1]
     out = torch.empty((B, H, Rv), dtype=qc.dtype, device=qc.device)
     stream = torch.cuda.current_stream(qc.device).cuda_stream
     err = _library().kq_decode_launch(
@@ -93,3 +113,40 @@ def kq_decode_attention(qc: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
 
 
 kq_decode_attention.launches = 0
+
+
+def kq_decode_attention_span(qc: torch.Tensor, kc: torch.Tensor,
+                             vc: torch.Tensor, lengths: torch.Tensor, *,
+                             scale: float = 1.0):
+    """K3 over one span of a cache: ``(out (B,H,Rv), lse (B,H))``, both
+    float32, the span's softmax rows and their log-sum-exp.
+
+    Shapes and types as ``kq_decode_attention``; ``lengths[b]`` counts the
+    span's live entries (a rank holding positions ``[t0, t0 + T)`` passes
+    ``clamp(pos + 1 - t0, 0, T)``).  A span with no live entry gives a
+    zero row and an LSE of ``-1e30 + log(1e-30)``."""
+    if qc.device.type == "cpu":
+        return kq_decode_attention_span_ref(qc, kc, vc, lengths,
+                                            scale=scale)
+    if qc.device.type != "cuda":
+        raise ValueError(f"kq_decode_attention_span: unsupported device "
+                         f"{qc.device}")
+    _check(qc, kc, vc, lengths)
+    B, H, _ = qc.shape
+    Hkv, T, Rk = kc.shape[1:]
+    Rv = vc.shape[-1]
+    out = torch.empty((B, H, Rv), dtype=torch.float32, device=qc.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=qc.device)
+    stream = torch.cuda.current_stream(qc.device).cuda_stream
+    err = _library().kq_decode_span_launch(
+        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), B, H, Hkv, T, Rk, Rv, float(scale),
+        _DTYPES[qc.dtype], stream)
+    if err != 0:
+        raise build.KernelError(
+            f"kq_decode span kernel launch failed: cudaError {err}")
+    kq_decode_attention_span.launches += 1
+    return out, lse
+
+
+kq_decode_attention_span.launches = 0

@@ -52,6 +52,35 @@ def kq_decode_attention_ref(qc: torch.Tensor, kc: torch.Tensor,
     return out.reshape(B, H, -1).to(qc.dtype)
 
 
+def kq_decode_attention_span_ref(qc: torch.Tensor, kc: torch.Tensor,
+                                 vc: torch.Tensor, lengths: torch.Tensor, *,
+                                 scale: float = 1.0):
+    """Plain version of K3's span output: over one span of a cache (its
+    first ``lengths[b]`` entries live), the float32 rows
+    ``acc / max(l, 1e-30)`` (B,H,Rv) and their log-sum-exp
+    ``max + log(max(l, 1e-30))`` (B,H), the form of K4's split partials.
+    An empty span (length 0) gives a zero row and an LSE of
+    ``-1e30 + log(1e-30)``, which the merge weighs 0 beside any live
+    span."""
+    B, H, Rk = qc.shape
+    Hkv, T = kc.shape[1], kc.shape[2]
+    m = H // Hkv
+    lengths = _per_row(lengths, B, qc.device)
+    qg = qc.reshape(B, Hkv, m, Rk).float()
+    s = torch.einsum("bgmr,bgtr->bgmt", qg, kc.float()) * scale
+    valid = (torch.arange(T, device=qc.device)[None, :]
+             < lengths[:, None])[:, None, None, :]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    mx = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - mx), torch.zeros_like(s))
+    v = torch.where(valid.reshape(B, 1, T, 1), vc.float(),
+                    torch.zeros((), device=vc.device))
+    den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bgmt,bgtr->bgmr", p, v) / den
+    lse = (mx + torch.log(den))[..., 0]
+    return out.reshape(B, H, -1), lse.reshape(B, H)
+
+
 def kq_decode_paged_attention_ref(qc: torch.Tensor, kc_pool: torch.Tensor,
                                   vc_pool: torch.Tensor, lengths,
                                   block_table: torch.Tensor, *,

@@ -10,7 +10,7 @@ neither a device nor a GPU it stops with an error.  Zipf token data from
 ``repro_torch.data``; checkpoints under ``--ckpt-dir`` every
 ``--checkpoint-every`` steps.
 
-``--mesh DATA,MODEL`` trains on a (data, model) device mesh (the dense
+``--mesh DATA,MODEL`` trains on a (data, model) device mesh (every
 family), one process a rank, under ``torchrun``, which sets each
 process's rank, the world size and the rendezvous address:
 

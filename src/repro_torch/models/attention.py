@@ -45,11 +45,21 @@ raise ``NotImplementedError``, as the reference does.
 Caches are updated in place (the reference returns new arrays): a decode
 step or a prefill chunk writes into the tensors it was given and returns
 the same dict.  Softmax statistics are f32 whatever the activation type.
+
+On a mesh (DTensor activations) ``attn_prefill`` and ``attn_decode`` run
+K6 and K3 on each rank's local tensors (``local_map``) over the dense
+cache that ``launch.specs.cache_shardings`` places: kv heads on the model
+axis where they divide it, else the sequence, whose spans each rank
+attends (K3's span output; ``decode_attention_span`` and
+``int8_decode_attention_span`` for the full, ring and int8 caches) and
+merges by their LSE (``Span``, ``sharding.partition.merge_spans``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,13 +68,17 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash import (flash_attention, flash_attention_ref,
                                        flash_attention_train)
 from repro_torch.kernels.kq_decode import (kq_decode_attention,
+                                           kq_decode_attention_span,
                                            kq_decode_paged_attention,
                                            kq_prefill_paged_attention)
 from repro_torch.models.layers import apply_rope, init_dense
 from repro_torch.serving.page_layouts import get_layout, quantize_int8
 from repro_torch.serving.paged_cache import (append_chunk, append_token,
                                              gather_pages)
-from repro_torch.sharding.partition import is_dtensor
+from repro_torch.sharding.partition import (axis_size, cut_axes, is_dtensor,
+                                            merge_spans, placed_like,
+                                            redistributed, remap,
+                                            shard_range, zeros_placed)
 
 NEG_INF = -1e30
 
@@ -82,16 +96,27 @@ def batched_positions(pos, batch: int, device) -> torch.Tensor:
 
 
 def scatter_time(cache: torch.Tensor, val: torch.Tensor,
-                 slot: torch.Tensor, axis: int = 1) -> torch.Tensor:
+                 slot: torch.Tensor, axis: int = 1,
+                 t0: Optional[int] = None) -> torch.Tensor:
     """Write one time slot per sequence, in place.
 
     cache: (B, ...); val: the same with the time axis of size 1; slot:
     (B,) destination index of each sequence; ``axis`` is the time axis
     within a batch element: 1 for (B, Hkv, T, R) caches (and (B, Hkv, T)
-    scale planes), 0 for MLA's (B, T, R)."""
+    scale planes), 0 for MLA's (B, T, R).  With ``t0`` the cache is one
+    rank's span of a sequence-cut cache, holding slots ``t0 ..
+    t0 + T - 1``: a row whose slot lies outside it keeps its entry
+    (another rank owns the slot)."""
     rows = torch.arange(cache.shape[0], device=cache.device)
-    index = (rows,) + (slice(None),) * axis + (slot,)
-    cache[index] = val.select(axis + 1, 0).to(cache.dtype)
+    new = val.select(axis + 1, 0).to(cache.dtype)
+    if t0 is None:
+        cache[(rows,) + (slice(None),) * axis + (slot,)] = new
+        return cache
+    T = cache.shape[axis + 1]
+    local = slot - t0
+    index = (rows,) + (slice(None),) * axis + (local.clamp(0, T - 1),)
+    own = ((local >= 0) & (local < T)).reshape((-1,) + (1,) * (new.ndim - 1))
+    cache[index] = torch.where(own, new, cache[index])
     return cache
 
 
@@ -228,6 +253,68 @@ def int8_split_decode_attention(qg: torch.Tensor, k8: torch.Tensor,
     return agg.to(torch.bfloat16)
 
 
+def _span_softmax(s: torch.Tensor, valid: torch.Tensor):
+    """Softmax rows of one span: scores ``s`` (B,...,T) float32 and
+    ``valid`` (B,T) -> probabilities normalised within the span and the
+    span's log-sum-exp (B,...).  A row with no valid entry gets zero
+    probabilities and an LSE of ``-1e30 + log(1e-30)``, as K3's span
+    output gives it."""
+    vm = valid.reshape((valid.shape[0],) + (1,) * (s.ndim - 2)
+                       + (valid.shape[-1],))
+    s = s.masked_fill(~vm, NEG_INF)
+    mx = s.amax(dim=-1, keepdim=True)
+    p = torch.where(vm, torch.exp(s - mx), torch.zeros_like(s))
+    den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return p / den, (mx + torch.log(den))[..., 0]
+
+
+def decode_attention_span(q: torch.Tensor, cache_k: torch.Tensor,
+                          cache_v: torch.Tensor, valid_mask: torch.Tensor,
+                          scale: float):
+    """``decode_attention`` over one rank's span of a sequence-cut cache:
+    the float32 rows (B,Hkv,m,rv) and their LSE (B,Hkv,m), which
+    ``merge_spans`` merges over the ranks.  Shapes as
+    ``decode_attention``, ``valid_mask`` the span's (B,T)."""
+    B, H, _, dk = q.shape
+    Hkv = cache_k.shape[1]
+    qg = q.reshape(B, Hkv, H // Hkv, dk).float()
+    s = torch.einsum("bgmd,bgtd->bgmt", qg, cache_k.float()) * scale
+    p, lse = _span_softmax(s, valid_mask)
+    return torch.einsum("bgmt,bgtr->bgmr", p, cache_v.float()), lse
+
+
+def int8_decode_attention_span(qg: torch.Tensor, k8: torch.Tensor,
+                               v8: torch.Tensor, kscale: torch.Tensor,
+                               vscale: torch.Tensor, valid: torch.Tensor,
+                               scale: float):
+    """``int8_decode_attention`` over one rank's span: the span's
+    probabilities pre-multiplied by the value scales, the value product in
+    bf16, as there; returns the float32 rows and their LSE.  Shapes as
+    ``int8_decode_attention``."""
+    s = torch.einsum("bgmr,bgtr->bgmt", qg.float(), k8.float()) * scale
+    s = s * kscale.float()[:, :, None, :]
+    p, lse = _span_softmax(s, valid)
+    pv = p * vscale.float()[:, :, None, :]
+    return torch.einsum("bgmt,bgtr->bgmr", pv.to(torch.bfloat16),
+                        v8.to(torch.bfloat16)).float(), lse
+
+
+@dataclass(frozen=True)
+class Span:
+    """One rank's share of a decode on a mesh: the cache it holds covers
+    positions (ring slots) ``t0 ..``, and mesh ``axes`` cut the sequence
+    (empty: the rank holds it whole).  ``merge`` merges the ranks' rows
+    over those axes."""
+
+    t0: int = 0
+    mesh: Any = None
+    axes: Tuple[str, ...] = ()
+
+    def merge(self, out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+        """``merge_spans`` over this span's axes."""
+        return merge_spans(out, lse, self.mesh, self.axes)
+
+
 # ---------------------------------------------------------------------------
 # Attention layer (params + modes)
 # ---------------------------------------------------------------------------
@@ -325,10 +412,21 @@ def _attend_train(q, k, v, cfg: ModelConfig, pos0: int, h0: int):
     the rules replicate them).  Each query head reads its own kv group:
     a contiguous slice of kv heads where the shard's query heads fill
     whole groups or lie in one, else one kv head a query head."""
-    S, Hl = q.shape[2], q.shape[1]
+    S = q.shape[2]
     pos = torch.arange(S, device=q.device) + pos0
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
+    return _attend_heads(q, k, v, cfg, h0, flash_attention_train)
+
+
+def _attend_heads(q, k, v, cfg: ModelConfig, h0: int, attend):
+    """``attend`` (K6, or K6 under autograd) of one shard's query heads
+    ``h0 .. h0 + Hl`` over their kv groups, and the pad-head mask: each
+    query head reads its own kv group, a contiguous slice of kv heads
+    where the shard's query heads fill whole groups or lie in one, else
+    one kv head a query head (k / v hold every kv head, or the shard's
+    own)."""
+    Hl = q.shape[1]
     Hp = padded_heads(cfg)
     if Hl != Hp and k.shape[1] == cfg.n_kv_heads:
         m = Hp // cfg.n_kv_heads                 # query heads a kv group
@@ -337,7 +435,7 @@ def _attend_train(q, k, v, cfg: ModelConfig, pos0: int, h0: int):
         else:
             kv = (h0 + torch.arange(Hl, device=q.device)) // m
         k, v = k[:, kv], v[:, kv]
-    out = flash_attention_train(q, k, v, window=cfg.sliding_window)
+    out = attend(q, k, v, window=cfg.sliding_window)
     mask = head_mask(cfg)
     if mask is not None:
         out = out * torch.as_tensor(mask[h0:h0 + Hl], dtype=out.dtype,
@@ -354,14 +452,7 @@ def _attend_train_sharded(q, k, v, cfg: ModelConfig, pos0: int):
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = q.device_mesh
-    coord = mesh.get_coordinate()
-    Hl = q.shape[1] // math.prod(
-        mesh.size(i) for i, pl in enumerate(q.placements) if pl == Shard(1))
-    h0 = 0
-    for i, pl in enumerate(q.placements):
-        if pl == Shard(1):
-            h0 = h0 * mesh.size(i) + coord[i]
-    h0 *= Hl
+    h0 = shard_range(q, 1)[0]
     kv_grad = tuple(Partial() if qp == Shard(1) and kp == Replicate()
                     else kp for qp, kp in zip(q.placements, k.placements))
     fn = local_map(_attend_train, out_placements=list(q.placements),
@@ -466,26 +557,19 @@ def attn_prefill(p, x: torch.Tensor, cfg: ModelConfig, max_len: int,
     length-``max_len`` cache holding the prompt's (compressed, with the
     int8 cache quantized) entries at [0, S).  With a sliding window W the
     cache is the ring of ``make_attn_cache``: the last ``min(S, W)``
-    entries go to slots ``pos % W`` and ``slot_pos`` records them."""
+    entries go to slots ``pos % W`` and ``slot_pos`` records them.  On
+    DTensor activations (a mesh) K6 runs per shard and each rank writes
+    its shard of the cache (``_prefill_sharded``)."""
+    if is_dtensor(x):
+        return _prefill_sharded(p, x, cfg, max_len, proj)
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, torch.arange(S, device=x.device))
     W = cfg.sliding_window or 0
     y = _out(flash_attention(q, k, v, window=W), p["wo"])
-    ranks = ((proj["a_k"].shape[-1], proj["a_v"].shape[-1]) if proj
-             else (0, 0))
-    cache = make_attn_cache(cfg, B, max_len, ranks, x.dtype, x.device)
+    cache = make_attn_cache(cfg, B, max_len, _ranks(proj), x.dtype,
+                            x.device)
     first = max(0, S - W) if W else 0          # the entries the cache keeps
-    k_st, v_st = k[:, :, first:], v[:, :, first:]
-    if proj is not None:
-        k_st = torch.einsum("bhtd,hdr->bhtr", k_st, proj["a_k"])
-        v_st = torch.einsum("bhtd,hdr->bhtr", v_st, proj["a_v"])
-        if cfg.cache_quant == "int8":
-            (k_st, ks), (v_st, vs) = quantize_int8(k_st), quantize_int8(v_st)
-            updates = {"kc": k_st, "vc": v_st, "kscale": ks, "vscale": vs}
-        else:
-            updates = {"kc": k_st, "vc": v_st}
-    else:
-        updates = {"k": k_st, "v": v_st}
+    updates = _cache_entries(k[:, :, first:], v[:, :, first:], cfg, proj)
     slots = slice(0, S)
     if W:                                      # ring slots of the kept
         kept = torch.arange(first, S, device=x.device)
@@ -494,6 +578,106 @@ def attn_prefill(p, x: torch.Tensor, cfg: ModelConfig, max_len: int,
     for name, val in updates.items():
         cache[name][:, :, slots] = val.to(cache[name].dtype)
     return y, cache
+
+
+def _ranks(proj: Optional[Dict]) -> Tuple[int, int]:
+    """The compression ranks of ``proj`` ((0, 0) without projections)."""
+    return ((proj["a_k"].shape[-1], proj["a_v"].shape[-1]) if proj
+            else (0, 0))
+
+
+def _cache_entries(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+                   proj: Optional[Dict]) -> Dict[str, torch.Tensor]:
+    """The cache leaves' entries of keys and values (B,Hkv,S,dh): raw,
+    compressed by ``a_k`` / ``a_v``, or compressed and quantized for the
+    dense int8 cache."""
+    if proj is None:
+        return {"k": k, "v": v}
+    k_st = torch.einsum("bhtd,hdr->bhtr", k, proj["a_k"])
+    v_st = torch.einsum("bhtd,hdr->bhtr", v, proj["a_v"])
+    if cfg.cache_quant == "int8":
+        (k_st, ks), (v_st, vs) = quantize_int8(k_st), quantize_int8(v_st)
+        return {"kc": k_st, "vc": v_st, "kscale": ks, "vscale": vs}
+    return {"kc": k_st, "vc": v_st}
+
+
+def _heads_cfg(cfg: ModelConfig, n: int) -> ModelConfig:
+    """``cfg`` with the head counts of one of ``n`` head shards (a shard
+    holds whole kv groups, so the group sizes stay)."""
+    if n == 1:
+        return cfg
+    return dataclasses.replace(
+        cfg, n_heads=cfg.n_heads // n, n_kv_heads=cfg.n_kv_heads // n,
+        qhead_pad=cfg.qhead_pad // n)
+
+
+def _prefill_sharded(p, x, cfg: ModelConfig, max_len: int,
+                     proj: Optional[Dict]):
+    """``attn_prefill`` on a mesh.  The cache is made under
+    ``cache_shardings`` (``seq_sharded`` for a batch of one, the dry
+    run's rule), each rank allocating only its shard; q / k / v come out
+    of the projections as the rules place the weights and take the
+    cache's batch placement; then on each rank (``local_map``) RoPE, K6
+    over the rank's query heads and their kv groups, and the compressed
+    (quantized) entries of the rank's kv heads written into the
+    positions (ring slots) its shard of the cache holds.  The output
+    projection contracts the heads as DTensor matrix products."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.launch.specs import cache_shardings
+    mesh = x.device_mesh
+    B, S, _ = x.shape
+    W = cfg.sliding_window or 0
+    meta = make_attn_cache(cfg, B, max_len, _ranks(proj), x.dtype, "meta")
+    sh = cache_shardings(meta, mesh, seq_sharded=B == 1)
+    cache = {}
+    for name, t in meta.items():
+        cache[name] = zeros_placed(t.shape, t.dtype, mesh,
+                                   sh[name].placements)
+        if name == "slot_pos":
+            cache[name].to_local().fill_(-1)
+    ref = cache["kc" if proj else "k"]
+    t0, _ = shard_range(ref, 2)
+    rows = remap(ref.placements, {0: 0})
+    q, k, v = (_project(x, p[w]) for w in ("wq", "wk", "wv"))
+    q = redistributed(q, tuple(r if isinstance(r, Shard) else
+                     (qp if qp == Shard(1) else Replicate())
+                     for r, qp in zip(rows, q.placements)))
+    h0 = shard_range(q, 1)[0]
+    kv_pl = remap(ref.placements, {0: 0, 1: 1})
+    k, v = redistributed(k, kv_pl), redistributed(v, kv_pl)
+    names = [n for n in cache if n != "slot_pos"]
+    pj = ({n: redistributed(proj[n], remap(ref.placements, {1: 0}))
+           for n in ("a_k", "a_v")} if proj else {})
+
+    def local(q, k, v, a_k, a_v, *leaves):
+        pos = torch.arange(S, device=q.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+        out = _attend_heads(q, k, v, cfg, h0, flash_attention)
+        lp = {"a_k": a_k, "a_v": a_v} if proj else None
+        first = max(0, S - W) if W else 0
+        kept = np.arange(first, S)
+        dest = kept % W if W else kept
+        T = leaves[0].shape[2]
+        sel = np.nonzero((dest >= t0) & (dest < t0 + T))[0]
+        src = torch.as_tensor(sel + first, device=q.device)
+        dst = torch.as_tensor(dest[sel] - t0, device=q.device)
+        updates = _cache_entries(k.index_select(2, src),
+                                 v.index_select(2, src), cfg, lp)
+        for name, leaf in zip(names, leaves):
+            leaf[:, :, dst] = updates[name].to(leaf.dtype)
+        return out
+
+    args = [q, k, v, pj.get("a_k"), pj.get("a_v")] + [cache[n] for n in names]
+    out = local_map(local, out_placements=list(q.placements),
+                    in_placements=tuple(a.placements if a is not None
+                                        else None for a in args),
+                    device_mesh=mesh)(*args)
+    if W:
+        kept = torch.arange(max(0, S - W), S, device=ref.to_local().device)
+        cache["slot_pos"].to_local()[:, kept % W] = kept.to(torch.int32)
+    return _out(out, p["wo"]), cache
 
 
 def _decoded_pages(layout, cache: Dict, block_table: torch.Tensor,
@@ -587,7 +771,7 @@ def attn_prefill_chunk(p, x: torch.Tensor, cache: Dict, pos0: torch.Tensor,
 def attn_decode(p, x: torch.Tensor, cache: Dict, pos: torch.Tensor,
                 cfg: ModelConfig, proj: Optional[Dict] = None,
                 block_table: Optional[torch.Tensor] = None,
-                num_splits: int = 1):
+                num_splits: int = 1, span: Optional[Span] = None):
     """One-token decode.  x: (B,1,D); pos: (B,) per-sequence index of the
     new token.  Writes the token's (compressed) entry into ``cache`` in
     place and attends positions ``<= pos[b]``.  ``block_table``
@@ -609,7 +793,18 @@ def attn_decode(p, x: torch.Tensor, cache: Dict, pos: torch.Tensor,
     Without projections attention reads the (gathered) cache with the
     plain ``decode_attention`` / ``split_decode_attention``.  With a
     sliding window W the token goes to ring slot ``pos % W`` and
-    ``slot_pos`` records it; the paged cache takes no window."""
+    ``slot_pos`` records it; the paged cache takes no window.
+
+    On DTensor activations (a mesh) each rank runs this function on its
+    own rows, heads and span of the dense cache (``_decode_sharded``):
+    ``span`` says which positions its cache holds and which mesh axes
+    cut the sequence.  The new entry is written by the rank that holds
+    its position, and where axes cut the sequence each rank attends its
+    span (K3's span output; the plain span functions for the full, int8
+    and ring caches) and the spans merge by their LSE."""
+    if is_dtensor(x):
+        return _decode_sharded(p, x, cache, pos, cfg, proj, block_table,
+                               num_splits)
     B = x.shape[0]
     scale = 1.0 / math.sqrt(cfg.d_head)
     q, k_new, v_new = _qkv(p, x, cfg, pos[:, None, None])     # S = 1
@@ -622,15 +817,23 @@ def attn_decode(p, x: torch.Tensor, cache: Dict, pos: torch.Tensor,
         raise NotImplementedError("paged cache supports full-attention "
                                   "stacks only (no sliding window)")
     slot = pos % W if W else pos                # the dense cache's slot
-    if W:
+    t0 = None if span is None else span.t0
+    cut = span is not None and bool(span.axes)
+    if W and span is None:        # a mesh's replicated ring: the caller's
         cache["slot_pos"][torch.arange(B, device=x.device), slot] = \
             pos.to(torch.int32)
 
     def seen(T: int) -> torch.Tensor:          # (B, T): entries attended
         if W:
             sp = cache["slot_pos"]
+            if span is not None:
+                sp = sp[:, span.t0:span.t0 + T]
             return (sp >= 0) & (sp > pos[:, None] - W)
-        return torch.arange(T, device=x.device)[None, :] <= pos[:, None]
+        return (torch.arange(T, device=x.device)[None, :] + (t0 or 0)
+                <= pos[:, None])
+
+    def write(name: str, val: torch.Tensor) -> torch.Tensor:
+        return scatter_time(cache[name], val, slot, t0=t0)
 
     if proj is None:
         if paged:
@@ -639,13 +842,16 @@ def attn_decode(p, x: torch.Tensor, cache: Dict, pos: torch.Tensor,
             keys = gather_pages(cache["k"], block_table)
             vals = gather_pages(cache["v"], block_table)
         else:
-            keys = scatter_time(cache["k"], k_new, slot)
-            vals = scatter_time(cache["v"], v_new, slot)
+            keys, vals = write("k", k_new), write("v", v_new)
         valid = seen(keys.shape[2])
-        agg = (split_decode_attention(q, keys, vals, valid, scale,
-                                      num_splits)
-               if paged and num_splits > 1 else
-               decode_attention(q, keys, vals, valid, scale))
+        if cut:
+            agg = span.merge(*decode_attention_span(q, keys, vals, valid,
+                                                    scale)).to(vals.dtype)
+        elif paged and num_splits > 1:
+            agg = split_decode_attention(q, keys, vals, valid, scale,
+                                         num_splits)
+        else:
+            agg = decode_attention(q, keys, vals, valid, scale)
         y = _out(agg.reshape(B, Hp, 1, cfg.d_head), p["wo"])
         return y.to(x.dtype), cache
     k_st = torch.einsum("bhtd,hdr->bhtr", k_new, proj["a_k"])
@@ -676,23 +882,93 @@ def attn_decode(p, x: torch.Tensor, cache: Dict, pos: torch.Tensor,
                                     scale))
     elif cfg.cache_quant == "int8":
         (k8, ks), (v8, vs) = quantize_int8(k_st), quantize_int8(v_st)
-        scatter_time(cache["kc"], k8, slot)
-        scatter_time(cache["vc"], v8, slot)
-        scatter_time(cache["kscale"], ks, slot)
-        scatter_time(cache["vscale"], vs, slot)
-        agg = int8_decode_attention(
-            qc.reshape(B, Hkv, Hp // Hkv, -1), cache["kc"], cache["vc"],
-            cache["kscale"], cache["vscale"], seen(cache["kc"].shape[2]),
-            scale)
+        for name, val in (("kc", k8), ("vc", v8), ("kscale", ks),
+                          ("vscale", vs)):
+            write(name, val)
+        args = (qc.reshape(B, Hkv, Hp // Hkv, -1), cache["kc"], cache["vc"],
+                cache["kscale"], cache["vscale"], seen(cache["kc"].shape[2]),
+                scale)
+        agg = (span.merge(*int8_decode_attention_span(*args))
+               .to(torch.bfloat16) if cut else int8_decode_attention(*args))
     else:
-        scatter_time(cache["kc"], k_st, slot)
-        scatter_time(cache["vc"], v_st, slot)
-        agg = (decode_attention(qc[:, :, None], cache["kc"], cache["vc"],
-                                seen(cache["kc"].shape[2]), scale) if W
-               else kq_decode_attention(qc, cache["kc"], cache["vc"],
-                                        lengths, scale=scale))
+        write("kc", k_st)
+        write("vc", v_st)
+        if W:
+            args = (qc[:, :, None], cache["kc"], cache["vc"],
+                    seen(cache["kc"].shape[2]), scale)
+            agg = (span.merge(*decode_attention_span(*args))
+                   .to(cache["vc"].dtype) if cut
+                   else decode_attention(*args))
+        elif cut:
+            T = cache["kc"].shape[2]
+            span_len = (pos + 1 - span.t0).clamp(0, T).to(torch.int32)
+            agg = span.merge(*kq_decode_attention_span(
+                qc, cache["kc"], cache["vc"], span_len, scale=scale)
+            ).to(qc.dtype)
+        else:
+            agg = kq_decode_attention(qc, cache["kc"], cache["vc"], lengths,
+                                      scale=scale)
     agg = agg.reshape(B, Hkv, Hp // Hkv, rv)
     m = cfg.n_heads // Hkv                     # real heads (c_v is real-m)
     c_v = proj["c_v"].reshape(Hkv, -1, m, cfg.d_model)
     y = _cv_out(agg[:, :, :m], c_v, "bgmr,grmd->bd")[:, None, :]
     return y.to(x.dtype), cache
+
+
+def _decode_sharded(p, x, cache: Dict, pos: torch.Tensor, cfg: ModelConfig,
+                    proj: Optional[Dict], block_table, num_splits: int):
+    """``attn_decode`` on a mesh, over a dense cache placed by
+    ``cache_shardings``.  The weights and projections take the cache's
+    head placement (kv heads on the model axis where they divide it, else
+    replicated), x the cache's batch placement; then every rank runs
+    ``attn_decode`` on its local tensors (``local_map``) with the head
+    counts of its shard and its ``Span``.  Where heads are sharded the
+    output is a partial sum over their axis; it is reduced to x's
+    placements.  A ring's ``slot_pos`` is replicated: every rank records
+    every row's new slot in its copy first."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    if block_table is not None:
+        raise NotImplementedError(
+            "decode on a mesh takes the dense cache (the paged cache is "
+            "the data-sharded engine's)")
+    ref = cache["kc" if proj else "k"]
+    mesh = ref.device_mesh
+    pos = torch.as_tensor(pos, device=ref.to_local().device)
+    heads = cut_axes(ref, 1)
+    span = Span(shard_range(ref, 2)[0], mesh, cut_axes(ref, 2))
+    b0, nb = shard_range(ref, 0)
+    W = cfg.sliding_window or 0
+    if W:
+        sp = cache["slot_pos"].to_local()
+        sp[torch.arange(sp.shape[0], device=sp.device), pos % W] = \
+            pos.to(torch.int32)
+    lcfg = _heads_cfg(cfg, axis_size(heads, mesh))
+    xl = redistributed(x, remap(ref.placements, {0: 0}))
+    w_pl = {n: remap(ref.placements, {1: d})
+            for n, d in (("wq", 1), ("wk", 1), ("wv", 1), ("wo", 0))}
+    pw = {n: redistributed(p[n], pl) for n, pl in w_pl.items()}
+    pj = ({n: redistributed(t, remap(ref.placements, {1: 0}))
+           for n, t in proj.items()} if proj else {})
+    names = sorted(cache)
+    pnames = sorted(pj)
+
+    def local(x, pos, *rest):
+        lp = dict(zip(("wo", "wq", "wk", "wv"), rest[:4]))
+        lproj = dict(zip(pnames, rest[4:4 + len(pnames)])) or None
+        lc = dict(zip(names, rest[4 + len(pnames):]))
+        if W:
+            lc["slot_pos"] = lc["slot_pos"][b0:b0 + nb]
+        return attn_decode(lp, x, lc, pos[b0:b0 + nb], lcfg, lproj,
+                           span=span)[0]
+
+    args = ([xl, pos] + [pw[n] for n in ("wo", "wq", "wk", "wv")]
+            + [pj[n] for n in pnames] + [cache[n] for n in names])
+    out_pl = tuple(Shard(0) if pl == Shard(0) else
+                   Partial() if pl == Shard(1) else Replicate()
+                   for pl in ref.placements)
+    y = local_map(local, out_placements=list(out_pl),
+                  in_placements=tuple(a.placements if is_dtensor(a)
+                                      else None for a in args),
+                  device_mesh=mesh)(*args)
+    return placed_like(y, x), cache

@@ -22,6 +22,15 @@ CPU K6's plain version.  Decode is plain PyTorch, as the reference's is
 plain jnp: no kernel exists for it.  Caches are ``(B, T, R)`` leaves,
 the time axis 1 (``c`` or ``cc``/``ccv``, and ``kr``), written in place
 through ``scatter_time(..., axis=0)``.
+
+On a mesh (DTensor activations) the projections run as DTensor matrix
+products, K6 per shard of query heads through ``local_map``
+(``_attend_sharded``: RoPE and the shared rope key on each rank, whose
+gradient comes back as a partial sum over the head axis), and each rank
+writes its shard of the latent cache, whose sequence the model axis
+cuts (``launch.specs.cache_spec``: the latent has no head dim).  Decode
+on a mesh runs ``mla_decode`` on each rank's rows and span of the
+latent with the weights gathered, the spans merged by their LSE.
 """
 from __future__ import annotations
 
@@ -33,9 +42,13 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash import flash_attention, flash_attention_train
-from repro_torch.models.attention import (NEG_INF, _out, _project,
-                                          batched_positions, scatter_time)
+from repro_torch.models.attention import (NEG_INF, Span, _out, _project,
+                                          _span_softmax, batched_positions,
+                                          scatter_time)
 from repro_torch.models.layers import apply_rope, init_dense
+from repro_torch.sharding.partition import (cut_axes, is_dtensor,
+                                            placed_like, redistributed,
+                                            remap, shard_range, zeros_placed)
 
 
 def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype,
@@ -89,9 +102,55 @@ def _full_attention(p, x: torch.Tensor, cfg: ModelConfig, projected,
     return _out(attend(q, k, v, scale=_scale(cfg)), p["wo"])
 
 
+def _attend_local(q, k_nope, v, k_rope, cfg: ModelConfig, attend):
+    """RoPE on the rope parts of q (B,Hl,S,nope+rope) and of the shared
+    key ``k_rope`` (B,1,S,rope), then ``attend`` over the keys
+    ``[k_nope, k_rope]`` of the Hl heads."""
+    m = cfg.mla
+    pos = torch.arange(q.shape[2], device=q.device)
+    q = torch.cat([q[..., :m.qk_nope_dim],
+                   apply_rope(q[..., m.qk_nope_dim:], pos, cfg.rope_theta)],
+                  dim=-1)
+    kr = apply_rope(k_rope, pos, cfg.rope_theta)
+    k = torch.cat([k_nope, kr.expand(-1, q.shape[1], -1, -1)], dim=-1)
+    return attend(q, k, v, scale=_scale(cfg))
+
+
+def _attend_sharded(p, x, cfg: ModelConfig, attend):
+    """Full-sequence MLA on a mesh: the per-head queries, keys and values
+    as DTensor products (heads where the rules put them), K6 on each
+    rank's heads (``local_map``), the shared rope key replicated over the
+    head axis and its gradient a partial sum there.  Returns the output
+    and the latent ``c`` (B,S,lora) and unroped ``k_rope`` (B,1,S,rope)
+    for the cache."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    m = cfg.mla
+    q = _project(x, p["wq"])
+    down = x @ p["wd"]
+    c = down[..., :m.kv_lora_rank]
+    k_rope = down[..., m.kv_lora_rank:][:, None]
+    k_nope, v = _project(c, p["wuk"]), _project(c, p["wuv"])
+    kn_pl = tuple(k_nope.placements)
+    q, v = redistributed(q, kn_pl), redistributed(v, kn_pl)
+    kr_pl = tuple(Replicate() if pl == Shard(1) else pl for pl in kn_pl)
+    k_rope = redistributed(k_rope, kr_pl)
+    kr_grad = tuple(Partial() if pl == Shard(1) else pl for pl in kn_pl)
+    out = local_map(lambda q, kn, v, kr: _attend_local(q, kn, v, kr, cfg,
+                                                       attend),
+                    out_placements=list(kn_pl),
+                    in_placements=(kn_pl, kn_pl, kn_pl, kr_pl),
+                    in_grad_placements=(kn_pl, kn_pl, kn_pl, kr_grad),
+                    device_mesh=x.device_mesh)(q, k_nope, v, k_rope)
+    return _out(out, p["wo"]), c, k_rope
+
+
 def mla_train(p, x: torch.Tensor, cfg: ModelConfig,
               pos0: int = 0) -> torch.Tensor:
-    """Full-sequence MLA with gradients: K6 under autograd."""
+    """Full-sequence MLA with gradients: K6 under autograd (per shard of
+    heads on a mesh)."""
+    if is_dtensor(x):
+        return _attend_sharded(p, x, cfg, flash_attention_train)[0]
     positions = torch.arange(x.shape[1], device=x.device) + pos0
     return _full_attention(p, x, cfg, _mla_project(p, x, cfg, positions),
                            flash_attention_train)
@@ -144,14 +203,15 @@ def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig, max_len: int,
     """Full-prompt MLA (K6 on the card): the output and a length-
     ``max_len`` cache holding the prompt's (compressed) latent and rope
     keys at [0, S)."""
+    if is_dtensor(x):
+        return _prefill_sharded(p, x, cfg, max_len, proj)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     projected = _mla_project(p, x, cfg, positions)
     y = _full_attention(p, x, cfg, projected, flash_attention)
     _, _, c, k_rope = projected
-    ranks = ((proj["a_k"].shape[-1], proj["a_v"].shape[-1]) if proj
-             else (0, 0))
-    cache = make_mla_cache(cfg, B, max_len, ranks, x.dtype, x.device)
+    cache = make_mla_cache(cfg, B, max_len, _mla_ranks(proj), x.dtype,
+                           x.device)
     if proj is not None:
         cache["cc"][:, :S] = (c @ proj["a_k"][0]).to(cache["cc"].dtype)
         cache["ccv"][:, :S] = (c @ proj["a_v"][0]).to(cache["ccv"].dtype)
@@ -161,41 +221,132 @@ def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig, max_len: int,
     return y, cache
 
 
+def _mla_ranks(proj: Optional[Dict]) -> Tuple[int, int]:
+    return ((proj["a_k"].shape[-1], proj["a_v"].shape[-1]) if proj
+            else (0, 0))
+
+
+def _prefill_sharded(p, x, cfg: ModelConfig, max_len: int,
+                     proj: Optional[Dict]):
+    """``mla_prefill`` on a mesh: ``_attend_sharded``, then each rank
+    writes the positions of its shard of the cache (made under
+    ``cache_shardings``, ``seq_sharded`` for a batch of one): the latent
+    (compressed by the replicated factors) and the roped keys of its
+    rows."""
+    from repro_torch.launch.specs import cache_shardings
+    mesh = x.device_mesh
+    B, S, _ = x.shape
+    y, c, k_rope = _attend_sharded(p, x, cfg, flash_attention)
+    meta = make_mla_cache(cfg, B, max_len, _mla_ranks(proj), x.dtype, "meta")
+    sh = cache_shardings(meta, mesh, seq_sharded=B == 1)
+    cache = {n: zeros_placed(t.shape, t.dtype, mesh, sh[n].placements)
+             for n, t in meta.items()}
+    ref = cache["kr"]
+    t0, T = shard_range(ref, 1)
+    rows = remap(ref.placements, {0: 0})
+    c = redistributed(c, rows)
+    k_rope = redistributed(k_rope, rows)
+    lo, hi = min(max(t0, 0), S), min(t0 + T, S)   # prompt positions held
+    cl = c.to_local()
+    vals = {"kr": apply_rope(k_rope.to_local(),
+                             torch.arange(S, device=cl.device),
+                             cfg.rope_theta)[:, 0]}
+    if proj is not None:
+        for n, f in (("cc", "a_k"), ("ccv", "a_v")):
+            vals[n] = cl @ redistributed(proj[f], remap(ref.placements, {})
+                               ).to_local()[0]
+    else:
+        vals["c"] = cl
+    for n, v in vals.items():
+        cache[n].to_local()[:, lo - t0:hi - t0] = \
+            v[:, lo:hi].to(cache[n].dtype)
+    return y, cache
+
+
 def mla_decode(p, x: torch.Tensor, cache: Dict, pos, cfg: ModelConfig,
-               proj: Optional[Dict] = None):
+               proj: Optional[Dict] = None, span: Optional[Span] = None):
     """One-token absorbed-form decode.  x: (B,1,D); pos: (B,) index of
     each new token (a scalar broadcasts).  Writes the token's (compressed)
     latent and rope key into ``cache`` in place and attends positions
-    ``<= pos[b]``; returns ``(y (B,1,D), cache)``."""
+    ``<= pos[b]``; returns ``(y (B,1,D), cache)``.  On DTensor
+    activations (a mesh) each rank runs this function on its rows and
+    span of the latent (``span``: the first position it holds and the
+    axes that cut the sequence), the new entry written by the rank that
+    holds its position and the spans merged by their LSE."""
+    if is_dtensor(x):
+        return _decode_sharded(p, x, cache, pos, cfg, proj)
     B = x.shape[0]
     H = cfg.n_heads
     scale = _scale(cfg)
+    t0 = None if span is None else span.t0
+    cut = span is not None and bool(span.axes)
     pos = batched_positions(pos, B, x.device)
     q_nope, q_rope, c_new, kr_new = _mla_project(p, x, cfg,
                                                  pos[:, None, None])
     q_abs = torch.einsum("bhe,lhe->bhl", q_nope[:, :, 0], p["wuk"])
-    kr = scatter_time(cache["kr"], kr_new[:, 0], pos, axis=0)
+    kr = scatter_time(cache["kr"], kr_new[:, 0], pos, axis=0, t0=t0)
     T = kr.shape[1]
-    valid = torch.arange(T, device=x.device)[None, :] <= pos[:, None]
+    valid = (torch.arange(T, device=x.device)[None, :] + (t0 or 0)
+             <= pos[:, None])
     s_rope = torch.einsum("bhe,bte->bht", q_rope[:, :, 0].float(),
                           kr.float())
 
     def attend(q, keys, vals):
         s = torch.einsum("bhr,btr->bht", q.float(), keys.float())
+        if cut:
+            prob, lse = _span_softmax((s + s_rope) * scale, valid)
+            out = torch.einsum("bht,btr->bhr", prob, vals.float())
+            return span.merge(out, lse).to(vals.dtype)
         s = ((s + s_rope) * scale).masked_fill(~valid[:, None, :], NEG_INF)
         prob = torch.softmax(s, dim=-1)
         return torch.einsum("bht,btr->bhr", prob.to(vals.dtype), vals)
 
     if proj is not None:
-        cc = scatter_time(cache["cc"], c_new @ proj["a_k"][0], pos, axis=0)
+        cc = scatter_time(cache["cc"], c_new @ proj["a_k"][0], pos, axis=0,
+                          t0=t0)
         ccv = scatter_time(cache["ccv"], c_new @ proj["a_v"][0], pos,
-                           axis=0)
+                           axis=0, t0=t0)
         agg = attend(q_abs @ proj["b_q"][0], cc, ccv)
         c_v = proj["c_v"][0].reshape(-1, H, cfg.d_model)     # (Rv,H,D)
         y = torch.einsum("bhr,rhd->bd", agg, c_v)[:, None]
     else:
-        cc = scatter_time(cache["c"], c_new, pos, axis=0)
+        cc = scatter_time(cache["c"], c_new, pos, axis=0, t0=t0)
         agg = attend(q_abs, cc, cc)
         v = torch.einsum("bhl,lhe->bhe", agg, p["wuv"])
         y = torch.einsum("bhe,hed->bd", v, p["wo"])[:, None]
     return y.to(x.dtype), cache
+
+
+def _decode_sharded(p, x, cache: Dict, pos, cfg: ModelConfig,
+                    proj: Optional[Dict]):
+    """``mla_decode`` on a mesh, over a latent cache placed by
+    ``cache_shardings``: the weights and factors gathered (replicated), x
+    taking the cache's batch placement, and every rank running
+    ``mla_decode`` on its rows and its ``Span`` (``local_map``); the
+    output is reduced to x's placements."""
+    from torch.distributed.tensor.experimental import local_map
+    ref = cache["kr"]
+    mesh = ref.device_mesh
+    pos = batched_positions(pos, x.shape[0], ref.to_local().device)
+    span = Span(shard_range(ref, 1)[0], mesh, cut_axes(ref, 1))
+    b0, nb = shard_range(ref, 0)
+    rows = remap(ref.placements, {0: 0})
+    wn = sorted(p)
+    pw = [redistributed(p[n], remap(ref.placements, {})) for n in wn]
+    pn = sorted(proj) if proj else []
+    pj = [redistributed(proj[n], remap(ref.placements, {})) for n in pn]
+    names = sorted(cache)
+
+    def local(x, pos, *rest):
+        lp = dict(zip(wn, rest[:len(wn)]))
+        lproj = dict(zip(pn, rest[len(wn):len(wn) + len(pn)])) or None
+        lc = dict(zip(names, rest[len(wn) + len(pn):]))
+        return mla_decode(lp, x, lc, pos[b0:b0 + nb], cfg, lproj,
+                          span=span)[0]
+
+    args = [redistributed(x, rows), pos] + pw + pj + [cache[n] for n in names]
+    y = local_map(local, out_placements=list(rows),
+                  in_placements=tuple(a.placements if is_dtensor(a)
+                                      else None for a in args),
+                  device_mesh=mesh)(*args)
+    return placed_like(y, x), cache

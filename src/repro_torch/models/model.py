@@ -230,7 +230,10 @@ class LM:
         MoE layers' summed router statistics (empty without MoE)."""
         caches, captures, attn_ord = [], [], 0
         aux: Dict[str, torch.Tensor] = {}
+        sharded = is_dtensor(params["embed"])
         for i, lp in enumerate(params["layers"]):
+            if sharded:             # FSDP's gather at use, a layer at a time
+                lp = tree_map(gather_dp, lp)
             lproj = None
             if self.kinds[i] != "ssm":
                 if proj is not None:
@@ -250,12 +253,22 @@ class LM:
 
     def prefill(self, params, batch, max_len: int, proj=None):
         """Full-prompt prefill: last-token logits (B, 1, V) + a populated
-        cache of length ``max_len``; ``batch`` as ``_embed`` takes it."""
-        x = self._embed(params, batch)
+        cache of length ``max_len``; ``batch`` as ``_embed`` takes it.  On
+        DTensor params (a mesh) the cache comes out under
+        ``launch.specs.cache_shardings``, ``seq_sharded`` for a batch of
+        one."""
+        top = self._top(params)
+        x = self._embed(top, batch)
         x, cache, _, _ = self._run_stack(params, x, "prefill", proj=proj,
                                          max_len=max_len)
-        x = rms_norm(x[:, -1:], params["final_norm"], self.cfg.rms_eps)
-        return self._logits(params, x), cache
+        x = rms_norm(x[:, -1:], top["final_norm"], self.cfg.rms_eps)
+        return self._logits(top, x), cache
+
+    @staticmethod
+    def _top(params):
+        """The params outside the layers, gathered over the data axes
+        (FSDP's gather at use) where they are DTensors."""
+        return {k: gather_dp(v) for k, v in params.items() if k != "layers"}
 
     def prefill_chunk(self, params, cache, tokens, pos0, valid, proj=None,
                       block_table=None):
@@ -289,10 +302,13 @@ class LM:
         ``cache`` is paged; ``token_mask``: (B,) bool of live slots, the
         only ones MoE routing gives expert capacity; ``num_splits`` > 1
         splits each slot's page chain (split-KV decode).  Returns logits
-        (B, 1, V) and ``cache``, updated in place."""
+        (B, 1, V) and ``cache``, updated in place.  On DTensor params (a
+        mesh) the cache is the dense one placed by
+        ``launch.specs.cache_shardings``, and so are the updates."""
+        top = self._top(params)
         tokens = self._tokens(tokens)
         pos = attn_mod.batched_positions(pos, tokens.shape[0], self.device)
-        x = params["embed"][tokens]
+        x = self._embed(top, tokens)
         tm = (torch.as_tensor(token_mask, device=self.device)[:, None]
               if token_mask is not None else None)
         x, cache, _, _ = self._run_stack(params, x, "decode", cache=cache,
@@ -300,8 +316,8 @@ class LM:
                                          block_table=block_table,
                                          token_mask=tm,
                                          num_splits=num_splits)
-        x = rms_norm(x, params["final_norm"], self.cfg.rms_eps)
-        return self._logits(params, x), cache
+        x = rms_norm(x, top["final_norm"], self.cfg.rms_eps)
+        return self._logits(top, x), cache
 
     def train_logits(self, params, batch) -> Tuple[torch.Tensor, Dict]:
         """Full-sequence logits (B, S, V) float32 and the aux sums (the
@@ -312,7 +328,7 @@ class LM:
         remat changes no number.  ``batch`` as ``_embed`` takes it: with
         ``image_embeds`` the logits cover the P + S positions, and a
         train batch's labels are -100 (ignored) over the patches."""
-        top = {k: gather_dp(v) for k, v in params.items() if k != "layers"}
+        top = self._top(params)
         x = self._embed(top, batch)
         opts = remat_options(self.cfg.remat_policy)
         aux: Dict[str, torch.Tensor] = {}

@@ -22,9 +22,16 @@ Torch counterpart of ``repro.models.moe`` with the same arithmetic:
 
 ``route`` is the router and the capacity assignment alone (the keep mask
 and the slots), which ``moe_ffn`` runs first.  ``n_groups`` splits the
-tokens into that many dispatch groups, each with its own capacity (the
-reference's data-parallel shards): one card is one group unless the
-caller asks for more.  The scatter of slot ids writes
+tokens into that many dispatch groups, each with its own capacity: by
+default one group per rank of the data axes, as in the reference (one
+group without a mesh, and one where the groups do not divide the
+tokens).  On a mesh (``_moe_ffn_sharded``) the groups lie on the data
+axes and the experts on the model axis: each rank routes and dispatches
+its own groups (``local_map``: DTensor has no rule for the scatter and
+the gathers), the dispatched slots go from group-major to expert-major
+(the model axis cutting the experts) for the expert products, and back
+to group-major (gathered over the model axis) for the combine, the two
+reshards the reference's ``shard`` calls place.  The scatter of slot ids writes
 every dropped or dead choice to one sentinel column, which is cut off
 before anything reads the buffer, so its nondeterministic duplicates on
 CUDA never reach a result.
@@ -38,6 +45,11 @@ import torch
 
 from repro_torch.config import MoEConfig
 from repro_torch.models.layers import init_dense, init_swiglu, swiglu
+from repro_torch.sharding.partition import (axis_size, gather_dp,
+                                            is_dtensor, partial_where,
+                                            redistributed, remap, shard,
+                                            shard_range)
+from repro_torch.tree import tree_map
 
 
 def _init_stack(gen: torch.Generator, shape: Tuple[int, int, int],
@@ -99,7 +111,7 @@ def route(p: Dict, x: torch.Tensor, mo: MoEConfig, mode: str = "train",
     B, S, D = x.shape
     N = B * S
     E, K = mo.n_experts, mo.top_k
-    G = n_groups or 1
+    G = n_groups or axis_size(("pod", "data"))
     if N % G:
         G = 1
     Ng = N // G
@@ -141,7 +153,52 @@ def moe_ffn(p: Dict, x: torch.Tensor, mo: MoEConfig, mode: str = "train",
     aux statistics; their routed output is zero.  The call runs inside a
     ``moe_ffn`` profiler range, which the card's profile reads."""
     with torch.profiler.record_function("moe_ffn"):
+        if is_dtensor(x):
+            return _moe_ffn_sharded(p, x, mo, mode, n_groups, token_mask)
         return _moe_ffn(p, x, mo, mode, n_groups, token_mask)
+
+
+def _dispatch(xg: torch.Tensor, slot_ids: torch.Tensor, E: int, C: int,
+              K: int) -> torch.Tensor:
+    """Each group's tokens gathered into its (E, C) expert slots: xg (G,
+    Ng, D), slot_ids (G, Ng*K) -> (G, E*C, D), zeros in the empty slots.
+    The token ids go into the slots by a scatter; the sentinel column
+    E*C takes every dropped choice and is cut off, and row Ng of the
+    tokens is zeros."""
+    G, Ng, D = xg.shape
+    dev = xg.device
+    token_ids = torch.arange(Ng, device=dev).repeat_interleave(K).expand(
+        G, Ng * K)
+    dispatch = torch.full((G, E * C + 1), Ng, dtype=torch.int64, device=dev)
+    dispatch.scatter_(1, slot_ids, token_ids)
+    dispatch = dispatch[:, :E * C]
+    g_ix = torch.arange(G, device=dev)[:, None]
+    xp = torch.cat([xg, xg.new_zeros(G, 1, D)], dim=1)
+    return xp[g_ix, dispatch]
+
+
+def _experts(ein: torch.Tensor, p: Dict) -> torch.Tensor:
+    """The experts' SwiGLUs as batched products over E: ein (E, rows, D)
+    -> (E, rows, D)."""
+    h = torch.bmm(ein, p["wi_e"])
+    g = torch.bmm(ein, p["wg_e"])
+    h = h * g * torch.sigmoid(g.float()).to(h.dtype)
+    return torch.bmm(h, p["wo_e"])
+
+
+def _combine(out_g: torch.Tensor, slot_ids: torch.Tensor,
+             gates: torch.Tensor) -> torch.Tensor:
+    """Each (token, choice)'s expert output gathered from its group's
+    slots and weighed by its gate: out_g (G, E*C, D), slot_ids (G,
+    Ng*K), gates (G, Ng, K) -> (G, Ng, D); a dropped choice reads the
+    zero row E*C."""
+    G, _, D = out_g.shape
+    Ng, K = gates.shape[1:]
+    out_p = torch.cat([out_g, out_g.new_zeros(G, 1, D)], dim=1)
+    g_ix = torch.arange(G, device=out_g.device)[:, None]
+    gathered = out_p[g_ix, slot_ids]                          # (G, NgK, D)
+    return (gathered.reshape(G, Ng, K, D)
+            * gates[..., None].to(gathered.dtype)).sum(2)
 
 
 def _moe_ffn(p, x, mo, mode, n_groups, token_mask):
@@ -151,32 +208,12 @@ def _moe_ffn(p, x, mo, mode, n_groups, token_mask):
     r = route(p, x, mo, mode, n_groups, token_mask)
     G, Ng, C = r["G"], r["Ng"], r["C"]
     keep, slot_ids, onehot = r["keep"], r["slot_ids"], r["onehot"]
-    dev = x.device
-    xg = x.reshape(G, Ng, D)
-
-    # token ids into (E, C) slots; the sentinel column E*C takes every
-    # dropped choice and is cut off, row Ng of the tokens is zeros
-    token_ids = torch.arange(Ng, device=dev).repeat_interleave(K).expand(
-        G, Ng * K)
-    dispatch = torch.full((G, E * C + 1), Ng, dtype=torch.int64, device=dev)
-    dispatch.scatter_(1, slot_ids, token_ids)
-    dispatch = dispatch[:, :E * C]
-    g_ix = torch.arange(G, device=dev)[:, None]
-    xp = torch.cat([xg, xg.new_zeros(G, 1, D)], dim=1)
-    expert_in = xp[g_ix, dispatch]                            # (G, EC, D)
+    expert_in = _dispatch(x.reshape(G, Ng, D), slot_ids, E, C, K)
 
     ein = expert_in.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
-    h = torch.bmm(ein, p["wi_e"])
-    g = torch.bmm(ein, p["wg_e"])
-    h = h * g * torch.sigmoid(g.float()).to(h.dtype)
-    eout = torch.bmm(h, p["wo_e"])                            # (E, GC, D)
-
+    eout = _experts(ein, p)                                   # (E, GC, D)
     out_g = eout.reshape(E, G, C, D).transpose(0, 1).reshape(G, E * C, D)
-    out_p = torch.cat([out_g, out_g.new_zeros(G, 1, D)], dim=1)
-    gathered = out_p[g_ix, slot_ids]                          # (G, NgK, D)
-    y = (gathered.reshape(G, Ng, K, D)
-         * r["gates"][..., None].to(gathered.dtype)).sum(2)
-    y = y.reshape(B, S, D)
+    y = _combine(out_g, slot_ids, r["gates"]).reshape(B, S, D)
 
     # aux statistics (f32), over live tokens when a mask is given
     probs = r["probs"]
@@ -198,6 +235,107 @@ def _moe_ffn(p, x, mo, mode, n_groups, token_mask):
         router_z = (zsq * tok_live).sum() / n_live
     aux = {"load_balance": E * (me * ce).sum(),
            "router_z": router_z,
+           "dropped_frac": dropped}
+
+    xf = x.reshape(N, D)
+    if "shared" in p:
+        y = y + swiglu(p["shared"], xf).reshape(B, S, D).to(y.dtype)
+    if "residual" in p:
+        y = y + swiglu(p["residual"], xf).reshape(B, S, D).to(y.dtype)
+    return y.to(x.dtype), aux
+
+
+def _moe_ffn_sharded(p, x, mo, mode, n_groups, token_mask):
+    """``_moe_ffn`` on a mesh.  The G groups (G = the data axes' size
+    unless the caller says, 1 where the groups do not divide the tokens)
+    are contiguous runs of the token-major rows, so each rank's rows of x
+    (batch-sharded over the data axes, and gathered first where its
+    shards do not hold whole groups) are its groups.  Each rank routes,
+    assigns capacity and dispatches its own groups on its local tensors
+    (``local_map``) and keeps their router sums; the slots (G, E, C, D)
+    go expert-major, the experts on the model axis, for the expert
+    products (DTensor batched products over the experts each rank
+    holds), come back group-major, gathered over the model axis, and each
+    rank combines its groups' outputs into its rows.  The statistics are
+    the groups' sums over all groups, as ``_moe_ffn`` takes them."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    B, S, D = x.shape
+    N = B * S
+    E, K = mo.n_experts, mo.top_k
+    dp = ("pod", "data")
+    mesh = x.device_mesh
+    p = tree_map(gather_dp, p)          # FSDP's gather at use (no-op after)
+    G = n_groups or axis_size(dp, mesh)
+    if N % G:
+        G = 1
+    Ng = N // G
+    C = _capacity(Ng, mo, mode)
+    rows = remap(x.placements, {0: 0})
+    n_x = 1
+    for i, pl in enumerate(rows):
+        n_x *= mesh.size(i) if pl == Shard(0) else 1
+    if G % n_x or (N // n_x) % Ng:           # shards that split a group
+        rows = (Replicate(),) * len(rows)
+    xl = redistributed(x, rows)
+    b0, _ = shard_range(xl, 0)
+    g0 = b0 * S // Ng
+    r_pl = (Replicate(),) * mesh.ndim
+    router = redistributed(p["router"], r_pl)
+    r_grad = partial_where(r_pl, rows)
+    tm = (None if token_mask is None else
+          torch.as_tensor(token_mask).reshape(G, Ng))
+
+    def local_route(x, router):
+        Gl = x.shape[0] * S // Ng
+        xg = x.reshape(Gl, Ng, D)
+        mask = None if tm is None else tm[g0:g0 + Gl].to(x.device)
+        r = route({"router": router}, xg, mo, mode, Gl, mask)
+        keep, onehot = r["keep"], r["onehot"]
+        zsq = torch.logsumexp(r["logits"], dim=-1) ** 2       # (Gl, Ng)
+        live = (torch.ones_like(zsq) if mask is None
+                else mask.reshape(Gl, Ng).float())
+        stats = torch.cat([
+            (r["probs"] * live[..., None]).sum(1),                # (Gl, E)
+            (onehot * keep[..., None]).sum(1).float(),            # counts
+            (zsq * live).sum(1, keepdim=True),
+            live.sum(1, keepdim=True),
+            keep.float().sum(1, keepdim=True)], dim=-1)
+        return (_dispatch(xg, r["slot_ids"], E, C, K).reshape(Gl, E, C, D),
+                r["slot_ids"], r["gates"], stats)
+
+    expert_in, slot_ids, gates, stats = local_map(
+        local_route, out_placements=(list(rows),) * 4,
+        in_placements=(rows, r_pl), in_grad_placements=(rows, r_grad),
+        device_mesh=mesh)(xl, router)
+    expert_in = shard(expert_in, dp, None, None, None)
+    ein = shard(expert_in.transpose(0, 1), "model", dp, None, None)
+    eout = _experts(ein.reshape(E, G * C, D), p).reshape(E, G, C, D)
+    eout = shard(eout, "model", dp, None, None)
+    out_g = redistributed(shard(eout.transpose(0, 1).reshape(G, E * C, D),
+                                dp, None, None), rows)
+
+    def local_combine(out_g, slot_ids, gates):
+        return _combine(out_g, slot_ids, gates).reshape(-1, S, D)
+
+    y = local_map(local_combine, out_placements=list(rows),
+                  in_placements=(rows, rows, rows),
+                  device_mesh=mesh)(out_g, slot_ids, gates)
+
+    tot = stats.sum(0)
+    prob_sum, counts = tot[:E], tot[E:2 * E]
+    zsum, n_live, kept = tot[2 * E], tot[2 * E + 1], tot[2 * E + 2]
+    if token_mask is None:
+        me, ce = prob_sum / N, counts / (N * K)
+        dropped = 1.0 - kept / (N * K)
+        router_z = zsum / N
+    else:
+        n = n_live.clamp_min(1.0)
+        me, ce = prob_sum / n, counts / (n * K)
+        live_choices = n_live * K
+        dropped = (live_choices - kept) / live_choices.clamp_min(1.0)
+        router_z = zsum / n
+    aux = {"load_balance": E * (me * ce).sum(), "router_z": router_z,
            "dropped_frac": dropped}
 
     xf = x.reshape(N, D)

@@ -17,6 +17,14 @@ Where the reference's lax ``_ssd_chunked`` cuts S into ``S // chunk``
 equal chunks (and fails when they do not divide S), the port takes any S:
 chunks of ``chunk_size`` tokens and a shorter last one.  The answer does
 not depend on the chunking; only its rounding does.
+
+On a mesh (DTensor activations) the projections and the gated norm run
+as DTensor operations, the depthwise conv on each rank's channels and
+K7 (or the decode recurrence) on each rank's heads through
+``local_map``: channels and heads on the model axis where they divide
+it, as ``launch.specs.cache_spec`` places the ``conv`` and ``s`` state,
+the groups' B / C replicated there (their gradients partial sums over
+it).  The state is updated in place on each rank's shard.
 """
 from __future__ import annotations
 
@@ -29,6 +37,9 @@ import torch.nn.functional as F
 from repro_torch.config import SSMConfig
 from repro_torch.kernels.ssd import ssd_chunk_scan, ssd_chunk_scan_train
 from repro_torch.models.layers import init_dense, rms_norm
+from repro_torch.sharding.partition import (is_dtensor, mesh_axes,
+                                            partial_where, redistributed,
+                                            remap, shard_range)
 
 
 def _dims(s: SSMConfig, d_model: int):
@@ -110,7 +121,11 @@ def _ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, h0=None):
     kernel reads the (B,S,...) tensors through transposed views.  Where an
     input needs a gradient (the training forward) K7 runs under autograd
     (``ssd_chunk_scan_train``), else the wrapper alone."""
-    a = dt * A[None, None, :]                                 # (B,S,nh) <= 0
+    return _scan(xh, dt * A[None, None, :], dt, Bm, Cm, chunk, h0)
+
+
+def _scan(xh, a, dt, Bm, Cm, chunk: int, h0=None):
+    """K7 on (B,S,...) tensors, ``a = dt * A`` given (``_ssd_chunked``)."""
     args = [t.transpose(1, 2) for t in (xh, a, dt, Bm, Cm)]
     grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in args + [h0])
@@ -125,6 +140,8 @@ def ssm_forward(p: Dict, x: torch.Tensor, s: SSMConfig,
     """Full-sequence SSD.  x: (B,S,D).  ``state`` (conv tail and SSM
     state) continues a sequence; ``return_state`` returns the state after
     its last token."""
+    if is_dtensor(x):
+        return _forward_sharded(p, x, s, state, return_state)
     B, S, D = x.shape
     d_in, nh, conv_dim = _dims(s, D)
     gs = s.n_groups * s.d_state
@@ -152,6 +169,8 @@ def ssm_decode(p: Dict, x: torch.Tensor, state: Dict, s: SSMConfig
                ) -> Tuple[torch.Tensor, Dict]:
     """Single-token recurrent step.  x: (B,1,D).  ``state`` is updated in
     place and returned."""
+    if is_dtensor(x):
+        return _decode_sharded(p, x, state, s)
     B, _, D = x.shape
     d_in, nh, conv_dim = _dims(s, D)
     gs = s.n_groups * s.d_state
@@ -191,3 +210,155 @@ def make_ssm_state(s: SSMConfig, d_model: int, batch: int,
         "s": torch.zeros((batch, nh, s.d_state, s.head_dim),
                          dtype=torch.float32, device=device),
     }
+
+
+# ---------------------------------------------------------------------------
+# On a mesh
+# ---------------------------------------------------------------------------
+
+
+def _layout(x, n: int, state=None):
+    """``(rows, cut)`` placements of a (B, n, ...) activation: ``rows``
+    its batch as ``state``'s (or x's rows), ``cut`` that with dim 1
+    (channels or heads, n of them) on the model axis where it divides
+    n, as ``launch.specs.cache_spec`` places the ``conv`` and ``s``
+    state."""
+    from torch.distributed.tensor import Shard
+    rows = remap((state if state is not None else x).placements, {0: 0})
+    msize = mesh_axes(x.device_mesh).get("model", 1)
+    cut = tuple(Shard(1) if name == "model" and msize > 1 and n % msize == 0
+                else pl for name, pl in zip(x.device_mesh.mesh_dim_names,
+                                            rows))
+    return rows, cut
+
+
+def _conv_sharded(weight, xBC, state=None, in_place: bool = False):
+    """``_conv_apply`` on each rank's channels (``local_map``): xBC (B,S,Cd)
+    and the weight cut on the model axis where it divides Cd, the batch
+    as ``state``'s (or xBC's rows).  Returns the conv output and the new
+    state (the state updated in place with ``in_place``)."""
+    from torch.distributed.tensor.experimental import local_map
+    rows, cut = _layout(xBC, xBC.shape[-1], state)
+    x_pl, w_pl = remap(cut, {0: 0, 1: 2}), remap(cut, {1: 0})
+    w_grad = partial_where(w_pl, rows)
+    xBC, weight = redistributed(xBC, x_pl), redistributed(weight, w_pl)
+
+    def local(w, x, st):
+        out, new = _conv_apply(w, x, st)
+        if in_place:
+            st.copy_(new)
+            new = st
+        return out, new
+
+    if state is None:
+        return local_map(lambda w, x: local(w, x, None),
+                         out_placements=(list(x_pl), list(cut)),
+                         in_placements=(w_pl, x_pl),
+                         in_grad_placements=(w_grad, x_pl),
+                         device_mesh=xBC.device_mesh)(weight, xBC)
+    return local_map(local, out_placements=(list(x_pl), list(cut)),
+                     in_placements=(w_pl, x_pl, cut),
+                     device_mesh=xBC.device_mesh)(weight, xBC, state)
+
+
+def _local_groups(Bm: torch.Tensor, nh: int, h0: int, nhl: int):
+    """The groups (dim 2 of (B,S,G,n) or dim 1 of (B,G,n)) of local heads
+    ``h0 .. h0 + nhl`` out of ``nh``."""
+    G = Bm.shape[-2]
+    rep = nh // G
+    if G == 1 or nhl == nh:
+        return Bm
+    g0 = h0 // rep
+    return Bm.narrow(-2, g0, max(1, nhl // rep))
+
+
+def _forward_sharded(p, x, s: SSMConfig, state, return_state):
+    """``ssm_forward`` on a mesh (module docstring): K7 on each rank's
+    heads under ``local_map``, under autograd where its inputs need
+    gradients (training)."""
+    from torch.distributed.tensor.experimental import local_map
+    B, S, D = x.shape
+    d_in, nh, conv_dim = _dims(s, D)
+    gs = s.n_groups * s.d_state
+    z, xBC, dt = _split_proj(p, x, s, D)
+    xBC, conv_state = _conv_sharded(p["conv"], xBC,
+                                    state["conv"] if state else None)
+    xs = xBC[..., :d_in].reshape(B, S, nh, s.head_dim)
+    Bm = xBC[..., d_in:d_in + gs].reshape(B, S, s.n_groups, s.d_state)
+    Cm = xBC[..., d_in + gs:].reshape(B, S, s.n_groups, s.d_state)
+    dt = F.softplus(dt.float() + p["dt_bias"][None, None, :])
+    A = -torch.exp(p["a_log"])
+    a = dt * A[None, None, :]
+    rows, cut = _layout(x, nh, state["s"] if state else None)
+    h_pl = remap(cut, {0: 0, 1: 2})
+    xs, a, dt = (redistributed(t, h_pl) for t in (xs, a, dt))
+    Bm, Cm = redistributed(Bm, rows), redistributed(Cm, rows)
+    g_grad = partial_where(rows, h_pl)
+    h0 = shard_range(xs, 2)[0]
+    nhl = xs.to_local().shape[2]
+    ins = [xs, a, dt, Bm, Cm]
+    in_pl = [h_pl, h_pl, h_pl, rows, rows]
+    if state is not None:
+        ins.append(redistributed(state["s"], cut))
+        in_pl.append(cut)
+
+    def local(xs, a, dt, Bm, Cm, h0_state=None):
+        return _scan(xs, a, dt, _local_groups(Bm, nh, h0, nhl),
+                     _local_groups(Cm, nh, h0, nhl), s.chunk_size, h0_state)
+
+    y, h = local_map(local, out_placements=(list(h_pl), list(cut)),
+                     in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(in_pl[:3]) + (g_grad, g_grad)
+                     + tuple(in_pl[5:]),
+                     device_mesh=x.device_mesh)(*ins)
+    y = y + xs.float() * p["d_skip"][None, None, :, None]
+    y = y.reshape(B, S, d_in).to(x.dtype)
+    y = y * F.silu(z.float()).to(x.dtype)
+    y = rms_norm(y, p["norm"])
+    out = y @ p["out_proj"]
+    new_state = {"conv": conv_state, "s": h} if return_state else None
+    return out, new_state
+
+
+def _decode_sharded(p, x, state: Dict, s: SSMConfig):
+    """``ssm_decode`` on a mesh, over ``conv`` / ``s`` state placed by
+    ``cache_shardings``: the conv on each rank's channels and the
+    recurrence on each rank's heads (``local_map``), both states updated
+    in place."""
+    from torch.distributed.tensor.experimental import local_map
+    B, _, D = x.shape
+    d_in, nh, conv_dim = _dims(s, D)
+    gs = s.n_groups * s.d_state
+    z, xBC, dt = _split_proj(p, x, s, D)
+    xBC, _ = _conv_sharded(p["conv"], xBC, state["conv"], in_place=True)
+    xs = xBC[:, 0, :d_in].reshape(B, nh, s.head_dim)
+    Bm = xBC[:, 0, d_in:d_in + gs].reshape(B, s.n_groups, s.d_state)
+    Cm = xBC[:, 0, d_in + gs:].reshape(B, s.n_groups, s.d_state)
+    dt = F.softplus(dt[:, 0].float() + p["dt_bias"])
+    A = -torch.exp(p["a_log"])
+    rows, cut = _layout(x, nh, state["s"])
+    heads = remap(cut, {1: 0})                 # a (nh,) vector's
+    xs, dt = redistributed(xs, cut), redistributed(dt, cut)
+    A, skip = (redistributed(t, heads) for t in (A, p["d_skip"]))
+    Bm, Cm = redistributed(Bm, rows), redistributed(Cm, rows)
+    h0 = shard_range(xs, 1)[0]
+    nhl = xs.to_local().shape[1]
+
+    def local(xs, dt, A, skip, Bm, Cm, h):
+        Bl, Cl = (_local_groups(t, nh, h0, nhl).float() for t in (Bm, Cm))
+        rep = nhl // Bl.shape[1]
+        Bl, Cl = (t.repeat_interleave(rep, dim=1) for t in (Bl, Cl))
+        xs = xs.float()
+        decay = torch.exp(dt * A[None, :])
+        h.mul_(decay[..., None, None]).add_(
+            (Bl * dt[..., None])[..., :, None] * xs[..., None, :])
+        return (Cl[:, :, None, :] @ h)[:, :, 0] + xs * skip[None, :, None]
+
+    sp = redistributed(state["s"], cut)
+    y = local_map(local, out_placements=list(cut),
+                  in_placements=(cut, cut, heads, heads, rows, rows, cut),
+                  device_mesh=x.device_mesh)(xs, dt, A, skip, Bm, Cm, sp)
+    y = y.reshape(B, 1, d_in).to(x.dtype)
+    y = y * F.silu(z.float()).to(x.dtype)
+    y = rms_norm(y, p["norm"])
+    return y @ p["out_proj"], state

@@ -23,6 +23,13 @@ axes shard (``("pod", "data")``) is cut left to right over those mesh
 dims, the reference's order, so the names of one entry must follow the
 mesh's own order.
 
+Sequence-parallel decode on a mesh: a cache whose sequence dim a mesh
+axis cuts (``launch.specs.cache_spec``) is attended span by span, each
+rank over the positions it holds (``shard_range``), and the ranks'
+softmax rows merge by their log-sum-exp over the axes that cut it
+(``merge_spans``, the all-reduce of the maximum and of the weighted
+sums that GSPMD inserts in the reference).
+
 The serving half: a torch tensor lives on one device, so the sharded
 serving engine's shards own their tensors outright: ``serve_devices`` is
 the list of devices the shards run on, and ``slot_slice`` /
@@ -187,11 +194,8 @@ def shard(x, *spec):
     mesh = active_mesh()
     if mesh is None or not is_dtensor(x):
         return x
-    want = placements(x.device_mesh, *clean_spec(x.shape, spec,
-                                                 x.device_mesh))
-    if tuple(x.placements) == want:
-        return x
-    return x.redistribute(x.device_mesh, want)
+    return redistributed(x, placements(x.device_mesh, *clean_spec(
+        x.shape, spec, x.device_mesh)))
 
 
 def gather_dp(x):
@@ -202,19 +206,112 @@ def gather_dp(x):
         return x
     from torch.distributed.tensor import Replicate
     names = x.device_mesh.mesh_dim_names
-    want = tuple(Replicate() if names[i] in ("pod", "data") else pl
-                 for i, pl in enumerate(x.placements))
-    if want == tuple(x.placements):
-        return x
-    return x.redistribute(x.device_mesh, want)
+    return redistributed(x, [Replicate() if names[i] in ("pod", "data")
+                             else pl for i, pl in enumerate(x.placements)])
 
 
 def placed_like(x, like):
     """``x`` redistributed to the placements of DTensor ``like`` (``x``
-    as it is when ``like`` is not a DTensor, or already matches)."""
-    if not is_dtensor(like) or tuple(x.placements) == tuple(like.placements):
+    as it is when ``like`` is not a DTensor)."""
+    return redistributed(x, like.placements) if is_dtensor(like) else x
+
+
+def redistributed(x, placements_):
+    """DTensor ``x`` redistributed to ``placements_`` (differentiably),
+    or ``x`` itself when it has them."""
+    placements_ = tuple(placements_)
+    if tuple(x.placements) == placements_:
         return x
-    return x.redistribute(like.device_mesh, like.placements)
+    return x.redistribute(x.device_mesh, placements_)
+
+
+def remap(placements_, dims: Dict[int, int]) -> Tuple:
+    """Placements of a tensor laid out like another in the dims they
+    share: ``Shard(dims[d])`` on each mesh dim where ``placements_`` has
+    ``Shard(d)`` for a ``d`` in ``dims``, ``Replicate`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Shard(dims[pl.dim]) if isinstance(pl, Shard)
+                 and pl.dim in dims else Replicate() for pl in placements_)
+
+
+def partial_where(placements_, like) -> Tuple:
+    """``placements_`` with ``Partial`` on every mesh dim where ``like``
+    shards and ``placements_`` does not: the gradient placements of a
+    tensor each rank reads only in part (``local_map``'s
+    ``in_grad_placements``)."""
+    from torch.distributed.tensor import Partial, Shard
+    return tuple(Partial() if isinstance(lp, Shard) and not
+                 isinstance(pl, Shard) else pl
+                 for pl, lp in zip(placements_, like))
+
+
+def cut_axes(x, dim: int) -> Tuple[str, ...]:
+    """Names of the mesh dims that shard DTensor ``x``'s dim ``dim``, in
+    mesh order (empty for a dim every rank holds whole)."""
+    from torch.distributed.tensor import Shard
+    dim %= x.ndim
+    return tuple(n for n, pl in zip(x.device_mesh.mesh_dim_names,
+                                    x.placements) if pl == Shard(dim))
+
+
+def shard_range(x, dim: int) -> Tuple[int, int]:
+    """``(start, length)`` of this rank's slice of DTensor ``x``'s dim
+    ``dim``: the mesh dims that shard it cut it left to right, as
+    ``placements`` lays them out (the rules shard only dims they
+    divide)."""
+    from torch.distributed.tensor import Shard
+    dim %= x.ndim
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    idx, n = 0, 1
+    for i, pl in enumerate(x.placements):
+        if pl == Shard(dim):
+            idx = idx * mesh.size(i) + coord[i]
+            n *= mesh.size(i)
+    size = x.shape[dim] // n
+    return idx * size, size
+
+
+def merge_spans(out: torch.Tensor, lse: torch.Tensor, mesh,
+                axes: Tuple[str, ...]) -> torch.Tensor:
+    """Merge the ranks' span-local softmax rows over mesh ``axes``: ``out``
+    (..., R) float32 rows of this rank's span, ``lse`` (...) their
+    log-sum-exp.  With ``lse* = max over ranks`` and ``w = exp(lse -
+    lse*)`` the rows over the whole sequence are ``sum w out / sum w``
+    (``combine_split_partials``' rule), so a rank whose span holds no
+    live entry (its LSE -1e30 or -inf) weighs 0.  Two all-reduces an
+    axis (the maximum, then the weighted rows with their weights in one
+    buffer); every rank gets the merged rows.  Each call adds one to
+    ``merge_spans.calls``."""
+    import torch.distributed as dist
+    mx = lse.float().clone()
+    for a in axes:
+        dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
+    w = torch.exp(lse.float() - mx)
+    buf = torch.cat([w[..., None] * out.float(), w[..., None]], dim=-1)
+    for a in axes:
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.get_group(a))
+    merge_spans.calls += 1
+    return buf[..., :-1] / buf[..., -1:].clamp_min(1e-30)
+
+
+merge_spans.calls = 0
+
+
+def zeros_placed(shape, dtype, mesh, placements_):
+    """A zeroed DTensor of global ``shape`` under ``placements_``, each
+    rank allocating only its own shard (the rules shard only dims their
+    axes divide)."""
+    from torch.distributed.tensor import DTensor, Shard
+    local = list(shape)
+    for i, pl in enumerate(placements_):
+        if isinstance(pl, Shard):
+            local[pl.dim] //= mesh.size(i)
+    t = torch.zeros(local, dtype=dtype, device=mesh_device(mesh))
+    return DTensor.from_local(t, mesh, placements_, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
 
 
 def is_dtensor(x) -> bool:

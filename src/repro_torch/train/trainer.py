@@ -17,7 +17,7 @@ Torch counterpart of ``repro.train.trainer``:
   under whatever mesh the restarted job has.
 
 Multi-device (``mesh``, a ``DeviceMesh`` with ("data", "model") or
-("pod", "data", "model") dims, one process a rank; dense family only):
+("pod", "data", "model") dims, one process a rank; every family):
 the reference leaves placement to GSPMD, and its sharded step places
 params and optimizer state by ``params_shardings`` and the batch by
 ``batch_shardings``; the port has no GSPMD, so it places everything
@@ -26,8 +26,7 @@ explicitly by those rules (``fsdp=tc.fsdp``) and runs the loop under
 rows.  Every rank makes the same decision: a step failure or a SIGTERM
 on one rank becomes a retry or a stop on all of them, agreed by an
 all-reduce before and after each step (a disagreement would deadlock
-the next collective).  Another family under a mesh raises
-``NotImplementedError`` (``ROADMAP.md`` queue 1: the next slice).
+the next collective).
 """
 from __future__ import annotations
 
@@ -65,17 +64,6 @@ class TrainerReport:
     step_times: List[float] = field(default_factory=list)
 
 
-def mesh_family_check(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is of the dense family
-    (RMSNorm, RoPE, GQA attention, SwiGLU), the one trained on a mesh."""
-    if (cfg.moe or cfg.mla or cfg.ssm or cfg.hybrid or cfg.inputs_embeds
-            or cfg.num_patch_tokens):
-        raise NotImplementedError(
-            f"{cfg.name}: training on a mesh covers the dense family only; "
-            f"MoE, MLA, SSM, the hybrid and the stub frontends under a "
-            f"mesh are the next slice (ROADMAP.md queue 1)")
-
-
 def is_fatal(err: BaseException) -> bool:
     """A failure no retry can cure: a kernel's own (``KernelError``), or a
     CUDA error, after which the context is unusable."""
@@ -94,8 +82,6 @@ class Trainer:
                  failure_hook: Optional[Callable[[int], None]] = None,
                  straggler_factor: float = 3.0,
                  device: DeviceLike = None):
-        if mesh is not None:
-            mesh_family_check(cfg)
         self.cfg = cfg
         self.tc = tc
         self.mesh = mesh

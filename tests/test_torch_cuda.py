@@ -46,7 +46,8 @@ from repro_torch.kernels.ssd import (ssd_chunk_scan, ssd_chunk_scan_backward,
                                      ssd_chunk_scan_train)
 from repro_torch.kernels.kq_decode import (
     combine_split_partials, kq_combine_splits, kq_decode_attention,
-    kq_decode_attention_ref, kq_decode_paged_attention,
+    kq_decode_attention_ref, kq_decode_attention_span,
+    kq_decode_attention_span_ref, kq_decode_paged_attention,
     kq_decode_paged_attention_int8_ref, kq_decode_paged_attention_ref,
     kq_decode_paged_attention_split_ref, kq_decode_paged_int8,
     kq_decode_paged_int8_split, kq_decode_paged_partials_ref,
@@ -99,6 +100,66 @@ def test_k3_matches_plain_version(cuda, B, H, Hkv, T, Rk, Rv, lengths,
     assert kq_decode_attention.launches == before + 1
     _close_ulps(out, kq_decode_attention_ref(qc, kc, vc, lens, scale=0.25),
                 dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,T,Rk,Rv,lengths", [
+    (8, 32, 4, 256, 50, 42, (0, 0, 1, 31, 200, 256, 256, 256)),
+    (8, 32, 4, 1024, 50, 42, (544,) * 8),
+    (3, 15, 5, 128, 32, 32, (0, 128, 77)),          # smollm's m = 3
+    (2, 64, 4, 70, 256, 256, (70, 0)),              # m = 16, widest ranks
+])
+def test_k3_span_matches_plain_version(cuda, B, H, Hkv, T, Rk, Rv, lengths,
+                                       dtype):
+    """K3's span output (rows and LSE, float32) against its plain version,
+    an empty span (length 0) giving a zero row and an LSE of -1e30 +
+    log(1e-30); one launch counted on the span wrapper, none on K3's."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    qc = torch.randn(B, H, Rk, generator=g, device=cuda).to(dtype)
+    kc = torch.randn(B, Hkv, T, Rk, generator=g, device=cuda).to(dtype)
+    vc = torch.randn(B, Hkv, T, Rv, generator=g, device=cuda).to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = (kq_decode_attention_span.launches, kq_decode_attention.launches)
+    out, lse = kq_decode_attention_span(qc, kc, vc, lens, scale=0.25)
+    torch.cuda.synchronize()
+    assert (kq_decode_attention_span.launches,
+            kq_decode_attention.launches) == (before[0] + 1, before[1])
+    assert out.dtype == lse.dtype == torch.float32
+    ref_out, ref_lse = kq_decode_attention_span_ref(qc, kc, vc, lens,
+                                                    scale=0.25)
+    _close_ulps(out, ref_out, dtype)
+    live = lens > 0
+    np.testing.assert_allclose(lse[live].cpu().numpy(),
+                               ref_lse[live].cpu().numpy(), rtol=1e-5,
+                               atol=1e-4 if dtype == torch.float32 else 2e-2)
+    assert bool((out[~live] == 0).all())
+    assert bool((lse[~live] <= -1e29).all())
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_half_spans_merge_to_one_whole_call(cuda, dtype):
+    """Two half spans of a cache, each through K3's span output, merged by
+    their LSE (``combine_split_partials``) give one whole-cache K3 call's
+    output: rows whose length ends in the first half (the second half
+    empty), straddles the cut, or fills both."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    B, H, Hkv, T, Rk, Rv = 8, 32, 4, 1024, 50, 42
+    qc = torch.randn(B, H, Rk, generator=g, device=cuda).to(dtype)
+    kc = torch.randn(B, Hkv, T, Rk, generator=g, device=cuda).to(dtype)
+    vc = torch.randn(B, Hkv, T, Rv, generator=g, device=cuda).to(dtype)
+    lens = torch.tensor([1, 31, 511, 512, 513, 777, 1023, 1024],
+                        dtype=torch.int32, device=cuda)
+    whole = kq_decode_attention(qc, kc, vc, lens, scale=0.125)
+    parts = [kq_decode_attention_span(
+        qc, kc[:, :, t0:t0 + T // 2].contiguous(),
+        vc[:, :, t0:t0 + T // 2].contiguous(),
+        (lens - t0).clamp(0, T // 2).to(torch.int32), scale=0.125)
+        for t0 in (0, T // 2)]
+    merged = combine_split_partials(torch.stack([o for o, _ in parts], -3),
+                                    torch.stack([s for _, s in parts], -2))
+    torch.cuda.synchronize()
+    _close_ulps(merged.to(dtype), whole, dtype)
 
 
 def _paged(dev, dtype, B, H, Hkv, ps, n_pages, Rk, Rv, S=None):
@@ -1495,3 +1556,151 @@ def test_mesh_training_on_four_cards_matches_one_card(cuda, tmp_path):
     print(f"four-card (2, 2) mesh losses {ranks[0]['losses']}, ms a step "
           f"p50 {ranks[0]['ms']:.2f}; one card {one}, "
           f"{sorted(rep.step_times)[1] * 1e3:.2f}")
+
+
+MESH_DECODE_RANK = r"""
+import dataclasses, datetime, json, os, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, tmp = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(rank)
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group(
+    "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 4), rank=rank,
+    world_size=4, timeout=datetime.timedelta(seconds=180))
+from repro_torch.configs import get_config
+from repro_torch.kernels.kq_decode import (kq_decode_attention,
+                                           kq_decode_attention_span)
+from repro_torch.kernels.kq_decode import kq_decode as k3_mod
+from repro_torch.launch import specs
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import build_model
+from repro_torch.sharding.partition import (cut_axes, is_dtensor,
+                                            merge_spans, params_shardings,
+                                            place_tree, use_mesh)
+from repro_torch.train.steps import make_decode_step, make_prefill_step
+from repro_torch.tree import tree_map
+
+plain = {"n": 0}
+ref = k3_mod.kq_decode_attention_span_ref
+
+
+def counted(*args, **kw):
+    plain["n"] += 1
+    return ref(*args, **kw)
+
+
+k3_mod.kq_decode_attention_span_ref = counted
+inp = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+cfg = dataclasses.replace(get_config("smollm-360m"), dtype="float32")
+model = build_model(cfg)
+dev = model.device
+params = model.init(torch.Generator(device=dev).manual_seed(0))
+mesh = make_local_mesh(1, 4)
+full = lambda t: t.full_tensor() if is_dtensor(t) else t
+with use_mesh(mesh):
+    p = place_tree(params, params_shardings(params, mesh, fsdp=True))
+    proj = tree_map(lambda t: t.to(dev), inp["proj"])
+    proj = place_tree(proj, specs.projection_shardings(proj, mesh))
+    tok = {"tokens": torch.as_tensor(inp["prompts"], device=dev)}
+    tok = place_tree(tok, specs.batch_shardings(tok, mesh))
+    kq_decode_attention.launches = kq_decode_attention_span.launches = 0
+    merges = merge_spans.calls
+    logits, cache = make_prefill_step(model, inp["max_len"], True)(p, proj,
+                                                                  tok)
+    seq = [list(cut_axes(cache[0]["kc"], d)) for d in range(4)]
+    local_t = cache[0]["kc"].to_local().shape[2]
+    decode = make_decode_step(model, True)
+    toks, walls = [], []
+    for i in range(inp["steps"]):
+        nxt = full(logits)[:, -1].argmax(-1)[:, None].to(torch.int32)
+        toks.append(nxt[:, 0].tolist())
+        nxt = place_tree({"tokens": nxt}, specs.batch_shardings(
+            {"tokens": nxt}, mesh))["tokens"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = decode(p, proj, cache, nxt, inp["prompt_len"] + i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+    json.dump({"tokens": toks, "span": kq_decode_attention_span.launches,
+               "k3": kq_decode_attention.launches, "plain": plain["n"],
+               "merges": merge_spans.calls - merges, "placements": seq,
+               "local_t": local_t,
+               "ms": float(np.median(walls[1:]) * 1e3)}, f)
+dist.destroy_process_group()
+"""
+
+
+def test_mesh_decode_on_four_cards_matches_one_card(cuda, tmp_path):
+    """smollm-360m at full width and depth (float32) on a (1, 4) NCCL mesh,
+    one rank a card: its 5 kv heads do not divide 4, so the cache's
+    sequence is cut over the four cards (``cache_shardings``); compressed
+    prefill of 4 prompts of 256 into a cache of 512 and 8 greedy decode
+    steps give one card's tokens; each rank launches K3's span output 32
+    layers x 8 steps times, K3 never, the plain version never, and merges
+    its span's rows with the others' once a layer a step.  float32: the
+    model axis's partial sums (the FFN, the vocabulary) reduce in another
+    order than one card sums, and the point is the span decode, not a
+    near-tie token under bf16 rounding."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import time
+    from repro_torch.kernels import build
+    from repro_torch.launch import specs
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 NVIDIA GPUs (one rank a card)")
+    for name in ("flash", "kq_decode"):        # the ranks find them built
+        build.load(name)
+    cfg = dataclasses.replace(get_config("smollm-360m"), dtype="float32")
+    model = build_model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator().manual_seed(3)
+    proj = [{k: torch.randn(t.shape, generator=g) * 0.2 for k, t in d.items()}
+            for d in specs.abstract_projections(model,
+                                                specs.default_ranks(cfg))]
+    prompts = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (4, 256)).astype(np.int32)
+    steps, max_len = 8, 512
+    torch.save({"proj": proj, "prompts": prompts, "steps": steps,
+                "max_len": max_len, "prompt_len": 256},
+               tmp_path / "inputs.pt")
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    procs = [subprocess.Popen([sys.executable, "-c", MESH_DECODE_RANK,
+                               str(r), str(tmp_path)], env=env)
+             for r in range(4)]
+    # one card, meanwhile: the same steps with no mesh
+    pj = [{k: t.to(cuda) for k, t in d.items()} for d in proj]
+    logits, cache = make_prefill_step(model, max_len, True)(
+        params, pj, {"tokens": torch.as_tensor(prompts, device=cuda)})
+    decode = make_decode_step(model, True)
+    one = []
+    for i in range(steps):
+        nxt = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        one.append(nxt[:, 0].tolist())
+        logits, cache = decode(params, pj, cache, nxt, 256 + i)
+    try:                # a rank that fails leaves the others in a collective
+        while any(p.poll() is None for p in procs):
+            assert all(p.returncode in (None, 0) for p in procs), \
+                [p.returncode for p in procs]
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0] * 4
+    ranks = [json.load(open(tmp_path / f"rank{r}.json")) for r in range(4)]
+    for r in ranks:
+        assert r["placements"] == [[], [], ["model"], []]
+        assert r["local_t"] == max_len // 4
+        assert r["tokens"] == one, (r["tokens"], one)
+        assert r["span"] == cfg.n_layers * steps and r["k3"] == 0
+        assert r["plain"] == 0 and r["merges"] == cfg.n_layers * steps
+    print(f"four-card (1, 4) mesh decode: tokens {ranks[0]['tokens']} equal "
+          f"one card's; ms a decode step p50 {ranks[0]['ms']:.2f}; K3 span "
+          f"{ranks[0]['span']} a rank")

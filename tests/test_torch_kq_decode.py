@@ -15,7 +15,9 @@ from repro.kernels.kq_decode import (kq_decode_attention_op,
                                      kq_decode_attention_ref)
 from repro_torch.kernels import build
 from repro_torch.kernels.kq_decode import kq_decode as k3_mod
-from repro_torch.kernels.kq_decode import (kq_decode_attention,
+from repro_torch.kernels.kq_decode import (combine_split_partials,
+                                           kq_decode_attention,
+                                           kq_decode_attention_span,
                                            kq_decode_attention_ref as
                                            torch_ref)
 
@@ -129,6 +131,38 @@ def test_cpu_tensor_takes_the_plain_version(monkeypatch):
     kq_decode_attention(q, k, v, torch.tensor([3, 16], dtype=torch.int32))
     assert calls == [1]
     assert kq_decode_attention.launches == before
+
+
+@pytest.mark.parametrize("cut", [1, 2, 4])
+def test_span_output_merges_to_the_reference_kernel(cut):
+    """K3's span output (plain version on CPU tensors): the cache cut into
+    ``cut`` spans, each rank's rows and LSE at its span lengths
+    ``clamp(len - t0, 0, T / cut)``, merged by their LSE
+    (``combine_split_partials``), give the reference's Pallas kernel; a
+    span wholly past a length gives a zero row and an LSE of -1e30 (weight
+    0), no NaN; no launch is counted on either wrapper."""
+    arrays = _inputs(7, 3, 8, 2, 32, 12, 10)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, "float32")
+    lens = np.asarray([0, 9, 32], np.int32)
+    kern = np.asarray(kq_decode_attention_op(jq, jk, jv, jnp.asarray(lens),
+                                             block_t=8))
+    before = (kq_decode_attention_span.launches, kq_decode_attention.launches)
+    span = 32 // cut
+    parts = [kq_decode_attention_span(
+        tq, tk[:, :, t0:t0 + span], tv[:, :, t0:t0 + span],
+        torch.as_tensor(np.clip(lens - t0, 0, span).astype(np.int32)))
+        for t0 in range(0, 32, span)]
+    for t0, (out, lse) in zip(range(0, 32, span), parts):
+        assert out.dtype == lse.dtype == torch.float32
+        empty = torch.as_tensor(lens - t0 <= 0)
+        assert bool((out[empty] == 0).all())
+        assert bool((lse[empty] <= -1e29).all())
+    merged = combine_split_partials(torch.stack([o for o, _ in parts], -3),
+                                    torch.stack([s for _, s in parts], -2))
+    assert bool(torch.isfinite(merged).all())
+    np.testing.assert_allclose(merged.numpy(), kern, rtol=2e-5, atol=2e-5)
+    assert (kq_decode_attention_span.launches,
+            kq_decode_attention.launches) == before
 
 
 def test_module_imports_without_nvcc(tmp_path):

@@ -133,8 +133,10 @@ def test_kernel_failure_is_not_retried(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mamba2-2.7b"])
 def test_mesh_refuses_other_families(arch):
-    """Training on a mesh covers the dense family: a MoE (and MLA) or an
-    SSM config under one raises, naming the next slice."""
+    """Training on a mesh covers every family now: a MoE (and MLA) or an
+    SSM config under one is refused no more; the trainer keeps the mesh
+    (``test_torch_mesh`` trains them on one)."""
     tc = TrainConfig(checkpoint_every=0)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        Trainer(get_config(arch).reduced(), tc, device="cpu", mesh=object())
+    mesh = object()
+    assert Trainer(get_config(arch).reduced(), tc, device="cpu",
+                   mesh=mesh).mesh is mesh
