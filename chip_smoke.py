@@ -181,7 +181,31 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              recompute, through ``local_map`` on the mesh), their plain
              forwards never; MoE's ``dropped_frac`` (G = 1 group a layer
              on (1, 1)), ms a step and peak memory printed;
-3g. window   h2o-danube-1.8b at full width (24 layers, d_head 80, window
+3s. dry run  (after 3r) ``repro_torch.launch.dryrun.run_cell`` with
+             ``device_type="cuda"`` (fake CUDA tensors: every wrapper on
+             its kernel's route books its work and computes nothing), each
+             cell in a child process of its own (a fake process group
+             cannot share a process with an NCCL one), all started
+             together when this phase begins: their host work runs
+             beside (b)'s real steps only, and no earlier phase is timed
+             under it.
+             (a) ``SAMPLE_3S`` on the fake (16, 16) mesh: tinyllama
+             ``train_4k``, ``prefill_32k kqsvd`` and ``decode_32k
+             kqsvd_int8``, deepseek-v2-lite ``decode_32k kqsvd``, mamba2
+             ``long_500k``, jamba ``long_500k kqsvd``, and tinyllama
+             ``train_4k`` on the fake (2, 16, 16) mesh: each ``ok``, its
+             ``summarize`` line, hbm a device, collectives by kind and the
+             kernels booked printed.  (b) 3q's training step (tinyllama at
+             full width, 8 x 512, AdamW) and 3r (a)'s compressed decode
+             step (8 slots, a cache of 1024 at its last position), dry run
+             on a fake one-rank (1, 1) group, and the same steps run for
+             real on the card (a one-rank NCCL (1, 1) mesh, inputs placed
+             as the dry run places them) under the same op and collective
+             counts: FLOPs equal within 1e-6 relative, the kernels booked
+             equal to the launch counters, the dry run's peak within a
+             factor 2 of ``torch.cuda.max_memory_allocated()`` of the real
+             step (the ratio printed);
+3g. window  h2o-danube-1.8b at full width (24 layers, d_head 80, window
              4096, bf16, seeded random weights), KQ-SVD calibrated on
              16 x 512 tokens in batches of 4, on dense slots
              (``ServeConfig(max_batch=4, max_seq_len=8192,
@@ -251,16 +275,17 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              compressed and full cache bytes; then a profiled decode step
              (4 slots at 4096, the MoE FFN's share) and a profiled
              4096-token prefill (K7's share and each of its kernels' ms);
-3o. stubs    (a) musicgen-large at full width and depth (48 layers, 32 MHA
-             heads of 64, d_ff 8192, vocab 2048; 3.23 B parameters): device
+3o. stubs    (a) musicgen-large at full width, 24 of its 48 layers
+             (``DEPTH_3O``; 32 MHA heads of 64, d_ff 8192, vocab 2048;
+             3.23 B parameters at full depth): device
              calibration on 16 x 512 frame embeddings of the stub frontend
-             (``data.stub_batch``: seeded, normal x 0.1; K6 48 x 4 at (64,
+             (``data.stub_batch``: seeded, normal x 0.1; K6 24 x 4 at (64,
              64)); the solve in threads (as ``launch/serve.py`` runs it)
-             timed, and on 16 layers against one layer after another
+             timed, and on 4 layers against one layer after another
              (equal within 1e-12 of the largest entry);
              then 3c's paged engine (fp pages of 16, 256 of them,
              chunks of 256) serving 16 token requests of 32..1000 and 32
-             new: K1 = 48 x decode steps, K2 = 48 x chunks, nothing else,
+             new: K1 = 24 x decode steps, K2 = 24 x chunks, nothing else,
              the pool whole; a profiled decode step.  (b) phi-3-vision-4.2b
              at full width and depth (32 layers, 32 MHA heads of 96, d_ff
              8192; 3.82 B parameters): device calibration on 16 x (576
@@ -373,6 +398,7 @@ the reference package, and exits non-zero where CUDA is not available.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -426,7 +452,41 @@ DEPTH_3M = 7
 # layers (about 1.7 B params: 33 GB of bf16 weights and gradients, f32
 # moments and the update's copy); (c): mamba2-2.7b's, 16 of 64 layers
 DEPTH_3R_DEEPSEEK = 3
+# phase 3o (a): musicgen-large's depth, cut from 48 to 24 layers, and the
+# solve timed in threads against the serial loop on its first 4 layers
+# (48 and 16 until phase 3s came in: at those depths 3o (a) took 107.6 s
+# and 37.4 s at these, on an H100 at 700 W, and the script's phases
+# without the cut would come to about 1000 s of its 1200 s)
+DEPTH_3O, SOLVE_LAYERS_3O = 24, 4
 DEPTH_3R_MAMBA = 16
+# phase 3s (a): the dry run's sample cells, (arch, shape, variant, on the
+# (2, 16, 16) mesh); (b): 3q's training step and 3r (a)'s decode step
+SAMPLE_3S = (("tinyllama-1.1b", "train_4k", "baseline", False),
+             ("tinyllama-1.1b", "prefill_32k", "kqsvd", False),
+             ("tinyllama-1.1b", "decode_32k", "kqsvd_int8", False),
+             ("deepseek-v2-lite-16b", "decode_32k", "kqsvd", False),
+             ("mamba2-2.7b", "long_500k", "baseline", False),
+             ("jamba-1.5-large-398b", "long_500k", "kqsvd", False),
+             ("tinyllama-1.1b", "train_4k", "baseline", True))
+SHAPE_3S_TRAIN = ("train_3q", 512, 8, "train")
+SHAPE_3S_DECODE = ("decode_3r", 1024, 8, "decode")
+# one dry-run cell in a process of its own: argv[1] the JSON of (arch,
+# shape name or ShapeSpec fields, variant, multi_pod, mesh shape or None,
+# output directory); prints the record, with its summary line, last
+DRYRUN_CHILD = r"""
+import json, sys
+from repro_torch.config import ShapeSpec
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.roofline.analysis import Roofline, summarize
+arch, shape, variant, multi, mesh, out = json.loads(sys.argv[1])
+shape = ShapeSpec(*shape) if isinstance(shape, list) else shape
+rec = run_cell(arch, shape, multi, variant, out,
+               mesh_shape=tuple(mesh) if mesh else None, device_type="cuda")
+if rec["status"] == "ok":
+    rec["summary"] = summarize(Roofline(**{
+        k: rec[k] for k in Roofline.__dataclass_fields__}))
+print(json.dumps(rec))
+"""
 SOURCES = ("kq_decode", "kq_paged", "flash", "ssd")
 # K7's kernels by name: bf16's three (csrc/ssd_tc.cuh), float32's one
 K7_KERNELS = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_scan_kernel",
@@ -547,6 +607,44 @@ def measure(row: dict, label: str, dt_name: str, kernel, plain, library,
         row.update({f"{k}_float32": v for k, v in times.items()},
                    bound_ms_float32=bound["bound_ms"],
                    max_abs_err_float32=err)
+
+
+def start_dryrun_children():
+    """Phase 3s's dry-run cells, each ``DRYRUN_CHILD`` in a process of its
+    own (a fake process group cannot share a process with an NCCL one),
+    all started together: the sample cells, then 3q's and 3r's steps on a
+    (1, 1) mesh.  Returns (jobs, processes, output directory)."""
+    jobs = [(arch, shape, variant, multi, None)
+            for arch, shape, variant, multi in SAMPLE_3S]
+    jobs += [("tinyllama-1.1b", list(sh), variant, False, (1, 1))
+             for sh, variant in ((SHAPE_3S_TRAIN, "baseline"),
+                                 (SHAPE_3S_DECODE, "kqsvd"))]
+    out = tempfile.mkdtemp(prefix="chip_smoke_3s_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CHILD, json.dumps(list(job) + [out])],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for job in jobs]
+    CHILDREN.extend(procs)
+    return jobs, procs, out
+
+
+def stop_children(procs) -> None:
+    """Kill and reap any of ``procs`` still running."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+# every child process the script starts, stopped at exit whatever happens
+CHILDREN: list = []
+atexit.register(lambda: stop_children(CHILDREN))
+
+
+def work_bytes_flops(work) -> tuple:
+    """A kernel's ``*_work`` ``(flops, bytes)`` in ``measure``'s order."""
+    return work[1], work[0]
 
 
 def paged_inputs(g, dev, dt, B, H, Hkv, ps, n_pages, Rk, Rv, S=None):
@@ -1345,7 +1443,6 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}")
         for name, log in logs.items():      # registers / spills per kernel
             print(f"  {name}: " + "; ".join(ptxas_summary(log)))
-
     # -- 3: the dense main path ---------------------------------------------
     with phase("3 serve tinyllama-1.1b, full width, KQ-SVD, dense slots"):
         cfg = get_config("tinyllama-1.1b")
@@ -2390,6 +2487,108 @@ def main() -> int:
             if arch == "deepseek-v2-lite-16b")
         print(f"phase 3r: {time.perf_counter() - t_3r:.1f} s")
 
+    # -- 3s: the dry run, sample cells and against real steps ---------------
+    with phase("3s dry run: sample cells on the fake (16, 16) and (2, 16, 16) "
+               "meshes, and 3q's / 3r's steps against real ones"):
+        import gc as gc_module
+        import torch.distributed as dist
+        from repro_torch.config import ShapeSpec
+        from repro_torch.launch import dryrun as dryrun_mod
+        from repro_torch.launch.mesh import make_local_mesh
+        from repro_torch.roofline.analysis import count_collectives
+        from repro_torch.roofline.flop_count import OpCounter
+        from repro_torch.sharding.partition import use_mesh
+        t_3s = time.perf_counter()
+        # the dry-run cells trace in their children while the real steps
+        # run here; no earlier phase is timed beside them
+        jobs_3s, procs_3s, out_3s = start_dryrun_children()
+        steps_3s = {"train": (ShapeSpec(*SHAPE_3S_TRAIN), "baseline"),
+                    "decode": (ShapeSpec(*SHAPE_3S_DECODE), "kqsvd")}
+        try:
+            # (b) the same steps counted for real on the card
+            real_3s = {}
+            dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                    world_size=1)
+            try:
+                mesh = make_local_mesh(1, 1)
+                qcfg = get_config("tinyllama-1.1b")
+                for label, (sh, variant) in steps_3s.items():
+                    # the step's own peak: what earlier work left behind
+                    # (the previous step's autograd cycles) collected first
+                    gc_module.collect()
+                    torch.cuda.empty_cache()
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    with use_mesh(mesh):
+                        step, args = dryrun_mod._trace_cell(qcfg, sh, mesh,
+                                                            variant, dev)
+                        zero_counts()
+                        with OpCounter() as oc, count_collectives() as coll:
+                            out = step(*args)
+                        torch.cuda.synchronize()
+                    real_3s[label] = {
+                        "totals": oc.totals(), "coll": coll.count_by_op,
+                        "launches": {w.__name__: w.launches for w in wrappers
+                                     if w.launches},
+                        "peak": torch.cuda.max_memory_allocated() - base}
+                    assert real_3s[label]["peak"] > 0, (label, base)
+                    del step, args, out
+            finally:
+                dist.destroy_process_group()
+            t_wait = time.perf_counter()
+            recs = []
+            for job, proc in zip(jobs_3s, procs_3s):
+                text = proc.communicate(timeout=600)[0]
+                assert proc.returncode == 0, (job, text[-3000:])
+                recs.append(json.loads(text.strip().splitlines()[-1]))
+            print(f"3s: the dry-run children ended "
+                  f"{time.perf_counter() - t_wait:.1f} s after the real "
+                  f"steps")
+        finally:
+            stop_children(procs_3s)
+            shutil.rmtree(out_3s, ignore_errors=True)
+        # (a) every sample cell traced to its end
+        for rec in recs[:len(SAMPLE_3S)]:
+            assert rec["status"] == "ok", (rec["arch"], rec["shape"],
+                                           rec["variant"], rec["mesh"],
+                                           rec.get("error"),
+                                           rec.get("traceback"))
+            print(f"3s (a) {rec['mesh']}: {rec['summary']}")
+            print(f"    hbm/device {rec['hbm_per_device_gib']:.3f} GiB (args "
+                  f"{rec['mem_args'] / 2**30:.3f}, out "
+                  f"{rec['mem_out'] / 2**30:.3f}, temp "
+                  f"{rec['mem_temp'] / 2**30:.3f}); collectives by kind "
+                  f"{rec['collectives']['count_by_op']} (wire bytes "
+                  f"{ {k: round(v) for k, v in rec['collectives']['by_op'].items()} }); "
+                  f"kernels { {k: v['calls'] for k, v in rec['kernels'].items()} }; "
+                  f"trace {rec['t_trace_s']:.1f} s")
+        # (b) the dry run against the real steps
+        for rec, (label, real) in zip(recs[len(SAMPLE_3S):],
+                                      real_3s.items()):
+            assert rec["status"] == "ok", (label, rec.get("error"),
+                                           rec.get("traceback"))
+            tot = real["totals"]
+            rel = abs(rec["hlo_flops"] - tot.flops) / tot.flops
+            booked = {k: v["calls"] for k, v in rec["kernels"].items()}
+            real_booked = {k: v["calls"] for k, v in tot.kernels.items()}
+            est = rec["mem_args"] + rec["mem_out"] + rec["mem_temp"]
+            ratio = est / real["peak"]
+            print(f"3s (b) {label} ({rec['shape']} {rec['variant']}, mesh "
+                  f"(1, 1)): FLOPs dry run {rec['hlo_flops']:.6e}, real "
+                  f"{tot.flops:.6e} (relative difference {rel:.3g}, limit "
+                  f"1e-6); bytes dry run {rec['hlo_bytes']:.6e}, real "
+                  f"{tot.bytes:.6e}; kernels booked {booked}, launched "
+                  f"{real['launches']}; collectives dry run "
+                  f"{rec['collectives']['count_by_op']}, real {real['coll']}; "
+                  f"estimated peak {est / 2**30:.3f} GiB, measured "
+                  f"{real['peak'] / 2**30:.3f} GiB (ratio {ratio:.3f})")
+            assert rel <= 1e-6, (label, rec["hlo_flops"], tot.flops)
+            assert booked == real["launches"] == real_booked, (
+                label, booked, real["launches"], real_booked)
+            assert 0.5 <= ratio <= 2.0, (label, est, real["peak"])
+        print(f"phase 3s: {time.perf_counter() - t_3s:.1f} s")
+
     # -- 3g: the sliding-window ring cache -----------------------------------
     with phase("3g serve h2o-danube-1.8b, full width, KQ-SVD, dense slots, "
                "window 4096"):
@@ -2838,10 +3037,12 @@ def main() -> int:
         print(f"phase 3n: {time.perf_counter() - t_3n:.1f} s")
 
     # -- 3o: the audio and VLM stubs ----------------------------------------
-    with phase("3o (a) serve musicgen-large (full width and depth), KQ-SVD "
-               "calibrated on the stub frontend's embeddings, fp pages"):
+    with phase(f"3o (a) serve musicgen-large (full width, {DEPTH_3O} of 48 "
+               f"layers), KQ-SVD calibrated on the stub frontend's "
+               f"embeddings, fp pages"):
         t_3o = time.perf_counter()
-        ucfg = get_config("musicgen-large")
+        ucfg = dataclasses.replace(get_config("musicgen-large"),
+                                   n_layers=DEPTH_3O)
         umodel = build_model(ucfg)
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
@@ -2860,20 +3061,21 @@ def main() -> int:
         torch.cuda.synchronize()
         grams_s = time.perf_counter() - t0
         # the solve as launch/serve.py's calibrate_model calls it (its
-        # layers in threads, one a core), then the first 16 layers in
-        # threads and one after another, numpy's BLAS as it is
+        # layers in threads, one a core), then the first SOLVE_LAYERS_3O
+        # layers in threads and one after another, numpy's BLAS as it is
         uacc = accumulator_from_grams(grams)
         ucc = CompressionConfig(method="kqsvd", epsilon=0.1)
         uw = umodel.group_output_weights(uparams)
         t0 = time.perf_counter()
         ump = uacc.solve(ucc, uw)
         solve_s = time.perf_counter() - t0
-        uacc.layers = uacc.layers[:16]
+        uacc.layers = uacc.layers[:SOLVE_LAYERS_3O]
         t0 = time.perf_counter()
         uacc.solve(ucc, uw)
         threads16_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        serial = [uacc._solve_layer(l, ucc, uw) for l in range(16)]
+        serial = [uacc._solve_layer(l, ucc, uw)
+                  for l in range(SOLVE_LAYERS_3O)]
         serial16_s = time.perf_counter() - t0
         for l, (rk, rv, keys, values) in enumerate(serial):
             assert (rk, rv) == (ump.ranks_k[l], ump.ranks_v[l])
@@ -2894,7 +3096,7 @@ def main() -> int:
               f"usable cores, os.cpu_count {os.cpu_count()}); ranks "
               f"k={ump.ranks_k} v={ump.ranks_v} (padded Rk={ump.rank_k} "
               f"Rv={ump.rank_v})")
-        print(f"solve of the first 16 layers: in threads "
+        print(f"solve of the first {SOLVE_LAYERS_3O} layers: in threads "
               f"{threads16_s:.2f} s, one after another {serial16_s:.2f} s "
               f"(projections equal within 1e-12 of the largest entry)")
         k6_musicgen = flash_attention.launches
@@ -3088,10 +3290,8 @@ def main() -> int:
                                                         scale=scale_),
                         lambda: sdpa(qc[:, :, None], kx, vx, attn_mask=emask,
                                      scale=scale_)[:, :, 0],
-                        flush,
-                        live_ * Hkv_ * (rk_ + rv_) * isz
-                        + B_ * H_ * (rk_ + rv_) * isz + B_ * 4,
-                        2 * live_ * H_ * (rk_ + rv_))
+                        flush, *work_bytes_flops(k3_mod.kq_decode_work(
+                            B_, H_, Hkv_, rk_, rv_, isz, live_)))
                 del qc, kc, vc, kx, vx
 
         k3 = {"name": "kq_decode (K3)", "route": "cuda",
@@ -3161,10 +3361,8 @@ def main() -> int:
                 measure(row, label, dt_name,
                         lambda: both(kq_decode_attention_span),
                         lambda: both(kq_decode_attention_span_ref), None,
-                        flush,
-                        live_ * Hkv * (rk + rv) * isz + B_ * H * rk * isz
-                        + B_ * H * (rv + 1) * 4 + B_ * 4,
-                        2 * live_ * H * (rk + rv))
+                        flush, *work_bytes_flops(k3_mod.kq_decode_span_work(
+                            B_, H, Hkv, rk, rv, isz, live_)))
                 out, lse = kq_decode_attention_span(qc, kc, vc, el,
                                                     scale=scale)
                 dead = el == 0
@@ -3254,10 +3452,9 @@ def main() -> int:
                             qc, kp, vp, el, btab, scale=sc_),
                         lambda: sdpa(qc[:, :, None], kx, vx, attn_mask=emask,
                                      scale=sc_)[:, :, 0],
-                        flush,
-                        live_ * Hkv_ * (rk_ + rv_) * isz
-                        + B_ * H_ * (rk_ + rv_) * isz + B_ * 4 + used * 4,
-                        2 * live_ * H_ * (rk_ + rv_))
+                        flush, *work_bytes_flops(
+                            paged_mod.kq_decode_paged_work(
+                                B_, H_, Hkv_, rk_, rv_, isz, live_, used)))
 
         def measure_k2(row, label, H_, Hkv_, rk_, rv_, scale_=None):
             """K2 for one chunk at ``row``'s (S, pos0, n_valid) against its
@@ -3274,7 +3471,6 @@ def main() -> int:
             t = torch.arange(T, device=dev)
             cmask = ((t[None, :] <= qpos[:, None])
                      & (t[None, :] < int(plen)))[None, None]   # (1,1,S,T)
-            seen = torch.minimum(qpos + 1, plen.long())        # keys per row
             for dt_name in ("bfloat16", "float32"):
                 dt = getattr(torch, dt_name)
                 qc, kp, vp, btab = paged_inputs(g, dev, dt, 1, H_, Hkv_, ps,
@@ -3290,11 +3486,10 @@ def main() -> int:
                             qc, kp, vp, plen, pos0, btab, scale=sc_),
                         lambda: sdpa(qc, kx, vx, attn_mask=cmask,
                                      scale=sc_),
-                        flush,
-                        int(plen) * Hkv_ * (rk_ + rv_) * isz
-                        + H_ * S * (rk_ + rv_) * isz + 8
-                        + -(-int(plen) // ps) * 4,
-                        2 * int(seen.sum()) * H_ * (rk_ + rv_))
+                        flush, *work_bytes_flops(
+                            paged_mod.kq_prefill_paged_work(
+                                H_, Hkv_, S, rk_, rv_, isz, ps, [int(plen)],
+                                [pos0_v])))
 
         k1 = {"name": "kq_decode_paged (K1)", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/kq_paged.cu "
@@ -3411,10 +3606,9 @@ def main() -> int:
                                          ks8, vs8),
                     lambda: sdpa(qc[:, :, None], kdx, vdx, attn_mask=a_mask,
                                  scale=arc_scale)[:, :, 0],
-                    flush,
-                    a_live * aHkv * (ark + arv + 2 * 2)
-                    + 8 * aH * (ark + arv) * isz + 8 * 4 + a_used * 4,
-                    2 * a_live * aH * (ark + arv))
+                    flush, *work_bytes_flops(
+                        paged_mod.kq_decode_paged_int8_work(
+                            8, aH, aHkv, ark, arv, isz, a_live, a_used)))
             del qc, kp, vp, btab, k8, v8, ks8, vs8, kdx, vdx
 
         # K1 and K2 at phase 3o's musicgen-large shapes: MHA (m 1, 32 heads
@@ -3446,8 +3640,6 @@ def main() -> int:
         # inside the launch, are counted only in ``bound_ms_with_partials``
         # (and in float32, which still merges in a second launch)
         n_sp, span = resolve_splits(8, n_pages)
-        part_bytes = B * Hkv * n_sp * m * (rv + 1) * 4     # f32 partials
-        meta_bytes = B * 4 + pages_used * 4                 # lengths, table
         shape = {"B": B, "H": H, "Hkv": Hkv, "page_size": ps,
                  "n_pages": n_pages, "Rk": rk, "Rv": rv,
                  "lengths": lengths.tolist()}
@@ -3499,7 +3691,6 @@ def main() -> int:
                                   f"{q_launch['combine']} in phase 3e)",
                  "shape": {"B": B, "Hkv": Hkv, "splits": n_sp, "m": m,
                            "Rv": rv}}
-        flops = 2 * live * H * (rk + rv)
         for dt_name in ("bfloat16", "float32"):
             dt = getattr(torch, dt_name)
             qc, kp, vp, btab = paged_inputs(g, dev, dt, B, H, Hkv, ps,
@@ -3514,10 +3705,17 @@ def main() -> int:
                    * gather_pages(vs8, btab).float()).to(dt) \
                 .repeat_interleave(m, dim=1)
             isz = qc.element_size()
-            qo_bytes = B * H * (rk + rv) * isz
-            fp_bytes = live * Hkv * (rk + rv) * isz
-            i8_bytes = live * Hkv * (rk + rv + 2 * 2)      # codes + scales
             bf16 = dt_name == "bfloat16"
+            dims = (B, H, Hkv, rk, rv, isz, live, pages_used)
+            comb = paged_mod.kq_combine_splits_work(B, Hkv, n_sp, m, rv, isz)
+            # one launch in bf16 (its spans merged in it); in float32 the
+            # partials, then the merge kernel: both launches' bytes
+            k4w, k5sw = (
+                (fl, nb + (0 if bf16 else comb[1])) for fl, nb in (
+                    paged_mod.kq_decode_paged_split_work(
+                        *dims, n_sp, merged=bf16),
+                    paged_mod.kq_decode_paged_int8_split_work(
+                        *dims, n_sp, merged=bf16)))
             measure(k4, "K4", dt_name,
                     lambda: kq_decode_paged_attention(
                         qc, kp, vp, lengths, btab, scale=scale,
@@ -3525,8 +3723,7 @@ def main() -> int:
                     lambda: plain_decode(qc, kp, vp, lengths, btab, scale, 8),
                     lambda: sdpa(qc[:, :, None], kx, vx, attn_mask=mask,
                                  scale=scale)[:, :, 0],
-                    flush, fp_bytes + qo_bytes + meta_bytes
-                    + (0 if bf16 else 2 * part_bytes), flops)
+                    flush, *work_bytes_flops(k4w))
             measure(k5, "K5", dt_name,
                     lambda: kq_decode_paged_int8(
                         qc, k8, v8, ks8, vs8, lengths, btab, scale=scale),
@@ -3534,7 +3731,8 @@ def main() -> int:
                                          ks8, vs8),
                     lambda: sdpa(qc[:, :, None], kdx, vdx, attn_mask=mask,
                                  scale=scale)[:, :, 0],
-                    flush, i8_bytes + qo_bytes + meta_bytes, flops)
+                    flush, *work_bytes_flops(
+                        paged_mod.kq_decode_paged_int8_work(*dims)))
             measure(k5s, "K5 split", dt_name,
                     lambda: kq_decode_paged_attention(
                         qc, k8, v8, lengths, btab, scale=scale, num_splits=8,
@@ -3543,8 +3741,7 @@ def main() -> int:
                                          ks8, vs8),
                     lambda: sdpa(qc[:, :, None], kdx, vdx, attn_mask=mask,
                                  scale=scale)[:, :, 0],
-                    flush, i8_bytes + qo_bytes + meta_bytes
-                    + (0 if bf16 else 2 * part_bytes), flops)
+                    flush, *work_bytes_flops(k5sw))
             if bf16:
                 # the one launch against the two it replaces: the same
                 # bits, counters zero, and both times
@@ -3558,8 +3755,10 @@ def main() -> int:
                         num_splits=8, **kw)
                     check_fused(label, out, *args[:3], lengths, btab,
                                 scale, 8, *args[3:])
-                    nbytes = (fp_bytes if label == "K4" else i8_bytes) \
-                        + qo_bytes + meta_bytes + 2 * part_bytes
+                    nbytes = (paged_mod.kq_decode_paged_split_work
+                              if label == "K4" else
+                              paged_mod.kq_decode_paged_int8_split_work)(
+                        *dims, n_sp, merged=False)[1] + comb[1]
                     row["bound_ms_with_partials"] = 1e3 * nbytes \
                         / HBM_BYTES_PER_S
                     row["two_launch_ms"] = cuda_time_ms(
@@ -3580,8 +3779,7 @@ def main() -> int:
                     lambda: kq_combine_splits(o_p, lse_p, out_c),
                     lambda: combine_split_partials(o_p, lse_p).reshape(
                         B, H, rv).to(dt), None, flush,
-                    part_bytes + B * H * rv * isz,
-                    B * H * n_sp * (2 * rv + 2))
+                    *work_bytes_flops(comb))
 
         # K1 and K2 edge cases: page sizes, page-boundary lengths, chunk
         # starts at 0 and mid-page, bucket padding; both types
@@ -3741,11 +3939,6 @@ def main() -> int:
         # batch (MHA, d_head 128) and at smollm-360m's training batch
         # (phase 3l: m = 3).  Bound: 4 d_head flops per (query, key)
         # pair of the band per head, against q, k, v and out moved once.
-        def band_pairs(S, W):
-            if not W or W >= S:
-                return S * (S + 1) // 2
-            return W * (W + 1) // 2 + (S - W) * W
-
         def band_mask(S, W):
             t = torch.arange(S, device=dev)
             keep = t[None, :] <= t[:, None]
@@ -3798,7 +3991,7 @@ def main() -> int:
         k6u = dict(k6_src, name="flash (K6), musicgen-large calibration "
                                 "batch (frame embeddings)",
                    launches=s3o["musicgen"]["K6"],
-                   launches_from="phase 3o (a) (48 x 4 calibration "
+                   launches_from=f"phase 3o (a) ({DEPTH_3O} x 4 calibration "
                                  "batches)",
                    shape={"B": 4, "H": 32, "Hkv": 32, "S": 512, "dh": 64,
                           "window": 0})
@@ -3821,8 +4014,8 @@ def main() -> int:
                     lib = (lambda q=q, k=k, v=v, mask=mask: sdpa(
                         q, k, v, attn_mask=mask, is_causal=mask is None,
                         scale=fscale, enable_gqa=True))
-                    nbytes = 2 * B_ * (H_ + Hkv_) * S * dh_ * isz
-                    flops = 4 * dh_ * band_pairs(S, W_) * B_ * H_
+                    flops, nbytes = flash_mod.flash_work(
+                        B_, H_, Hkv_, S, dh_, dh_, isz, W_)
                     reps = 100 if S <= 512 else 20
                     if S == S_:
                         measure(row, f"K6 S={S} window={W_}", dt_name,
@@ -3882,8 +4075,8 @@ def main() -> int:
                     lambda: flash_attention(q, k, v, scale=mscale),
                     lambda: flash_attention_ref(q, k, v, scale=mscale),
                     lambda: sdpa(q, k, v, is_causal=True, scale=mscale),
-                    flush, 4 * 16 * 512 * (2 * 192 + 2 * 128) * isz,
-                    2 * (192 + 128) * band_pairs(512, 0) * 4 * 16)
+                    flush, *work_bytes_flops(flash_mod.flash_work(
+                        4, 16, 16, 512, 192, 128, isz)))
             del q, k, v
         # K6 edge cases: sequence lengths around a tile, every window
         # edge, groups m (3: rows that do not tile a block in whole
@@ -3947,15 +4140,6 @@ def main() -> int:
             return (x, (dtv * A).transpose(1, 2), dtv.transpose(1, 2), Bm,
                     Cm)
 
-        def ssd_work(B_, nh_, G_, S, hd_, n_, ck, isz, ysz):
-            lens = [min(ck, S - c0) for c0 in range(0, S, ck)]
-            pairs = sum(L * (L + 1) // 2 for L in lens)
-            flops = B_ * nh_ * (2 * pairs * (n_ + hd_) + 4 * S * n_ * hd_)
-            nbytes = (B_ * nh_ * S * hd_ * (isz + ysz)
-                      + 2 * B_ * G_ * S * n_ * isz + 2 * B_ * nh_ * S * 4
-                      + B_ * nh_ * n_ * hd_ * 4)
-            return nbytes, flops
-
         def check_recurrence(label, dt_name, out, args, h0=None):
             y64, h64 = ssd_chunk_scan_ref(*args, h0=h0)
             tol = 5e-2 if dt_name == "bfloat16" else 2e-3  # test_kernels.py
@@ -4015,8 +4199,8 @@ def main() -> int:
             for S in (4096, 4097):
                 args = ssd_views(dt_name, 1, 80, 1, S, 64, 128, True, S)
                 if S == 4096:
-                    nbytes, flops = ssd_work(1, 80, 1, S, 64, 128, 256, isz,
-                                             4)
+                    flops, nbytes = ssd_mod.ssd_work(1, 80, 1, S, 64, 128,
+                                                     256, isz, 4)
                     measure(k7, f"K7 S={S}", dt_name,
                             lambda args=args: ssd_chunk_scan(
                                 *args, chunk=256, out_dtype=f32),
@@ -4055,7 +4239,8 @@ def main() -> int:
         for dt_name in ("bfloat16", "float32"):
             isz = torch.finfo(getattr(torch, dt_name)).bits // 8
             args = ssd_views(dt_name, 1, 128, 1, 4096, 128, 64, True, 4096)
-            nbytes, flops = ssd_work(1, 128, 1, 4096, 128, 64, 256, isz, 4)
+            flops, nbytes = ssd_mod.ssd_work(1, 128, 1, 4096, 128, 64, 256,
+                                             isz, 4)
             measure(k7j, "K7 jamba S=4096", dt_name,
                     lambda args=args: ssd_chunk_scan(
                         *args, chunk=256, out_dtype=f32),

@@ -18,6 +18,10 @@ It is built for the (q/k, v) head widths of ``HEAD_DIMS``, which match
 the source's ``FLASH_PAIRS``.  Every launch adds one to
 ``flash_attention.launches``.
 
+On fake tensors (a dry run) ``flash_attention`` returns an output of
+the kernel's shape and type and computes nothing; under an active op
+count each call books ``flash_work`` (``kernels.booking``).
+
 ``flash_attention_train`` runs it under autograd (``FlashAttention``);
 its backward, ``flash_attention_backward``, is plain PyTorch with a
 counter of its own, as the reference has no backward kernel: it is not
@@ -31,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import booking, build
 from repro_torch.kernels.flash.ref import (NEG_INF, attention_mask,
                                            flash_attention_ref)
 
@@ -41,6 +45,27 @@ from repro_torch.kernels.flash.ref import (NEG_INF, attention_mask,
 HEAD_DIMS = ((8, 8), (16, 16), (32, 32), (64, 64), (80, 80), (96, 96),
              (128, 128), (24, 16), (192, 128))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def band_pairs(S: int, window: int = 0, causal: bool = True) -> int:
+    """The (query, key) pairs K6 attends over a sequence of ``S``:
+    causal ``t <= s``, and ``s - t < window`` with a window."""
+    if not causal:
+        if not window or window >= S:
+            return S * S
+        return S * S - (S - window) * (S - window + 1) // 2
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def flash_work(B: int, H: int, Hkv: int, S: int, dh: int, dv: int,
+               itemsize: int, window: int = 0, causal: bool = True):
+    """(flops, bytes) of one K6 call: 2 (dh + dv) flops a (query, key)
+    pair of the band (``band_pairs``) a query head, against q, k, v and
+    the output (``itemsize`` bytes an element) moved once."""
+    return (2 * (dh + dv) * band_pairs(S, window, causal) * B * H,
+            B * S * (H + Hkv) * (dh + dv) * itemsize)
 
 
 def _library() -> ctypes.CDLL:
@@ -64,9 +89,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``t <= s`` (``causal``) and ``s - t < window`` (``window`` > 0).
     Inputs float32 or bfloat16, all of one type; f32 softmax statistics
     and accumulation; the output is contiguous."""
+    if booking.active():
+        B, H, S, dh = q.shape
+        booking.book("flash_attention", *flash_work(
+            B, H, k.shape[1], S, dh, v.shape[-1], q.element_size(),
+            int(window or 0), causal))
+    if booking.is_fake(q):
+        return q.new_empty((*q.shape[:3], v.shape[-1]))
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   scale=scale)
+        with booking.unseen():
+            return flash_attention_ref(q, k, v, causal=causal,
+                                       window=window, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:

@@ -21,7 +21,10 @@ Each wrapper takes its plain version (``kq_decode_attention_ref``,
 ``kq_decode_attention_span_ref``) only for tensors on the CPU.  For CUDA
 tensors it launches the kernel or raises: there is no fallback.  Every
 launch adds one to ``kq_decode_attention.launches``, or to
-``kq_decode_attention_span.launches`` for the span entry point.
+``kq_decode_attention_span.launches`` for the span entry point.  On fake
+tensors (a dry run) each returns outputs of the kernel's shapes and
+types and computes nothing; under an active op count each call books
+``kq_decode_work`` / ``kq_decode_span_work`` (``kernels.booking``).
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import booking, build
 from repro_torch.kernels.kq_decode.ref import (kq_decode_attention_ref,
                                               kq_decode_attention_span_ref)
 
@@ -49,6 +52,37 @@ def _library() -> ctypes.CDLL:
                               ctypes.c_void_p])
             fn.restype = ctypes.c_int
     return lib
+
+
+def kq_decode_work(B: int, H: int, Hkv: int, Rk: int, Rv: int,
+                   itemsize: int, live: int):
+    """(flops, bytes) of one K3 call over ``live`` cache entries in all:
+    2 (Rk + Rv) flops an entry a query head, against the live keys and
+    values, the queries and outputs (``itemsize`` bytes an element) and
+    the (B,) int32 lengths moved once."""
+    return (2 * live * H * (Rk + Rv),
+            live * Hkv * (Rk + Rv) * itemsize + B * H * (Rk + Rv) * itemsize
+            + B * 4)
+
+
+def kq_decode_span_work(B: int, H: int, Hkv: int, Rk: int, Rv: int,
+                        itemsize: int, live: int):
+    """(flops, bytes) of one K3 span call: ``kq_decode_work`` with float32
+    rows and their LSE written in place of the outputs."""
+    return (2 * live * H * (Rk + Rv),
+            live * Hkv * (Rk + Rv) * itemsize + B * H * Rk * itemsize
+            + B * H * (Rv + 1) * 4 + B * 4)
+
+
+def _book(fn, work, qc, kc, vc, lengths) -> None:
+    """Book one call of wrapper ``fn`` by ``work`` with the active
+    counts."""
+    if booking.active():
+        B, H, Rk = qc.shape
+        Hkv, T = kc.shape[1:3]
+        booking.book(fn.__name__, *work(
+            B, H, Hkv, Rk, vc.shape[-1], qc.element_size(),
+            booking.live_count(lengths, T)))
 
 
 def _check(qc, kc, vc, lengths) -> None:
@@ -90,8 +124,12 @@ def kq_decode_attention(qc: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     (positions ``0..lengths[b]-1`` attend; 0 gives a zero row).  Inputs
     float32 or bfloat16, all of one type; f32 accumulation; the output is
     in the query's type."""
+    _book(kq_decode_attention, kq_decode_work, qc, kc, vc, lengths)
+    if booking.is_fake(qc):
+        return qc.new_empty((qc.shape[0], qc.shape[1], vc.shape[-1]))
     if qc.device.type == "cpu":
-        return kq_decode_attention_ref(qc, kc, vc, lengths, scale=scale)
+        with booking.unseen():
+            return kq_decode_attention_ref(qc, kc, vc, lengths, scale=scale)
     if qc.device.type != "cuda":
         raise ValueError(f"kq_decode_attention: unsupported device "
                          f"{qc.device}")
@@ -125,9 +163,15 @@ def kq_decode_attention_span(qc: torch.Tensor, kc: torch.Tensor,
     span's live entries (a rank holding positions ``[t0, t0 + T)`` passes
     ``clamp(pos + 1 - t0, 0, T)``).  A span with no live entry gives a
     zero row and an LSE of ``-1e30 + log(1e-30)``."""
+    _book(kq_decode_attention_span, kq_decode_span_work, qc, kc, vc, lengths)
+    if booking.is_fake(qc):
+        B, H = qc.shape[:2]
+        return (qc.new_empty((B, H, vc.shape[-1]), dtype=torch.float32),
+                qc.new_empty((B, H), dtype=torch.float32))
     if qc.device.type == "cpu":
-        return kq_decode_attention_span_ref(qc, kc, vc, lengths,
-                                            scale=scale)
+        with booking.unseen():
+            return kq_decode_attention_span_ref(qc, kc, vc, lengths,
+                                                scale=scale)
     if qc.device.type != "cuda":
         raise ValueError(f"kq_decode_attention_span: unsupported device "
                          f"{qc.device}")

@@ -38,7 +38,11 @@ tensors it launches the kernel or raises: there is no fallback.  Each
 wrapper counts its kernel's launches in its ``launches`` attribute: K1
 ``kq_decode_paged_attention``, K4 ``kq_decode_paged_split``, K5
 ``kq_decode_paged_int8`` and ``kq_decode_paged_int8_split``, the merge
-``kq_combine_splits``, K2 ``kq_prefill_paged_attention``.
+``kq_combine_splits``, K2 ``kq_prefill_paged_attention``.  On fake
+tensors (a dry run) each returns outputs of its kernel's shapes and
+types and computes nothing; under an active op count each call books its
+``*_work`` under the name of the counter it adds to
+(``kernels.booking``).
 """
 from __future__ import annotations
 
@@ -47,7 +51,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import booking, build
 from repro_torch.kernels.kq_decode.kq_decode import (_DTYPES, MAX_GROUP,
                                                      MAX_RANK)
 from repro_torch.kernels.kq_decode.ref import (
@@ -92,6 +96,120 @@ def combine_split_partials(o_parts: torch.Tensor,
     w = torch.exp(lse - lse.amax(dim=-2, keepdim=True))      # (..., S, m)
     num = (w[..., None] * o_parts).sum(dim=-3)
     return num / w.sum(dim=-2).clamp_min(1e-30)[..., None]
+
+
+def _decode_bytes(B: int, H: int, Hkv: int, Rk: int, Rv: int,
+                  itemsize: int, live: int, pages: int, int8: bool) -> int:
+    """Bytes a paged decode call reads and writes besides its outputs:
+    the live entries of the pools (``itemsize`` bytes an element, or int8
+    codes with two bf16 scales a token and kv head), the (B,H,Rk)
+    queries, the (B,) lengths and the ``pages`` table entries in use."""
+    pool = live * Hkv * ((Rk + Rv + 2 * 2) if int8
+                         else (Rk + Rv) * itemsize)
+    return pool + B * H * Rk * itemsize + B * 4 + pages * 4
+
+
+def _partials_bytes(B: int, H: int, Hkv: int, n_splits: int, Rv: int) -> int:
+    """The float32 partial rows and LSE of a split decode."""
+    return B * Hkv * n_splits * (H // Hkv) * (Rv + 1) * 4
+
+
+def kq_decode_paged_work(B: int, H: int, Hkv: int, Rk: int, Rv: int,
+                         itemsize: int, live: int, pages: int):
+    """(flops, bytes) of one K1 call over ``live`` entries on ``pages``
+    pages: 2 (Rk + Rv) flops an entry a query head, against the live fp
+    entries, queries, outputs, lengths and table entries moved once."""
+    return (2 * live * H * (Rk + Rv),
+            _decode_bytes(B, H, Hkv, Rk, Rv, itemsize, live, pages, False)
+            + B * H * Rv * itemsize)
+
+
+def kq_decode_paged_int8_work(B: int, H: int, Hkv: int, Rk: int, Rv: int,
+                              itemsize: int, live: int, pages: int):
+    """(flops, bytes) of one K5 call: ``kq_decode_paged_work`` over int8
+    codes and their bf16 scales."""
+    return (2 * live * H * (Rk + Rv),
+            _decode_bytes(B, H, Hkv, Rk, Rv, itemsize, live, pages, True)
+            + B * H * Rv * itemsize)
+
+
+def kq_decode_paged_split_work(B: int, H: int, Hkv: int, Rk: int, Rv: int,
+                               itemsize: int, live: int, pages: int,
+                               n_splits: int, merged: bool):
+    """(flops, bytes) of one K4 launch in ``n_splits`` spans: with
+    ``merged`` (bfloat16, the spans merged in the launch) the outputs
+    written, else the float32 partials (``kq_combine_splits_work`` reads
+    them back)."""
+    out = (B * H * Rv * itemsize if merged
+           else _partials_bytes(B, H, Hkv, n_splits, Rv))
+    return (2 * live * H * (Rk + Rv),
+            _decode_bytes(B, H, Hkv, Rk, Rv, itemsize, live, pages, False)
+            + out)
+
+
+def kq_decode_paged_int8_split_work(B: int, H: int, Hkv: int, Rk: int,
+                                    Rv: int, itemsize: int, live: int,
+                                    pages: int, n_splits: int,
+                                    merged: bool):
+    """(flops, bytes) of one K5 split launch: ``kq_decode_paged_split_work``
+    over int8 codes and their bf16 scales."""
+    out = (B * H * Rv * itemsize if merged
+           else _partials_bytes(B, H, Hkv, n_splits, Rv))
+    return (2 * live * H * (Rk + Rv),
+            _decode_bytes(B, H, Hkv, Rk, Rv, itemsize, live, pages, True)
+            + out)
+
+
+def kq_combine_splits_work(B: int, Hkv: int, n_splits: int, m: int, Rv: int,
+                           itemsize: int):
+    """(flops, bytes) of one merge of ``n_splits`` spans: 2 Rv + 2 flops a
+    span a row, against the float32 partials read and the (B, Hkv m, Rv)
+    outputs (``itemsize`` bytes an element) written once."""
+    return (B * Hkv * m * n_splits * (2 * Rv + 2),
+            B * Hkv * n_splits * m * (Rv + 1) * 4 + B * Hkv * m * Rv * itemsize)
+
+
+def kq_prefill_paged_work(H: int, Hkv: int, S: int, Rk: int, Rv: int,
+                          itemsize: int, page_size: int, lengths, pos0):
+    """(flops, bytes) of one K2 call over chunks of ``S`` queries, row b's
+    first at ``pos0[b]`` with ``lengths[b]`` live entries (sequences of
+    ints): 2 (Rk + Rv) flops a (query, key) pair a query head, query s
+    seeing ``min(pos0 + s + 1, length)`` keys (a padding query the whole
+    prefix), against each row's live entries, queries and outputs, its
+    length and start and its pages' table entries moved once."""
+    flops = nbytes = 0
+    for n, p0 in zip(lengths, pos0):
+        seen = sum(min(p0 + s + 1, n) for s in range(S))
+        flops += 2 * seen * H * (Rk + Rv)
+        nbytes += (n * Hkv * (Rk + Rv) * itemsize
+                   + H * S * (Rk + Rv) * itemsize + 8
+                   + -(-n // page_size) * 4)
+    return flops, nbytes
+
+
+def _live_pages(lengths, block_table, page_size: int):
+    """(live entries, pages in use) of a paged call: each length clamped
+    to the table's capacity; a fake ``lengths`` counts every slot
+    full."""
+    cap = block_table.shape[1] * page_size
+    live = booking.live_count(lengths, cap)
+    if booking.is_fake(lengths):
+        return live, lengths.shape[0] * block_table.shape[1]
+    with booking.unseen():
+        used = (lengths.clamp(0, cap) + page_size - 1) // page_size
+        return live, int(used.sum())
+
+
+def _book_decode(name: str, work, qc, kc_pool, vc_pool, lengths,
+                 block_table, **kw) -> None:
+    """Book one paged decode call of counter ``name`` by ``work`` with the
+    active counts."""
+    if booking.active():
+        B, H = qc.shape[:2]
+        _, Hkv, ps, Rk = kc_pool.shape
+        live, pages = _live_pages(lengths, block_table, ps)
+        booking.book(name, *work(B, H, Hkv, Rk, vc_pool.shape[-1],
+                                 qc.element_size(), live, pages, **kw))
 
 
 def _check(name: str, qc: torch.Tensor, kc_pool: torch.Tensor,
@@ -219,6 +337,16 @@ def _decode(name: str, qc, kc_pool, vc_pool, lengths, block_table, scale,
     return (o_part, lse) if out is None else out
 
 
+def _fake_partials(qc, kc_pool, vc_pool, n_splits: int):
+    """A split decode's float32 partials (B,Hkv,n,m,Rv) and LSE
+    (B,Hkv,n,m), shapes and types only (fake tensors)."""
+    B, H = qc.shape[:2]
+    Hkv = kc_pool.shape[1]
+    shape = (B, Hkv, n_splits, H // Hkv)
+    return (qc.new_empty((*shape, vc_pool.shape[-1]), dtype=torch.float32),
+            qc.new_empty(shape, dtype=torch.float32))
+
+
 def kq_decode_paged_attention(qc: torch.Tensor, kc_pool: torch.Tensor,
                               vc_pool: torch.Tensor, lengths: torch.Tensor,
                               block_table: torch.Tensor, *,
@@ -249,9 +377,17 @@ def kq_decode_paged_attention(qc: torch.Tensor, kc_pool: torch.Tensor,
         raise ValueError("kscale/vscale must be passed together")
     quant = kscale is not None
     n, span = resolve_splits(num_splits, block_table.shape[1])
+    B, H, Rv = qc.shape[0], qc.shape[1], vc_pool.shape[-1]
     if n > 1:
         split = kq_decode_paged_int8_split if quant else kq_decode_paged_split
         if qc.device.type == "cuda" and qc.dtype == torch.bfloat16:
+            _book_decode(split.__name__,
+                         kq_decode_paged_int8_split_work if quant
+                         else kq_decode_paged_split_work, qc, kc_pool,
+                         vc_pool, lengths, block_table, n_splits=n,
+                         merged=True)
+            if booking.is_fake(qc):
+                return qc.new_empty((B, H, Rv))
             out = _decode(split.__name__, qc, kc_pool, vc_pool, lengths,
                           block_table, scale,
                           scales=(kscale, vscale) if quant else (),
@@ -262,16 +398,21 @@ def kq_decode_paged_attention(qc: torch.Tensor, kc_pool: torch.Tensor,
                             span=span, n_splits=n, scale=scale,
                             **(dict(kscale=kscale, vscale=vscale)
                                if quant else {}))
-        B, H, Rv = qc.shape[0], qc.shape[1], vc_pool.shape[-1]
         return kq_combine_splits(
             o_part, lse, torch.empty((B, H, Rv), dtype=qc.dtype,
                                      device=qc.device))
     if quant:
         return kq_decode_paged_int8(qc, kc_pool, vc_pool, kscale, vscale,
                                     lengths, block_table, scale=scale)
+    _book_decode("kq_decode_paged_attention", kq_decode_paged_work, qc,
+                 kc_pool, vc_pool, lengths, block_table)
+    if booking.is_fake(qc):
+        return qc.new_empty((B, H, Rv))
     if qc.device.type == "cpu":
-        return kq_decode_paged_attention_ref(qc, kc_pool, vc_pool, lengths,
-                                             block_table, scale=scale)
+        with booking.unseen():
+            return kq_decode_paged_attention_ref(qc, kc_pool, vc_pool,
+                                                 lengths, block_table,
+                                                 scale=scale)
     out = _decode("kq_decode_paged_attention", qc, kc_pool, vc_pool,
                   lengths, block_table, scale)
     kq_decode_paged_attention.launches += 1
@@ -287,10 +428,16 @@ def kq_decode_paged_split(qc: torch.Tensor, kc_pool: torch.Tensor,
     pages (``span * n_splits`` covers the table).  This entry writes the
     partials only; ``kq_decode_paged_attention`` merges them in the same
     launch on bfloat16."""
+    _book_decode("kq_decode_paged_split", kq_decode_paged_split_work, qc,
+                 kc_pool, vc_pool, lengths, block_table, n_splits=n_splits,
+                 merged=False)
+    if booking.is_fake(qc):
+        return _fake_partials(qc, kc_pool, vc_pool, n_splits)
     if qc.device.type == "cpu":
-        return kq_decode_paged_partials_ref(
-            qc, kc_pool, vc_pool, lengths, block_table, span=span,
-            n_splits=n_splits, scale=scale)
+        with booking.unseen():
+            return kq_decode_paged_partials_ref(
+                qc, kc_pool, vc_pool, lengths, block_table, span=span,
+                n_splits=n_splits, scale=scale)
     res = _decode("kq_decode_paged_split", qc, kc_pool, vc_pool, lengths,
                   block_table, scale, span=span, n_splits=n_splits)
     kq_decode_paged_split.launches += 1
@@ -305,10 +452,15 @@ def kq_decode_paged_int8(qc: torch.Tensor, kc_pool: torch.Tensor,
     """K5, the unsplit decode over int8 pools with (P,Hkv,ps,1) bf16
     per-token scales, dequantized in registers -> (B,H,Rv) in qc's type
     (groups m <= 8)."""
+    _book_decode("kq_decode_paged_int8", kq_decode_paged_int8_work, qc,
+                 kc_pool, vc_pool, lengths, block_table)
+    if booking.is_fake(qc):
+        return qc.new_empty((qc.shape[0], qc.shape[1], vc_pool.shape[-1]))
     if qc.device.type == "cpu":
-        return kq_decode_paged_attention_int8_ref(
-            qc, kc_pool, vc_pool, kscale, vscale, lengths, block_table,
-            scale=scale)
+        with booking.unseen():
+            return kq_decode_paged_attention_int8_ref(
+                qc, kc_pool, vc_pool, kscale, vscale, lengths, block_table,
+                scale=scale)
     out = _decode("kq_decode_paged_int8", qc, kc_pool, vc_pool, lengths,
                   block_table, scale, scales=(kscale, vscale))
     kq_decode_paged_int8.launches += 1
@@ -322,10 +474,17 @@ def kq_decode_paged_int8_split(qc: torch.Tensor, kc_pool: torch.Tensor,
                                vscale: torch.Tensor, scale: float = 1.0):
     """K5 split: ``kq_decode_paged_split`` over int8 pools with their
     bf16 per-token scales (groups m <= 8)."""
+    _book_decode("kq_decode_paged_int8_split",
+                 kq_decode_paged_int8_split_work, qc, kc_pool, vc_pool,
+                 lengths, block_table, n_splits=n_splits, merged=False)
+    if booking.is_fake(qc):
+        return _fake_partials(qc, kc_pool, vc_pool, n_splits)
     if qc.device.type == "cpu":
-        return kq_decode_paged_partials_ref(
-            qc, kc_pool, vc_pool, lengths, block_table, span=span,
-            n_splits=n_splits, scale=scale, kscale=kscale, vscale=vscale)
+        with booking.unseen():
+            return kq_decode_paged_partials_ref(
+                qc, kc_pool, vc_pool, lengths, block_table, span=span,
+                n_splits=n_splits, scale=scale, kscale=kscale,
+                vscale=vscale)
     res = _decode("kq_decode_paged_int8_split", qc, kc_pool, vc_pool,
                   lengths, block_table, scale, scales=(kscale, vscale),
                   span=span, n_splits=n_splits)
@@ -340,9 +499,15 @@ def kq_combine_splits(o_part: torch.Tensor, lse: torch.Tensor,
     or bfloat16.  On the CPU the plain version
     (``combine_split_partials``) fills ``out``."""
     B, Hkv, n, m, Rv = o_part.shape
+    if booking.active():
+        booking.book("kq_combine_splits", *kq_combine_splits_work(
+            B, Hkv, n, m, Rv, out.element_size()))
+    if booking.is_fake(o_part):
+        return out
     if o_part.device.type == "cpu":
-        return out.copy_(combine_split_partials(o_part, lse).reshape(
-            out.shape))
+        with booking.unseen():
+            return out.copy_(combine_split_partials(o_part, lse).reshape(
+                out.shape))
     name = "kq_combine_splits"
     _cuda_only(name, o_part)
     if tuple(lse.shape) != (B, Hkv, n, m) \
@@ -377,9 +542,25 @@ def kq_prefill_paged_attention(qc: torch.Tensor, kc_pool: torch.Tensor,
     Query s attends positions t <= pos0[b] + s with t < lengths[b]; a
     bucket-padding query (pos0[b] + s >= lengths[b]) sees the whole
     prefix, a garbage row the caller drops."""
+    if booking.active():
+        _, Hkv, ps, Rk = kc_pool.shape
+        B, H, S = qc.shape[:3]
+        if booking.is_fake(lengths):      # every chunk ends at capacity
+            cap = block_table.shape[1] * ps
+            plen, p0 = [cap] * B, [cap - S] * B
+        else:
+            with booking.unseen():
+                plen, p0 = lengths.tolist(), pos0.tolist()
+        booking.book("kq_prefill_paged_attention", *kq_prefill_paged_work(
+            H, Hkv, S, Rk, vc_pool.shape[-1], qc.element_size(), ps, plen,
+            p0))
+    if booking.is_fake(qc):
+        return qc.new_empty((*qc.shape[:3], vc_pool.shape[-1]))
     if qc.device.type == "cpu":
-        return kq_prefill_paged_attention_ref(qc, kc_pool, vc_pool, lengths,
-                                              pos0, block_table, scale=scale)
+        with booking.unseen():
+            return kq_prefill_paged_attention_ref(
+                qc, kc_pool, vc_pool, lengths, pos0, block_table,
+                scale=scale)
     name = "kq_prefill_paged_attention"
     _cuda_only(name, qc)
     if qc.ndim != 4:

@@ -20,6 +20,10 @@ model's (B, S, nh, hd) views need no copy.  Every call that launches
 adds one to ``ssd_chunk_scan.launches``, whatever number of kernels the
 body runs.
 
+On fake tensors (a dry run) ``ssd_chunk_scan`` returns outputs of the
+kernels' shapes, types and layout and computes nothing; under an active
+op count each call books ``ssd_work`` (``kernels.booking``).
+
 ``ssd_chunk_scan_train`` runs it under autograd (``SSDChunkScan``); its
 backward, ``ssd_chunk_scan_backward``, is plain PyTorch with a counter
 of its own, as the reference has no backward kernel.
@@ -31,7 +35,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import booking, build
 from repro_torch.kernels.ssd.ref import chunk_scan_f32, ssd_chunk_scan_plain
 
 # (head_dim, d_state) the kernel is built for: the reference kernel sweep
@@ -39,6 +43,21 @@ from repro_torch.kernels.ssd.ref import chunk_scan_f32, ssd_chunk_scan_plain
 SHAPES = ((8, 8), (8, 16), (16, 8), (16, 16), (64, 128), (128, 64))
 MAX_CHUNK = 256
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def ssd_work(B: int, nh: int, G: int, S: int, hd: int, n: int, chunk: int,
+             itemsize: int, out_itemsize: int):
+    """(flops, bytes) of one K7 call: the causal pairs of each chunk times
+    2 (n + hd) flops, plus 4 n hd a token for the carried term and the
+    state update, a head; against x and y (``itemsize`` and
+    ``out_itemsize`` bytes an element), B and C, a and dt (float32) and
+    the final float32 state moved once."""
+    lens = [min(chunk, S - c0) for c0 in range(0, S, chunk)]
+    pairs = sum(L * (L + 1) // 2 for L in lens)
+    return (B * nh * (2 * pairs * (n + hd) + 4 * S * n * hd),
+            B * nh * S * hd * (itemsize + out_itemsize)
+            + 2 * B * G * S * n * itemsize + 2 * B * nh * S * 4
+            + B * nh * n * hd * 4)
 
 
 def _library() -> ctypes.CDLL:
@@ -69,9 +88,20 @@ def ssd_chunk_scan(x: torch.Tensor, a: torch.Tensor, dt: torch.Tensor,
     ``y.transpose(1, 2)`` is contiguous; bfloat16 inputs run the
     tensor-core body (three kernel launches, counted as one call),
     float32 ones the f32 body."""
+    if booking.active():
+        Bsz, nh, S, hd = x.shape
+        booking.book("ssd_chunk_scan", *ssd_work(
+            Bsz, nh, B.shape[1], S, hd, B.shape[-1], chunk,
+            x.element_size(), torch.finfo(out_dtype or x.dtype).bits // 8))
+    if booking.is_fake(x):
+        Bsz, nh, S, hd = x.shape
+        return (x.new_empty((Bsz, S, nh, hd),
+                            dtype=out_dtype or x.dtype).transpose(1, 2),
+                x.new_empty((Bsz, nh, B.shape[-1], hd), dtype=torch.float32))
     if x.device.type == "cpu":
-        return ssd_chunk_scan_plain(x, a, dt, B, C, chunk=chunk, h0=h0,
-                                    out_dtype=out_dtype)
+        with booking.unseen():
+            return ssd_chunk_scan_plain(x, a, dt, B, C, chunk=chunk, h0=h0,
+                                        out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk_scan: unsupported device {x.device}")
     if x.ndim != 4 or B.ndim != 4 or C.ndim != 4 or a.ndim != 3 \

@@ -75,10 +75,10 @@ from repro_torch.models.layers import apply_rope, init_dense
 from repro_torch.serving.page_layouts import get_layout, quantize_int8
 from repro_torch.serving.paged_cache import (append_chunk, append_token,
                                              gather_pages)
-from repro_torch.sharding.partition import (axis_size, cut_axes, is_dtensor,
-                                            merge_spans, placed_like,
-                                            redistributed, remap,
-                                            shard_range, zeros_placed)
+from repro_torch.sharding.partition import (axis_size, cut_axes, grad_placed,
+                                            is_dtensor, merge_spans,
+                                            placed_like, redistributed,
+                                            remap, shard_range, zeros_placed)
 
 NEG_INF = -1e30
 
@@ -473,6 +473,10 @@ def attn_train(p, x: torch.Tensor, cfg: ModelConfig,
     activations (a mesh) K6 runs per shard (``_attend_train_sharded``)."""
     q, k, v = (_project(x, p[w]) for w in ("wq", "wk", "wv"))
     if is_dtensor(q):
+        # k / v's gradients come back as partial sums over the model axis
+        # where it cuts q's heads but not theirs: reduced here, before the
+        # projection's (B S, .) rows meet them (the production meshes)
+        k, v = grad_placed(k), grad_placed(v)
         out = _attend_train_sharded(q, k, v, cfg, pos0)
     else:
         out = _attend_train(q, k, v, cfg, pos0, 0)

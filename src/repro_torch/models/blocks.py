@@ -172,7 +172,13 @@ def apply_layer(p: Dict, x: torch.Tensor, cfg: ModelConfig, layer_idx: int,
     else:
         y, new_cache = attn_mod.attn_prefill_chunk(
             p["attn"], h, cache, pos, cfg, proj, block_table, token_mask)
-    x = x + y
+    # on a mesh the mixer's output projection leaves a partial sum over
+    # the model axis, which DTensor would reduce-scatter onto the sequence
+    # for the norm; the FFN's (B S, D) rows would then carry a strided
+    # shard its products cannot propagate (the production meshes' prefill
+    # and training), so the sum is all-reduced here, the batch kept on the
+    # data axes (a no-op without a mesh)
+    x = shard(x + y, ("pod", "data"), None, None)
     x, aux = _ffn_apply(p, x, cfg, layer_idx, mode,
                         token_mask if mode in ("decode", "chunk") else None)
     return x, new_cache, captures, aux

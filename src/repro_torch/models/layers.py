@@ -56,9 +56,13 @@ def rope_frequencies(d_head: int, theta: float) -> np.ndarray:
 def _inv_freq(d_head: int, theta: float, device: torch.device
               ) -> torch.Tensor:
     """``rope_frequencies`` as f32 on ``device``, copied there once (a
-    host-to-device copy per call would stall the stream every layer)."""
-    return torch.as_tensor(rope_frequencies(d_head, theta),
-                           dtype=torch.float32).to(device)
+    host-to-device copy per call would stall the stream every layer).
+    Built outside any fake mode, so that a dry run's first call caches a
+    real table, not a fake one."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    with unset_fake_temporarily():
+        return torch.as_tensor(rope_frequencies(d_head, theta),
+                               dtype=torch.float32).to(device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -37,9 +37,10 @@ import torch.nn.functional as F
 from repro_torch.config import SSMConfig
 from repro_torch.kernels.ssd import ssd_chunk_scan, ssd_chunk_scan_train
 from repro_torch.models.layers import init_dense, rms_norm
-from repro_torch.sharding.partition import (is_dtensor, mesh_axes,
-                                            partial_where, redistributed,
-                                            remap, shard_range)
+from repro_torch.sharding.partition import (grad_placed, is_dtensor,
+                                            mesh_axes, partial_where,
+                                            redistributed, remap,
+                                            shard_range)
 
 
 def _dims(s: SSMConfig, d_model: int):
@@ -78,7 +79,10 @@ def init_ssm(gen: torch.Generator, d_model: int, s: SSMConfig, dtype,
 def _split_proj(p, x, s: SSMConfig, d_model: int):
     d_in, nh, _ = _dims(s, d_model)
     gs = s.n_groups * s.d_state
-    proj = x @ p["in_proj"]
+    # on a mesh the slices' gradients come back in several placements
+    # (heads cut, B / C partial): redistributed to the product's own
+    # before its (B S, .) rows meet them (the production meshes)
+    proj = grad_placed(x @ p["in_proj"])
     z = proj[..., :d_in]
     xBC = proj[..., d_in: 2 * d_in + 2 * gs]
     dt = proj[..., 2 * d_in + 2 * gs:]

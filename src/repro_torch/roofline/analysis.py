@@ -17,24 +17,163 @@ B/s of NVLink 4 a direction (``LINK_BW``).  A card set below 700 W runs
 slower under load, so a share of these peaks is stated beside the
 card's power limit.
 
-Not ported yet: ``parse_collectives`` / ``CollectiveStats`` and
-``attn_substitution`` read the XLA HLO text of a compiled dry run, which
-the port does not emit.  Training on a mesh is ported; its dry run on
-placed meta tensors over a fake 256- or 512-rank group, which will count
-the port's own collectives and attention passes in their place, is the
-next slice (``ROADMAP.md`` queue 1).  ``Roofline``'s
-``hlo_flops`` / ``hlo_bytes`` keep their names: in the port they are
-whatever count the caller gives (``roofline.flop_count`` for FLOPs).
+Collectives: ``count_collectives()`` is a dispatch-mode context that
+counts the collectives a step issues, where the reference parses them
+out of compiled HLO (``parse_collectives``): the functional collectives
+(``_c10d_functional.all_reduce``, ``all_gather_into_tensor``,
+``reduce_scatter_tensor``, ``all_to_all_single`` and their
+``_coalesced`` forms), which DTensor's redistributions issue, and the
+in-place ``c10d`` ones (``allreduce_`` and kin, whose tensors come in a
+list and whose group is a ``ProcessGroup``), which ``merge_spans`` and
+the optimizer's global norm issue.  Each is costed as the reference
+costs its HLO op (raw bytes the result's, wire bytes by the ring model:
+all-reduce 2(n-1)/n, reduce-scatter (n-1) times its scattered result,
+all-gather and all-to-all (n-1)/n, collective-permute 1x), with n the
+size of the op's own group.  One divergence: ``funcol.permute_tensor``
+reaches the dispatcher as ``all_to_all_single``, so a permute is counted
+as an all-to-all.
+
+``attn_substitution``: the reference swaps its lax attention stand-in's
+measured bytes for the flash kernel's analytic traffic.  The port's K6
+books its own traffic by formula (``kernels.flash.flash_work``), so
+nothing is swapped (``hlo_bytes_kernel`` equals ``hlo_bytes``), and the
+count it returns is the K6 passes booked a device.  ``Roofline``'s
+``hlo_flops`` / ``hlo_bytes`` keep their names: in the port they are the
+op count of ``roofline.flop_count``.
 """
 from __future__ import annotations
 
-from dataclasses import asdict, dataclass
-from typing import Dict, Optional
+import contextlib
+from dataclasses import asdict, dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 PEAK_FLOPS = 989e12          # bf16 dense tensor-core FLOP/s, H100 SXM
 PEAK_FLOPS_F32 = 67e12       # float32 FLOP/s outside the tensor cores
 HBM_BW = 3.35e12             # HBM3 bytes/s
 LINK_BW = 450e9              # NVLink 4 bytes/s, one direction
+
+
+@dataclass
+class CollectiveStats:
+    wire_bytes: float = 0.0               # per device, cost-model adjusted
+    raw_bytes: float = 0.0                # per device, sum of result shapes
+    count: int = 0
+    by_op: Dict[str, float] = field(default_factory=dict)
+    top: List[Tuple[str, float]] = field(default_factory=list)
+    count_by_op: Dict[str, int] = field(default_factory=dict)   # calls
+
+    def add(self, op: str, raw: float, n: int) -> None:
+        """One collective ``op`` (the reference's HLO name) over a group
+        of ``n`` with ``raw`` result bytes, costed as
+        ``parse_collectives`` costs it."""
+        if raw == 0 or n <= 1:
+            return
+        if op == "all-reduce":
+            wire = 2.0 * (n - 1) / n * raw
+        elif op == "reduce-scatter":
+            wire = float(n - 1) * raw            # raw is the scattered out
+        elif op in ("all-gather", "all-to-all"):
+            wire = (n - 1) / n * raw
+        else:                                     # collective-permute
+            wire = float(raw)
+        self.count += 1
+        self.raw_bytes += raw
+        self.wire_bytes += wire
+        self.by_op[op] = self.by_op.get(op, 0.0) + wire
+        self.count_by_op[op] = self.count_by_op.get(op, 0) + 1
+        self.top.append((f"{op} {raw/1e6:.1f}MB n={n}", wire))
+
+
+def _tensor_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_flatten(tree)[0]
+               if isinstance(t, torch.Tensor))
+
+
+def _group_size(group) -> int:
+    """The size of a collective's group: a ``ProcessGroup`` or the name
+    the functional collectives carry."""
+    import torch.distributed as dist
+    if isinstance(group, str):
+        from torch.distributed.distributed_c10d import _resolve_process_group
+        group = _resolve_process_group(group)
+    elif not isinstance(group, dist.ProcessGroup):      # the boxed object
+        group = dist.ProcessGroup.unbox(group)
+    return group.size()
+
+
+# functional collectives: (HLO name, index of the group argument)
+_FUNCTIONAL = {
+    "all_reduce": ("all-reduce", 2), "all_reduce_": ("all-reduce", 2),
+    "all_reduce_coalesced": ("all-reduce", 2),
+    "all_reduce_coalesced_": ("all-reduce", 2),
+    "all_gather_into_tensor": ("all-gather", 2),
+    "all_gather_into_tensor_out": ("all-gather", 2),
+    "all_gather_into_tensor_coalesced": ("all-gather", 2),
+    "reduce_scatter_tensor": ("reduce-scatter", 3),
+    "reduce_scatter_tensor_out": ("reduce-scatter", 3),
+    "reduce_scatter_tensor_coalesced": ("reduce-scatter", 3),
+    "all_to_all_single": ("all-to-all", 3),
+}
+# in-place c10d collectives: (HLO name, index of the result tensors, index
+# of the ProcessGroup)
+_INPLACE = {
+    "allreduce_": ("all-reduce", 0, 1),
+    "allreduce_coalesced_": ("all-reduce", 0, 1),
+    "allgather_": ("all-gather", 0, 2),
+    "_allgather_base_": ("all-gather", 0, 2),
+    "allgather_into_tensor_coalesced_": ("all-gather", 0, 2),
+    "allgather_coalesced_": ("all-gather", 0, 2),
+    "reduce_scatter_": ("reduce-scatter", 0, 2),
+    "_reduce_scatter_base_": ("reduce-scatter", 0, 2),
+    "reduce_scatter_tensor_coalesced_": ("reduce-scatter", 0, 2),
+    "alltoall_base_": ("all-to-all", 0, 2),
+    "alltoall_": ("all-to-all", 0, 2),
+}
+
+
+class _CollectiveCounter(TorchDispatchMode):
+    """Adds each collective dispatched in its block to ``stats``."""
+
+    def __init__(self, stats: CollectiveStats):
+        super().__init__()
+        self.stats = stats
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if isinstance(func, torch._ops.HigherOrderOperator):
+            return func(*args, **kwargs)
+        if any(t.__name__ == "DTensor" for t in types):
+            return NotImplemented
+        out = func(*args, **kwargs)
+        ns = func.namespace
+        name = func._overloadpacket.__name__
+        if ns in ("_c10d_functional", "_c10d_functional_autograd") \
+                and name in _FUNCTIONAL:
+            op, gi = _FUNCTIONAL[name]
+            self.stats.add(op, _tensor_bytes(out), _group_size(args[gi]))
+        elif ns == "c10d" and name in _INPLACE:
+            op, ri, gi = _INPLACE[name]
+            self.stats.add(op, _tensor_bytes(args[ri]),
+                           _group_size(args[gi]))
+        return out
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """A context that yields a ``CollectiveStats`` and counts into it, per
+    device, every collective the block issues (the module docstring's
+    ops and cost model); on exit ``top`` keeps the eight largest by wire
+    bytes, as the reference's does."""
+    stats = CollectiveStats()
+    try:
+        with _CollectiveCounter(stats):
+            yield stats
+    finally:
+        stats.top = sorted(stats.top, key=lambda t: -t[1])[:8]
 
 
 @dataclass
@@ -195,6 +334,17 @@ def packed_pairs(seq_len: int, block: int, window: int = 0) -> int:
     n = max(1, seq_len // min(block, seq_len))
     wb = n if not window else -(-window // min(block, seq_len))
     return sum(min(i, wb) + 1 for i in range(n))
+
+
+def attn_substitution(cfg, shape, kernels: Dict[str, Dict[str, float]]):
+    """The reference's kernel substitution, for the port: ``(bytes
+    removed, bytes added, passes)`` a device.  K6 books its own traffic
+    (``kernels``: the op count's booked kernels), so nothing is removed or
+    added; ``passes`` is the K6 calls booked (0 for decode and for
+    attention-free stacks, as in the reference)."""
+    if cfg.attention_free or shape.kind == "decode":
+        return 0.0, 0.0, 0
+    return 0.0, 0.0, int(kernels.get("flash_attention", {}).get("calls", 0))
 
 
 def summarize(r: Roofline) -> str:

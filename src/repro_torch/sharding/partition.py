@@ -225,6 +225,30 @@ def redistributed(x, placements_):
     return x.redistribute(x.device_mesh, placements_)
 
 
+class _GradPlaced(torch.autograd.Function):
+    """Identity whose backward redistributes the gradient to given
+    placements."""
+
+    @staticmethod
+    def forward(ctx, x, placements_):
+        ctx.placements = placements_
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return redistributed(g, ctx.placements), None
+
+
+def grad_placed(x, placements_=None):
+    """DTensor ``x`` as it is, its gradient redistributed to
+    ``placements_`` (default: ``x``'s own) on the way back: a partial sum
+    reduced there, before a view that flattens the batch into rows would
+    meet it (anything else is returned as it is)."""
+    if not is_dtensor(x):
+        return x
+    return _GradPlaced.apply(x, tuple(placements_ or x.placements))
+
+
 def remap(placements_, dims: Dict[int, int]) -> Tuple:
     """Placements of a tensor laid out like another in the dims they
     share: ``Shard(dims[d])`` on each mesh dim where ``placements_`` has

@@ -9,9 +9,17 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.sharding.partition import shard
+from repro_torch.sharding.partition import is_dtensor, shard
 
 IGNORE = -100
+
+
+def _lse_gold(logits: torch.Tensor, labels: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each token's log-partition and its label's logit."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return lse, gold
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -26,8 +34,17 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     labels = labels.long()
     mask = (labels != IGNORE).float()
     safe = labels.masked_fill(labels == IGNORE, 0)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    if is_dtensor(logits):
+        # each rank on its own rows: DTensor's gather backward would
+        # build a zero tensor of the global (B, S, V) logits on every rank
+        from torch.distributed.tensor.experimental import local_map
+        pl = logits.placements
+        lse, gold = local_map(_lse_gold, out_placements=(pl, pl),
+                              in_placements=(pl, pl),
+                              device_mesh=logits.device_mesh,
+                              redistribute_inputs=True)(logits, safe)
+    else:
+        lse, gold = _lse_gold(logits, safe)
     nll = (lse - gold) * mask
     denom = mask.sum().clamp_min(1.0)
     loss = nll.sum() / denom

@@ -1582,7 +1582,13 @@ from repro_torch.sharding.partition import (cut_axes, is_dtensor,
                                             place_tree, use_mesh)
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 from repro_torch.tree import tree_map
+from torch.distributed.tensor.debug import CommDebugMode
 
+# CommDebugMode's collectives by the reference's HLO names
+KINDS = {"all_gather_into_tensor": "all-gather", "all_reduce": "all-reduce",
+         "allreduce_": "all-reduce", "reduce_scatter_tensor": "reduce-scatter",
+         "all_to_all_single": "all-to-all", "_allgather_base_": "all-gather",
+         "allgather_": "all-gather", "_reduce_scatter_base_": "reduce-scatter"}
 plain = {"n": 0}
 ref = k3_mod.kq_decode_attention_span_ref
 
@@ -1613,7 +1619,7 @@ with use_mesh(mesh):
     seq = [list(cut_axes(cache[0]["kc"], d)) for d in range(4)]
     local_t = cache[0]["kc"].to_local().shape[2]
     decode = make_decode_step(model, True)
-    toks, walls = [], []
+    toks, walls, comm = [], [], {}
     for i in range(inp["steps"]):
         nxt = full(logits)[:, -1].argmax(-1)[:, None].to(torch.int32)
         toks.append(nxt[:, 0].tolist())
@@ -1621,14 +1627,23 @@ with use_mesh(mesh):
             {"tokens": nxt}, mesh))["tokens"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = decode(p, proj, cache, nxt, inp["prompt_len"] + i)
+        if i == 0:          # the first step's collectives, as NCCL runs them
+            with CommDebugMode() as cdm:
+                logits, cache = decode(p, proj, cache, nxt,
+                                       inp["prompt_len"] + i)
+            for op, n in cdm.get_comm_counts().items():
+                kind = KINDS[str(op).split(".")[-1]]
+                comm[kind] = comm.get(kind, 0) + n
+        else:
+            logits, cache = decode(p, proj, cache, nxt,
+                                   inp["prompt_len"] + i)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
 with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
     json.dump({"tokens": toks, "span": kq_decode_attention_span.launches,
                "k3": kq_decode_attention.launches, "plain": plain["n"],
                "merges": merge_spans.calls - merges, "placements": seq,
-               "local_t": local_t,
+               "local_t": local_t, "comm": comm,
                "ms": float(np.median(walls[1:]) * 1e3)}, f)
 dist.destroy_process_group()
 """
@@ -1641,7 +1656,9 @@ def test_mesh_decode_on_four_cards_matches_one_card(cuda, tmp_path):
     prefill of 4 prompts of 256 into a cache of 512 and 8 greedy decode
     steps give one card's tokens; each rank launches K3's span output 32
     layers x 8 steps times, K3 never, the plain version never, and merges
-    its span's rows with the others' once a layer a step.  float32: the
+    its span's rows with the others' once a layer a step; the dry run of
+    the decode step on a fake (1, 4) group counts the collectives by kind
+    that ``CommDebugMode`` saw NCCL run in the first step.  float32: the
     model axis's partial sums (the FFN, the vocabulary) reduce in another
     order than one card sums, and the point is the span decode, not a
     near-tie token under bf16 rounding."""
@@ -1701,6 +1718,21 @@ def test_mesh_decode_on_four_cards_matches_one_card(cuda, tmp_path):
         assert r["tokens"] == one, (r["tokens"], one)
         assert r["span"] == cfg.n_layers * steps and r["k3"] == 0
         assert r["plain"] == 0 and r["merges"] == cfg.n_layers * steps
+    # the dry run of the same step on a fake (1, 4) group counts the
+    # collectives by kind that CommDebugMode saw NCCL run
+    from repro_torch.config import ShapeSpec
+    from repro_torch.launch.dryrun import run_cell
+    rec = run_cell("smollm-360m", ShapeSpec("decode_four_cards", max_len, 4,
+                                            "decode"), False, "kqsvd",
+                   str(tmp_path / "dryrun"), mesh_shape=(1, 4),
+                   device_type="cuda", cfg=cfg)
+    assert rec["status"] == "ok", rec.get("traceback")
+    for r in ranks:
+        assert rec["collectives"]["count_by_op"] == r["comm"], (
+            rec["collectives"]["count_by_op"], r["comm"])
+    assert {k: v["calls"] for k, v in rec["kernels"].items()} == {
+        "kq_decode_attention_span": cfg.n_layers}
     print(f"four-card (1, 4) mesh decode: tokens {ranks[0]['tokens']} equal "
           f"one card's; ms a decode step p50 {ranks[0]['ms']:.2f}; K3 span "
-          f"{ranks[0]['span']} a rank")
+          f"{ranks[0]['span']} a rank; collectives a step {ranks[0]['comm']}"
+          f" (NCCL) = the dry run's")

@@ -64,7 +64,11 @@ def test_every_module_imports_without_jax_or_reference():
             "repro_torch.tree",
             "repro_torch.bridge",
             "repro_torch.examples",
-            "repro_torch.examples.long_context_decode"} <= set(names)
+            "repro_torch.examples.long_context_decode",
+            "repro_torch.kernels.booking",
+            "repro_torch.launch.dryrun",
+            "repro_torch.roofline.analysis",
+            "repro_torch.roofline.flop_count"} <= set(names)
 
 
 def test_entry_points_without_device_raise_without_gpu():

@@ -7,19 +7,22 @@ and ``model_flops_for`` equal the reference's on every arch of
 ``list_archs()``, every applicable shape of ``SHAPES`` and every variant.
 
 ``repro_torch.roofline.flop_count`` is the counterpart of
-``roofline/hlo_cost.py``: a ``FlopCounterMode`` count of the port's own
-steps on reduced dense configs, held to ``model_flops_for``.  The hold is
-exact (rtol 1e-12) once the terms the two count differently are taken
-off, each from the config's shapes:
+``roofline/hlo_cost.py``: an op count of the port's own steps on reduced
+dense configs, whose ``dot_flops`` (matrix products by
+``torch.utils.flop_counter``'s formulas, and the kernels' booked work)
+are held to ``model_flops_for``.  The hold is exact (rtol 1e-12) once
+the terms the two count differently are taken off, each from the
+config's shapes:
 
 * ``model_flops_for`` counts every parameter at 2 FLOPs a token a pass,
   the token embedding and the RMSNorm gains too, which do no matrix
   product (the lookup is a gather); with tied embeddings the table is
   the LM head and counts once;
-* it leaves out the attention scores and values: the plain attention
-  computes Q K^T and P V over the whole (S, S) square, and in training
-  its plain backward six products more (scores and values recomputed,
-  dP, dQ, dK, dV);
+* it leaves out the attention scores and values: K6 books Q K^T and P V
+  over the causal pairs, S (S + 1) / 2 a sequence (``flash_work``, on
+  the CPU too, where its plain version runs unseen), and in training
+  its plain backward six products more over the whole (S, S) square at
+  these lengths (scores and values recomputed, dP, dQ, dK, dV);
 * ``LM.prefill`` runs the LM head on the last position only, where
   ``model_flops_for`` counts it on every token.
 
@@ -29,14 +32,9 @@ it counts at ``T = max_len``.  Training counts without remat here
 (``remat_policy="none"``); with it, each layer's recomputed forward adds
 on top.
 
-Of tests/test_hlo_cost.py's four cases, ``test_dot_flops_with_batch_dims``
-maps onto a batched ``einsum`` here.  ``test_matches_xla_on_unrolled`` and
-``test_scan_trip_count_correction`` hold the HLO walker to XLA's own
-``cost_analysis`` and its trip-count correction of ``lax.scan`` bodies:
-the port compiles no HLO and runs its layers in a Python loop, so neither
-has a torch meaning.  ``test_parse_collectives_cost_model`` goes with
-``parse_collectives``, which waits for the port's multi-device training
-slice (it reads collectives from HLO text the port does not emit)."""
+tests/test_torch_hlo_cost.py holds the op count (bytes,
+transcendentals, the collectives) to the reference's ``analyze`` and
+``parse_collectives`` on tests/test_hlo_cost.py's functions."""
 import dataclasses
 
 import numpy as np
@@ -54,6 +52,7 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.core.calibration import calibrate_model
 from repro_torch.data import calibration_batches
 from repro_torch.models import build_model
+from repro_torch.tree import tree_map
 from repro_torch.roofline import (HBM_BW, LINK_BW, PEAK_FLOPS,
                                   PEAK_FLOPS_F32, Roofline, count_flops,
                                   count_step_flops, model_flops_for,
@@ -208,12 +207,15 @@ def test_flop_count_held_to_model_flops(arch, kind):
         got = count_step_flops(model, params, kind, toks)
         sh = ShapeSpec("x", S, B, kind)
         want = model_flops_for(cfg, sh, "baseline")
+        pairs = S * (S + 1) // 2                  # K6's causal pairs
         if kind == "train":
-            want += -6 * no_product * sh.tokens + 4 * attn * B * S * S
+            want += (-6 * no_product * sh.tokens
+                     + attn * B * (pairs + 3 * S * S))
         else:
-            want += (-2 * no_product * sh.tokens + attn * B * S * S
+            want += (-2 * no_product * sh.tokens + attn * B * pairs
                      - 2 * head * (sh.tokens - B))
-    assert got.flops == pytest.approx(want, rel=1e-12), got.by_op
+        assert got.kernels["flash_attention"]["calls"] == cfg.n_layers
+    assert got.dot_flops == pytest.approx(want, rel=1e-12), got.by_op
     assert got.flops == sum(got.by_op.values())
 
 
@@ -232,10 +234,25 @@ def test_flop_count_of_compressed_steps():
     comp = count_step_flops(model, params, "decode", toks, projections=mp,
                             max_len=256)
     assert 0 < comp.flops < full.flops
+    assert comp.kernels["kq_decode_attention"]["calls"] == cfg.n_layers
 
 
 def test_flop_count_refuses_a_card_model():
-    cfg = get_config("tinyllama-1.1b").reduced()
-    model = build_model(cfg, "meta")
-    with pytest.raises(ValueError, match="cannot see"):
-        count_step_flops(model, {}, "prefill", np.zeros((1, 4), np.int32))
+    """The count no longer refuses a model off the CPU: the kernels are
+    counted by their booked work on any device and on fake tensors (a
+    dry run's: shapes only, no arithmetic), so a prefill on fake tensors
+    counts what the same prefill on real CPU tensors counts, FLOPs,
+    bytes and kernels; an unknown step kind is still refused."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    cfg, model, params = _model("tinyllama-1.1b")
+    toks = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    real = count_step_flops(model, params, "prefill", toks)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fake = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype),
+                        params)
+        got = count_step_flops(model, fake, "prefill", toks)
+    assert (got.flops, got.dot_flops, got.bytes, got.kernels) == \
+        (real.flops, real.dot_flops, real.bytes, real.kernels)
+    with pytest.raises(ValueError, match="unknown step kind"):
+        count_step_flops(model, params, "serve", toks)
