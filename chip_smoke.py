@@ -197,10 +197,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
              ``summarize`` line, hbm a device, collectives by kind and the
              kernels booked printed.  (b) 3q's training step (tinyllama at
              full width, 8 x 512, AdamW) and 3r (a)'s compressed decode
-             step (8 slots, a cache of 1024 at its last position), dry run
+             step (8 slots, a cache of 1024 at its last position), and
+             3q's training step at ``grad_accum`` 2 (``ACCUM_3S``: the dry
+             run traces one microbatch and counts it twice), dry run
              on a fake one-rank (1, 1) group, and the same steps run for
              real on the card (a one-rank NCCL (1, 1) mesh, inputs placed
-             as the dry run places them) under the same op and collective
+             as the dry run places them; the accumulated step runs both
+             microbatches) under the same op and collective
              counts: FLOPs equal within 1e-6 relative, the kernels booked
              equal to the launch counters, the dry run's peak within a
              factor 2 of ``torch.cuda.max_memory_allocated()`` of the real
@@ -470,18 +473,22 @@ SAMPLE_3S = (("tinyllama-1.1b", "train_4k", "baseline", False),
              ("tinyllama-1.1b", "train_4k", "baseline", True))
 SHAPE_3S_TRAIN = ("train_3q", 512, 8, "train")
 SHAPE_3S_DECODE = ("decode_3r", 1024, 8, "decode")
+# phase 3s (b): the grad_accum of its third real step (3q's shape)
+ACCUM_3S = 2
 # one dry-run cell in a process of its own: argv[1] the JSON of (arch,
 # shape name or ShapeSpec fields, variant, multi_pod, mesh shape or None,
-# output directory); prints the record, with its summary line, last
+# grad_accum or None (``train_config_for``'s), output directory); prints
+# the record, with its summary line, last
 DRYRUN_CHILD = r"""
 import json, sys
-from repro_torch.config import ShapeSpec
+from repro_torch.config import ShapeSpec, TrainConfig
 from repro_torch.launch.dryrun import run_cell
 from repro_torch.roofline.analysis import Roofline, summarize
-arch, shape, variant, multi, mesh, out = json.loads(sys.argv[1])
+arch, shape, variant, multi, mesh, accum, out = json.loads(sys.argv[1])
 shape = ShapeSpec(*shape) if isinstance(shape, list) else shape
 rec = run_cell(arch, shape, multi, variant, out,
-               mesh_shape=tuple(mesh) if mesh else None, device_type="cuda")
+               mesh_shape=tuple(mesh) if mesh else None, device_type="cuda",
+               tc=TrainConfig(grad_accum=accum) if accum else None)
 if rec["status"] == "ok":
     rec["summary"] = summarize(Roofline(**{
         k: rec[k] for k in Roofline.__dataclass_fields__}))
@@ -612,13 +619,16 @@ def measure(row: dict, label: str, dt_name: str, kernel, plain, library,
 def start_dryrun_children():
     """Phase 3s's dry-run cells, each ``DRYRUN_CHILD`` in a process of its
     own (a fake process group cannot share a process with an NCCL one),
-    all started together: the sample cells, then 3q's and 3r's steps on a
-    (1, 1) mesh.  Returns (jobs, processes, output directory)."""
-    jobs = [(arch, shape, variant, multi, None)
+    all started together: the sample cells, then 3q's and 3r's steps and
+    3q's at ``ACCUM_3S`` on a (1, 1) mesh.  Returns (jobs, processes,
+    output directory)."""
+    jobs = [(arch, shape, variant, multi, None, None)
             for arch, shape, variant, multi in SAMPLE_3S]
-    jobs += [("tinyllama-1.1b", list(sh), variant, False, (1, 1))
-             for sh, variant in ((SHAPE_3S_TRAIN, "baseline"),
-                                 (SHAPE_3S_DECODE, "kqsvd"))]
+    jobs += [("tinyllama-1.1b", list(sh), variant, False, (1, 1), accum)
+             for sh, variant, accum in ((SHAPE_3S_TRAIN, "baseline", None),
+                                        (SHAPE_3S_DECODE, "kqsvd", None),
+                                        (SHAPE_3S_TRAIN, "baseline",
+                                         ACCUM_3S))]
     out = tempfile.mkdtemp(prefix="chip_smoke_3s_")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = [subprocess.Popen(
@@ -2492,7 +2502,7 @@ def main() -> int:
                "meshes, and 3q's / 3r's steps against real ones"):
         import gc as gc_module
         import torch.distributed as dist
-        from repro_torch.config import ShapeSpec
+        from repro_torch.config import ShapeSpec, TrainConfig
         from repro_torch.launch import dryrun as dryrun_mod
         from repro_torch.launch.mesh import make_local_mesh
         from repro_torch.roofline.analysis import count_collectives
@@ -2502,8 +2512,11 @@ def main() -> int:
         # the dry-run cells trace in their children while the real steps
         # run here; no earlier phase is timed beside them
         jobs_3s, procs_3s, out_3s = start_dryrun_children()
-        steps_3s = {"train": (ShapeSpec(*SHAPE_3S_TRAIN), "baseline"),
-                    "decode": (ShapeSpec(*SHAPE_3S_DECODE), "kqsvd")}
+        steps_3s = {"train": (ShapeSpec(*SHAPE_3S_TRAIN), "baseline", None),
+                    "decode": (ShapeSpec(*SHAPE_3S_DECODE), "kqsvd", None),
+                    f"train grad_accum {ACCUM_3S}": (
+                        ShapeSpec(*SHAPE_3S_TRAIN), "baseline",
+                        TrainConfig(grad_accum=ACCUM_3S))}
         try:
             # (b) the same steps counted for real on the card
             real_3s = {}
@@ -2512,7 +2525,7 @@ def main() -> int:
             try:
                 mesh = make_local_mesh(1, 1)
                 qcfg = get_config("tinyllama-1.1b")
-                for label, (sh, variant) in steps_3s.items():
+                for label, (sh, variant, tc) in steps_3s.items():
                     # the step's own peak: what earlier work left behind
                     # (the previous step's autograd cycles) collected first
                     gc_module.collect()
@@ -2521,8 +2534,8 @@ def main() -> int:
                     base = torch.cuda.memory_allocated()
                     torch.cuda.reset_peak_memory_stats()
                     with use_mesh(mesh):
-                        step, args = dryrun_mod._trace_cell(qcfg, sh, mesh,
-                                                            variant, dev)
+                        step, args = dryrun_mod._trace_cell(
+                            qcfg, sh, mesh, variant, dev, tc)
                         zero_counts()
                         with OpCounter() as oc, count_collectives() as coll:
                             out = step(*args)
@@ -2568,6 +2581,9 @@ def main() -> int:
                                       real_3s.items()):
             assert rec["status"] == "ok", (label, rec.get("error"),
                                            rec.get("traceback"))
+            tc = steps_3s[label][2]
+            assert (rec["grad_accum"], rec["microbatches_traced"]) == (
+                tc.grad_accum if tc else 1, 1), label
             tot = real["totals"]
             rel = abs(rec["hlo_flops"] - tot.flops) / tot.flops
             booked = {k: v["calls"] for k, v in rec["kernels"].items()}
@@ -2575,7 +2591,9 @@ def main() -> int:
             est = rec["mem_args"] + rec["mem_out"] + rec["mem_temp"]
             ratio = est / real["peak"]
             print(f"3s (b) {label} ({rec['shape']} {rec['variant']}, mesh "
-                  f"(1, 1)): FLOPs dry run {rec['hlo_flops']:.6e}, real "
+                  f"(1, 1), grad_accum {rec['grad_accum']}, microbatches "
+                  f"traced {rec['microbatches_traced']}): FLOPs dry run "
+                  f"{rec['hlo_flops']:.6e}, real "
                   f"{tot.flops:.6e} (relative difference {rel:.3g}, limit "
                   f"1e-6); bytes dry run {rec['hlo_bytes']:.6e}, real "
                   f"{tot.bytes:.6e}; kernels booked {booked}, launched "

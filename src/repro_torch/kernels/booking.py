@@ -16,8 +16,15 @@ arithmetic ``chip_smoke.py`` phase 4 bounds the kernel with):
 A count is anything with ``book_kernel(name, flops, nbytes)`` and a
 ``paused`` depth, active while it is in ``ACTIVE`` (an
 ``OpCounter`` adds itself there while it is entered); with none active,
-``book`` does nothing and the wrappers compute no work.  Importing this
-module touches no device.
+``book`` does nothing and the wrappers compute no work.
+
+``repeated(n)``: every count made in its block (the op count's
+operators and booked kernels, ``roofline.analysis.count_collectives``'s
+collectives) stands for ``n`` identical ones, as the reference's HLO
+walker multiplies a ``while`` body by its trip count: a dry run traces
+one microbatch of a gradient-accumulation loop whose microbatches issue
+the same operators on the same shapes.  Importing this module touches no
+device.
 """
 from __future__ import annotations
 
@@ -27,6 +34,8 @@ from typing import List
 import torch
 
 ACTIVE: List = []
+# the factor of the innermost ``repeated`` block (1 outside any)
+_REPEAT: List[int] = [1]
 
 
 def active() -> bool:
@@ -39,6 +48,22 @@ def book(name: str, flops: float, nbytes: float) -> None:
     """Book one call of kernel ``name`` with every active count."""
     for count in ACTIVE:
         count.book_kernel(name, float(flops), float(nbytes))
+
+
+def repeat() -> int:
+    """How many identical counts one count made now stands for."""
+    return _REPEAT[-1]
+
+
+@contextlib.contextmanager
+def repeated(n: int):
+    """Every count made in the block stands for ``n`` (nested blocks
+    multiply)."""
+    _REPEAT.append(_REPEAT[-1] * n)
+    try:
+        yield
+    finally:
+        _REPEAT.pop()
 
 
 @contextlib.contextmanager

@@ -18,7 +18,10 @@ each cell the dry run
      transcendentals and the kernels' booked work, per device), the
      collectives' count (``roofline.analysis.count_collectives``) and
      ``roofline.flop_count.LivePeak`` (the per-device peak of live
-     local storages);
+     local storages); a train step of ``grad_accum`` n > 1 runs its
+     accumulation loop's body once, its counts taken n times
+     (``kernels.booking.repeated``), as the reference's HLO walker
+     multiplies a ``while`` body by its trip count;
   3. destroys the group and writes the record to
      ``artifacts/dryrun_torch/<mesh>/<arch>__<shape>__<variant>.json``.
 
@@ -30,8 +33,11 @@ optimizer state, batch, cache and projections), ``mem_out`` (outputs in
 storage of their own: a decode step updates its cache in place) and
 ``mem_temp`` (peak - args - out).  ``t_trace_s`` replaces the
 reference's ``t_lower_s`` and ``t_compile_s``; there are no ``xla_*``
-keys; ``kernels`` holds the kernels booked per device.  A decode step
-runs at the last position of its cache (every position live).
+keys; ``kernels`` holds the kernels booked per device; ``grad_accum``
+(a train step's microbatches, 1 for a serving step) and
+``microbatches_traced`` (1, or n under ``all_microbatches``) say what was
+traced.  A decode step runs at the last position of its cache (every
+position live).
 
 The device type is CUDA (fake CUDA tensors, so every wrapper takes its
 kernel's route) unless the caller asks for ``device_type="cpu"`` (the
@@ -60,6 +66,7 @@ import torch
 from repro_torch.config import (SHAPES, ModelConfig, ShapeSpec, TrainConfig,
                                 shape_applicable)
 from repro_torch.configs import get_config
+from repro_torch.kernels import booking
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.models.model import build_model
@@ -71,8 +78,10 @@ from repro_torch.roofline.flop_count import LivePeak, OpCounter
 from repro_torch.sharding.partition import (dp_axes, axis_size,
                                             is_dtensor, params_shardings,
                                             use_mesh, zeros_placed)
-from repro_torch.train.steps import (make_decode_step, make_prefill_step,
-                                     make_train_step)
+from repro_torch.train.steps import (accum_finish, accum_microbatch,
+                                     accum_start, make_decode_step,
+                                     make_loss_fn, make_prefill_step,
+                                     make_train_step, update_step)
 from repro_torch.tree import leaves, unflatten
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
@@ -127,22 +136,49 @@ def _nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def _counted_train_step(model, tc: TrainConfig):
+    """``make_train_step(model, tc)``'s step with its accumulation loop's
+    body run once, for microbatch 0, under ``booking.repeated(n)``: the
+    counts take it ``tc.grad_accum`` times, and the accumulator's zeros,
+    the division and cast, the clip and the update once.  Every
+    microbatch issues the same operators on the same shapes, and holds
+    the same live tensors (``accum_microbatch``), so the count and the
+    peak are the whole step's."""
+    loss_fn = make_loss_fn(model, tc)
+    n = tc.grad_accum
+
+    def step(params, opt_state, batch):
+        acc = accum_start(params, model.device)
+        with booking.repeated(n):
+            acc = accum_microbatch(loss_fn, params, batch, 0, n, acc)
+        metrics, grads = accum_finish(acc, params, n)
+        return update_step(model, tc, params, opt_state, grads, metrics)
+
+    return step
+
+
 def _trace_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, variant: str,
-                device: torch.device):
+                device: torch.device, tc: Optional[TrainConfig] = None,
+                scaled: bool = False):
     """``(step, args)``: the cell's step and its inputs as placed fake
     tensors (call under a ``FakeTensorMode``), the shardings per kind and
     variant the reference's ``_lower_cell`` gives them: serving params
     under FSDP's rule (``fsdp=True``), training params and optimizer
     state under ``tc.fsdp``, the cache ``seq_sharded`` for a batch of
     one, the VLM's patches ahead of its prefill's text, and the int8
-    cache for ``kqsvd_int8``."""
+    cache for ``kqsvd_int8``.  A train step's ``tc``:
+    ``train_config_for`` unless given; ``scaled``: its microbatch loop
+    counted from one microbatch (``_counted_train_step``) where
+    ``tc.grad_accum`` > 1, else ``make_train_step``'s whole."""
     model = build_model(cfg, device)
     params_abs = S.abstract_params(model)
     p_shard_serve = params_shardings(params_abs, mesh, fsdp=True)
     n_dp = axis_size(dp_axes(mesh), mesh)
     if shape.kind == "train":
-        tc = train_config_for(cfg, n_dp, shape.global_batch)
-        step = make_train_step(model, tc)
+        tc = tc or train_config_for(cfg, n_dp, shape.global_batch)
+        step = (_counted_train_step(model, tc)
+                if scaled and tc.grad_accum > 1
+                else make_train_step(model, tc))
         opt_abs = S.abstract_opt_state(params_abs, tc,
                                        (model.prefix, model.steps))
         batch_abs = S.batch_specs(cfg, shape.global_batch, shape.seq_len,
@@ -227,14 +263,23 @@ def run_cell(arch: str, shape: Union[str, ShapeSpec], multi_pod: bool,
              variant: str = "baseline", out_dir: Optional[str] = None, *,
              mesh_shape: Optional[Tuple[int, int]] = None,
              device_type: Optional[str] = None,
-             cfg: Optional[ModelConfig] = None) -> Optional[dict]:
+             cfg: Optional[ModelConfig] = None,
+             tc: Optional[TrainConfig] = None,
+             all_microbatches: bool = False) -> Optional[dict]:
     """Trace one (arch x shape x mesh x variant) cell and write its
     record; returns the record (status "skip" with a reason when the
     shape does not apply to the arch).  ``shape``: a name of ``SHAPES``
     or a ``ShapeSpec``; ``mesh_shape``: a (data, model) mesh in place of
     the production mesh; ``device_type``: ``"cuda"`` (default) or
     ``"cpu"``; ``cfg``: a config in place of ``get_config(arch)`` (a
-    reduced one)."""
+    reduced one); ``tc``: a train step's ``TrainConfig`` in place of
+    ``train_config_for``'s (its ``grad_accum`` and optimizer).
+
+    A train step of ``grad_accum`` n > 1 traces one microbatch and
+    counts it n times (``_counted_train_step``) unless
+    ``all_microbatches``, which traces ``make_train_step``'s whole loop
+    (the check of that count).  The record says so: ``grad_accum`` (n; 1
+    for a serving step) and ``microbatches_traced``."""
     cfg = cfg or get_config(arch)
     shape = shape if isinstance(shape, ShapeSpec) else SHAPES[shape]
     device_type = device_type or "cuda"
@@ -262,12 +307,16 @@ def run_cell(arch: str, shape: Union[str, ShapeSpec], multi_pod: bool,
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.multiprocessing.reductions import StorageWeakRef
     mesh = _start_mesh(multi_pod, mesh_shape, device_type)
+    if shape.kind == "train":
+        tc = tc or train_config_for(cfg, axis_size(dp_axes(mesh), mesh),
+                                    shape.global_batch)
     t0 = time.time()
     try:
         with FakeTensorMode(allow_non_fake_inputs=True), use_mesh(mesh):
             device = torch.device(device_type, 0) if device_type == "cuda" \
                 else torch.device(device_type)
-            step, args = _trace_cell(cfg, shape, mesh, variant, device)
+            step, args = _trace_cell(cfg, shape, mesh, variant, device,
+                                     tc, scaled=not all_microbatches)
             arg_ts = _local(list(args))
             with LivePeak() as live, OpCounter() as oc, \
                     count_collectives() as coll:
@@ -317,6 +366,9 @@ def run_cell(arch: str, shape: Union[str, ShapeSpec], multi_pod: bool,
     record["kernels"] = walked.kernels
     record["hbm_per_device_gib"] = (r.mem_args + r.mem_out + r.mem_temp) \
         / 2**30
+    n_acc = tc.grad_accum if shape.kind == "train" else 1
+    record["grad_accum"] = n_acc
+    record["microbatches_traced"] = n_acc if all_microbatches else 1
     _write(path, record)
     print(summarize(r) + f"  [trace {t_trace:.0f}s hbm/dev "
           f"{record['hbm_per_device_gib']:.1f}GiB]")

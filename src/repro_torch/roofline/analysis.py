@@ -51,6 +51,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
+from repro_torch.kernels import booking
+
 PEAK_FLOPS = 989e12          # bf16 dense tensor-core FLOP/s, H100 SXM
 PEAK_FLOPS_F32 = 67e12       # float32 FLOP/s outside the tensor cores
 HBM_BW = 3.35e12             # HBM3 bytes/s
@@ -69,7 +71,9 @@ class CollectiveStats:
     def add(self, op: str, raw: float, n: int) -> None:
         """One collective ``op`` (the reference's HLO name) over a group
         of ``n`` with ``raw`` result bytes, costed as
-        ``parse_collectives`` costs it."""
+        ``parse_collectives`` costs it; ``booking.repeat()`` of them in a
+        ``kernels.booking.repeated`` block, where ``top`` still lists the
+        one operation, as the reference's HLO list does."""
         if raw == 0 or n <= 1:
             return
         if op == "all-reduce":
@@ -80,11 +84,12 @@ class CollectiveStats:
             wire = (n - 1) / n * raw
         else:                                     # collective-permute
             wire = float(raw)
-        self.count += 1
-        self.raw_bytes += raw
-        self.wire_bytes += wire
-        self.by_op[op] = self.by_op.get(op, 0.0) + wire
-        self.count_by_op[op] = self.count_by_op.get(op, 0) + 1
+        r = booking.repeat()
+        self.count += r
+        self.raw_bytes += raw * r
+        self.wire_bytes += wire * r
+        self.by_op[op] = self.by_op.get(op, 0.0) + wire * r
+        self.count_by_op[op] = self.count_by_op.get(op, 0) + r
         self.top.append((f"{op} {raw/1e6:.1f}MB n={n}", wire))
 
 

@@ -28,6 +28,11 @@ rules:
   own traffic, every intermediate written and read back, where the
   reference counts a fusion's intermediates free.
 
+In a ``kernels.booking.repeated(n)`` block every count (operators and
+booked kernels) stands for n: the dry run traces one microbatch of a
+gradient-accumulation loop whose microbatches issue the same work, as
+the reference multiplies a ``while`` body by its trip count.
+
 The hand-written kernels are ``ctypes`` launches (and on fake tensors no
 arithmetic at all), which no dispatch mode sees: each wrapper books its
 call's ``(flops, bytes)`` from its kernel's work formula with the active
@@ -38,7 +43,8 @@ own operators on the CPU are not counted.  Their FLOPs count as
 counter sees each rank's local operators (per-device counts); the
 operators DTensor's sharding propagation runs under its own fake mode
 are not counted (while a counter is entered they run under a fake mode
-of their own, as they do on real tensors).
+of their own, as they do on real tensors), nor are those of an
+operator's decomposition it propagates through on a cache miss.
 
 ``count_step_flops`` runs one step of a model under the counter:
 
@@ -137,7 +143,7 @@ def _decomposable(func) -> bool:
     return known
 
 
-_PROPAGATION = {"counters": 0, "original": None}
+_PROPAGATION = {"counters": 0, "original": None, "decomp": None}
 
 
 def _propagation_apart(on: bool) -> None:
@@ -146,8 +152,15 @@ def _propagation_apart(on: bool) -> None:
     It takes the fake mode it finds active: on real tensors none, so its
     own, which the counter and ``LivePeak`` skip; in a dry run the dry
     run's, where its global-shape tensors would count as local
-    operators and live tensors (and only on a propagation cache miss)."""
+    operators and live tensors (and only on a propagation cache miss).
+    Where torch propagates an operator through its decomposition (on
+    meta tensors, over a mesh of its own), those operators are not
+    counted either (``booking.unseen``): they run on a cache miss only,
+    so a step's first trace in a process would read more than a later
+    one."""
     from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor._decompositions import \
+        DecompShardingStrategy
     from torch.distributed.tensor._sharding_prop import ShardingPropagator
     if on:
         _PROPAGATION["counters"] += 1
@@ -160,11 +173,19 @@ def _propagation_apart(on: bool) -> None:
             with unset_fake_temporarily():
                 return original(self, op_schema)
         ShardingPropagator._propagate_tensor_meta_non_cached = apart
+        decomp = DecompShardingStrategy.propagate_strategy
+        _PROPAGATION["decomp"] = decomp
+
+        def unseen(self, op_schema):
+            with booking.unseen():
+                return decomp(self, op_schema)
+        DecompShardingStrategy.propagate_strategy = unseen
     else:
         _PROPAGATION["counters"] -= 1
         if _PROPAGATION["counters"] == 0:
             ShardingPropagator._propagate_tensor_meta_non_cached = \
                 _PROPAGATION["original"]
+            DecompShardingStrategy.propagate_strategy = _PROPAGATION["decomp"]
 
 
 @dataclass
@@ -218,16 +239,18 @@ class OpCounter(TorchDispatchMode):
         return super().__exit__(*exc)
 
     def book_kernel(self, name: str, flops: float, nbytes: float) -> None:
-        """One call of hand-written kernel ``name``."""
+        """One call of hand-written kernel ``name`` (``booking.repeat()``
+        of them in a ``booking.repeated`` block)."""
+        r = booking.repeat()
         k = self._t.kernels.setdefault(name, {"calls": 0, "flops": 0.0,
                                               "bytes": 0.0})
-        k["calls"] += 1
-        k["flops"] += flops
-        k["bytes"] += nbytes
-        self._t.flops += flops
-        self._t.dot_flops += flops
-        self._t.bytes += nbytes
-        self._by_op[name] += flops
+        k["calls"] += r
+        k["flops"] += flops * r
+        k["bytes"] += nbytes * r
+        self._t.flops += flops * r
+        self._t.dot_flops += flops * r
+        self._t.bytes += nbytes * r
+        self._by_op[name] += flops * r
 
     def totals(self) -> CostTotals:
         """The count so far."""
@@ -265,20 +288,21 @@ class OpCounter(TorchDispatchMode):
         base = name.rstrip("_")
         if func.is_view or name in _FREE or base in _FREE:
             return
+        r = booking.repeat()
         if func._overloadpacket in flop_registry:
             f = flop_registry[func._overloadpacket](*args, **kwargs,
-                                                    out_val=out)
+                                                    out_val=out) * r
             t.flops += f
             t.dot_flops += f
             self._by_op[str(func._overloadpacket)] += f
         elif base in _TRANSCENDENTAL:
-            t.transcendentals += _numel(out)
+            t.transcendentals += _numel(out) * r
             if base in _REDUCE:
-                t.flops += _numel(out)
-                self._by_op[str(func._overloadpacket)] += _numel(out)
+                t.flops += _numel(out) * r
+                self._by_op[str(func._overloadpacket)] += _numel(out) * r
         elif base in _ELEMENTWISE or base in _REDUCE:
-            t.flops += _numel(out)
-            self._by_op[str(func._overloadpacket)] += _numel(out)
+            t.flops += _numel(out) * r
+            self._by_op[str(func._overloadpacket)] += _numel(out) * r
         if name in _UPDATE:
             if base.startswith(("index_put", "_index_put")):
                 idx, vals = args[1], args[2]        # (self, indices, values)
@@ -288,14 +312,14 @@ class OpCounter(TorchDispatchMode):
                     args[3], torch.Tensor) else None
             written = (_nbytes(vals) if vals is not None
                        else _numel(idx) * args[0].element_size())
-            t.bytes += 2 * written + _nbytes(idx)
+            t.bytes += (2 * written + _nbytes(idx)) * r
         elif base in _GATHER:
             idx = args[2] if base in ("index_select", "gather") else args[1]
-            t.bytes += 2 * _nbytes(out) + _nbytes(idx)
+            t.bytes += (2 * _nbytes(out) + _nbytes(idx)) * r
         elif name == "copy_":
-            t.bytes += _nbytes(args[0]) + _nbytes(args[1])
+            t.bytes += (_nbytes(args[0]) + _nbytes(args[1])) * r
         else:
-            t.bytes += _nbytes((args, kwargs)) + _nbytes(out)
+            t.bytes += (_nbytes((args, kwargs)) + _nbytes(out)) * r
 
 
 class LivePeak(TorchDispatchMode):

@@ -73,6 +73,53 @@ def _microbatch(v, lo: int, hi: int):
     return mb
 
 
+def accum_start(params, device):
+    """The gradient accumulator before the first microbatch: float32
+    zeros of each parameter's shape (a DTensor's placed like it) and the
+    loss sum."""
+    g_acc = tree_map(lambda p: torch.zeros_like(
+        p, dtype=torch.float32, memory_format=torch.contiguous_format),
+        params)
+    return g_acc, torch.zeros((), dtype=torch.float32, device=device)
+
+
+def accum_microbatch(loss_fn, params, batch, i: int, n: int, acc):
+    """The accumulation loop's body: microbatch ``i`` of ``n`` (rows
+    ``i*mb .. (i+1)*mb`` of every batch leaf) added into ``acc`` in
+    float32; returns the new accumulator.  Its gradients and metrics are
+    freed when it returns, so every microbatch runs on the same live
+    tensors, and issues the same operators on the same shapes (the first
+    adds into zeros)."""
+    g_acc, loss_sum = acc
+    mb = {k: _microbatch(v, i * (len(v) // n), (i + 1) * (len(v) // n))
+          for k, v in batch.items()}
+    m, g = value_and_grad(loss_fn, params, mb)
+    return (tree_map(lambda a, b: a + b.float(), g_acc, g),
+            loss_sum + m["loss"])
+
+
+def accum_finish(acc, params, n: int):
+    """``(metrics, grads)`` of an accumulated step: the sum divided by
+    ``n`` and cast to each parameter's type, and the mean loss."""
+    g_acc, loss_sum = acc
+    grads = tree_map(lambda g, p: (g / n).to(p.dtype), g_acc, params)
+    return {"loss": loss_sum / n}, grads
+
+
+def update_step(model: LM, tc: TrainConfig, params, opt_state, grads,
+                metrics):
+    """The step after the gradients: the scheduled learning rate, the
+    clipped optimizer update, and the metrics with the optimizer's and
+    ``lr``; returns ``(params, opt_state, metrics)``."""
+    lr = learning_rate(tc, opt_state["step"])
+    params, opt_state, om = optim.apply_updates(
+        params, grads, opt_state, tc, lr, (model.prefix, model.steps))
+    metrics = dict(metrics)
+    metrics.update(om)
+    metrics["lr"] = lr
+    return params, opt_state, metrics
+
+
 def make_train_step(model: LM, tc: TrainConfig) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: metrics ``loss`` (and ``ce``, ``tokens``, ``z_loss`` without
@@ -80,35 +127,20 @@ def make_train_step(model: LM, tc: TrainConfig) -> Callable:
     the batch splits into that many microbatches on its leading axis,
     their gradients summed in float32 (a DTensor's accumulator placed
     like its parameter), divided and cast to the parameter type, as the
-    reference's ``lax.scan`` does."""
+    reference's ``lax.scan`` does (``accum_start``, ``accum_microbatch``
+    a microbatch, ``accum_finish``; then ``update_step``)."""
     loss_fn = make_loss_fn(model, tc)
 
     def train_step(params, opt_state, batch):
-        if tc.grad_accum > 1:
-            n = tc.grad_accum
-            g_acc = tree_map(lambda p: torch.zeros_like(
-                p, dtype=torch.float32,
-                memory_format=torch.contiguous_format), params)
-            loss_sum = torch.zeros((), dtype=torch.float32,
-                                   device=model.device)
+        n = tc.grad_accum
+        if n > 1:
+            acc = accum_start(params, model.device)
             for i in range(n):
-                mb = {k: _microbatch(v, i * (len(v) // n),
-                                     (i + 1) * (len(v) // n))
-                      for k, v in batch.items()}
-                m, g = value_and_grad(loss_fn, params, mb)
-                g_acc = tree_map(lambda a, b: a + b.float(), g_acc, g)
-                loss_sum = loss_sum + m["loss"]
-            grads = tree_map(lambda g, p: (g / n).to(p.dtype), g_acc, params)
-            metrics = {"loss": loss_sum / n}
+                acc = accum_microbatch(loss_fn, params, batch, i, n, acc)
+            metrics, grads = accum_finish(acc, params, n)
         else:
             metrics, grads = value_and_grad(loss_fn, params, batch)
-        lr = learning_rate(tc, opt_state["step"])
-        params, opt_state, om = optim.apply_updates(
-            params, grads, opt_state, tc, lr, (model.prefix, model.steps))
-        metrics = dict(metrics)
-        metrics.update(om)
-        metrics["lr"] = lr
-        return params, opt_state, metrics
+        return update_step(model, tc, params, opt_state, grads, metrics)
 
     return train_step
 

@@ -1439,7 +1439,7 @@ def test_mla_decode_card_matches_cpu(cuda, compressed):
 
 
 MESH_RANK = r"""
-import datetime, itertools, json, os, sys
+import dataclasses, datetime, gc, itertools, json, os, sys
 import torch
 import torch.distributed as dist
 
@@ -1450,16 +1450,19 @@ dist.init_process_group(
     "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 4), rank=rank,
     world_size=4, timeout=datetime.timedelta(seconds=180))
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.config import TrainConfig
+from repro_torch.config import ShapeSpec, TrainConfig
 from repro_torch.configs import get_config
 from repro_torch.data import DataConfig, batches
 from repro_torch.kernels.flash import flash as flash_mod
 from repro_torch.kernels.flash import flash_attention
+from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.launch.specs import abstract_params
-from repro_torch.sharding.partition import params_shardings
+from repro_torch.roofline.flop_count import OpCounter
+from repro_torch.sharding.partition import params_shardings, use_mesh
 from repro_torch.train import Trainer
 from repro_torch.tree import leaves
+from torch.distributed.tensor.debug import CommDebugMode
 
 plain = {"n": 0}
 ref = flash_mod.flash_attention_ref
@@ -1476,7 +1479,8 @@ tc = TrainConfig(learning_rate=3e-4, warmup_steps=2, total_steps=3,
                  checkpoint_every=0)
 data = list(itertools.islice(batches(DataConfig(
     vocab_size=cfg.vocab_size, seq_len=512, batch_size=8)), 3))
-tr = Trainer(cfg, tc, mesh=make_local_mesh(2, 2))
+mesh22 = make_local_mesh(2, 2)
+tr = Trainer(cfg, tc, mesh=mesh22)
 flash_attention.launches = 0
 rep = tr.run(iter(data), 3, state=tr.init_state())
 dev = torch.device("cuda", rank)
@@ -1496,10 +1500,43 @@ out, _ = ck.restore(template, shardings={"params": params_shardings(
 equal = all(torch.equal(t.full_tensor(), saved[p])
             for p, t in leaves(out["params"]))
 on_card41 = all(t.to_local().device == dev for _, t in leaves(out["params"]))
+# one step at grad_accum 1 and 2 on inputs placed as the dry run places
+# them, each with its own peak (as chip_smoke.py phase 3s (b) measures
+# it), op count, K6 launches and NCCL collectives
+KINDS = {"all_gather_into_tensor": "all-gather", "all_reduce": "all-reduce",
+         "allreduce_": "all-reduce", "reduce_scatter_tensor": "reduce-scatter",
+         "all_to_all_single": "all-to-all", "_allgather_base_": "all-gather",
+         "allgather_": "all-gather", "_reduce_scatter_base_": "reduce-scatter"}
+del tr, out
+steps = {}
+for accum in (1, 2):
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with use_mesh(mesh22):
+        step, args = dryrun._trace_cell(
+            cfg, ShapeSpec("train_four_cards", 512, 8, "train"), mesh22,
+            "baseline", dev, dataclasses.replace(tc, grad_accum=accum))
+        flash_attention.launches = 0
+        with CommDebugMode() as cdm, OpCounter() as oc:
+            step(*args)
+        torch.cuda.synchronize()
+    comm = {}
+    for op, n in cdm.get_comm_counts().items():
+        name = str(op).split(".")[-1]
+        comm[KINDS.get(name, name)] = comm.get(KINDS.get(name, name), 0) + n
+    t = oc.totals()
+    steps[accum] = {"peak": torch.cuda.max_memory_allocated() - base,
+                    "flops": t.flops, "launched": flash_attention.launches,
+                    "booked": {k: v["calls"] for k, v in t.kernels.items()},
+                    "comm": comm}
+    del step, args
 with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
     json.dump({"losses": rep.losses, "k6": k6, "plain": plain["n"],
                "on_card": on_card, "equal": equal, "on_card41": on_card41,
-               "retries": rep.retries,
+               "retries": rep.retries, "steps": steps,
                "ms": sorted(rep.step_times)[1] * 1e3}, f)
 dist.destroy_process_group()
 """
@@ -1511,7 +1548,14 @@ def test_mesh_training_on_four_cards_matches_one_card(cuda, tmp_path):
     one-card Trainer's on the same init and batches; each rank's params,
     AdamW moments and K6 launches on its own card (K6 22 x 2 a step,
     the plain forward never); the params saved on (2, 2) and restored
-    onto (4, 1) bit for bit."""
+    onto (4, 1) bit for bit.  Then one step at ``grad_accum`` 1 and one at
+    2 on each rank, on inputs placed as the dry run places them: each
+    rank's peak (``max_memory_allocated`` over the step, its inputs
+    included) within 0.5-2.0 of the dry run's on a fake (2, 2) group
+    (``mem_args + mem_out + mem_temp``); at ``grad_accum`` 2, where the
+    dry run traces one microbatch and counts it twice, also the FLOPs
+    within 1e-6 relative, the K6 calls booked = launched on every rank,
+    and the collectives by kind = ``CommDebugMode``'s on NCCL."""
     import itertools
     import json
     import os
@@ -1556,10 +1600,43 @@ def test_mesh_training_on_four_cards_matches_one_card(cuda, tmp_path):
     print(f"four-card (2, 2) mesh losses {ranks[0]['losses']}, ms a step "
           f"p50 {ranks[0]['ms']:.2f}; one card {one}, "
           f"{sorted(rep.step_times)[1] * 1e3:.2f}")
+    # the dry run of the same steps on a fake (2, 2) group
+    from repro_torch.config import ShapeSpec
+    from repro_torch.launch.dryrun import run_cell
+    for accum in (1, 2):
+        rec = run_cell("tinyllama-1.1b", ShapeSpec("train_four_cards", 512,
+                                                   8, "train"), False,
+                       "baseline", str(tmp_path / "dryrun" / str(accum)),
+                       mesh_shape=(2, 2), device_type="cuda", cfg=cfg,
+                       tc=dataclasses.replace(tc, grad_accum=accum))
+        assert rec["status"] == "ok", rec.get("traceback")
+        assert (rec["grad_accum"], rec["microbatches_traced"]) == (accum, 1)
+        est = rec["mem_args"] + rec["mem_out"] + rec["mem_temp"]
+        booked = {k: v["calls"] for k, v in rec["kernels"].items()}
+        real = [r["steps"][str(accum)] for r in ranks]
+        ratios = [est / x["peak"] for x in real]
+        print(f"four-card (2, 2) train step, grad_accum {accum}: dry-run "
+              f"peak {est / 2**30:.3f} GiB; each rank's measured "
+              f"{[round(x['peak'] / 2**30, 3) for x in real]} GiB, ratios "
+              f"{[round(x, 3) for x in ratios]}; FLOPs a device dry run "
+              f"{rec['hlo_flops'] / 4:.6e}, ranks "
+              f"{[x['flops'] for x in real]}; K6 booked {booked}, launched "
+              f"{[x['launched'] for x in real]}; collectives dry run "
+              f"{rec['collectives']['count_by_op']}, NCCL {real[0]['comm']}")
+        assert all(0.5 <= x <= 2.0 for x in ratios), ratios
+        if accum == 1:
+            continue
+        for x in real:
+            rel = abs(rec["hlo_flops"] / 4 - x["flops"]) / x["flops"]
+            assert rel <= 1e-6, (rec["hlo_flops"] / 4, x["flops"])
+            assert booked == x["booked"] == {
+                "flash_attention": x["launched"]}, (booked, x)
+            assert rec["collectives"]["count_by_op"] == x["comm"], (
+                rec["collectives"]["count_by_op"], x["comm"])
 
 
 MESH_DECODE_RANK = r"""
-import dataclasses, datetime, json, os, sys, time
+import dataclasses, datetime, gc, json, os, sys, time
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -1570,11 +1647,12 @@ torch.backends.cuda.matmul.allow_tf32 = False
 dist.init_process_group(
     "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 4), rank=rank,
     world_size=4, timeout=datetime.timedelta(seconds=180))
+from repro_torch.config import ShapeSpec
 from repro_torch.configs import get_config
 from repro_torch.kernels.kq_decode import (kq_decode_attention,
                                            kq_decode_attention_span)
 from repro_torch.kernels.kq_decode import kq_decode as k3_mod
-from repro_torch.launch import specs
+from repro_torch.launch import dryrun, specs
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import build_model
 from repro_torch.sharding.partition import (cut_axes, is_dtensor,
@@ -1639,11 +1717,28 @@ with use_mesh(mesh):
                                    inp["prompt_len"] + i)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+span, k3 = kq_decode_attention_span.launches, kq_decode_attention.launches
+merges = merge_spans.calls - merges
+# one compressed decode step at the cache's last position on inputs placed
+# as the dry run places them, its peak measured as chip_smoke.py phase 3s
+# (b) measures it (its inputs included)
+del logits, cache, p, proj
+gc.collect()
+torch.cuda.empty_cache()
+torch.cuda.synchronize()
+base = torch.cuda.memory_allocated()
+torch.cuda.reset_peak_memory_stats()
+with use_mesh(mesh):
+    step, args = dryrun._trace_cell(
+        cfg, ShapeSpec("decode_four_cards", inp["max_len"], 4, "decode"),
+        mesh, "kqsvd", dev)
+    step(*args)
+    torch.cuda.synchronize()
+peak = torch.cuda.max_memory_allocated() - base
 with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
-    json.dump({"tokens": toks, "span": kq_decode_attention_span.launches,
-               "k3": kq_decode_attention.launches, "plain": plain["n"],
-               "merges": merge_spans.calls - merges, "placements": seq,
-               "local_t": local_t, "comm": comm,
+    json.dump({"tokens": toks, "span": span, "k3": k3, "plain": plain["n"],
+               "merges": merges, "placements": seq,
+               "local_t": local_t, "comm": comm, "peak": peak,
                "ms": float(np.median(walls[1:]) * 1e3)}, f)
 dist.destroy_process_group()
 """
@@ -1658,7 +1753,10 @@ def test_mesh_decode_on_four_cards_matches_one_card(cuda, tmp_path):
     layers x 8 steps times, K3 never, the plain version never, and merges
     its span's rows with the others' once a layer a step; the dry run of
     the decode step on a fake (1, 4) group counts the collectives by kind
-    that ``CommDebugMode`` saw NCCL run in the first step.  float32: the
+    that ``CommDebugMode`` saw NCCL run in the first step, and its peak
+    (``mem_args + mem_out + mem_temp``) is within 0.5-2.0 of each rank's
+    measured peak of one decode step on inputs placed as the dry run
+    places them (its inputs included).  float32: the
     model axis's partial sums (the FFN, the vocabulary) reduce in another
     order than one card sums, and the point is the span decode, not a
     near-tie token under bf16 rounding."""
@@ -1732,6 +1830,13 @@ def test_mesh_decode_on_four_cards_matches_one_card(cuda, tmp_path):
             rec["collectives"]["count_by_op"], r["comm"])
     assert {k: v["calls"] for k, v in rec["kernels"].items()} == {
         "kq_decode_attention_span": cfg.n_layers}
+    est = rec["mem_args"] + rec["mem_out"] + rec["mem_temp"]
+    ratios = [est / r["peak"] for r in ranks]
+    print(f"four-card (1, 4) decode step: dry-run peak {est / 2**30:.3f} "
+          f"GiB; each rank's measured "
+          f"{[round(r['peak'] / 2**30, 3) for r in ranks]} GiB, ratios "
+          f"{[round(x, 3) for x in ratios]}")
+    assert all(0.5 <= x <= 2.0 for x in ratios), ratios
     print(f"four-card (1, 4) mesh decode: tokens {ranks[0]['tokens']} equal "
           f"one card's; ms a decode step p50 {ranks[0]['ms']:.2f}; K3 span "
           f"{ranks[0]['span']} a rank; collectives a step {ranks[0]['comm']}"

@@ -20,12 +20,20 @@ groups, held to the local-shard arithmetic and to the reference's grid.
 * The record's keys are the reference's (its ``run_cell``'s record and
   ``Roofline``'s fields) without the XLA-only ones (``t_lower_s``,
   ``t_compile_s``, ``xla_flops_per_dev``, ``xla_bytes_per_dev``), with
-  ``t_trace_s`` and ``kernels``.
+  ``t_trace_s``, ``kernels``, ``grad_accum`` and ``microbatches_traced``
+  (1 and 1 for a serving step).
 * ``all_cells()`` and ``train_config_for`` equal the reference's over
   its archs, compared in a child process: importing the reference's
   dry run sets ``XLA_FLAGS`` (512 host devices), which must not leak
   into this worker.  Importing the port's sets nothing and starts no
   group.
+* Gradient accumulation on the (4, 4) mesh: a train cell at
+  ``grad_accum`` 2 and 4 (dense tinyllama and MLA + MoE deepseek-v2-lite
+  with AdamW, the hybrid jamba with Adafactor, each given through the
+  cell's ``TrainConfig``), which traces one microbatch and counts it n
+  times, equals the same cell traced through ``make_train_step``'s whole
+  loop; a cell of ``grad_accum`` 1 is one whole trace of its step, as
+  before; a step's count does not depend on DTensor's propagation cache.
 """
 import dataclasses
 import json
@@ -39,7 +47,7 @@ import torch
 
 from repro.roofline import analysis as jax_analysis
 from repro_torch.config import SHAPES as PORT_SHAPES
-from repro_torch.config import ShapeSpec
+from repro_torch.config import ShapeSpec, TrainConfig
 from repro_torch.configs import get_config
 from repro_torch.launch import dryrun
 from repro_torch.launch import specs as S
@@ -218,7 +226,9 @@ def test_record_keys_are_the_references(tmp_path):
            | {f.name for f in dataclasses.fields(jax_analysis.Roofline)})
     xla_only = {"t_lower_s", "t_compile_s", "xla_flops_per_dev",
                 "xla_bytes_per_dev"}
-    assert set(rec) == (ref - xla_only) | {"t_trace_s", "kernels"}
+    assert set(rec) == (ref - xla_only) | {
+        "t_trace_s", "kernels", "grad_accum", "microbatches_traced"}
+    assert (rec["grad_accum"], rec["microbatches_traced"]) == (1, 1)
     assert {"by_op", "count", "top", "attn_loops_subbed"} <= set(
         rec["collectives"])
     with open(os.path.join(tmp_path, "mesh_4x4",
@@ -271,3 +281,158 @@ def test_grid_and_train_configs_equal_the_references():
     assert out["port"]["tc"] == out["ref"]["tc"]
     assert "XLA_FLAGS" not in os.environ or "512" not in os.environ[
         "XLA_FLAGS"]
+
+
+# (arch, grad_accum, optimizer): the dense, the MLA + MoE and the hybrid
+# stacks, cut to the fewest layers that still hold each kind (tinyllama:
+# one; deepseek-v2-lite: one MLA layer with MoE; jamba: an SSM layer with
+# MoE, then attention)
+ACCUM = [(arch, n, opt) for arch, opt in (("tinyllama-1.1b", "adamw"),
+                                          ("deepseek-v2-lite-16b", "adamw"),
+                                          ("jamba-1.5-large-398b",
+                                           "adafactor"))
+         for n in (2, 4)]
+ACCUM_SHAPE = ShapeSpec("train_accum", 16, 16, "train")
+
+
+def _few_layers(arch):
+    cfg = get_config(arch).reduced()
+    if arch == "jamba-1.5-large-398b":
+        return dataclasses.replace(cfg, n_layers=2)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, first_k_dense=0))
+    return dataclasses.replace(cfg, n_layers=1)
+
+
+class _KeptCounter(dryrun.OpCounter):
+    """The op count, its totals kept (the record has no transcendentals
+    and no ``by_op``)."""
+    kept = []
+
+    def totals(self):
+        t = super().totals()
+        self.kept.append(t)
+        return t
+
+
+def _close(a, b, rel, what):
+    assert abs(a - b) <= rel * max(abs(b), 1.0), (what, a, b)
+
+
+@pytest.mark.parametrize("arch,n,optimizer", ACCUM)
+def test_one_microbatch_counted_n_times_equals_the_whole_loop(
+        arch, n, optimizer, tmp_path, monkeypatch):
+    """A train cell at ``grad_accum`` n traces one microbatch and counts
+    it n times; the same cell traced through ``make_train_step``'s whole
+    loop (``all_microbatches``) under the same counters gives the same
+    FLOPs, dot FLOPs, transcendentals, bytes and FLOPs by operator
+    (1e-9 relative), the same kernels booked and collectives by kind,
+    and the same memory within 1%.  Adafactor and AdamW both come in
+    through the cell's own ``TrainConfig``."""
+    monkeypatch.setattr(_KeptCounter, "kept", [])
+    monkeypatch.setattr(dryrun, "OpCounter", _KeptCounter)
+    cfg = _few_layers(arch)
+    tc = TrainConfig(grad_accum=n, optimizer=optimizer)
+    scaled, whole = (dryrun.run_cell(
+        arch, ACCUM_SHAPE, False, "baseline", str(tmp_path / str(every)),
+        mesh_shape=MESH, device_type="cpu", cfg=cfg, tc=tc,
+        all_microbatches=every) for every in (False, True))
+    for rec in (scaled, whole):
+        assert rec["status"] == "ok", rec.get("traceback")
+    assert (scaled["grad_accum"], scaled["microbatches_traced"]) == (n, 1)
+    assert (whole["grad_accum"], whole["microbatches_traced"]) == (n, n)
+    ts, tw = _KeptCounter.kept
+    for k in ("flops", "dot_flops", "transcendentals", "bytes"):
+        _close(getattr(ts, k), getattr(tw, k), 1e-9, k)
+    assert set(ts.by_op) == set(tw.by_op)
+    for op in tw.by_op:
+        _close(ts.by_op[op], tw.by_op[op], 1e-9, op)
+    for k in ("hlo_flops", "dot_flops_total", "hlo_bytes"):
+        _close(scaled[k], whole[k], 1e-9, k)
+    assert scaled["kernels"] == whole["kernels"]
+    calls = {k: v["calls"] for k, v in whole["kernels"].items()}
+    n_attn = sum(k in ("attn", "mla") for k in cfg.layer_kinds())
+    assert calls.get("flash_attention", 0) == 2 * n * n_attn
+    cs, cw = scaled["collectives"], whole["collectives"]
+    assert cs["count_by_op"] == cw["count_by_op"]
+    assert cs["count"] == cw["count"] == sum(cw["count_by_op"].values())
+    for op in cw["by_op"]:
+        _close(cs["by_op"][op], cw["by_op"][op], 1e-9, op)
+    _close(scaled["collective_wire_bytes_per_dev"],
+           whole["collective_wire_bytes_per_dev"], 1e-9, "wire bytes")
+    for k in ("mem_args", "mem_out", "mem_temp"):
+        _close(scaled[k], whole[k], 0.01, k)
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_a_cell_without_accumulation_is_traced_as_before(kind, tmp_path):
+    """A cell of ``grad_accum`` 1 (``train_config_for``'s for a reduced
+    config, and every serving step) is one whole trace of its step, as
+    before microbatches were counted: its record equals what the step's
+    own trace under the three counters gives, and its keys are the
+    earlier ones with ``grad_accum`` and ``microbatches_traced`` (1, 1)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.multiprocessing.reductions import StorageWeakRef
+    import torch.distributed as dist
+    from repro_torch.roofline.analysis import count_collectives
+    from repro_torch.roofline.flop_count import LivePeak, OpCounter
+    from repro_torch.sharding.partition import use_mesh
+    arch, cfg = "tinyllama-1.1b", get_config("tinyllama-1.1b").reduced()
+    shape = SHAPES[kind]
+    variant = "kqsvd" if kind == "decode" else "baseline"
+    rec = dryrun.run_cell(arch, shape, False, variant, str(tmp_path),
+                          mesh_shape=MESH, device_type="cpu", cfg=cfg)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert (rec["grad_accum"], rec["microbatches_traced"]) == (1, 1)
+    # the step traced whole, as the dry run traced every cell before
+    mesh = dryrun._start_mesh(False, MESH, "cpu")
+    try:
+        with FakeTensorMode(allow_non_fake_inputs=True), use_mesh(mesh):
+            step, args = dryrun._trace_cell(cfg, shape, mesh, variant,
+                                            torch.device("cpu"))
+            arg_ts = dryrun._local(list(args))
+            with LivePeak() as live, OpCounter() as oc, \
+                    count_collectives() as coll:
+                live.track(*arg_ts)
+                out = step(*args)
+            seen = {StorageWeakRef(t.untyped_storage()) for t in arg_ts}
+            fresh = {StorageWeakRef(t.untyped_storage()): t
+                     for t in dryrun._local(list(out))}
+            mem_out = dryrun._nbytes(t for ref, t in fresh.items()
+                                     if ref not in seen)
+    finally:
+        dist.destroy_process_group()
+    t, n_dev = oc.totals(), 16
+    assert rec["hlo_flops"] == t.flops * n_dev
+    assert rec["dot_flops_total"] == t.dot_flops * n_dev
+    assert rec["hlo_bytes"] == t.bytes * n_dev
+    assert rec["kernels"] == t.kernels
+    assert rec["collectives"]["count_by_op"] == coll.count_by_op
+    assert rec["collectives"]["by_op"] == coll.by_op
+    assert rec["collectives"]["top"] == coll.top
+    mem_args = dryrun._nbytes(arg_ts)
+    assert rec["mem_args"] == mem_args and rec["mem_out"] == mem_out
+    assert rec["mem_temp"] == max(0.0, live.peak - mem_args - mem_out)
+
+
+def test_count_does_not_depend_on_the_propagation_cache(tmp_path):
+    """DTensor propagates some operators (softplus' backward, under the
+    SSM layer's step size) through their decomposition on a cache miss;
+    those operators are not the step's and are not counted, so a step
+    traced on a cold propagation cache counts what it counts warm."""
+    from torch.distributed.tensor import DTensor
+    cfg = dataclasses.replace(get_config("mamba2-2.7b").reduced(),
+                              n_layers=1)
+    recs = []
+    for cold in (True, False):
+        if cold:
+            DTensor._op_dispatcher.sharding_propagator \
+                .propagate_op_sharding.cache_clear()
+        recs.append(dryrun.run_cell(
+            "mamba2-2.7b", SHAPES["train"], False, "baseline",
+            str(tmp_path), mesh_shape=MESH, device_type="cpu", cfg=cfg))
+    for rec in recs:
+        assert rec["status"] == "ok", rec.get("traceback")
+    for k in ("hlo_flops", "dot_flops_total", "hlo_bytes"):
+        assert recs[0][k] == recs[1][k], k
